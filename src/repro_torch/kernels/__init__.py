@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels, one subpackage each.
+
+* flash_attn -- causal / sliding-window attention forward (CUDA C++)
+
+Each subpackage: kernel.py (the launcher of the compiled kernel),
+ops.py (the wrapper the model calls: the plain version on a CPU tensor,
+the kernel on a CUDA tensor, with a launch count), ref.py (the plain
+PyTorch version). Sources live in ``csrc/`` and are built by
+:mod:`repro_torch.kernels.build`.
+"""

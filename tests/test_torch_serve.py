@@ -1,0 +1,398 @@
+"""The PyTorch port's serving stack on the CPU.
+
+* the port engine's greedy tokens == the JAX ``ServeEngine``'s, and its
+  per-step logits within 2e-5 (float32, same converted params);
+* paged == dense bitwise inside the port (tokens and per-step logits)
+  under a mixed-length continuous schedule, and engine == the port's
+  token-by-token loop;
+* static admission == continuous; deadline and token-budget eviction as
+  the reference does it;
+* ``ServeSpec`` validation and JSON round trip; ``restore_global_params``
+  from checkpoints written by ``repro.checkpoint.save`` (K-stacked,
+  merged, full training state); ``build_serve`` and the CLI on the CPU.
+"""
+import dataclasses
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from helpers import tiny_cfg
+from repro import checkpoint
+from repro.configs import get_config
+from repro.models import transformer as JT
+from repro.serve import Request as JRequest
+from repro.serve import ServeEngine as JServeEngine
+from repro_torch import convert
+from repro_torch.api import ServeSpec, build_serve, restore_global_params
+from repro_torch.configs import get_config as tget_config
+from repro_torch.configs.base import ModelConfig as TModelConfig
+from repro_torch.launch.serve import generate
+from repro_torch.serve import Request, ServeEngine
+
+torch.set_num_threads(1)
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _port_cfg(cfg):
+    return TModelConfig(**{f.name: getattr(cfg, f.name)
+                           for f in dataclasses.fields(cfg)
+                           if f.name not in ("moe", "mamba", "xlstm")})
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+CONFIGS = {
+    "tiny": tiny_cfg,
+    "qwen-reduced": lambda: _f32(get_config("qwen1.5-0.5b").reduced()),
+}
+
+
+def _setup(cfg, seed=0):
+    params = JT.init_params(jax.random.PRNGKey(seed), cfg)
+    return params, convert.params_from_reference(_np(params), _port_cfg(cfg))
+
+
+def _mixed_requests(vocab, seed=3):
+    rng = np.random.default_rng(seed)
+    lens = [6, 9, 12, 6, 9, 12, 6]
+    news = [5, 3, 4, 6, 2, 5, 3]
+    return [(i, rng.integers(0, vocab, P), n)
+            for i, (P, n) in enumerate(zip(lens, news))]
+
+
+def _engine(params, cfg, **kw):
+    return ServeEngine(params, _port_cfg(cfg), device="cpu", **kw)
+
+
+# --------------------------------------------------------------------------
+# port engine == JAX engine
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_engine_matches_reference_engine(name):
+    cfg = CONFIGS[name]()
+    jparams, tparams = _setup(cfg)
+    reqs = _mixed_requests(cfg.vocab_size)[:4]
+    jeng = JServeEngine(jparams, cfg, slots=2, max_len=18, record_logits=True)
+    want = jeng.serve([JRequest(i, t, n) for i, t, n in reqs],
+                      wall_clock=False)
+    teng = _engine(tparams, cfg, slots=2, max_len=18, record_logits=True)
+    got = teng.serve([Request(i, t, n) for i, t, n in reqs],
+                     wall_clock=False)
+    for i, _, n in reqs:
+        np.testing.assert_array_equal(got[i].tokens, want[i].tokens)
+        assert len(got[i].logits) == len(want[i].logits) == n
+        for a, b in zip(got[i].logits, want[i].logits):
+            np.testing.assert_allclose(a, np.asarray(b), **TOL)
+        assert (got[i].t_admit, got[i].t_finish) == \
+            (want[i].t_admit, want[i].t_finish)
+
+
+# --------------------------------------------------------------------------
+# inside the port: paged == dense bitwise, engine == loop, static == cont.
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_paged_bitwise_dense_continuous(window):
+    cfg = tiny_cfg(window_pattern=(window,))
+    _, params = _setup(cfg)
+    reqs = _mixed_requests(cfg.vocab_size)
+    dense = _engine(params, cfg, slots=2, max_len=18, record_logits=True)
+    paged = _engine(params, cfg, slots=2, max_len=18, pages=2 * 5,
+                    page_size=4, record_logits=True)
+    rd = dense.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    rp = paged.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    assert set(rd) == set(rp) == {i for i, _, _ in reqs}
+    pcfg = _port_cfg(cfg)
+    for i, toks, n in reqs:
+        np.testing.assert_array_equal(rd[i].tokens, rp[i].tokens)
+        assert len(rd[i].logits) == len(rp[i].logits) == n
+        for a, b in zip(rd[i].logits, rp[i].logits):
+            assert np.array_equal(a, b)                 # bitwise
+        ref = generate(params, pcfg, torch.as_tensor(toks[None]), 18, n)
+        np.testing.assert_array_equal(rd[i].tokens, ref[0].numpy())
+    assert len(paged._free_pages) == 10 and len(paged._free_slots) == 2
+
+
+def test_bf16_serving_copy_and_paged_bitwise_dense():
+    """A bf16 config: the engine serves a copy cast once to bf16 (norm
+    scales stay f32), and paged stays bitwise equal to dense."""
+    cfg = tiny_cfg(dtype="bfloat16")
+    _, params = _setup(cfg)
+    reqs = _mixed_requests(cfg.vocab_size)[:4]
+    dense = _engine(params, cfg, slots=2, max_len=18, record_logits=True)
+    paged = _engine(params, cfg, slots=2, max_len=18, pages=10, page_size=4,
+                    record_logits=True)
+    blk = dense.params["server"]["blocks"]["blk1"]
+    assert blk["mixer"]["wq"].dtype == torch.bfloat16
+    assert blk["norm1"]["scale"].dtype == torch.float32
+    assert dense._cache["blk0"]["k"].dtype == torch.bfloat16
+    rd = dense.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    rp = paged.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    for i, _, _ in reqs:
+        np.testing.assert_array_equal(rd[i].tokens, rp[i].tokens)
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(rd[i].logits, rp[i].logits))
+
+
+def test_static_admission_matches_continuous():
+    cfg = tiny_cfg()
+    _, params = _setup(cfg)
+    reqs = _mixed_requests(cfg.vocab_size)
+    rc = _engine(params, cfg, slots=2, max_len=18).serve(
+        [Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    rs = _engine(params, cfg, slots=2, max_len=18, admission="static").serve(
+        [Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    for i, _, _ in reqs:
+        np.testing.assert_array_equal(rc[i].tokens, rs[i].tokens)
+
+
+def test_temperature_sampling_deterministic():
+    cfg = tiny_cfg()
+    _, params = _setup(cfg)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6))
+    outs = [_engine(params, cfg, slots=2, max_len=16, temperature=0.8,
+                    seed=7).generate(prompts, 4) for _ in range(2)]
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert outs[0].min() >= 0 and outs[0].max() < cfg.vocab_size
+
+
+def test_admit_step_take_finished_and_errors():
+    cfg = tiny_cfg()
+    _, params = _setup(cfg)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 5))
+    eng = _engine(params, cfg, slots=2, max_len=12)
+    assert eng.admit(Request(0, prompts[0], 3))
+    assert eng.admit(Request(1, prompts[1], 1))       # finishes at admit
+    done = eng.take_finished()
+    assert set(done) == {1} and done[1].tokens.shape == (6,)
+    for _ in range(2):
+        eng.step()
+    done = eng.take_finished()
+    assert set(done) == {0} and done[0].tokens.shape == (8,)
+    assert eng.n_active == 0
+    ref = generate(params, _port_cfg(cfg), torch.as_tensor(prompts[:1]), 12, 3)
+    np.testing.assert_array_equal(done[0].tokens, ref[0].numpy())
+
+    with pytest.raises(ValueError, match="max_new"):
+        eng.admit(Request(0, prompts[0], 0))
+    with pytest.raises(ValueError, match="max_len"):
+        eng.admit(Request(0, prompts[0], 8))          # 5 + 8 > 12
+    small = _engine(params, cfg, slots=1, max_len=16, pages=1, page_size=4)
+    with pytest.raises(RuntimeError, match="page pool"):
+        small.serve([Request(0, prompts[0], 4)], wall_clock=False)
+
+
+def test_deadline_and_budget_eviction():
+    """The reference's eviction contract (tests/test_faults.py), and the
+    deadline schedule equal to the reference engine's."""
+    cfg = tiny_cfg()
+    jparams, params = _setup(cfg)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 4))
+
+    eng = _engine(params, cfg, slots=2, max_len=64)
+    base = eng.serve([Request(i, prompts[i], 6) for i in range(3)],
+                     wall_clock=False)
+    assert all(r.evicted is None and len(r.tokens) == 10
+               for r in base.values())
+
+    # one slot: rid0's deadline evicts it mid-generation, rid1 takes over
+    reqs = [(0, prompts[0], 20, 3.0), (1, prompts[1], 4, None)]
+    res = _engine(params, cfg, slots=1, max_len=64).serve(
+        [Request(i, t, n, deadline=d) for i, t, n, d in reqs],
+        wall_clock=False)
+    assert res[0].evicted == "deadline"
+    assert 1 <= len(res[0].tokens) - 4 < 20
+    assert res[1].evicted is None and len(res[1].tokens) - 4 == 4
+    assert res[1].t_admit >= res[0].t_finish
+    want = JServeEngine(jparams, cfg, slots=1, max_len=64).serve(
+        [JRequest(i, t, n, deadline=d) for i, t, n, d in reqs],
+        wall_clock=False)
+    for i in (0, 1):
+        np.testing.assert_array_equal(res[i].tokens, want[i].tokens)
+        assert (res[i].evicted, res[i].t_finish) == \
+            (want[i].evicted, want[i].t_finish)
+
+    # token budget: capped at 3, prefix bitwise the uncapped generation's
+    res3 = _engine(params, cfg, slots=2, max_len=64, token_budget=3).serve(
+        [Request(0, prompts[0], 10), Request(1, prompts[1], 2)],
+        wall_clock=False)
+    assert res3[0].evicted == "budget" and len(res3[0].tokens) == 4 + 3
+    assert res3[1].evicted is None
+    np.testing.assert_array_equal(res3[0].tokens, base[0].tokens[:7])
+
+    # paged: eviction returns the pages to the pool
+    eng4 = _engine(params, cfg, slots=2, max_len=64, pages=8, page_size=4)
+    res4 = eng4.serve([Request(0, prompts[0], 20, deadline=2.0),
+                       Request(1, prompts[1], 20, deadline=2.0),
+                       Request(2, prompts[2], 3, arrival=1.0)],
+                      wall_clock=False)
+    assert res4[0].evicted == "deadline" and res4[1].evicted == "deadline"
+    assert res4[2].evicted is None
+    assert len(eng4._free_pages) == 8 and len(eng4._free_slots) == 2
+
+    with pytest.raises(ValueError, match="deadline"):
+        eng.serve([Request(9, prompts[0], 2, deadline=0.0)],
+                  wall_clock=False)
+    with pytest.raises(ValueError, match="token_budget"):
+        _engine(params, cfg, slots=1, max_len=64, token_budget=0)
+
+
+def test_cuda_default_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    cfg = tiny_cfg()
+    _, params = _setup(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, _port_cfg(cfg), slots=1, max_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_serve(ServeSpec(reduced=True))
+
+
+# --------------------------------------------------------------------------
+# ServeSpec
+# --------------------------------------------------------------------------
+
+
+def test_servespec_validation():
+    with pytest.raises(ValueError, match="frontend"):
+        ServeSpec(arch="whisper-tiny", reduced=True)
+    with pytest.raises(ValueError, match="frontend"):
+        ServeSpec(arch="internvl2-26b", reduced=True)
+    with pytest.raises(ValueError, match="slots"):
+        ServeSpec(reduced=True, slots=0)
+    with pytest.raises(ValueError, match="max_len"):
+        ServeSpec(reduced=True, max_len=1)
+    with pytest.raises(ValueError, match="pages"):
+        ServeSpec(reduced=True, pages=-1)
+    with pytest.raises(ValueError, match="page_size"):
+        ServeSpec(reduced=True, page_size=0)
+    with pytest.raises(ValueError, match="temperature"):
+        ServeSpec(reduced=True, temperature=-0.1)
+    with pytest.raises(ValueError, match="admission"):
+        ServeSpec(reduced=True, admission="fifo")
+    with pytest.raises(ValueError, match="device"):
+        ServeSpec(reduced=True, device="nonsense")
+
+
+def test_servespec_json_roundtrip_and_reference_fields():
+    from repro.api import ServeSpec as JServeSpec
+    spec = ServeSpec(arch="xlstm-1.3b", reduced=True, slots=8, max_len=64,
+                     pages=16, page_size=8, temperature=0.5, seed=3,
+                     admission="static", device="cpu")
+    assert ServeSpec.from_json(spec.to_json()) == spec
+    ref = dataclasses.asdict(JServeSpec())
+    assert set(dataclasses.asdict(ServeSpec())) == set(ref) | {"device"}
+    d = spec.to_dict()
+    d.pop("device")
+    assert JServeSpec.from_dict(d).to_dict() == d
+
+
+# --------------------------------------------------------------------------
+# checkpoints written by the reference -> serving
+# --------------------------------------------------------------------------
+
+
+def _cfg_qwen():
+    return _f32(get_config("qwen1.5-0.5b").reduced())
+
+
+def _assert_same_params(got, want):
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _assert_same_params(got[k], want[k])
+    else:
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("layout", ["stacked", "merged", "full-state"])
+def test_restore_global_params(tmp_path, layout):
+    cfg = _cfg_qwen()
+    pcfg = _port_cfg(cfg)
+    params = _np(JT.init_params(jax.random.PRNGKey(0), cfg))
+    want = convert.params_from_reference(params, pcfg)
+    if layout == "stacked":
+        # K = 3 client slots; slot 0 is the aggregated global client half
+        other = _np(JT.init_params(jax.random.PRNGKey(1), cfg))["client"]
+        tree = {"client": jax.tree.map(lambda a, b: np.stack([a, b, b]),
+                                       params["client"], other),
+                "server": params["server"]}
+    elif layout == "merged":
+        tree = params
+    else:
+        tree = {".inner": {".params": params,
+                           ".opt": {"mu": np.zeros(3, np.float32)}},
+                ".round": np.int32(4)}
+    d = str(tmp_path / "ckpt")
+    checkpoint.save(d, 2, jax.tree.map(np.zeros_like, tree))
+    checkpoint.save(d, 5, tree)
+    _assert_same_params(restore_global_params(pcfg, d, device="cpu"), want)
+    assert restore_global_params(pcfg, d, 2, device="cpu")["server"][
+        "head"]["out"].abs().max() == 0
+
+
+def test_restore_errors(tmp_path):
+    pcfg = tget_config("qwen1.5-0.5b").reduced()
+    with pytest.raises(FileNotFoundError):
+        restore_global_params(pcfg, str(tmp_path / "nope"), device="cpu")
+    d = str(tmp_path / "bad")
+    checkpoint.save(d, 1, {"weights": np.zeros(3)})
+    with pytest.raises(ValueError, match="not a params"):
+        restore_global_params(pcfg, d, device="cpu")
+    checkpoint.save(d, 2, _np(JT.init_params(jax.random.PRNGKey(0),
+                                             tiny_cfg())))
+    with pytest.raises(ValueError, match="client embedding"):
+        restore_global_params(pcfg, d, device="cpu")
+
+
+def test_build_serve_from_checkpoint(tmp_path):
+    """ServeSpec -> build_serve on a reference checkpoint: predict and
+    prefill match the reference model, and the engine serves."""
+    cfg = _cfg_qwen()
+    jparams = JT.init_params(jax.random.PRNGKey(0), cfg)
+    d = str(tmp_path / "ckpt")
+    checkpoint.save(d, 1, jparams)
+    prog = build_serve(ServeSpec(arch="qwen1.5-0.5b", reduced=True,
+                                 checkpoint_dir=d, slots=2, max_len=24,
+                                 device="cpu"))
+    # the spec's reduced config computes in f32 already
+    assert prog.cfg == tget_config("qwen1.5-0.5b").reduced()
+    toks = np.arange(2 * 12).reshape(2, 12) % cfg.vocab_size
+    want, _ = JT.forward(jparams, {"tokens": jnp.asarray(toks)}, cfg,
+                         remat=False)
+    got = prog.predict({"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    logits, cache = prog.prefill(torch.as_tensor(toks[:1, :8]))
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert cache["blk0"]["k"].shape == (1, 24, cfg.num_kv_heads, cfg.head_dim)
+    assert prog.admit(Request(0, toks[0, :8], 2))
+    prog.step()
+    done = prog.engine.take_finished()
+    assert set(done) == {0} and done[0].tokens.shape == (10,)
+
+
+def test_cli_runs_on_cpu(monkeypatch, capsys):
+    from repro_torch.launch import serve
+    base = ["serve", "--reduced", "--device", "cpu", "--batch", "3",
+            "--prompt-len", "6", "--gen", "3", "--slots", "2"]
+    rows = []
+    for extra in ([], ["--pages", "8", "--page-size", "4"], ["--reference"]):
+        monkeypatch.setattr(sys, "argv", base + extra)
+        serve.main()
+        out = capsys.readouterr().out
+        assert "tok/s" in out
+        rows.append(out.split("sample row:")[1].strip())
+    assert rows[0] == rows[1] == rows[2]
