@@ -1,4 +1,4 @@
-"""Reference params and checkpoints -> the port's layout.
+"""Reference params, optimizer state and checkpoints -> the port's layout.
 
 The reference (:mod:`repro.models.transformer`) keeps the client blocks
 and the server prologue per layer and stacks the server's repeated layer
@@ -6,7 +6,10 @@ groups with a leading ``(n_scan,)`` axis; a federated checkpoint also
 stacks the client half over the ``K`` client slots. This module reads
 such a tree -- nested dicts of numpy arrays, or a ``repro.checkpoint``
 ``.npz`` read with numpy alone -- and returns the port's per-layer dicts
-of tensors (:mod:`repro_torch.models.transformer`).
+of tensors (:mod:`repro_torch.models.transformer`): merged for serving
+(:func:`params_from_reference`), or in the training layout with the K
+axis kept (:func:`train_params_from_reference`), together with the
+engine's optimizer state and step (:func:`train_state_from_reference`).
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ def _map(fn: Callable, tree):
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """A tensor that owns its memory: a read-only array (a JAX buffer's
+    host view) is copied, not shared."""
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 def per_layer(client_blocks, prologue, groups, cfg: ModelConfig) -> Dict[int, dict]:
@@ -45,6 +50,28 @@ def per_layer(client_blocks, prologue, groups, cfg: ModelConfig) -> Dict[int, di
     return out
 
 
+def _client_half(client, cfg: ModelConfig, device):
+    """A reference client-half tree (params, or an optimizer-state tree
+    shaped like them) -> the port's; leading axes are kept."""
+    t = lambda sub: _map(lambda a: to_tensor(a, device), sub)
+    return {"embed": t(client["embed"]),
+            "blocks": {f"blk{l}": t(client["blocks"][f"blk{l}"])
+                       for l in range(cfg.split_layer)}}
+
+
+def _server_half(server, cfg: ModelConfig, device):
+    """A reference server-half tree -> the port's per-layer one."""
+    t = lambda sub: _map(lambda a: to_tensor(a, device), sub)
+    # an empty prologue or groups collection leaves no key in a checkpoint
+    layers = per_layer({f"blk{l}": None for l in range(cfg.split_layer)},
+                       server.get("prologue", {}), server.get("groups", {}),
+                       cfg)
+    return {"blocks": {f"blk{l}": t(layers[l])
+                       for l in range(cfg.split_layer, cfg.num_layers)},
+            "final_norm": t(server["final_norm"]),
+            "head": t(server["head"])}
+
+
 def params_from_reference(tree, cfg: ModelConfig, device="cpu"):
     """Reference params ``{'client', 'server'}`` (numpy leaves; the client
     half merged, or stacked over K client slots, of which slot 0 -- the
@@ -57,23 +84,45 @@ def params_from_reference(tree, cfg: ModelConfig, device="cpu"):
     elif shape != tok_shape:
         raise ValueError(f"client embedding has shape {shape}, expected "
                          f"{tok_shape} or (K,)+{tok_shape} for {cfg.name}")
-    server = tree["server"]
-    # an empty prologue or groups collection leaves no key in a checkpoint
-    layers = per_layer(client["blocks"], server.get("prologue", {}),
-                       server.get("groups", {}), cfg)
+    return {"client": _client_half(client, cfg, device),
+            "server": _server_half(tree["server"], cfg, device)}
 
-    def t(sub):
-        return _map(lambda a: to_tensor(a, device), sub)
 
-    split = cfg.split_layer
-    return {
-        "client": {"embed": t(client["embed"]),
-                   "blocks": {f"blk{l}": t(layers[l]) for l in range(split)}},
-        "server": {"blocks": {f"blk{l}": t(layers[l])
-                              for l in range(split, cfg.num_layers)},
-                   "final_norm": t(server["final_norm"]),
-                   "head": t(server["head"])},
-    }
+def train_params_from_reference(tree, cfg: ModelConfig, device="cpu"):
+    """Reference training params -> the port's training layout: the
+    client half keeps its leading (K,) slot axis (or stays merged, for
+    :func:`repro_torch.api.build` to repeat over the slots)."""
+    return {"client": _client_half(tree["client"], cfg, device),
+            "server": _server_half(tree["server"], cfg, device)}
+
+
+def _opt_half(state, half, cfg, device):
+    """One half's optimizer state: ``()`` (SGD), a params-shaped tree
+    (momentum) or ``{'mu', 'nu', 'count'}`` (AdamW)."""
+    if isinstance(state, (tuple, list)) and len(state) == 0:
+        return ()
+    if isinstance(state, dict) and set(state) == {"mu", "nu", "count"}:
+        return {"mu": half(state["mu"], cfg, device),
+                "nu": half(state["nu"], cfg, device),
+                "count": to_tensor(state["count"], device)}
+    return half(state, cfg, device)
+
+
+def train_state_from_reference(state, cfg: ModelConfig, device="cpu"):
+    """A reference ``engine.TrainState`` (numpy leaves) -> the port's
+    :class:`repro_torch.core.engine.TrainState`: params in the training
+    layout, each half's optimizer state converted alike, the step as an
+    int."""
+    from repro_torch.core.engine import TrainState
+
+    opt = state.opt_state
+    return TrainState(
+        params=train_params_from_reference(state.params, cfg, device),
+        opt_state={"client": _opt_half(opt["client"], _client_half, cfg,
+                                       device),
+                   "server": _opt_half(opt["server"], _server_half, cfg,
+                                       device)},
+        step=int(np.asarray(state.step)))
 
 
 def _nest(flat: Dict[str, np.ndarray]):
@@ -87,10 +136,10 @@ def _nest(flat: Dict[str, np.ndarray]):
     return tree
 
 
-def params_from_npz(path: str, cfg: ModelConfig, device="cpu"):
-    """Port params from a ``repro.checkpoint`` file: a params checkpoint
-    (merged or K-stacked client half), or a full training-state one whose
-    params sit under the ``.inner/.params/`` key prefix."""
+def _params_tree_from_npz(path: str):
+    """The reference params tree of a ``repro.checkpoint`` file: a params
+    checkpoint (merged or K-stacked client half), or a full training-state
+    one whose params sit under the ``.inner/.params/`` key prefix."""
     probe = "client/embed/tok"
     with np.load(path) as data:
         files = set(data.files)
@@ -106,4 +155,17 @@ def params_from_npz(path: str, cfg: ModelConfig, device="cpu"):
         flat = {k[len(prefix):]: data[k] for k in files
                 if k.startswith(prefix) and
                 k[len(prefix):].split("/", 1)[0] in ("client", "server")}
-    return params_from_reference(_nest(flat), cfg, device)
+    return _nest(flat)
+
+
+def params_from_npz(path: str, cfg: ModelConfig, device="cpu"):
+    """Merged port params (for serving) from a ``repro.checkpoint``
+    file."""
+    return params_from_reference(_params_tree_from_npz(path), cfg, device)
+
+
+def train_params_from_npz(path: str, cfg: ModelConfig, device="cpu"):
+    """Port training params (the client half's K axis kept) from a
+    ``repro.checkpoint`` file."""
+    return train_params_from_reference(_params_tree_from_npz(path), cfg,
+                                       device)

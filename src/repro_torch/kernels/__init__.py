@@ -1,6 +1,9 @@
 """Hand-written Hopper kernels, one subpackage each.
 
-* flash_attn -- causal / sliding-window attention forward (CUDA C++)
+* flash_attn -- causal / sliding-window attention, forward and backward
+  (CUDA C++)
+* lace -- the fused dual-prior logit-adjusted cross-entropy of the split
+  boundary, forward (K1) and backward (K2) (CUDA C++)
 
 Each subpackage: kernel.py (the launcher of the compiled kernel),
 ops.py (the wrapper the model calls: the plain version on a CPU tensor,

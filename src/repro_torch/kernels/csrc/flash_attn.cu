@@ -54,13 +54,19 @@ struct Strides {
   long long b, s, h;
 };
 
+// The row's log-sum-exp of the scaled scores, in natural-log units, from
+// the running max m (log2 units) and sum l of exp2(s - m).
+__device__ __forceinline__ float natural_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : -CUDART_INF_F;
+}
+
 template <typename T, int HD, int BK>
 __global__ void __launch_bounds__(BQ)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int S,
                      int Skv, int H, int group, int BH, int nq, Strides sq,
                      Strides sk, Strides sv, Strides so, float qscale,
-                     int causal, int window) {
+                     int causal, int window, float* __restrict__ lse) {
   __shared__ __align__(16) float ks[BK][HD];
   __shared__ __align__(16) float vs[BK][HD];
 
@@ -162,6 +168,7 @@ __global__ void __launch_bounds__(BQ)
     T* op = o + b * so.b + static_cast<long long>(qi) * so.s + h * so.h;
 #pragma unroll
     for (int d = 0; d < HD; ++d) store(op + d, acc[d] * inv);
+    if (lse) lse[static_cast<long long>(bh) * S + qi] = natural_lse(m, l);
   }
 }
 
@@ -206,7 +213,7 @@ __global__ void __launch_bounds__(MTHREADS)
                          __nv_bfloat16* __restrict__ o, int S, int Skv, int H,
                          int group, int BH, int nq, Strides sq, Strides sk,
                          Strides sv, Strides so, float qscale, int causal,
-                         int window) {
+                         int window, float* __restrict__ lse) {
   constexpr int KS = HD / 16;  // k-steps of Q K^T
   constexpr int NS = MK / 8;   // n-tiles of S (keys)
   constexpr int NO = HD / 8;   // n-tiles of O (head dim)
@@ -363,6 +370,11 @@ __global__ void __launch_bounds__(MTHREADS)
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (lse && t == 0) {
+    float* lb = lse + static_cast<long long>(bh) * S;
+    if (row0 < S) lb[row0] = natural_lse(m0, l0);
+    if (row1 < S) lb[row1] = natural_lse(m1, l1);
+  }
   __nv_bfloat16* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
@@ -382,14 +394,16 @@ template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int B, int S, int Skv, int H, int KV, Strides sq,
                        Strides sk, Strides sv, Strides so, float qscale,
-                       int causal, int window, cudaStream_t stream) {
+                       int causal, int window, float* lse,
+                       cudaStream_t stream) {
   const int BH = B * H;
   const int nq = (S + MQ - 1) / MQ;
   flash_fwd_mma_kernel<HD><<<nq * BH, MTHREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, Skv, H, H / KV, BH, nq, sq, sk, sv, so, qscale, causal, window);
+      S, Skv, H, H / KV, BH, nq, sq, sk, sv, so, qscale, causal, window,
+      lse);
   return cudaGetLastError();
 }
 
@@ -397,10 +411,11 @@ template <typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int Skv, int H, int KV, Strides sq,
                       Strides sk, Strides sv, Strides so, float qscale,
-                      int causal, int window, cudaStream_t stream) {
+                      int causal, int window, float* lse,
+                      cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16> && HD % 16 == 0) {
     return launch_mma<HD>(q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
-                          qscale, causal, window, stream);
+                          qscale, causal, window, lse, stream);
   } else {
     constexpr int BK = HD <= 64 ? 64 : 32;  // 2 * BK * HD * 4 <= 32 KB
     const int BH = B * H;
@@ -408,7 +423,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
     flash_fwd_kernel<T, HD, BK><<<nq * BH, BQ, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), S, Skv, H, H / KV, BH,
-        nq, sq, sk, sv, so, qscale, causal, window);
+        nq, sq, sk, sv, so, qscale, causal, window, lse);
     return cudaGetLastError();
   }
 }
@@ -417,23 +432,23 @@ template <typename T>
 cudaError_t launch(int hd, const void* q, const void* k, const void* v,
                    void* o, int B, int S, int Skv, int H, int KV, Strides sq,
                    Strides sk, Strides sv, Strides so, float qscale,
-                   int causal, int window, cudaStream_t stream) {
+                   int causal, int window, float* lse, cudaStream_t stream) {
   switch (hd) {
     case 8:
       return launch_hd<T, 8>(q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
-                             qscale, causal, window, stream);
+                             qscale, causal, window, lse, stream);
     case 16:
       return launch_hd<T, 16>(q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
-                              qscale, causal, window, stream);
+                              qscale, causal, window, lse, stream);
     case 32:
       return launch_hd<T, 32>(q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
-                              qscale, causal, window, stream);
+                              qscale, causal, window, lse, stream);
     case 64:
       return launch_hd<T, 64>(q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
-                              qscale, causal, window, stream);
+                              qscale, causal, window, lse, stream);
     case 128:
       return launch_hd<T, 128>(q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
-                               qscale, causal, window, stream);
+                               qscale, causal, window, lse, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -443,7 +458,9 @@ cudaError_t launch(int hd, const void* q, const void* k, const void* v,
 
 // q: (B, S, H, hd), k/v: (B, Skv, KV, hd), o: (B, S, H, hd); the last axis
 // contiguous, the other strides in elements. dtype: 0 = float32,
-// 1 = bfloat16. window <= 0 means no window. Returns the launch's
+// 1 = bfloat16. window <= 0 means no window. lse: null, or (B, H, S) f32
+// that receives each row's log-sum-exp of the scaled scores (what the
+// backward recomputes the probabilities from). Returns the launch's
 // cudaGetLastError().
 extern "C" int flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
@@ -451,7 +468,7 @@ extern "C" int flash_attn_fwd(
     long long sqh, long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh, long long sob,
     long long sos, long long soh, float scale, int causal, int window,
-    void* stream) {
+    float* lse, void* stream) {
   if (B <= 0 || S <= 0 || Skv < 0 || H <= 0 || KV <= 0 || H % KV != 0)
     return cudaErrorInvalidValue;
   const Strides sq{sqb, sqs, sqh}, sk{skb, sks, skh}, sv{svb, svs, svh},
@@ -460,9 +477,9 @@ extern "C" int flash_attn_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(hd, q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
-                         qscale, causal, window, st);
+                         qscale, causal, window, lse, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(hd, q, k, v, o, B, S, Skv, H, KV, sq, sk,
-                                 sv, so, qscale, causal, window, st);
+                                 sv, so, qscale, causal, window, lse, st);
   return cudaErrorInvalidValue;
 }

@@ -1,8 +1,14 @@
-"""Launcher of the Hopper flash-attention forward (``csrc/flash_attn.cu``).
+"""Launchers of the Hopper flash-attention kernels.
 
-Replaces ``repro/kernels/flash_attn/kernel.py:flash_attention_pallas``.
-Takes the public (B, S, H, hd) layout and GQA kv heads directly, passes
-strides instead of transposing, and masks ragged edges in the kernel
+* :func:`flash_attention_cuda` -- the forward (``csrc/flash_attn.cu``),
+  which replaces ``repro/kernels/flash_attn/kernel.py:
+  flash_attention_pallas``; optionally also each row's log-sum-exp;
+* :func:`flash_attention_bwd_cuda` -- the backward
+  (``csrc/flash_attn_bwd.cu``): dq, dk, dv from q, k, v, the output, its
+  cotangent and the saved log-sum-exp.
+
+Both take the public (B, S, H, hd) layout and GQA kv heads directly, pass
+strides instead of transposing, and mask ragged edges in the kernel
 instead of padding.
 """
 from __future__ import annotations
@@ -16,20 +22,27 @@ from repro_torch.kernels import build
 
 SUPPORTED_HD = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FN = []   # the bound C function, resolved on first launch
+_FNS = {}   # the bound C functions, resolved on first launch
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-             + [ctypes.c_longlong] * 12
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = {
+    "flash_attn_fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 12
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p]),
+    "flash_attn_bwd": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p]),
+}
+_SOURCES = {"flash_attn_fwd": "flash_attn", "flash_attn_bwd": "flash_attn_bwd"}
 
 
-def _fn():
-    if not _FN:
-        fn = build.load("flash_attn").flash_attn_fwd
-        fn.argtypes = _ARGTYPES
+def _fn(name):
+    if name not in _FNS:
+        fn = getattr(build.load(_SOURCES[name]), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _FN.append(fn)
-    return _FN[0]
+        _FNS[name] = fn
+    return _FNS[name]
 
 
 def _check(q, k, v):
@@ -66,28 +79,83 @@ def _check(q, k, v):
                                  f"{t.stride()}")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: Optional[int] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, Skv, KV, hd), all on one CUDA device.
-    Returns (B, S, H, hd) in q's dtype. Raises on what the kernel does not
-    take and on a failed launch."""
-    _check(q, k, v)
+def _check_window(window):
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
+    """q: (B, S, H, hd); k, v: (B, Skv, KV, hd), all on one CUDA device.
+    Returns (B, S, H, hd) in q's dtype, and with ``return_lse`` also each
+    row's log-sum-exp of the scaled scores, (B, H, S) float32. Raises on
+    what the kernel does not take and on a failed launch."""
+    _check(q, k, v)
+    _check_window(window)
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     scale = scale or hd ** -0.5
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    _DTYPE_CODES[q.dtype], B, S, Skv, H, KV, hd,
-                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                    *out.stride()[:3], float(scale), int(causal),
-                    int(window or 0), stream)
+        err = _fn("flash_attn_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, S, Skv, H, KV, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], float(scale), int(causal), int(window or 0),
+            None if lse is None else lse.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error "
                            f"{err} (B={B} S={S} Skv={Skv} H={H} KV={KV} "
                            f"hd={hd} {q.dtype})")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None):
+    """dq, dk, dv of :func:`flash_attention_cuda`'s output. q, out, dout:
+    (B, S, H, hd); k, v: (B, Skv, KV, hd); lse: (B, H, S) float32 from the
+    forward. Returns (dq, dk, dv) in q's dtype, shaped like q, k, v.
+    Raises on what the kernel does not take and on a failed launch."""
+    _check(q, k, v)
+    _check_window(window)
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} does not match q "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last axis must be contiguous, got "
+                             f"strides {t.stride()}")
+    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 (B, H, S) = "
+                         f"{(B, H, S)} tensor on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    scale = scale or hd ** -0.5
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    dvec = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        st for t in (q, k, v, out, dout, dq, dk, dv) for st in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _fn("flash_attn_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], B, S, Skv,
+            H, KV, hd, ctypes.cast(strides, ctypes.c_void_p), float(scale),
+            int(causal), int(window or 0), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd launch failed with CUDA error "
+                           f"{err} (B={B} S={S} Skv={Skv} H={H} KV={KV} "
+                           f"hd={hd} {q.dtype})")
+    return dq, dk, dv

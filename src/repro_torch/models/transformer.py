@@ -96,6 +96,35 @@ def _head(params, x, cfg: ModelConfig, head_mode: str):
     return embeddings.head_apply(params["server"]["head"], x, cfg)
 
 
+def client_forward(client_params, batch, cfg: ModelConfig):
+    """The client half: embedding + the first ``split_layer`` blocks.
+    Returns the SFL activation upload ``{'x', 'positions'}``."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embeddings.embedding_apply(client_params["embed"], tokens, cfg)
+    for l in range(cfg.split_layer):
+        x = B.block_apply(client_params["blocks"][f"blk{l}"], x,
+                          cfg.block_spec(l), cfg, positions=positions)
+    return {"x": x, "positions": positions}
+
+
+def server_forward(server_params, acts, cfg: ModelConfig, *,
+                   head_mode: str = "full"):
+    """The server half on (possibly concatenated) activations ``{'x',
+    'positions'}``: logits (B, S, V), or the final-normed features with
+    ``head_mode='feats'``, or the last position's with 'last'. Returns
+    (out, aux); aux is the MoE router loss, zero for the ported dense
+    blocks."""
+    check_supported(cfg)
+    x, positions = acts["x"], acts["positions"]
+    for l in range(cfg.split_layer, cfg.num_layers):
+        x = B.block_apply(server_params["blocks"][f"blk{l}"], x,
+                          cfg.block_spec(l), cfg, positions=positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head({"server": server_params}, x, cfg, head_mode), aux
+
+
 def forward(params, batch, cfg: ModelConfig, *, head_mode: str = "full"):
     """Merged (non-split) forward: logits (B, S, V), or (B, 1, V) with
     ``head_mode='last'``, or the final-normed features with 'feats'."""
