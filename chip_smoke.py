@@ -8,14 +8,16 @@ Phases, one or more lines each:
 1. device: the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
 2. build: every kernel source in ``src/repro_torch/kernels/csrc``
-   (flash_attn, flash_attn_bwd, lace), one nvcc each, all at once, for
-   sm_90a;
+   (flash_attn, flash_attn_bwd, lace, lace1), one nvcc each, all at
+   once, for sm_90a;
 3. kernels: each kernel against its plain PyTorch version at the shapes
    its path gives it, with the stated tolerance; then its time (CUDA
    events), the plain version's, PyTorch's own call's (``library_ms``, a
    yardstick only) and the card's bound for the work -- the attention
-   forward (K3) at the serving shapes, then the attention backward and
-   the fused LACE boundary (K1, K2) at the training shapes;
+   forward (K3) at the serving shapes, then the attention backward, the
+   fused LACE boundary (K1, K2) and the single-prior LACE kernels of the
+   dual boundary (K4, K5; server side with dW, client side without) at
+   the training shapes;
 4. serve: full-width qwen1.5-0.5b in bf16 through ServeSpec ->
    build_serve -> ServeEngine.serve, dense and paged cache; paged tokens
    must equal dense tokens, and every admitted request must have
@@ -30,7 +32,20 @@ Phases, one or more lines each:
    peak memory and a profiled round's device-busy share;
 7. train-check: full width in float32, TF32 off -- one split step and
    one round on the card (K1, K2, K3 forward and backward) against the
-   same on the CPU (the plain versions).
+   same on the CPU (the plain versions);
+8. train-dual: the training cell of phase 6 with ``--boundary dual`` --
+   the launches per round (K4 and K5 twice a step, K1 and K2 never), the
+   same numbers as phase 6 and a profiled round;
+9. dual-check: full width in float32, TF32 off -- one split step with
+   the dual boundary on the card (K4, K5) against the fused one on the
+   card (K1, K2), then against the dual one on the CPU;
+10. alexnet: the paper's model at full width (s2, 10 classes) through
+   ``ExperimentSpec`` -> ``Trainer`` with the paper-table settings, 3
+   rounds on each boundary (finite losses, round seconds, ``evaluate()``'s
+   accuracy and class-balanced accuracy), then one split step per
+   boundary on the card in float32 with cuDNN off, held against the same
+   step in float64 on the CPU (cuDNN's and the CPU's own float32 steps
+   are reported beside it).
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -92,16 +107,41 @@ LACE_CASES = [(8192, torch.bfloat16, 1.0), (8192, torch.float32, 1.0),
               (2047, torch.bfloat16, 1.0)]
 LACE_REPORT = LACE_CASES[0]
 LACE_CLIENTS = 4
+# the single-prior LACE kernels (K4, K5) of the dual boundary, (N tokens,
+# feats dtype, side) at the training width: the server side (one
+# concatenated prior row, dW) and the client side (4 per-client rows
+# picked per token, no dW), at the main path's 8192 tokens and at 2048.
+# Tolerance against the plain version: nll and lse within 1e-4 of their
+# largest entry, df and dW within 1e-5 of theirs.
+LACE1_CASES = [(N, dt, side) for N in (8192, 2048)
+               for dt in (torch.bfloat16, torch.float32)
+               for side in ("server", "client")]
+LACE1_REPORT = {"server": LACE1_CASES[0], "client": LACE1_CASES[1]}
 # the training phase: the reference LM training CLI's defaults (SCALA, subset
 # sampling, fused LACE boundary, weighted FedAvg, SGD) at full width
 TRAIN_FLAGS = ["--arch", ARCH, "--clients", "16", "--participation", "0.25",
                "--local-iters", "2", "--seq", "512", "--server-batch", "16",
                "--docs-per-client", "8", "--rounds", "3", "--seed", "0"]
+TRAIN_DUAL_FLAGS = TRAIN_FLAGS + ["--boundary", "dual"]
+# the paper's AlexNet setup (benchmarks/common.py:experiment_spec): 20
+# clients, 4 sampled per round, 5 local steps, 48 images a step, SGD at
+# lr 0.05, 2000 training images, 2 classes per client, at full width
+ALEXNET = dict(num_clients=20, participation=0.2, local_iters=5,
+               server_batch=48, lr=0.05, n_train=2000, alpha=2, width=1.0)
 # f32 full-width step and round, card against CPU: losses within 1e-4
 # relative, every grad leaf within 1e-3 of its largest entry, every
 # aggregated client param within 3 ulps plus 1e-3 of its leaf's largest
 # update (float32 sums in other orders through 24 layers)
 LOSS_RTOL, LEAF_RTOL = 1e-4, 1e-3
+# the dual boundary against the fused one, and against the CPU; AlexNet's
+# card step against the CPU: losses within 1e-5 relative, every grad leaf
+# within 1e-4 of its largest entry. AlexNet's conv weight gradients sum
+# thousands of terms that nearly cancel: the float32 convolutions of cuDNN
+# and of the CPU libraries each land up to ~2e-2 of the largest entry
+# from the exact value, so its card step runs its convolutions without
+# cuDNN (im2col and float32 products, as TF32 is off for the matmuls) and
+# is held against the step in float64 on the CPU.
+DUAL_LOSS_RTOL, DUAL_LEAF_RTOL = 1e-5, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -159,7 +199,7 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["flash_attn", "flash_attn_bwd", "lace"])
+    logs = build.build(["flash_attn", "flash_attn_bwd", "lace", "lace1"])
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "built in" in line:
@@ -571,12 +611,105 @@ def phase_lace():
     return rows, errs
 
 
+def boundary_launches(boundary):
+    """The boundary's launches in one step: K1 + K2 once (fused), or K4 +
+    K5 once per prior (dual: eq. 14, then eq. 15)."""
+    fused = boundary == "fused"
+    return dict(lace_fwd=int(fused), lace_bwd=int(fused),
+                lace1_fwd=0 if fused else 2, lace1_bwd=0 if fused else 2)
+
+
+def lace1_inputs(N, dtype, side, d=1024, V=151936, G=LACE_CLIENTS):
+    """One side of the dual boundary at the training width, from a seeded
+    generator: feats (N, d), w_head (d, V) f32, int32 labels, the side's
+    prior table and per-token client ids (server: one concatenated row,
+    no ids; client: G rows), and the per-token scale weight / sum."""
+    args, weights, ts = lace_inputs(N, dtype, 1.0, d, V, G)
+    feats, w, labels, adj_s, _, adj_k, ids_k = args
+    adj, ids = (adj_s, None) if side == "server" else (adj_k, ids_k)
+    return (feats, w, labels, adj, ids), weights, ts
+
+
+def phase_lace1():
+    """K4 and K5 against their plain versions (same arguments, logits in
+    1024-token chunks summed in 1024-column slices); ``library_ms`` is
+    the one cuBLAS product feats @ W, a yardstick only (no PyTorch call
+    computes the adjusted loss or its gradients). K5 runs as each side
+    of the dual boundary does: with dW on the server side, without on
+    the client side."""
+    from repro_torch.kernels.lace import kernel, ref
+
+    rows, errs = {}, {"fwd": 0.0, "bwd": 0.0}
+    for case in LACE1_CASES:
+        N, dtype, side = case
+        args, weights, ts = lace1_inputs(N, dtype, side)
+        feats, w, _, adj, ids = args
+        d, V = w.shape
+        want_dw = side == "server"
+        got = kernel.lace_fwd_cuda(*args)
+        sync("cuda")
+        exp = ref.lace_fwd_plain(*args)
+        e_fwds = [rel_err(a, b) for a, b in zip(got, exp)]
+        check(max(e_fwds) <= 1e-4, f"lace_fwd vs plain {case}: nll, lse "
+              f"{e_fwds}")
+        bargs = args + (got[1], ts, want_dw)
+        gb = kernel.lace_bwd_cuda(*bargs)
+        sync("cuda")
+        eb = ref.lace_bwd_plain(*bargs)
+        check((gb[1] is None) == (eb[1] is None) == (not want_dw),
+              f"dW computed only on the server side {case}")
+        pairs = [(a, b) for a, b in zip(gb, eb) if b is not None]
+        e_bwds = [rel_err(a, b) for a, b in pairs]
+        check(max(e_bwds) <= 1e-5, f"lace_bwd vs plain {case}: df, dW "
+              f"{e_bwds}")
+        check(bool((gb[0][weights == 0] == 0).all()),
+              f"weight-0 rows get exactly zero df {case}")
+        errs["fwd"] = max(errs["fwd"], max(
+            (a - b).abs().max().item() for a, b in zip(got, exp)))
+        errs["bwd"] = max(errs["bwd"], max(
+            (a - b).abs().max().item() for a, b in pairs))
+        f32 = feats.float()
+        times = {name: time_ms(fn, iters=3, warmup=1) for name, fn in (
+            ("fwd", lambda: kernel.lace_fwd_cuda(*args)),
+            ("fwd_plain", lambda: ref.lace_fwd_plain(*args)),
+            ("bwd", lambda: kernel.lace_bwd_cuda(*bargs)),
+            ("bwd_plain", lambda: ref.lace_bwd_plain(*bargs)),
+            ("library", lambda: f32 @ w))}
+        el = feats.element_size()
+        in_bytes = (el * N * d + 4 * d * V + 4 * N + 4 * adj.numel()
+                    + (0 if ids is None else 4 * N))
+        passes = 3 if want_dw else 2          # z, df (, dW)
+        for kind, flops, nbytes in (
+                ("fwd", 2 * N * d * V, in_bytes + 2 * 4 * N),
+                ("bwd", passes * 2 * N * d * V,
+                 in_bytes + 2 * 4 * N + 4 * N * d
+                 + (4 * d * V if want_dw else 0))):
+            t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], \
+                nbytes / PEAK_BYTES
+            rows[(case, kind)] = dict(
+                ms=times[kind], plain_ms=times[kind + "_plain"],
+                library_ms=times["library"],
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+        say("kernels", f"lace {side} side N={N} d={d} V={V} rows="
+            f"{adj.shape[0]} feats {str(dtype)[6:]}: rel err nll/lse "
+            f"{'/'.join(f'{e:.3g}' for e in e_fwds)} (tol 1e-4), df"
+            f"{'/dW' if want_dw else ''} "
+            f"{'/'.join(f'{e:.3g}' for e in e_bwds)} (tol 1e-5); K4 "
+            f"{times['fwd']:.2f} ms (plain {times['fwd_plain']:.2f}, bound "
+            f"{rows[(case, 'fwd')]['bound_ms']:.2f}); K5 "
+            f"{times['bwd']:.2f} ms (plain {times['bwd_plain']:.2f}, bound "
+            f"{rows[(case, 'bwd')]['bound_ms']:.2f}); cuBLAS feats@W "
+            f"{times['library']:.2f} ms")
+    return rows, errs
+
+
 def train_launches(spec, cfg):
     """Kernel launches one local step makes, from the layout: every
     client slot runs the client blocks once forward and pulls them back
     once; the server trunk (not rematerialized) runs once forward and is
     pulled back twice (the P_s cotangent for w_s, the P_k one for the
-    activations); one K1 and one K2 launch at the boundary."""
+    activations); the boundary's launches (:func:`boundary_launches`)."""
     slots = spec.slots
     n_client = sum(cfg.block_spec(l).mixer == "attn"
                    for l in range(cfg.split_layer))
@@ -584,14 +717,15 @@ def train_launches(spec, cfg):
                    for l in range(cfg.split_layer, cfg.num_layers))
     return dict(flash_fwd=slots * n_client + n_server,
                 flash_bwd=slots * n_client + 2 * n_server,
-                lace_fwd=1, lace_bwd=1)
+                **boundary_launches(spec.execution.boundary))
 
 
 def read_counts():
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.lace import ops as lops
     return dict(flash_fwd=fops.LAUNCHES, flash_bwd=fops.LAUNCHES_BWD,
-                lace_fwd=lops.LAUNCHES_FWD, lace_bwd=lops.LAUNCHES_BWD)
+                lace_fwd=lops.LAUNCHES_FWD, lace_bwd=lops.LAUNCHES_BWD,
+                lace1_fwd=lops.LAUNCHES_FWD1, lace1_bwd=lops.LAUNCHES_BWD1)
 
 
 def zero_counts():
@@ -599,13 +733,17 @@ def zero_counts():
     from repro_torch.kernels.lace import ops as lops
     fops.LAUNCHES = fops.LAUNCHES_BWD = 0
     lops.LAUNCHES_FWD = lops.LAUNCHES_BWD = 0
+    lops.LAUNCHES_FWD1 = lops.LAUNCHES_BWD1 = 0
 
 
-def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True):
+def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
+                phase="train"):
     """Full-width training through the CLI's spec and the Trainer: the
     kernels' launches per round against :func:`train_launches`, finite
     losses, round seconds (rounds 2 on; round 1 includes warm-up),
-    tokens/s, peak memory, and a profiled extra round."""
+    tokens/s, peak memory, and a profiled extra round. Every launch count
+    is set to 0 at the start; returns the counts of the measured rounds
+    (the profiled round not included)."""
     from repro_torch import api
     from repro_torch.launch import train
 
@@ -615,10 +753,11 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True):
     t0 = time.perf_counter()
     trainer = api.Trainer(spec, device=device)
     sync(device)
-    say("train", f"{cfg.name} {cfg.dtype} compute, {cfg.param_dtype} params: "
+    say(phase, f"{cfg.name} {cfg.dtype} compute, {cfg.param_dtype} params: "
         f"{spec.scala.num_clients} clients, {spec.slots} per round, "
         f"{spec.scala.local_iters} local steps of "
-        f"{spec.scala.server_batch} x {spec.data.seq} tokens; built in "
+        f"{spec.scala.server_batch} x {spec.data.seq} tokens, boundary "
+        f"{spec.execution.boundary}; built in "
         f"{time.perf_counter() - t0:.1f} s")
     T = spec.scala.local_iters
     per_step = train_launches(spec, cfg)
@@ -641,23 +780,25 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True):
             want = {k: T * n for k, n in per_step.items()}
             check(got == want, f"round {r} launches {got} != {want} "
                   f"({T} steps x {per_step})")
-        say("train", f"round {r} loss_s={m['loss_server']:.4f} "
+        say(phase, f"round {r} loss_s={m['loss_server']:.4f} "
             f"loss_c={m['loss_client']:.4f} in {secs[-1]:.3f} s; launches "
             f"K3 fwd {got['flash_fwd']} bwd {got['flash_bwd']}, K1 "
-            f"{got['lace_fwd']}, K2 {got['lace_bwd']}")
+            f"{got['lace_fwd']}, K2 {got['lace_bwd']}, K4 "
+            f"{got['lace1_fwd']}, K5 {got['lace1_bwd']}")
     counts = read_counts()
     steady = secs[1:] or secs
     round_s = float(np.mean(steady))
     tokens = T * spec.scala.server_batch * spec.data.seq
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else 0)
-    say("train", f"round seconds (rounds 1..{len(secs) - 1}, round 0 has "
+    say(phase, f"round seconds (rounds 1..{len(secs) - 1}, round 0 has "
         f"the warm-up): {[round(x, 3) for x in steady]}, mean "
         f"{round_s:.3f} s -> {tokens / round_s:.0f} training tokens/s; "
         f"round 0 {secs[0]:.3f} s; peak {peak / 2**20:.0f} MiB allocated; "
         f"per step: {per_step}")
     if profile_round and torch.device(device).type == "cuda":
-        profile("training round", trainer.step, 8)
+        profile(f"training round ({spec.execution.boundary} boundary)",
+                trainer.step, 8)
     return counts
 
 
@@ -746,6 +887,204 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2):
         f"{worst:.3g} of the leaf's largest update (tol {LEAF_RTOL})")
 
 
+def f32_qwen_step_inputs(device, reduced=False, C=2, S=64, seed=3):
+    """float32 qwen1.5-0.5b (full width unless ``reduced``), its split
+    model, stacked params made on ``device`` from a seed, and one step's
+    numpy batch of C clients x S tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scala import transformer_split_model
+    from repro_torch.core.split import stack_client_params
+    from repro_torch.models import transformer as Tm
+
+    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
+                              dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device)
+    gen.manual_seed(seed)
+    full = Tm.init_params(gen, cfg)
+    params = {"client": stack_client_params(full["client"], C),
+              "server": full["server"]}
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (C, 1, S + 1))
+    weights = np.ones((C, 1, S), np.float32)
+    weights[-1, 0, -S // 8:] = 0.0            # an eq. 3 padding tail
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             "weights": weights}
+    return cfg, transformer_split_model(cfg), params, batch
+
+
+def step_on(model, params, batch, dev, scala, backend, boundary,
+            cudnn=True):
+    """One split step on ``dev`` from the same params and batch (in the
+    params' dtype): (grads, metrics, seconds, launches). ``cudnn=False``
+    runs the step's convolutions without cuDNN."""
+    from repro_torch.core import engine
+    from repro_torch.tree import tree_map
+
+    p = tree_map(lambda a: a.to(dev), params)
+    b = {k: torch.from_numpy(np.asarray(v)).to(dev)
+         for k, v in batch.items()}
+    zero_counts()
+    t0 = time.perf_counter()
+    prev = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        g, m = engine.split_step_grads(model, p, b, scala, backend=backend,
+                                       boundary=boundary)
+    finally:
+        torch.backends.cudnn.enabled = prev
+    sync(dev)
+    return g, m, time.perf_counter() - t0, read_counts()
+
+
+def compare_steps(phase, what, a, b, checked=True):
+    """Losses within DUAL_LOSS_RTOL relative, every grad leaf within
+    DUAL_LEAF_RTOL of its largest entry (``checked=False``: reported
+    only); returns the worst leaf's relative error."""
+    from repro_torch.tree import leaves
+
+    (ga, ma), (gb, mb) = a[:2], b[:2]
+    for k in ("loss_server", "loss_client"):
+        x, y = float(ma[k]), float(mb[k])
+        check(not checked or abs(x - y) <= DUAL_LOSS_RTOL * abs(y),
+              f"{phase} {what}: {k} {x} vs {y}")
+    la, lb = leaves(ga), leaves(gb)
+    check(len(la) == len(lb), f"{phase} {what}: grad trees differ")
+    worst = max(rel_err(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+    check(not checked or worst <= DUAL_LEAF_RTOL,
+          f"{phase} {what}: worst grad leaf {worst} > {DUAL_LEAF_RTOL}")
+    say(phase, f"{what}: loss_s {float(ma['loss_server']):.7f} vs "
+        f"{float(mb['loss_server']):.7f}, loss_c "
+        f"{float(ma['loss_client']):.7f} vs {float(mb['loss_client']):.7f}; "
+        f"worst of {len(la)} grad leaves {worst:.3g} of its largest entry"
+        + (f" (rtol {DUAL_LOSS_RTOL}, tol {DUAL_LEAF_RTOL})" if checked
+           else " (reported, not checked)"))
+    return worst
+
+
+def phase_dual_check(device="cuda", reduced=False):
+    """float32 at full width, TF32 off: one split step with the dual
+    boundary on ``device`` (K4, K5) against the fused one on ``device``
+    (K1, K2), then against the dual one on the CPU (the plain
+    versions)."""
+    from repro_torch.configs import ScalaConfig
+
+    cfg, model, params, batch = f32_qwen_step_inputs(device, reduced)
+    sc = ScalaConfig(num_clients=2)
+    res = {}
+    for dev, boundary in ((device, "dual"), (device, "fused"),
+                          ("cpu", "dual")):
+        res[(dev, boundary)] = r = step_on(model, params, batch, dev, sc,
+                                           "lace", boundary)
+        n = r[3]
+        if torch.device(dev).type == "cuda":
+            want = boundary_launches(boundary)
+            got = {k: n[k] for k in want}
+            check(got == want, f"dual-check {boundary} step launches {got} "
+                  f"!= {want}")
+        say("dual-check", f"{cfg.name} float32 split step, 2 clients x 64 "
+            f"tokens, {boundary} boundary on {dev}: {r[2]:.2f} s, launches "
+            f"K1 {n['lace_fwd']} K2 {n['lace_bwd']} K4 {n['lace1_fwd']} "
+            f"K5 {n['lace1_bwd']}")
+    compare_steps("dual-check", f"dual vs fused on {device}",
+                  res[(device, "dual")], res[(device, "fused")])
+    compare_steps("dual-check", f"dual on {device} vs dual on cpu",
+                  res[(device, "dual")], res[("cpu", "dual")])
+
+
+def alexnet_spec(boundary, rounds=3, width=ALEXNET["width"]):
+    """The paper's AlexNet experiment (benchmarks/common.py's
+    experiment_spec, SCALA in subset mode) as the port's ExperimentSpec."""
+    from repro_torch import api
+    from repro_torch.configs import ScalaConfig
+
+    a = ALEXNET
+    return api.ExperimentSpec(
+        arch="alexnet-cifar", split="s2", width=width, method="scala",
+        rounds=rounds, seed=0,
+        scala=ScalaConfig(num_clients=a["num_clients"],
+                          participation=a["participation"],
+                          local_iters=a["local_iters"],
+                          server_batch=a["server_batch"], lr=a["lr"]),
+        fed=api.FedSpec(aggregator="weighted"),
+        execution=api.ExecutionSpec(mode="subset", backend="logits",
+                                    boundary=boundary, unroll=0),
+        data=api.DataSpec(kind="image_synthetic", n_train=a["n_train"],
+                          num_classes=10, alpha=a["alpha"])).validate()
+
+
+def phase_alexnet(device="cuda", width=ALEXNET["width"], rounds=3):
+    """The paper's path: AlexNet through ExperimentSpec -> Trainer on
+    ``device``, ``rounds`` rounds on each boundary (finite losses, round
+    seconds, evaluate()'s acc and balanced_acc); then one float32 split
+    step on ``device`` against the CPU per boundary."""
+    from repro_torch import api
+    from repro_torch.configs import ScalaConfig
+    from repro_torch.core.scala import alexnet_split_model
+    from repro_torch.core.split import stack_client_params
+    from repro_torch.models import alexnet as A
+    from repro_torch.tree import tree_map
+
+    for boundary in ("fused", "dual"):
+        spec = alexnet_spec(boundary, rounds, width)
+        t0 = time.perf_counter()
+        trainer = api.Trainer(spec, device=device)
+        sync(device)
+        built = time.perf_counter() - t0
+        secs = []
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            m = trainer.step()
+            sync(device)
+            secs.append(time.perf_counter() - t0)
+            check(all(np.isfinite(m[k]) for k in ("loss_server",
+                                                  "loss_client")),
+                  f"alexnet {boundary}: finite losses in round {r}: {m}")
+            say("alexnet", f"{boundary} round {r} loss_s="
+                f"{m['loss_server']:.4f} loss_c={m['loss_client']:.4f} "
+                f"acc={m['accuracy']:.3f} in {secs[-1]:.3f} s")
+        t0 = time.perf_counter()
+        ev = trainer.evaluate()
+        sync(device)
+        steady = secs[1:] or secs
+        say("alexnet", f"alexnet-cifar width {width} s2, {boundary} "
+            f"boundary: {spec.scala.num_clients} clients, {spec.slots} per "
+            f"round, {spec.scala.local_iters} local steps of "
+            f"{spec.scala.server_batch} images; built in {built:.1f} s; "
+            f"round seconds {[round(x, 4) for x in steady]} (round 0 "
+            f"{secs[0]:.3f} s); evaluate() on {spec.data.n_test} images in "
+            f"{time.perf_counter() - t0:.3f} s: acc={ev['acc']:.4f} "
+            f"balanced_acc={ev['balanced_acc']:.4f}")
+        del trainer
+
+    gen = torch.Generator(device)
+    gen.manual_seed(4)
+    full = A.init_params(gen, width=width)
+    wc, ws = A.split_params(full, "s2")
+    C, B = 4, 12
+    params = {"client": stack_client_params(wc, C), "server": ws}
+    rng = np.random.default_rng(4)
+    batch = {"x": rng.standard_normal((C, B, 32, 32, 3)).astype(np.float32),
+             "labels": rng.integers(0, 10, (C, B)),
+             "weights": np.ones((C, B), np.float32)}
+    model = alexnet_split_model("s2")
+    sc = ScalaConfig(num_clients=C)
+    params64 = tree_map(lambda a: a.double(), params)
+    batch64 = dict(batch, x=batch["x"].astype(np.float64))
+    for boundary in ("fused", "dual"):
+        want = step_on(model, params64, batch64, "cpu", sc, "logits",
+                       boundary)
+        for what, dev, cudnn, checked in (
+                (f"{device} float32, cuDNN off", device, False, True),
+                (f"{device} float32, cuDNN", device, True, False),
+                ("cpu float32", "cpu", True, False)):
+            got = step_on(model, params, batch, dev, sc, "logits", boundary,
+                          cudnn=cudnn)
+            compare_steps("alexnet", f"split step ({boundary}), {C} clients "
+                          f"x {B} images, {what} vs cpu float64", got, want,
+                          checked)
+
+
 def kernel_row(name, source, replaces, launches, max_err, r):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": max_err,
@@ -764,28 +1103,40 @@ def main() -> int:
     rows, max_err = phase_kernels()
     bwd_rows, bwd_err = phase_flash_bwd()
     lace_rows, lace_err = phase_lace()
+    lace1_rows, lace1_err = phase_lace1()
     serve_launches = phase_serve()
     phase_check()
-    zero_counts()
     train = phase_train()
     phase_train_check()
+    dual = phase_train(flags=TRAIN_DUAL_FLAGS, phase="train-dual")
+    phase_dual_check()
+    phase_alexnet()
     csrc = "src/repro_torch/kernels/csrc/"
+    lace_src = "src/repro/kernels/lace/kernel.py:"
     print(json.dumps({"kernels": [
-        # forward launches: the serve path's plus the training path's
+        # forward launches: the serve path's plus both training paths'
         kernel_row("flash_attn_fwd", csrc + "flash_attn.cu",
                    "src/repro/kernels/flash_attn/kernel.py:23",
-                   serve_launches + train["flash_fwd"], max_err,
-                   rows[REPORT_CASE]),
+                   serve_launches + train["flash_fwd"] + dual["flash_fwd"],
+                   max_err, rows[REPORT_CASE]),
         # the backward of K3 (the JAX package trains through autodiff)
         kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
                    "src/repro/kernels/flash_attn/kernel.py:23",
-                   train["flash_bwd"], bwd_err, bwd_rows[FLASH_BWD_REPORT]),
-        kernel_row("lace2_fwd", csrc + "lace.cu",
-                   "src/repro/kernels/lace/kernel.py:219", train["lace_fwd"],
-                   lace_err["fwd"], lace_rows[(LACE_REPORT, "fwd")]),
-        kernel_row("lace2_bwd", csrc + "lace.cu",
-                   "src/repro/kernels/lace/kernel.py:261", train["lace_bwd"],
-                   lace_err["bwd"], lace_rows[(LACE_REPORT, "bwd")])]}))
+                   train["flash_bwd"] + dual["flash_bwd"], bwd_err,
+                   bwd_rows[FLASH_BWD_REPORT]),
+        kernel_row("lace2_fwd", csrc + "lace.cu", lace_src + "219",
+                   train["lace_fwd"], lace_err["fwd"],
+                   lace_rows[(LACE_REPORT, "fwd")]),
+        kernel_row("lace2_bwd", csrc + "lace.cu", lace_src + "261",
+                   train["lace_bwd"], lace_err["bwd"],
+                   lace_rows[(LACE_REPORT, "bwd")]),
+        kernel_row("lace_fwd", csrc + "lace1.cu", lace_src + "41",
+                   dual["lace1_fwd"], lace1_err["fwd"],
+                   lace1_rows[(LACE1_REPORT["server"], "fwd")]),
+        # the server side's K5 (with dW), the costlier of the two
+        kernel_row("lace_bwd", csrc + "lace1.cu", lace_src + "74",
+                   dual["lace1_bwd"], lace1_err["bwd"],
+                   lace1_rows[(LACE1_REPORT["server"], "bwd")])]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

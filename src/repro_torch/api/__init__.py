@@ -28,10 +28,14 @@ from repro_torch.api.specs import (  # noqa: F401
     FedSpec,
     OptimSpec,
 )
-from repro_torch.api.trainer import Trainer, build_lm_data  # noqa: F401
+from repro_torch.api.trainer import (  # noqa: F401
+    Trainer,
+    build_image_data,
+    build_lm_data,
+)
 
 __all__ = ["ADMISSION_MODES", "DataSpec", "ExecutionSpec", "ExperimentSpec",
            "FedSpec", "OPTIMIZER_ALIASES", "OptimSpec", "ProgramState",
            "RoundProgram", "ServeProgram", "ServeSpec", "Trainer", "build",
-           "build_lm_data", "build_serve", "restore_global_params",
-           "text_split_init"]
+           "build_image_data", "build_lm_data", "build_serve",
+           "restore_global_params", "text_split_init"]

@@ -1,10 +1,12 @@
 """``build(spec)`` -- an :class:`ExperimentSpec` into a round program.
 
 The port runs the synchronous SCALA round of ``repro.api.build.
-_build_scala`` in ``subset`` mode: ``init()`` builds the program state
-(params, optimizer state), ``step(state, batches, sizes)`` runs one round
-(T local steps and the FL phase) and ``predict(state, batch)`` the
-current global model (slot 0's client half and the server half).
+_build_scala`` in ``subset`` mode, for a text arch (the transformer) or
+the CNN family (AlexNet at ``spec.width``, split at ``spec.split``):
+``init()`` builds the program state (params, optimizer state),
+``step(state, batches, sizes)`` runs one round (T local steps and the FL
+phase) and ``predict(state, batch)`` the current global model (slot 0's
+client half and the server half).
 
 Params are the port's own init, drawn from ``torch.Generator(device)``
 seeded with ``spec.seed`` -- the JAX init's numbers cannot be drawn here
@@ -61,20 +63,53 @@ def text_split_init(spec: ExperimentSpec, slots: int, device):
     return transformer_split_model(cfg), params
 
 
+def _cnn_split_init(spec: ExperimentSpec, slots: int, device):
+    """AlexNet's split model and its stacked params from the port's init
+    on a generator seeded with ``spec.seed``."""
+    from repro_torch.core.split import stack_client_params
+    from repro_torch.models import alexnet as A
+
+    gen = torch.Generator(device)
+    gen.manual_seed(spec.seed)
+    full = A.init_params(gen, num_classes=spec.data.num_classes,
+                         width=spec.width)
+    wc, ws = A.split_params(full, spec.split)
+    return _split_model(spec), {"client": stack_client_params(wc, slots),
+                                "server": ws}
+
+
+def _split_model(spec: ExperimentSpec):
+    from repro_torch.core.scala import (alexnet_split_model,
+                                        transformer_split_model)
+
+    cfg = spec.model_config()
+    if cfg.family == "cnn":
+        return alexnet_split_model(spec.split,
+                                   num_classes=spec.data.num_classes)
+    return transformer_split_model(cfg)
+
+
 def _check_params(params, spec: ExperimentSpec, slots: int, device):
     """Given params on ``device``, their client half stacked over
     ``slots`` (a merged client half is repeated)."""
     from repro_torch.core.split import stack_client_params
 
     cfg = spec.model_config()
-    tok = params["client"]["embed"]["tok"]
-    if tuple(tok.shape) == (cfg.vocab_size, cfg.d_model):
+    if cfg.family == "cnn":
+        probe, shape = params["client"]["convs"][0]["w"], None
+        merged = probe.dim() == 4
+    else:
+        probe = params["client"]["embed"]["tok"]
+        shape = (cfg.vocab_size, cfg.d_model)
+        merged = tuple(probe.shape) == shape
+    if merged:
         params = dict(params, client=stack_client_params(params["client"],
                                                          slots))
-    elif tuple(tok.shape) != (slots, cfg.vocab_size, cfg.d_model):
-        raise ValueError(f"client embedding has shape {tuple(tok.shape)}; "
-                         f"expected ({cfg.vocab_size}, {cfg.d_model}) or "
-                         f"({slots}, ...) for {slots} slots of {cfg.name}")
+    elif probe.shape[0] != slots or (shape is not None
+                                     and tuple(probe.shape[1:]) != shape):
+        raise ValueError(f"client half's first leaf has shape "
+                         f"{tuple(probe.shape)}; expected it merged or "
+                         f"stacked over {slots} slots of {cfg.name}")
     return tree_map(lambda a: a.to(device), params)
 
 
@@ -94,11 +129,11 @@ def build(spec: ExperimentSpec, *, device="cuda",
                                      default_lr=sc.lr)
     agg = fd.make_aggregator()
     if params is None:
-        model, params = text_split_init(spec, slots, device)
+        init = (_cnn_split_init if spec.model_config().family == "cnn"
+                else text_split_init)
+        model, params = init(spec, slots, device)
     else:
-        from repro_torch.core.scala import transformer_split_model
-
-        model = transformer_split_model(spec.model_config())
+        model = _split_model(spec)
         params = _check_params(params, spec, slots, device)
     round_fn = engine.make_round_runner(
         model, sc, backend=ex.backend, boundary=ex.boundary, optimizer=opt,

@@ -9,14 +9,16 @@ the execution mode (:class:`ExecutionSpec`) and the data
 CLI's ``--dump-config`` output runs verbatim here.
 
 :meth:`ExperimentSpec.validate` accepts what the port runs -- SCALA on a
-text arch, the host-side ``subset`` mode, the fused ``lace`` boundary,
-f32 policy, one round per call, the ``fedavg`` / ``weighted``
-aggregators -- and raises ``NotImplementedError`` naming the missing
-piece for the rest (masked / sparse / async, ``lace_dp``, faults and
-guards, server-side FedOpt, ``precision="bf16"``, ``rounds_per_call >
-1``, the CNN family and the FL/SFL baselines), and ``ValueError`` for
-combinations the reference rejects too. ``unroll`` and ``donate`` are
-accepted and have nothing to act on in an eager program.
+text arch (``lm_synthetic``, backends ``lace`` or ``logits``) or on the
+CNN family (``image_synthetic``, backend ``logits``), the host-side
+``subset`` mode, both boundaries (``fused``, ``dual``), f32 policy, one
+round per call, the ``fedavg`` / ``weighted`` aggregators -- and raises
+``NotImplementedError`` naming the missing piece for the rest (masked /
+sparse / async, ``lace_dp``, faults and guards, server-side FedOpt,
+``precision="bf16"``, ``rounds_per_call > 1`` and the FL/SFL
+baselines), and ``ValueError`` for combinations the reference rejects
+too. ``unroll`` and ``donate`` are accepted and have nothing to act on
+in an eager program.
 """
 from __future__ import annotations
 
@@ -159,8 +161,11 @@ class ExecutionSpec:
 @dataclass(frozen=True)
 class DataSpec:
     """``lm_synthetic``: domain-skewed synthetic token documents of
-    length ``seq`` + 1 (the LM training CLI's data). ``image_synthetic`` is the
-    CNN family's."""
+    length ``seq`` + 1 (the LM training CLI's data). ``image_synthetic``:
+    CIFAR-shaped gaussian class images, ``n_train`` + ``n_test`` of
+    ``num_classes`` classes, the training set label-skew partitioned over
+    the clients by ``alpha`` (classes per client) or ``beta`` (Dirichlet
+    concentration) -- the CNN family's data."""
 
     kind: str = "lm_synthetic"
     seq: int = 128
@@ -217,12 +222,6 @@ class ExperimentSpec:
         if self.method not in SCALA_METHODS:
             raise _not_ported(f"method {self.method!r} (an FL/SFL baseline)",
                               "the baselines slice")
-        if cfg.family == "cnn" or self.data.kind == "image_synthetic":
-            raise _not_ported("the CNN (AlexNet) family", "the AlexNet slice")
-        if cfg.frontend is not None:
-            raise ValueError(
-                f"data kind 'lm_synthetic' needs a text arch; {self.arch!r} "
-                f"has frontend {cfg.frontend!r}")
         if ex.mode != "subset":
             raise _not_ported(f"execution mode {ex.mode!r}",
                               "the federation slice (masked) or the "
@@ -233,11 +232,10 @@ class ExperimentSpec:
                 "spec needs an in-program mode ('masked' or 'sparse')")
         if ex.backend == "lace_dp":
             raise _not_ported("backend 'lace_dp'", "the multi-device slice")
-        if ex.backend == "logits":
-            raise _not_ported("backend 'logits'", "the AlexNet slice")
-        if ex.boundary == "dual":
-            raise _not_ported("boundary 'dual'",
-                              "the AlexNet slice (kernels K4/K5)")
+        if ex.backend != "logits" and cfg.family == "cnn":
+            raise ValueError(
+                f"backend {ex.backend!r} needs a trunk/head split; the CNN "
+                "(AlexNet) family only supports backend 'logits'")
         if ex.precision == "bf16":
             raise _not_ported("precision 'bf16'", "the dispatch-knob slice")
         if ex.rounds_per_call > 1:
@@ -258,6 +256,21 @@ class ExperimentSpec:
             if value != default:
                 raise ValueError(f"{name}={value!r} applies to mode 'async' "
                                  "only")
+        # --- data / model coherence (the reference's rules) ---
+        if self.data.kind == "image_synthetic" and cfg.family != "cnn":
+            raise ValueError(
+                f"data kind 'image_synthetic' needs the CNN family; arch "
+                f"{self.arch!r} is {cfg.family!r}")
+        if self.data.kind == "lm_synthetic" and (cfg.family == "cnn"
+                                                 or cfg.frontend is not None):
+            raise ValueError(
+                f"data kind 'lm_synthetic' needs a text arch; "
+                f"{self.arch!r} has family {cfg.family!r} / frontend "
+                f"{cfg.frontend!r}")
+        if self.data.kind == "image_synthetic" \
+                and self.data.alpha is not None and self.data.beta is not None:
+            raise ValueError("set at most one of data.alpha (quantity skew) "
+                             "and data.beta (Dirichlet skew)")
         return self
 
     def to_dict(self) -> Dict[str, Any]:

@@ -4,9 +4,12 @@ It synthesizes the dataset from the spec's :class:`DataSpec`, assembles
 each round's batches (eq. 3 sizing, :mod:`repro_torch.data.loader`),
 moves them to the program's device and threads the program state
 through :class:`RoundProgram.step`. The host numpy streams are the
-reference's (``api/trainer.py``): the documents from ``spec.seed``, the
-per-client document choice from ``seed + 1``, client sampling and batch
-rows from ``default_rng(seed)``, so both trainers see the same batches.
+reference's (``api/trainer.py``), so both trainers see the same batches:
+for ``lm_synthetic`` the documents from ``spec.seed``, the per-client
+document choice from ``seed + 1``, client sampling and batch rows from
+``default_rng(seed)``; for ``image_synthetic`` the images and their
+label-skew partition from ``spec.seed``, client sampling and batch rows
+from ``default_rng(seed + 7)``.
 
     trainer = Trainer(spec, device="cuda")
     history = trainer.run()            # spec.rounds rounds
@@ -45,6 +48,23 @@ def build_lm_data(cfg, num_clients: int, docs_per_client: int, seq: int,
     return by_client
 
 
+def build_image_data(spec: ExperimentSpec):
+    """CIFAR-shaped gaussian images, label-skew partitioned per the
+    spec's DataSpec. Returns (FederatedData, (x_test, y_test))."""
+    from repro_torch.data.loader import FederatedData
+    from repro_torch.data.partition import partition
+    from repro_torch.data.synthetic import gaussian_images
+
+    d = spec.data
+    x, y = gaussian_images(d.n_train + d.n_test, num_classes=d.num_classes,
+                           seed=spec.seed)
+    x_train, y_train = x[:d.n_train], y[:d.n_train]
+    parts = partition(y_train, spec.scala.num_clients, alpha=d.alpha,
+                      beta=d.beta, num_classes=d.num_classes, seed=spec.seed)
+    return (FederatedData.from_partition(x_train, y_train, parts),
+            (x[d.n_train:], y[d.n_train:]))
+
+
 class Trainer:
     """Run a built experiment round by round on ``device``. ``params``
     (training layout, see :func:`repro_torch.api.build.build`) replaces
@@ -58,19 +78,26 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
         self.round = 0
         self._cfg = spec.model_config()
-        self._data = build_lm_data(self._cfg, spec.scala.num_clients,
-                                   spec.data.docs_per_client, spec.data.seq,
-                                   spec.seed)
-        self._rng = np.random.default_rng(spec.seed)
+        self._images = spec.data.kind == "image_synthetic"
+        if self._images:
+            self._data, self._test = build_image_data(spec)
+            self._rng = np.random.default_rng(spec.seed + 7)
+        else:
+            self._data = build_lm_data(self._cfg, spec.scala.num_clients,
+                                       spec.data.docs_per_client,
+                                       spec.data.seq, spec.seed)
+            self._rng = np.random.default_rng(spec.seed)
 
     def _next_round_batches(self):
-        from repro_torch.data.loader import lm_round_batches, sample_clients
+        from repro_torch.data.loader import (lm_round_batches, round_batches,
+                                             sample_clients)
 
         sc = self.spec.scala
         selected = sample_clients(sc.num_clients, sc.clients_per_round,
                                   self._rng)
-        rb = lm_round_batches(self._data, selected, sc.server_batch,
-                              sc.local_iters, self._rng)
+        batches = round_batches if self._images else lm_round_batches
+        rb = batches(self._data, selected, sc.server_batch, sc.local_iters,
+                     self._rng)
         sizes = torch.from_numpy(rb.pop("sizes")).to(self.device)
         return ({k: torch.from_numpy(v).to(self.device)
                  for k, v in rb.items()}, sizes)
@@ -101,11 +128,23 @@ class Trainer:
         return self.history
 
     def evaluate(self) -> Dict[str, float]:
-        """Next-token loss and accuracy of the global model on a held-out
-        document stream (seeded off the experiment seed, as the
-        reference's)."""
-        from repro_torch.core.losses import accuracy, softmax_xent
+        """The global model on held-out data: for ``image_synthetic`` the
+        test set's accuracy and class-balanced accuracy (the paper-table
+        metrics); for ``lm_synthetic`` next-token loss and accuracy on a
+        document stream seeded off the experiment seed, as the
+        reference's."""
+        from repro_torch.core.losses import (accuracy, per_class_accuracy,
+                                             softmax_xent)
         from repro_torch.data.synthetic import token_stream
+
+        if self._images:
+            x_test, y_test = self._test
+            logits = self.program.predict(
+                self.state, {"x": torch.from_numpy(x_test).to(self.device)})
+            y = torch.from_numpy(y_test).to(self.device)
+            return {"acc": float(accuracy(logits, y)),
+                    "balanced_acc": float(per_class_accuracy(
+                        logits, y, self.spec.data.num_classes))}
 
         docs, _ = token_stream(
             n_docs=32, doc_len=self.spec.data.seq + 1,

@@ -10,6 +10,11 @@ of tensors (:mod:`repro_torch.models.transformer`): merged for serving
 (:func:`params_from_reference`), or in the training layout with the K
 axis kept (:func:`train_params_from_reference`), together with the
 engine's optimizer state and step (:func:`train_state_from_reference`).
+
+AlexNet (the CNN family) keeps the reference's tree -- ``convs``, ``fcs``
+(tuples here) and ``head`` -- and changes one layout: conv weights go from
+HWIO to the OIHW of ``F.conv2d``. The FC weights keep theirs, because
+:mod:`repro_torch.models.alexnet` flattens in the reference's NHWC order.
 """
 from __future__ import annotations
 
@@ -72,6 +77,36 @@ def _server_half(server, cfg: ModelConfig, device):
             "head": t(server["head"])}
 
 
+def _hwio_to_oihw(a):
+    """(..., H, W, I, O) -> (..., O, I, H, W); leading (K,) axes kept."""
+    return np.moveaxis(np.asarray(a), (-1, -2), (-4, -3))
+
+
+def alexnet_params_from_reference(tree, device="cpu"):
+    """A reference AlexNet tree (full, or one half; leading slot axes
+    kept) -> the port's: conv weights HWIO -> OIHW, lists -> tuples."""
+    t = lambda a: to_tensor(a, device)
+    out = {}
+    if "convs" in tree:
+        out["convs"] = tuple({"w": t(_hwio_to_oihw(c["w"])), "b": t(c["b"])}
+                             for c in tree["convs"])
+    if "fcs" in tree:
+        out["fcs"] = tuple({"w": t(f["w"]), "b": t(f["b"])}
+                           for f in tree["fcs"])
+    if "head" in tree:
+        out["head"] = {"w": t(tree["head"]["w"]), "b": t(tree["head"]["b"])}
+    return out
+
+
+def _halves(cfg: ModelConfig):
+    """The (client, server) half converters of ``cfg``'s family."""
+    if cfg.family == "cnn":
+        cnn = lambda tree, cfg, device: alexnet_params_from_reference(
+            tree, device)
+        return cnn, cnn
+    return _client_half, _server_half
+
+
 def params_from_reference(tree, cfg: ModelConfig, device="cpu"):
     """Reference params ``{'client', 'server'}`` (numpy leaves; the client
     half merged, or stacked over K client slots, of which slot 0 -- the
@@ -92,8 +127,9 @@ def train_params_from_reference(tree, cfg: ModelConfig, device="cpu"):
     """Reference training params -> the port's training layout: the
     client half keeps its leading (K,) slot axis (or stays merged, for
     :func:`repro_torch.api.build` to repeat over the slots)."""
-    return {"client": _client_half(tree["client"], cfg, device),
-            "server": _server_half(tree["server"], cfg, device)}
+    client, server = _halves(cfg)
+    return {"client": client(tree["client"], cfg, device),
+            "server": server(tree["server"], cfg, device)}
 
 
 def _opt_half(state, half, cfg, device):
@@ -116,12 +152,11 @@ def train_state_from_reference(state, cfg: ModelConfig, device="cpu"):
     from repro_torch.core.engine import TrainState
 
     opt = state.opt_state
+    client, server = _halves(cfg)
     return TrainState(
         params=train_params_from_reference(state.params, cfg, device),
-        opt_state={"client": _opt_half(opt["client"], _client_half, cfg,
-                                       device),
-                   "server": _opt_half(opt["server"], _server_half, cfg,
-                                       device)},
+        opt_state={"client": _opt_half(opt["client"], client, cfg, device),
+                   "server": _opt_half(opt["server"], server, cfg, device)},
         step=int(np.asarray(state.step)))
 
 

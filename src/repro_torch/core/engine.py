@@ -6,29 +6,47 @@ The reference's five stages (paper Alg. 2 lines 9-20), in PyTorch:
   stage 2  client forward     a Python loop over the client axis (the
                               reference vmaps it); each client's half runs
                               on its own detached leaves, its graph kept
-  stage 3  server forward     ONE trunk forward on the concatenated
-                              activations, a detached leaf that requires
-                              grad
-  stage 4  dual pullbacks     the fused boundary (K1 + K2 on a card) gives
-                              both losses and both feature cotangents;
-                              autograd pulls gf_s back to d w_s (keeping
-                              the graph) and gf_k back to the activation
-                              grads G_k; the head, unused by the trunk,
-                              gets dW_s; each client pulls its slice of
-                              G_k back through its own graph (eq. 9)
+  stage 3  server forward     ONE forward of the server half on the
+                              concatenated activations, a detached leaf
+                              that requires grad: ``server_fwd`` to the
+                              logits (backend ``logits``) or
+                              ``server_trunk`` to the features (``lace``)
+  stage 4  dual pullbacks     both losses and both cotangents at the
+                              boundary; autograd pulls the P_s cotangent
+                              back to d w_s (keeping the graph) and the
+                              P_k one back to the activation grads G_k;
+                              under ``lace`` the head, unused by the
+                              trunk, gets dW_s; each client pulls its
+                              slice of G_k back through its own graph
+                              (eq. 9)
   stage 5  update             an :class:`repro_torch.optim.Optimizer`
 
-Ported: ``backend="lace"`` with ``boundary="fused"`` and ``precision=
+The boundary (stage 4), per backend and ``boundary``:
+
+* ``lace`` + ``fused``: :func:`repro_torch.kernels.lace.ops.lace2_grads`
+  (K1 + K2 on a card), both losses from one ``feats @ w_head`` product;
+* ``lace`` + ``dual``: two :func:`~repro_torch.kernels.lace.ops.
+  lace_loss` gradients (K4 + K5 each on a card), eq. 14 wrt (feats,
+  w_head) and eq. 15 wrt feats alone, so the client side's K5 skips dW;
+* ``logits`` + ``fused``: :func:`repro_torch.core.losses.
+  dual_adjusted_xent` over the materialized logits;
+* ``logits`` + ``dual`` (and ``fused`` with ``label_smoothing > 0``, as in
+  the reference): two ``softmax_xent`` gradients.
+
+On the CPU the fused and dual boundaries give bit-identical float32
+gradients and losses (their plain ops share every step; the tests hold
+them to it).
+
+Ported: backends ``logits`` and ``lace``, both boundaries, ``precision=
 "f32"`` (the model's own compute dtype), an optional participation
 ``mask``, and the synchronous round with an aggregator and the
-``opt_state_policy`` carry / reset / average. The other backends, the
-dual boundary, the bf16 policy, sparse slots, faults, guards and
-server-side FedOpt raise ``NotImplementedError`` naming the slice that
-brings them.
+``opt_state_policy`` carry / reset / average. ``lace_dp``, the bf16
+policy, sparse slots, faults, guards and server-side FedOpt raise
+``NotImplementedError`` naming the slice that brings them.
 
 Memory: the client half's graph from stage 2 is kept and pulled back
 once (the reference re-runs the client forward inside its vjp); the
-server trunk is not rematerialized (about 0.5 GB of saved activations per
+server half is not rematerialized (about 0.5 GB of saved activations per
 layer at 8192 tokens of qwen1.5-0.5b), so every attention layer launches
 the forward kernel once per step and the backward kernel once per
 pullback through it.
@@ -41,6 +59,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ScalaConfig
+from repro_torch.core import losses
 from repro_torch.core.label_stats import client_and_concat_priors
 from repro_torch.core.split import stack_client_params, weighted_mean
 from repro_torch.optim import optimizers, schedules
@@ -52,9 +71,7 @@ PRECISIONS = ("f32", "bf16")
 OPT_STATE_POLICIES = ("carry", "reset", "average")
 
 _LATER = {
-    "logits": "the AlexNet slice (materialized logits)",
     "lace_dp": "the multi-device slice",
-    "dual": "the AlexNet slice (the single-prior kernels K4/K5)",
     "bf16": "the dispatch-knob slice",
 }
 
@@ -63,10 +80,11 @@ _LATER = {
 class SplitModel:
     """The two halves of a split model.
 
-    client_fwd(wc, batch) -> acts ``{'x', 'positions'}``; server_fwd(ws,
-    acts) -> (logits, aux); server_trunk(ws, acts) -> (features, aux),
-    everything but the head; head_weight(ws) -> (d, V);
-    head_grad_merge(d_ws, dW) adds the boundary's head gradient.
+    client_fwd(wc, batch) -> acts ``{'x', ...}`` (a transformer adds
+    ``'positions'``); server_fwd(ws, acts) -> (logits, aux). For the
+    ``lace`` backend also server_trunk(ws, acts) -> (features, aux),
+    everything but the head; head_weight(ws) -> (d, V); and
+    head_grad_merge(d_ws, dW), which adds the boundary's head gradient.
     """
 
     client_fwd: Callable[[Any, Dict[str, Any]], Dict[str, Any]]
@@ -101,9 +119,9 @@ def _check(backend, boundary, precision, model):
             raise NotImplementedError(
                 f"{value!r} is not ported yet; it comes with "
                 f"{_LATER[value]}")
-    if model.server_trunk is None:
+    if backend != "logits" and model.server_trunk is None:
         raise ValueError(f"backend {backend!r} needs model.server_trunk/"
-                         "head_weight (the fused boundary)")
+                         "head_weight (fused LACE path)")
 
 
 def _grad_leaves(tree):
@@ -111,6 +129,68 @@ def _grad_leaves(tree):
     memory), and the list of them in order."""
     tree = tree_map(lambda a: a.detach().requires_grad_(), tree)
     return tree, leaves(tree)
+
+
+def _logits_boundary(logits, labels, weights, p_k, p_s, scala, boundary):
+    """Stage 4 of backend ``logits``: (loss_s, loss_k, g_s, g_k,
+    accuracy) over the materialized logits (C*B, ..., N), the priors
+    broadcast over each client's tokens as the reference's
+    ``_prior_for_tokens``."""
+    N = logits.shape[-1]
+    labels_f = labels.reshape((-1,) + labels.shape[2:])
+    weights_f = (None if weights is None
+                 else weights.reshape((-1,) + weights.shape[2:]))
+    ps_use = p_s if scala.adjust_server else None
+    pk_tok = p_k.reshape((p_k.shape[0],) + (1,) * (labels.dim() - 1) + (N,))
+    pk_use = (pk_tok.expand(labels.shape[:2] + (1,) * (labels.dim() - 2)
+                            + (N,)).reshape((-1,) + (1,) * (labels.dim() - 2)
+                                            + (N,))
+              if scala.adjust_client else None)
+    kw = dict(tau=scala.tau, label_smoothing=scala.label_smoothing,
+              prior_eps=scala.prior_eps)
+    acc = losses.accuracy(logits, labels_f, weights_f)
+    if boundary == "fused" and scala.label_smoothing == 0.0:
+        return losses.dual_adjusted_xent(logits, labels_f, weights=weights_f,
+                                         prior_s=ps_use, prior_k=pk_use,
+                                         **kw) + (acc,)
+    out = []
+    for prior in (ps_use, pk_use):
+        lg = logits.detach().requires_grad_()
+        loss = losses.softmax_xent(lg, labels_f, weights=weights_f,
+                                   prior=prior, **kw)
+        out.append((loss.detach(), torch.autograd.grad(loss, lg)[0]))
+    (loss_s, g_s), (loss_k, g_k) = out
+    return loss_s, loss_k, g_s, g_k, acc
+
+
+def _lace_boundary(feats, w_head, labels, weights, p_k, p_s, scala,
+                   boundary, ce_chunk):
+    """Stage 4 of backend ``lace``: (loss_s, loss_k, gf_s, gf_k, gW_s)
+    with the feature cotangents (C, tokens, d)."""
+    from repro_torch.kernels.lace import ops
+
+    C = labels.shape[0]
+    feats_g = feats.reshape(C, -1, feats.shape[-1])
+    labels_g = labels.reshape(C, -1)
+    weights_g = None if weights is None else weights.reshape(C, -1)
+    ps_rows = p_s[None] if scala.adjust_server else None
+    pk_rows = p_k if scala.adjust_client else None
+    pk_ids = (torch.arange(C, device=labels.device) if scala.adjust_client
+              else None)
+    args = (scala.tau, scala.prior_eps, ce_chunk)
+    if boundary == "fused":
+        return ops.lace2_grads(feats_g, w_head, labels_g, ps_rows, None,
+                               pk_rows, pk_ids, weights_g, *args)[:5]
+    # eq. 14: the concatenated prior P_s, for the server update (d w_s)
+    fg = feats_g.detach().requires_grad_()
+    wh = w_head.detach().requires_grad_()
+    loss_s = ops.lace_loss(fg, wh, labels_g, ps_rows, None, weights_g, *args)
+    gf_s, gW_s = torch.autograd.grad(loss_s, (fg, wh))
+    # eq. 15: the per-client priors P_k, for the activation grads G_k
+    loss_k = ops.lace_loss(fg, w_head.detach(), labels_g, pk_rows, pk_ids,
+                           weights_g, *args)
+    (gf_k,) = torch.autograd.grad(loss_k, fg)
+    return loss_s.detach(), loss_k.detach(), gf_s, gf_k, gW_s
 
 
 def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
@@ -125,8 +205,6 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
     token weights: masked-out clients add nothing to the priors or the
     losses and get zero gradient.
     """
-    from repro_torch.kernels.lace.ops import lace2_grads
-
     _check(backend, boundary, precision, model)
     N = model.num_classes
     labels = batch["labels"]
@@ -152,37 +230,44 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
             acts = model.client_fwd(wc, b)
             client_trees.append(wc_leaves)
             client_acts.append(acts)
+        if "memory" in client_acts[0]:
+            raise NotImplementedError("cross-attention memory at the split "
+                                      "is not ported yet; it comes with the "
+                                      "other archs")
         x_c = [a["x"] for a in client_acts]
         x = torch.cat([a.detach() for a in x_c]).requires_grad_()
 
-        # --- stage 3: one server trunk forward on the concatenation ---
+        # --- stage 3: one server forward on the concatenation, every
+        # other activation (positions) taken from client 0, as the
+        # reference closes over its first slot's ---
         ws, ws_leaves = _grad_leaves(params["server"])
-        feats, aux = model.server_trunk(
-            ws, {"x": x, "positions": client_acts[0]["positions"]})
+        server = model.server_fwd if backend == "logits" else \
+            model.server_trunk
+        out, aux = server(ws, {**client_acts[0], "x": x})
 
-    # --- stage 4: both losses and cotangents at the split boundary ---
-    if ce_chunk is None:
-        ce_chunk = default_ce_chunk(N)
-    d = feats.shape[-1]
-    w_head = model.head_weight(params["server"])
-    loss_s, loss_k, gf_s, gf_k, gW_s, _ = lace2_grads(
-        feats.detach().reshape(C, -1, d), w_head, labels.reshape(C, -1),
-        p_s[None] if scala.adjust_server else None, None,
-        p_k if scala.adjust_client else None,
-        torch.arange(C, device=labels.device) if scala.adjust_client else None,
-        None if weights is None else weights.reshape(C, -1),
-        scala.tau, scala.prior_eps, ce_chunk)
-    gf_s = gf_s.reshape(feats.shape).to(feats.dtype)
-    gf_k = gf_k.reshape(feats.shape).to(feats.dtype)
+        # --- stage 4: both losses and cotangents at the split boundary ---
+        metrics = {}
+        if backend == "logits":
+            loss_s, loss_k, g_s, g_k, metrics["accuracy"] = \
+                _logits_boundary(out.detach(), labels, weights, p_k, p_s,
+                                 scala, boundary)
+        else:
+            loss_s, loss_k, g_s, g_k, gW_s = _lace_boundary(
+                out.detach(), model.head_weight(params["server"]), labels,
+                weights, p_k, p_s, scala, boundary,
+                default_ce_chunk(N) if ce_chunk is None else ce_chunk)
+        g_s = g_s.reshape(out.shape).to(out.dtype)
+        g_k = g_k.reshape(out.shape).to(out.dtype)
 
     # stage 4a: P_s cotangent -> d w_s; P_k cotangent -> G_k
-    d_ws = torch.autograd.grad(feats, ws_leaves, gf_s, retain_graph=True,
+    d_ws = torch.autograd.grad(out, ws_leaves, g_s, retain_graph=True,
                                allow_unused=True)
     d_ws = unflatten(params["server"], [
         torch.zeros_like(p) if g is None else g
         for p, g in zip(ws_leaves, d_ws)])
-    (g_x,) = torch.autograd.grad(feats, [x], gf_k)
-    d_ws = model.head_grad_merge(d_ws, gW_s)
+    (g_x,) = torch.autograd.grad(out, [x], g_k)
+    if backend != "logits":
+        d_ws = model.head_grad_merge(d_ws, gW_s)
 
     # stage 4b (eq. 9): each client pulls its own G_k back
     d_wc, start = [], 0
@@ -196,7 +281,7 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
     d_wc = unflatten(params["client"], [torch.stack(gs)
                                         for gs in zip(*d_wc)])
     metrics = {"loss_server": loss_s, "loss_client": loss_k,
-               "aux": aux.detach()}
+               "aux": aux.detach(), **metrics}
     return {"client": d_wc, "server": d_ws}, metrics
 
 

@@ -1,6 +1,8 @@
 """Model adapters: a model's two halves as a :class:`SplitModel`."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import SplitModel
 
@@ -34,3 +36,20 @@ def transformer_split_model(cfg: ModelConfig) -> SplitModel:
                       num_classes=cfg.vocab_size, server_trunk=server_trunk,
                       head_weight=head_weight,
                       head_grad_merge=head_grad_merge)
+
+
+def alexnet_split_model(split: str = "s2", num_classes: int = 10) -> SplitModel:
+    """AlexNet's client convs and server rest: the ``logits`` backend
+    only (no trunk/head split, as in the reference)."""
+    from repro_torch.models import alexnet as A
+
+    def client_fwd(wc, batch):
+        return {"x": A.client_forward_from_split(wc, batch["x"], split)}
+
+    def server_fwd(ws, acts):
+        logits = A.server_forward_from_split(ws, acts["x"], split)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+
+    return SplitModel(client_fwd=client_fwd, server_fwd=server_fwd,
+                      num_classes=num_classes)

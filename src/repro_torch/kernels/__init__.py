@@ -2,8 +2,9 @@
 
 * flash_attn -- causal / sliding-window attention, forward and backward
   (CUDA C++)
-* lace -- the fused dual-prior logit-adjusted cross-entropy of the split
-  boundary, forward (K1) and backward (K2) (CUDA C++)
+* lace -- the logit-adjusted cross-entropy of the split boundary: the
+  fused dual-prior forward (K1) and backward (K2), and the single-prior
+  forward (K4) and backward (K5) of the dual boundary (CUDA C++)
 
 Each subpackage: kernel.py (the launcher of the compiled kernel),
 ops.py (the wrapper the model calls: the plain version on a CPU tensor,

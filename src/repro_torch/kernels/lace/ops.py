@@ -1,15 +1,25 @@
-"""LACE, the fused dual-prior split boundary: both SCALA losses (eq. 14
-with the concatenated prior P_s, eq. 15 with the per-client priors P_k)
-and their gradients from one ``feats @ w_head`` product.
+"""LACE, the logit-adjusted cross-entropy at the split boundary, without
+materializing the (tokens, V) logits.
 
-:func:`lace2_grads` is the engine's entry point. A CPU tensor gets the
-plain chunked version below -- the reference's
-``repro/kernels/lace/ops.py:lace2_grads`` on torch ops: the token axis
-scanned in chunks of ``chunk``, padded with zero-weight tokens to a
-chunk multiple, so no more than (G, chunk, V) logits are live. A CUDA
-tensor gets K1 then K2 (:mod:`repro_torch.kernels.lace.kernel`) or an
+* :func:`lace2_grads` -- the fused dual-prior boundary: both SCALA
+  losses (eq. 14 with the concatenated prior P_s, eq. 15 with the
+  per-client priors P_k) and their gradients from one ``feats @ w_head``
+  product; the engine's ``boundary="fused"``. On CUDA: K1 then K2.
+* :func:`lace_loss` / :func:`lace_nll_sum` / :func:`lace_loss_flat` --
+  one adjusted loss (weighted mean, or raw weighted sum) as a
+  ``torch.autograd.Function``; the engine's ``boundary="dual"`` takes two,
+  one per prior. On CUDA: K4 forward (saving the log-sum-exp), K5
+  backward, whose dW pass is skipped when ``w_head`` needs no gradient.
+
+A CPU tensor gets the plain chunked version -- the reference's
+``repro/kernels/lace/ops.py`` on torch ops: the token axis scanned in
+chunks of ``chunk``, padded with zero-weight tokens to a chunk multiple,
+so no more than (G, chunk, V) logits are live. The fused and the
+single-prior plain versions share their per-chunk ops, so on the CPU
+``boundary="fused"`` and ``"dual"`` agree bitwise in float32. A CUDA
+tensor gets the kernels (:mod:`repro_torch.kernels.lace.kernel`) or an
 exception, never the plain version. ``LAUNCHES_FWD`` / ``LAUNCHES_BWD``
-count the kernels' launches.
+count K1 / K2 launches, ``LAUNCHES_FWD1`` / ``LAUNCHES_BWD1`` K4 / K5.
 
 Shapes: feats (G, N, d) -- G groups (SCALA clients), N tokens each;
 w_head (d, V); labels / weights (G, N); prior_rows (K, V) with prior_ids
@@ -24,8 +34,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.lace import kernel
 
-LAUNCHES_FWD = 0
-LAUNCHES_BWD = 0
+LAUNCHES_FWD = 0     # K1
+LAUNCHES_BWD = 0     # K2
+LAUNCHES_FWD1 = 0    # K4
+LAUNCHES_BWD1 = 0    # K5
 
 
 def _pick_chunk(n: int, target: int) -> int:
@@ -101,18 +113,33 @@ def _prep(feats, prior_rows, prior_ids, weights, eps):
     return weights, lp[:, None, :]
 
 
-def _side_stats(z, l_c):
-    """(nll, softmax - onehot) of one side's adjusted logits z (G, c, V),
-    in the reference's op order: max shift, exp, sum, log."""
+def _nll_stats(z, l_c):
+    """(nll, exp(z - max), sumexp, label index) of one side's adjusted
+    logits z (G, c, V), in the reference's op order: max shift, exp, sum,
+    log."""
     m = z.amax(dim=-1, keepdim=True)
     ez = torch.exp(z - m)
     se = ez.sum(dim=-1)
     lse = torch.log(se) + m[..., 0]
     idx = l_c.long()[..., None]
     nll = lse - z.gather(-1, idx)[..., 0]
+    return nll, ez, se, idx
+
+
+def _side_stats(z, l_c):
+    """(nll, softmax - onehot) of one side's adjusted logits z (G, c, V)."""
+    nll, ez, se, idx = _nll_stats(z, l_c)
     g = ez / se[..., None]
     g.scatter_add_(-1, idx, torch.full_like(idx, -1, dtype=g.dtype))
     return nll, g
+
+
+def _w_sum(w, c):
+    """The weight sum, chunk-ordered as the reference scans it."""
+    w_sum = torch.zeros((), dtype=torch.float32, device=w.device)
+    for i in range(0, w.shape[1], c):
+        w_sum = w_sum + w[:, i:i + c].sum()
+    return w_sum
 
 
 @torch.no_grad()
@@ -129,9 +156,7 @@ def lace2_grads_plain(feats, w_head, labels, prior_rows_s, prior_ids_s,
     w, lp_s = _prep(feats_p, prior_rows_s, prior_ids_s, weights_p, eps)
     _, lp_k = _prep(feats_p, prior_rows_k, prior_ids_k, weights_p, eps)
     chunks = range(0, N, c)
-    w_sum = torch.zeros((), dtype=torch.float32, device=feats.device)
-    for i in chunks:                            # chunk-ordered, as scanned
-        w_sum = w_sum + w[:, i:i + c].sum()
+    w_sum = _w_sum(w, c)
     if scale is None:
         one = torch.ones((), dtype=torch.float32, device=feats.device)
         scale = one / torch.clamp(w_sum, min=1e-8) if mean else one
@@ -235,3 +260,149 @@ def lace2_grads(feats, w_head, labels, prior_rows_s, prior_ids_s,
                                  weights, tau, eps, mean, scale)
     raise ValueError(f"lace2_grads takes CPU or CUDA tensors on one device, "
                      f"got {sorted(kinds)}")
+
+
+# ---------------------------------------------------------------------------
+# one adjusted loss per call: the dual boundary (K4 forward, K5 backward)
+# ---------------------------------------------------------------------------
+
+
+def _fwd_plain(feats, w_head, labels, prior_rows, prior_ids, weights, tau,
+               eps, chunk):
+    """The reference's ``_fwd_impl`` on torch ops: (weighted NLL sum,
+    weight sum), both scanned chunk by chunk."""
+    c = _pick_chunk(feats.shape[1], chunk)
+    feats_p, labels_p, weights_p, _ = _pad_tokens(c, feats, labels, weights)
+    w, lp = _prep(feats_p, prior_rows, prior_ids, weights_p, eps)
+    w32 = w_head.float()
+    nll_sum = torch.zeros((), dtype=torch.float32, device=feats.device)
+    for i in range(0, feats_p.shape[1], c):
+        z = feats_p[:, i:i + c].float() @ w32
+        nll, _, _, _ = _nll_stats(z if lp is None else z + tau * lp,
+                                  labels_p[:, i:i + c])
+        nll_sum = nll_sum + (nll * w[:, i:i + c]).sum()
+    return nll_sum, _w_sum(w, c)
+
+
+def _bwd_plain(feats, w_head, labels, prior_rows, prior_ids, weights, tau,
+               eps, chunk, scale, want_dw):
+    """The reference's ``_bwd_impl`` on torch ops: d(loss)/d feats (in
+    feats' dtype) and d(loss)/d w_head (in w_head's dtype, or None),
+    every token's cotangent scaled by ``weight * scale``."""
+    G, N0, d = feats.shape
+    c = _pick_chunk(N0, chunk)
+    feats_p, labels_p, weights_p, _ = _pad_tokens(c, feats, labels, weights)
+    w, lp = _prep(feats_p, prior_rows, prior_ids, weights_p, eps)
+    w32 = w_head.float()
+    dw = (torch.zeros(w32.shape, dtype=torch.float32, device=feats.device)
+          if want_dw else None)
+    df = []
+    for i in range(0, feats_p.shape[1], c):
+        f_c = feats_p[:, i:i + c].float()
+        z = f_c @ w32
+        _, g = _side_stats(z if lp is None else z + tau * lp,
+                           labels_p[:, i:i + c])
+        g = g * (w[:, i:i + c] * scale)[..., None]
+        df.append(g @ w32.T)
+        if want_dw:
+            dw = dw + torch.einsum("gcd,gcv->dv", f_c, g)
+    dfeats = torch.cat(df, 1)[:, :N0].to(feats.dtype)
+    return dfeats, None if dw is None else dw.to(w_head.dtype)
+
+
+def _kernel_args(feats, labels, prior_rows, prior_ids, weights, tau, eps):
+    """The kernels' flat arguments: feats (G*N, d), int32 labels, the
+    weights (G*N,) float32 and the prior table with per-token row ids."""
+    G, N, d = feats.shape
+    f2 = feats.reshape(G * N, d)
+    lab = labels.reshape(-1).to(torch.int32).contiguous()
+    w = (torch.ones(G * N, dtype=torch.float32, device=feats.device)
+         if weights is None else weights.reshape(-1).float().contiguous())
+    adj, ids = _side_table(prior_rows, prior_ids, tau, eps, G, N)
+    return f2, lab, w, adj, ids
+
+
+class _LaceLoss(torch.autograd.Function):
+    """The weighted mean (``mean``) or sum of one side's adjusted NLLs;
+    gradients for feats and w_head."""
+
+    @staticmethod
+    def forward(ctx, feats, w_head, labels, prior_rows, prior_ids, weights,
+                tau, eps, chunk, mean):
+        global LAUNCHES_FWD1
+        ctx.conf = (tau, eps, chunk, mean)
+        if feats.device.type == "cpu":
+            nll_sum, w_sum = _fwd_plain(feats, w_head, labels, prior_rows,
+                                        prior_ids, weights, tau, eps, chunk)
+            ctx.save_for_backward(feats, w_head, labels, prior_rows,
+                                  prior_ids, weights, w_sum)
+        else:
+            f2, lab, w, adj, ids = _kernel_args(feats, labels, prior_rows,
+                                                prior_ids, weights, tau, eps)
+            nll, lse = kernel.lace_fwd_cuda(f2, w_head, lab, adj, ids)
+            LAUNCHES_FWD1 += 1
+            nll_sum, w_sum = (nll * w).sum(), w.sum()
+            ctx.save_for_backward(feats, w_head, lab, adj, ids, w, w_sum,
+                                  lse)
+        return nll_sum / torch.clamp(w_sum, min=1e-8) if mean else nll_sum
+
+    @staticmethod
+    def backward(ctx, g):
+        global LAUNCHES_BWD1
+        tau, eps, chunk, mean = ctx.conf
+        saved = ctx.saved_tensors
+        w_sum = saved[6]
+        scale = g / torch.clamp(w_sum, min=1e-8) if mean else g
+        want_dw = ctx.needs_input_grad[1]
+        feats, w_head = saved[0], saved[1]
+        if feats.device.type == "cpu":
+            _, _, labels, prior_rows, prior_ids, weights, _ = saved
+            df, dw = _bwd_plain(feats, w_head, labels, prior_rows, prior_ids,
+                                weights, tau, eps, chunk, scale, want_dw)
+        else:
+            _, _, lab, adj, ids, w, _, lse = saved
+            G, N, d = feats.shape
+            df, dw = kernel.lace_bwd_cuda(feats.reshape(G * N, d), w_head,
+                                          lab, adj, ids, lse,
+                                          (w * scale).contiguous(), want_dw)
+            LAUNCHES_BWD1 += 1
+            df = df.view(G, N, d).to(feats.dtype)
+            dw = None if dw is None else dw.to(w_head.dtype)
+        return df, dw, None, None, None, None, None, None, None, None
+
+
+def _lace(feats, w_head, labels, prior_rows, prior_ids, weights, tau, eps,
+          chunk, mean):
+    _check_args(feats, w_head, labels, prior_rows, prior_ids, weights)
+    kinds = {t.device.type for t in (feats, w_head, labels)}
+    if kinds not in ({"cpu"}, {"cuda"}):
+        raise ValueError(f"lace_loss takes CPU or CUDA tensors on one "
+                         f"device, got {sorted(kinds)}")
+    return _LaceLoss.apply(feats, w_head, labels, prior_rows, prior_ids,
+                           weights, tau, eps, chunk, mean)
+
+
+def lace_loss(feats, w_head, labels, prior_rows, prior_ids, weights,
+              tau: float = 1.0, eps: float = 1e-8, chunk: int = 4096):
+    """The weighted-mean adjusted NLL of (G, N) tokens, differentiable
+    in ``feats`` and ``w_head`` (float32 scalar)."""
+    return _lace(feats, w_head, labels, prior_rows, prior_ids, weights,
+                 tau, eps, chunk, True)
+
+
+def lace_nll_sum(feats, w_head, labels, prior_rows, prior_ids, weights,
+                 tau: float = 1.0, eps: float = 1e-8, chunk: int = 4096):
+    """The weighted *sum* of adjusted NLLs (no normalization)."""
+    return _lace(feats, w_head, labels, prior_rows, prior_ids, weights,
+                 tau, eps, chunk, False)
+
+
+def lace_loss_flat(feats, w_head, labels, *, prior_rows=None,
+                   prior_ids=None, weights=None, tau: float = 1.0,
+                   eps: float = 1e-8, chunk: int = 4096):
+    """:func:`lace_loss` of one group: feats (N, d), labels (N,), weights
+    (N,) or None, prior_ids a scalar row id or None."""
+    return lace_loss(feats[None], w_head, labels[None], prior_rows,
+                     None if prior_ids is None else prior_ids[None],
+                     None if weights is None else weights[None], tau, eps,
+                     chunk)

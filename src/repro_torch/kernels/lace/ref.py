@@ -9,6 +9,10 @@ P[pid_i] and temperature tau (paper eqs. 14/15)::
 
 It builds the whole (N, V) logits, so it exists to check the chunked op
 and the kernels, as ``repro/kernels/lace/ref.py`` does for the reference.
+Below it, the plain versions of the kernels K1/K2 (``lace2_*_plain``) and
+K4/K5 (``lace_*_plain``) in the kernels' own signatures -- a (rows, V)
+table of tau * log(P + eps) and per-token row ids -- which the kernels
+are held against on the card.
 """
 from __future__ import annotations
 
@@ -40,45 +44,40 @@ def _adjusted(z, adj, ids, rows):
     return z + (adj[0] if ids is None else adj[ids[rows].long()])
 
 
-@torch.no_grad()
-def lace2_fwd_plain(feats, w_head, labels, adj_s=None, ids_s=None,
-                    adj_k=None, ids_k=None, chunk: int = 1024):
-    """The plain version of K1 (:func:`repro_torch.kernels.lace.kernel.
-    lace2_fwd_cuda`), same arguments: per-token (nll_s, nll_k, lse_s,
-    lse_k), (N,) float32, ``chunk`` tokens of logits at a time."""
+def _fwd_sides(feats, w_head, labels, sides, chunk):
+    """Per side (adj, ids): (nll, lse), (N,) float32, ``chunk`` tokens of
+    logits at a time, one product shared by the sides."""
     w32 = w_head.float()
-    outs = [[], [], [], []]
+    outs = [([], []) for _ in sides]
     for i in range(0, feats.shape[0], chunk):
         rows = slice(i, i + chunk)
         z = feats[rows].float() @ w32
         lab = labels[rows].long()[:, None]
-        for j, (adj, ids) in enumerate(((adj_s, ids_s), (adj_k, ids_k))):
+        for (adj, ids), (nll, lses) in zip(sides, outs):
             zs = _adjusted(z, adj, ids, rows)
             lse = torch.logsumexp(zs, dim=-1)
-            outs[j].append(lse - zs.gather(-1, lab)[:, 0])
-            outs[2 + j].append(lse)
-    return tuple(torch.cat(o) for o in outs)
+            nll.append(lse - zs.gather(-1, lab)[:, 0])
+            lses.append(lse)
+    return [(torch.cat(nll), torch.cat(lses)) for nll, lses in outs]
 
 
-@torch.no_grad()
-def lace2_bwd_plain(feats, w_head, labels, adj_s, ids_s, adj_k, ids_k,
-                    lse_s, lse_k, ts_s, ts_k, chunk: int = 1024):
-    """The plain version of K2 (:func:`repro_torch.kernels.lace.kernel.
-    lace2_bwd_cuda`), same arguments: (df_s, df_k) (N, d) and dW_s (d,
-    V), float32. Every f32 sum runs over at most ``chunk`` products --
-    dW over token chunks, df over vocab slices -- as the kernel's do, so
-    the two round alike and neither sums 151936 terms in one chain."""
+def _bwd_sides(feats, w_head, labels, sides, want_dw, chunk):
+    """Per side (adj, ids, lse, ts): df (N, d) float32; and dW (d, V)
+    float32 of the first side, or None without ``want_dw``. Every f32 sum
+    runs over at most ``chunk`` products -- dW over token chunks, df over
+    vocab slices -- as the kernels' do, so the two round alike and
+    neither sums 151936 terms in one chain."""
     w32 = w_head.float()
     V = w32.shape[1]
-    dw = torch.zeros(w32.shape, dtype=torch.float32, device=w32.device)
-    df = [[], []]
+    dw = (torch.zeros(w32.shape, dtype=torch.float32, device=w32.device)
+          if want_dw else None)
+    df = [[] for _ in sides]
     for i in range(0, feats.shape[0], chunk):
         rows = slice(i, i + chunk)
         f = feats[rows].float()
         z = f @ w32
         lab = labels[rows].long()[:, None]
-        for j, (adj, ids, lse, ts) in enumerate(
-                ((adj_s, ids_s, lse_s, ts_s), (adj_k, ids_k, lse_k, ts_k))):
+        for j, (adj, ids, lse, ts) in enumerate(sides):
             g = torch.exp(_adjusted(z, adj, ids, rows) - lse[rows, None])
             g.scatter_add_(-1, lab, torch.full_like(lab, -1, dtype=g.dtype))
             g *= ts[rows, None]
@@ -86,6 +85,51 @@ def lace2_bwd_plain(feats, w_head, labels, adj_s, ids_s, adj_k, ids_k,
             for v in range(chunk, V, chunk):
                 acc += g[:, v:v + chunk] @ w32[:, v:v + chunk].T
             df[j].append(acc)
-            if j == 0:
+            if j == 0 and want_dw:
                 dw += f.T @ g
-    return torch.cat(df[0]), torch.cat(df[1]), dw
+    return [torch.cat(parts) for parts in df], dw
+
+
+@torch.no_grad()
+def lace2_fwd_plain(feats, w_head, labels, adj_s=None, ids_s=None,
+                    adj_k=None, ids_k=None, chunk: int = 1024):
+    """The plain version of K1 (:func:`repro_torch.kernels.lace.kernel.
+    lace2_fwd_cuda`), same arguments: per-token (nll_s, nll_k, lse_s,
+    lse_k), (N,) float32."""
+    (nll_s, lse_s), (nll_k, lse_k) = _fwd_sides(
+        feats, w_head, labels, [(adj_s, ids_s), (adj_k, ids_k)], chunk)
+    return nll_s, nll_k, lse_s, lse_k
+
+
+@torch.no_grad()
+def lace2_bwd_plain(feats, w_head, labels, adj_s, ids_s, adj_k, ids_k,
+                    lse_s, lse_k, ts_s, ts_k, chunk: int = 1024):
+    """The plain version of K2 (:func:`repro_torch.kernels.lace.kernel.
+    lace2_bwd_cuda`), same arguments: (df_s, df_k) (N, d) and dW_s (d,
+    V), float32, summed in the kernel's slices (:func:`_bwd_sides`)."""
+    (df_s, df_k), dw = _bwd_sides(
+        feats, w_head, labels,
+        [(adj_s, ids_s, lse_s, ts_s), (adj_k, ids_k, lse_k, ts_k)], True,
+        chunk)
+    return df_s, df_k, dw
+
+
+@torch.no_grad()
+def lace_fwd_plain(feats, w_head, labels, adj=None, ids=None,
+                   chunk: int = 1024):
+    """The plain version of K4 (:func:`repro_torch.kernels.lace.kernel.
+    lace_fwd_cuda`), same arguments: per-token (nll, lse), (N,)
+    float32."""
+    ((nll, lse),) = _fwd_sides(feats, w_head, labels, [(adj, ids)], chunk)
+    return nll, lse
+
+
+@torch.no_grad()
+def lace_bwd_plain(feats, w_head, labels, adj, ids, lse, ts,
+                   want_dw: bool = True, chunk: int = 1024):
+    """The plain version of K5 (:func:`repro_torch.kernels.lace.kernel.
+    lace_bwd_cuda`), same arguments: df (N, d) float32 and dW (d, V)
+    float32 or None, summed in the kernel's slices (:func:`_bwd_sides`)."""
+    (df,), dw = _bwd_sides(feats, w_head, labels, [(adj, ids, lse, ts)],
+                           want_dw, chunk)
+    return df, dw

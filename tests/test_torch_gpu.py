@@ -235,3 +235,195 @@ def test_split_step_on_card_matches_cpu():
     for a, b in zip(leaves(g_dev), leaves(g_cpu)):
         err = (a.cpu() - b).abs().max().item()
         assert err <= 1e-4 * max(b.abs().max().item(), 1e-30), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,d,V,feats_dtype,tau,side,vchunk", [
+    (200, 64, 1000, torch.float32, 1.0, "server", None),    # ragged N, V
+    (333, 96, 777, torch.bfloat16, 1.0, "client", None),
+    (300, 96, 515, torch.float32, 0.0, "server", None),     # tau = 0
+    (128, 64, 256, torch.bfloat16, 0.5, "client", None),
+    (1201, 64, 2500, torch.float32, 1.0, "server", 256),    # long sums
+    (700, 32, 3000, torch.bfloat16, 1.0, "none", None),     # plain CE
+])
+def test_lace_single_kernels_match_plain(N, d, V, feats_dtype, tau, side,
+                                         vchunk, monkeypatch):
+    """K4 and K5 against their plain versions on the same arguments: the
+    server side (one prior row, dW) and the client side (4 rows picked
+    per token, no dW), or no prior. nll and lse within 1e-4 of their
+    largest entry, df and dW within 1e-5 (f32 on the CUDA cores, sums in
+    the same 1024-product slices); weight-0 rows get exactly zero df.
+    ``vchunk`` shrinks K5's workspace to that many vocab columns per
+    chunk, so df sums over several chunks."""
+    _needs_card()
+    from repro_torch.kernels.lace import ref as lace_ref
+
+    if vchunk is not None:
+        monkeypatch.setattr(lace_kernel, "WORKSPACE_BYTES", 4 * N * vchunk)
+        assert lace_kernel.bwd_chunk(N, V, sides=1) == vchunk
+    feats, w_head, labels, weights, p_s, p_k = _lace_inputs(
+        N + V, 4, N // 4 + 1, d, V, feats_dtype)
+    feats = feats.reshape(-1, d)[:N]
+    labels = labels.reshape(-1)[:N].to(torch.int32).contiguous()
+    weights = weights.reshape(-1)[:N].contiguous()
+    rows = {"server": p_s, "client": p_k, "none": None}[side]
+    adj = None if rows is None else (tau * torch.log(rows + 1e-8)).contiguous()
+    ids = (torch.arange(N, device="cuda", dtype=torch.int32) * 4 // N
+           if side == "client" else None)
+    want_dw = side != "client"
+    before = (lace_ops.LAUNCHES_FWD1, lace_ops.LAUNCHES_BWD1)
+    nll, lse = lace_kernel.lace_fwd_cuda(feats, w_head, labels, adj, ids)
+    torch.cuda.synchronize()
+    want = lace_ref.lace_fwd_plain(feats, w_head, labels, adj, ids)
+    for name, a, b in (("nll", nll, want[0]), ("lse", lse, want[1])):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (name, err)
+    ts = (weights / weights.sum()).contiguous()
+    df, dw = lace_kernel.lace_bwd_cuda(feats, w_head, labels, adj, ids, lse,
+                                       ts, want_dw)
+    torch.cuda.synchronize()
+    wdf, wdw = lace_ref.lace_bwd_plain(feats, w_head, labels, adj, ids, lse,
+                                       ts, want_dw)
+    assert (dw is None) == (wdw is None) == (not want_dw)
+    for name, a, b in (("df", df, wdf), ("dW", dw, wdw)):
+        if b is None:
+            continue
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * b.abs().max().item(), (name, err)
+    assert torch.all(df[weights == 0] == 0)
+    # the wrappers count nothing; the autograd ops do
+    assert (lace_ops.LAUNCHES_FWD1, lace_ops.LAUNCHES_BWD1) == before
+
+
+@pytest.mark.gpu
+def test_lace_loss_on_card_matches_cpu():
+    """``lace_loss`` through autograd on a card (K4 forward, K5 backward,
+    dW skipped when w_head needs no gradient) against the same call on
+    the CPU (the plain chunked version): value at 1e-5 relative, df and
+    dW at 1e-5 of their largest entry; one K4 and one K5 launch each."""
+    _needs_card()
+    feats, w_head, labels, weights, p_s, p_k = _lace_inputs(
+        9, 3, 150, 64, 900, torch.float32)
+    ids = torch.arange(3, device="cuda")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        f = feats.to(dev).requires_grad_()
+        wh = w_head.to(dev).requires_grad_()
+        before = (lace_ops.LAUNCHES_FWD1, lace_ops.LAUNCHES_BWD1)
+        loss = lace_ops.lace_loss(f, wh, labels.to(dev), p_k.to(dev),
+                                  ids.to(dev), weights.to(dev), 1.0, 1e-8,
+                                  64)
+        df, dw = torch.autograd.grad(loss, (f, wh))
+        loss_c = lace_ops.lace_loss(f, wh.detach(), labels.to(dev),
+                                    p_k.to(dev), ids.to(dev),
+                                    weights.to(dev), 1.0, 1e-8, 64)
+        (df_c,) = torch.autograd.grad(loss_c, f)
+        launched = (lace_ops.LAUNCHES_FWD1 - before[0],
+                    lace_ops.LAUNCHES_BWD1 - before[1])
+        assert launched == ((2, 2) if dev == "cuda" else (0, 0)), launched
+        assert torch.equal(df_c, df)
+        res[dev] = (loss.item(), df.cpu(), dw.cpu())
+    (lg, dfg, dwg), (lc, dfc, dwc) = res["cuda"], res["cpu"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in ((dfg, dfc), (dwg, dwc)):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def _step_on_card_and_cpu(model, params, batch, sc, backend, boundary):
+    """One split step on the card and on the CPU from the same params and
+    batch, with each kernel's launches during the card's step."""
+    from repro_torch.core import engine
+    from repro_torch.tree import tree_map
+
+    def counts():
+        return (ops.LAUNCHES, ops.LAUNCHES_BWD, lace_ops.LAUNCHES_FWD,
+                lace_ops.LAUNCHES_BWD, lace_ops.LAUNCHES_FWD1,
+                lace_ops.LAUNCHES_BWD1)
+
+    res, launched = {}, None
+    for dev in ("cuda", "cpu"):
+        before = counts()
+        res[dev] = engine.split_step_grads(
+            model, tree_map(lambda a: a.to(dev), params),
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, sc,
+            backend=backend, boundary=boundary)
+        got = tuple(a - b for a, b in zip(counts(), before))
+        if dev == "cuda":
+            launched = got
+        else:
+            assert got == (0,) * 6, got
+    return res["cuda"], res["cpu"], launched
+
+
+def _assert_step_close(dev_res, cpu_res):
+    """losses at 1e-5 relative, every grad leaf at 1e-4 of its largest
+    entry (float32 sums in other orders)."""
+    from repro_torch.tree import leaves
+
+    (g_dev, m_dev), (g_cpu, m_cpu) = dev_res, cpu_res
+    for key in ("loss_server", "loss_client"):
+        a, b = float(m_dev[key]), float(m_cpu[key])
+        assert abs(a - b) <= 1e-5 * abs(b), (key, a, b)
+    for a, b in zip(leaves(g_dev), leaves(g_cpu)):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 1e-4 * max(b.abs().max().item(), 1e-30), err
+
+
+@pytest.mark.gpu
+def test_dual_split_step_on_card_matches_cpu():
+    """The dual boundary of reduced qwen1.5-0.5b in float32 on the card
+    (K4 + K5 twice: eq. 14 with dW, eq. 15 without; K3 forward and
+    backward in the trunk; no K1/K2) against the same step on the CPU."""
+    _needs_card()
+    from repro_torch.configs import ScalaConfig, get_config
+    from repro_torch.core.scala import transformer_split_model
+    from repro_torch.core.split import stack_client_params
+    from repro_torch.models import transformer
+
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    C, S = 3, 24
+    full = transformer.init_params(torch.Generator().manual_seed(1), cfg)
+    params = {"client": stack_client_params(full["client"], C),
+              "server": full["server"]}
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (C, 2, S + 1))
+    weights = np.ones((C, 2, S), np.float32)
+    weights[-1, 1] = 0.0
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             "weights": weights}
+    dev_res, cpu_res, launched = _step_on_card_and_cpu(
+        transformer_split_model(cfg), params, batch, ScalaConfig(
+            num_clients=C), "lace", "dual")
+    n_client = cfg.split_layer
+    n_server = cfg.num_layers - cfg.split_layer
+    assert launched == (C * n_client + n_server,
+                        C * n_client + 2 * n_server, 0, 0, 2, 2), launched
+    _assert_step_close(dev_res, cpu_res)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["fused", "dual"])
+def test_alexnet_split_step_on_card_matches_cpu(boundary):
+    """One AlexNet split step (width 0.25, s2, backend ``logits``) in
+    float32 with TF32 off on the card against the CPU; no kernel of the
+    port launches (the logits backend has none)."""
+    _needs_card()
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import ScalaConfig
+    from repro_torch.core.scala import alexnet_split_model
+    from repro_torch.core.split import stack_client_params
+    from repro_torch.models import alexnet
+
+    C, B = 3, 6
+    full = alexnet.init_params(torch.Generator().manual_seed(2), width=0.25)
+    wc, ws = alexnet.split_params(full, "s2")
+    params = {"client": stack_client_params(wc, C), "server": ws}
+    rng = np.random.default_rng(2)
+    batch = {"x": rng.standard_normal((C, B, 32, 32, 3)).astype(np.float32),
+             "labels": rng.integers(0, 10, (C, B)),
+             "weights": np.ones((C, B), np.float32)}
+    dev_res, cpu_res, launched = _step_on_card_and_cpu(
+        alexnet_split_model("s2"), params, batch, ScalaConfig(num_clients=C),
+        "logits", boundary)
+    assert launched == (0,) * 6, launched
+    _assert_step_close(dev_res, cpu_res)

@@ -13,7 +13,8 @@
   accuracy) after one round from the same params: loss at 1e-4
   relative, accuracy within one token in 1000.
 * ``--dump-config`` writes the reference's JSON schema.
-* ``validate()`` names what is not ported.
+* ``validate()`` names what is not ported, applies the reference's rules
+  (AlexNet is ``logits``-only) and admits the paper's setup.
 """
 import dataclasses
 import json
@@ -123,6 +124,21 @@ def test_evaluate_matches_reference():
     assert abs(got["eval_accuracy"] - want["eval_accuracy"]) <= 1e-3
 
 
+def test_dual_boundary_cli_runs_plain_and_matches_fused():
+    """``--boundary dual --device cpu``: the plain versions (no kernel
+    launches) and, the CPU contract, the same per-round losses as the
+    fused boundary bit for bit."""
+    from repro_torch.kernels.lace import ops
+
+    before = (ops.LAUNCHES_FWD, ops.LAUNCHES_BWD, ops.LAUNCHES_FWD1,
+              ops.LAUNCHES_BWD1)
+    hist = {b: train.main(FLAGS + ["--device", "cpu", "--boundary", b])
+            .history for b in ("fused", "dual")}
+    assert before == (ops.LAUNCHES_FWD, ops.LAUNCHES_BWD, ops.LAUNCHES_FWD1,
+                      ops.LAUNCHES_BWD1)
+    assert hist["dual"] == hist["fused"] and len(hist["dual"]) == 2
+
+
 def test_dump_config_writes_the_reference_schema(capsys):
     jtrain.main(FLAGS + ["--dump-config"])
     want = json.loads(capsys.readouterr().out)
@@ -147,26 +163,48 @@ def _spec(**kw):
     return out
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(execution=dict(mode="masked")), "execution mode 'masked'"),
-    (dict(execution=dict(mode="sparse")), "execution mode 'sparse'"),
-    (dict(execution=dict(mode="async")), "execution mode 'async'"),
-    (dict(execution=dict(backend="lace_dp")), "lace_dp"),
-    (dict(execution=dict(backend="logits")), "backend 'logits'"),
-    (dict(execution=dict(boundary="dual")), "boundary 'dual'"),
-    (dict(execution=dict(precision="bf16")), "precision 'bf16'"),
-    (dict(execution=dict(rounds_per_call=2)), "rounds_per_call"),
+# the CNN family on its data (the paper's setup)
+ALEXNET = dict(arch="alexnet-cifar", reduced=False,
+               data=api.DataSpec(kind="image_synthetic", alpha=2))
+
+
+@pytest.mark.parametrize("change,error,match", [
+    (dict(execution=dict(mode="masked")), NotImplementedError,
+     "execution mode 'masked'"),
+    (dict(execution=dict(mode="sparse")), NotImplementedError,
+     "execution mode 'sparse'"),
+    (dict(execution=dict(mode="async")), NotImplementedError,
+     "execution mode 'async'"),
+    (dict(execution=dict(backend="lace_dp")), NotImplementedError, "lace_dp"),
+    # AlexNet has no trunk/head split: the reference's rule
+    (dict(top=ALEXNET, execution=dict(backend="lace")), ValueError,
+     "only supports backend 'logits'"),
+    # the FL baselines (CNN-only in the reference) are not ported
+    (dict(top=dict(ALEXNET, method="fedavg"),
+          execution=dict(backend="logits")), NotImplementedError, "baseline"),
+    (dict(execution=dict(precision="bf16")), NotImplementedError,
+     "precision 'bf16'"),
+    (dict(execution=dict(rounds_per_call=2)), NotImplementedError,
+     "rounds_per_call"),
     (dict(execution=dict(server_optimizer=api.OptimSpec(name="sgd"))),
-     "server_optimizer"),
-    (dict(fed=dict(faults="drop:0.1")), "faults/guards"),
-    (dict(fed=dict(guards="nonfinite")), "faults/guards"),
-    (dict(fed=dict(aggregator="bias_compensated")), "bias_compensated"),
-    (dict(top=dict(method="fedavg")), "baseline"),
-    (dict(top=dict(arch="alexnet-cifar", reduced=False)), "AlexNet"),
+     NotImplementedError, "server_optimizer"),
+    (dict(fed=dict(faults="drop:0.1")), NotImplementedError, "faults/guards"),
+    (dict(fed=dict(guards="nonfinite")), NotImplementedError,
+     "faults/guards"),
+    (dict(fed=dict(aggregator="bias_compensated")), NotImplementedError,
+     "bias_compensated"),
+    (dict(top=dict(method="fedavg")), NotImplementedError, "baseline"),
+    # the paper's setup validates: AlexNet, logits, the dual boundary
+    (dict(top=ALEXNET, execution=dict(backend="logits", boundary="dual")),
+     None, None),
 ])
-def test_validate_names_what_is_not_ported(change, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _spec(**change).validate()
+def test_validate_names_what_is_not_ported(change, error, match):
+    if error is None:
+        spec = _spec(**change)
+        assert spec.validate() is spec
+    else:
+        with pytest.raises(error, match=match):
+            _spec(**change).validate()
     _spec().validate()
     with pytest.raises(SystemExit, match="not ported"):
         train.main(FLAGS + ["--device", "cpu", "--async"])
