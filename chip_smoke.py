@@ -8,8 +8,8 @@ Phases, one or more lines each:
 1. device: the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
 2. build: every kernel source in ``src/repro_torch/kernels/csrc``
-   (flash_attn, flash_attn_bwd, lace, lace1), one nvcc each, all at
-   once, for sm_90a;
+   (flash_attn, flash_attn_bwd, lace, lace1, mlstm), one nvcc each, all
+   at once, for sm_90a;
 3. kernels: each kernel against its plain PyTorch version at the shapes
    its path gives it, with the stated tolerance; then its time (CUDA
    events), the plain version's, PyTorch's own call's (``library_ms``, a
@@ -17,14 +17,24 @@ Phases, one or more lines each:
    forward (K3) at the serving shapes, then the attention backward, the
    fused LACE boundary (K1, K2) and the single-prior LACE kernels of the
    dual boundary (K4, K5; server side with dW, client side without) at
-   the training shapes;
+   the training shapes, and the chunkwise mLSTM (K6) at the served
+   xlstm-1.3b's prefill shapes (h and the final C, n, m);
 4. serve: full-width qwen1.5-0.5b in bf16 through ServeSpec ->
    build_serve -> ServeEngine.serve, dense and paged cache; paged tokens
    must equal dense tokens, and every admitted request must have
    launched the attention kernel once per layer;
 5. check: full width in float32, TF32 off -- the fused prefill's logits
-   (through the kernel) against the token-by-token decode loop's (no
-   kernel), and the engine's greedy tokens against the loop's;
+   and decode cache (through the kernel) against the token-by-token
+   decode loop's (no kernel), and the engine's greedy tokens against the
+   loop's;
+5b. serve-xlstm: phase 4 for full-width xlstm-1.3b (42 mLSTM, 6 sLSTM
+   layers) in bf16: K6 launched once per mLSTM layer and admit, none of
+   K3; an admit split by mixer (host time, K6's device time) and a
+   decode step with every slot busy, profiled;
+5c. check-xlstm: phase 5 for xlstm-1.3b at full width and 8 layers (one
+   period of its pattern) on an odd prompt of 77 tokens: logits and
+   every layer's final state (mLSTM C, n, m through K6 against the
+   per-step recurrence);
 6. train: full-width qwen1.5-0.5b through the training CLI's spec and
    Trainer on the card -- 16 clients, 4 sampled per round, 2 local steps
    of 16 x 512 tokens, 3 rounds; finite losses, the kernels' launch
@@ -50,6 +60,11 @@ Phases, one or more lines each:
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 exits nonzero; without a GPU it exits nonzero before printing a result.
+
+``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
+the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
+through the prefill (K6, the plain version) and the decode loop (two
+summation orders), the last position compared pairwise.
 """
 from __future__ import annotations
 
@@ -82,6 +97,25 @@ KERNEL_CASES += [(1, 777, 16, 2, None, torch.bfloat16),      # GQA
                  (1, 1024, 16, 16, 256, torch.bfloat16),     # sliding window
                  (16, 512, 16, 16, None, torch.bfloat16)]    # training
 REPORT_CASE = (1, 777, 16, 16, None, torch.bfloat16)         # the JSON line's
+XLSTM = "xlstm-1.3b"
+# the chunkwise mLSTM (K6), (B, S, H, dk, dv): the served xlstm-1.3b's
+# prefill (4 heads of 1024, chunk 64) at prompts of the serving mix (128,
+# and 777: odd, a ragged last chunk) and an odd prompt below one chunk.
+# Tolerance against the plain version, float32 with TF32 off: h and the
+# final C, n, m within 1e-4 of each one's largest entry (sums over 1024
+# products in another order).
+MLSTM_CASES = [(1, S, 4, 1024, 1024) for S in (128, 777, 37)]
+MLSTM_REPORT = MLSTM_CASES[1]
+MLSTM_CHUNK, MLSTM_RTOL = 64, 1e-4
+# the prefill against its token-by-token decode, float32: every layer's
+# final state within 1e-3 of its largest entry. xlstm-1.3b is checked at
+# full width on one period of its 7:1 layer pattern (8 layers: 7 mLSTM, 1
+# sLSTM): its 48 random layers amplify float32 rounding until two decode
+# loops that differ only in the order of one product part by 1.6e-2 in
+# the logits (``python3 chip_smoke.py xlstm-rounding``, PERF.md), so at
+# full depth no check can tell the kernel from rounding
+STATE_RTOL = 1e-3
+XLSTM_CHECK_LAYERS = 8
 # attention backward, (B, P, H, KV, window, dtype): the training trunk's
 # shape (16 sequences of 512 tokens) first, then other lengths, GQA and a
 # window. Tolerance against autograd of the plain version, relative to
@@ -199,7 +233,8 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["flash_attn", "flash_attn_bwd", "lace", "lace1"])
+    logs = build.build(["flash_attn", "flash_attn_bwd", "lace", "lace1",
+                        "mlstm"])
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "built in" in line:
@@ -260,11 +295,10 @@ def phase_kernels():
 
 
 def serve_run(spec, reqs, warm_len: int):
-    """Build ``spec``, warm up, serve ``reqs`` with the launch count reset
-    just before. Returns (engine, results, seconds, launches, peak bytes,
-    cache bytes)."""
+    """Build ``spec``, warm up, serve ``reqs`` with every launch count set
+    to 0 just before. Returns (engine, results, seconds, the launches of
+    the run, peak bytes, cache bytes)."""
     from repro_torch.api import build_serve
-    from repro_torch.kernels.flash_attn import ops
 
     program = build_serve(spec)
     engine = program.engine
@@ -273,13 +307,13 @@ def serve_run(spec, reqs, warm_len: int):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    ops.LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     results = engine.serve(list(reqs))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    launches = ops.LAUNCHES
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     return engine, results, dt, launches, peak, engine.state_bytes()
 
@@ -313,20 +347,35 @@ def profile(what: str, fn, top: int) -> None:
             f"x{e.count}: {e.key[:90]}")
 
 
-def phase_serve(device="cuda", reduced=False, n_req=16, lens=(128, 333, 512, 777),
-                gen=32, slots=8, max_len=1024, page_size=16):
+def serve_launches(cfg, n_admits):
+    """Kernel launches a serving run makes: every admit's fused prefill
+    runs K3 once per attention layer and K6 once per mLSTM layer; decode
+    runs neither."""
+    n = {m: sum(s.mixer == m for s in cfg.block_specs)
+         for m in ("attn", "mlstm")}
+    return dict(flash_fwd=n_admits * n["attn"], flash_bwd=0, lace_fwd=0,
+                lace_bwd=0, lace1_fwd=0, lace1_bwd=0,
+                mlstm=n_admits * n["mlstm"])
+
+
+def phase_serve(device="cuda", reduced=False, arch=ARCH, phase="serve",
+                n_req=16, lens=(128, 333, 512, 777), gen=32, slots=8,
+                max_len=1024, page_size=16):
+    """Serve the request mix through ``ServeSpec`` -> ``build_serve`` ->
+    ``ServeEngine.serve``, dense and then paged; returns the launch
+    counts of the two runs together."""
     from repro_torch.api import ServeSpec
     from repro_torch.serve import Request
 
-    spec = ServeSpec(arch=ARCH, reduced=reduced, slots=slots, max_len=max_len,
+    spec = ServeSpec(arch=arch, reduced=reduced, slots=slots, max_len=max_len,
                      seed=0, device=device)
     cfg = spec.model_config()
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(P)), gen)
             for i, P in enumerate(rng.choice(lens, n_req))]
-    n_attn = sum(s.mixer == "attn" for s in cfg.block_specs)
+    want = serve_launches(cfg, len(reqs))
     pages = slots * -(-max_len // page_size)
-    launches, tokens = 0, None
+    launches, tokens = {}, None
     for paged in (False, True):
         s = dataclasses.replace(spec, pages=pages if paged else 0,
                                 page_size=page_size)
@@ -337,9 +386,10 @@ def phase_serve(device="cuda", reduced=False, n_req=16, lens=(128, 333, 512, 777
             check(res.evicted is None and
                   len(res.tokens) == len(r.tokens) + gen,
                   f"request {r.rid} ran to its max_new")
-        check(n == len(reqs) * n_attn,
-              f"kernel launches {n} != {len(reqs)} admits x {n_attn} layers")
-        launches += n
+        if engine.device.type == "cuda":
+            check(n == want, f"kernel launches {n} != {want} for "
+                  f"{len(reqs)} admits")
+        launches = {k: launches.get(k, 0) + n[k] for k in n}
         got = {r.rid: results[r.rid].tokens for r in reqs}
         if tokens is None:
             tokens = got
@@ -347,29 +397,123 @@ def phase_serve(device="cuda", reduced=False, n_req=16, lens=(128, 333, 512, 777
             check(all(np.array_equal(tokens[i], got[i]) for i in tokens),
                   "paged tokens == dense tokens")
         lats = [results[r.rid].latency for r in reqs]
-        say("serve", f"{cfg.name} {cfg.dtype} {'paged' if paged else 'dense'} "
+        say(phase, f"{cfg.name} {cfg.dtype} {'paged' if paged else 'dense'} "
             f"cache: {len(reqs)} reqs (prompts {sorted(set(len(r.tokens) for r in reqs))}) "
             f"x {gen} tok on {slots} slots in {dt:.3f} s: "
             f"{len(reqs) * gen / dt:.1f} tok/s, latency p50={np.percentile(lats, 50):.3f} s "
             f"p99={np.percentile(lats, 99):.3f} s, peak {peak / 2**20:.0f} MiB "
-            f"allocated, cache {cache / 1e6:.1f} MB, {n} kernel launches")
+            f"allocated, cache {cache / 1e6:.1f} MB"
+            + (f" ({engine.ops.pages_needed(max_len)} pages a request)"
+               if paged else "")
+            + f", launches K3 {n['flash_fwd']} K6 {n['mlstm']}")
         if not paged and engine.device.type == "cuda":
-            profile("dense run", lambda: engine.serve(list(reqs)), 6)
+            if want["mlstm"]:
+                xlstm_split(engine, phase, max(lens), gen)
+            else:
+                profile("dense run", lambda: engine.serve(list(reqs)), 6)
         del engine
-    say("serve", "paged tokens == dense tokens; launches == admits x "
-        f"{n_attn} attention layers")
+    say(phase, "paged tokens == dense tokens; launches == admits x "
+        f"({want['flash_fwd'] // len(reqs)} attention, "
+        f"{want['mlstm'] // len(reqs)} mLSTM) layers")
     return launches
 
 
-def phase_check(device="cuda", reduced=False, prompt_len=64, max_len=128):
+def xlstm_split(engine, phase, P, gen):
+    """Where an xLSTM admit and decode step spend their time: one admit of
+    a ``P``-token prompt into the idle engine with every mixer call timed
+    on the host (synchronized before and after), K6's device time from
+    CUDA events around each launch; then a profiled admit, and decode
+    steps with every slot busy, timed and profiled."""
+    from repro_torch.kernels.mlstm import ops as mops
+    from repro_torch.models.layers import xlstm
+    from repro_torch.serve import Request
+
+    spent = {"mlstm_prefill": 0.0, "slstm_prefill": 0.0, "k6": 0.0}
+    orig = {name: getattr(xlstm, name) for name in ("mlstm_prefill",
+                                                    "slstm_prefill")}
+    orig_k6 = mops.mlstm_chunkwise
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    def k6_events(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig_k6(*args, **kw)
+        end.record()
+        end.synchronize()
+        spent["k6"] += start.elapsed_time(end) / 1e3
+        return out
+
+    rng = np.random.default_rng(7)
+    reqs = [Request(-100 - i, rng.integers(0, engine.cfg.vocab_size, P), gen)
+            for i in range(engine.slots)]
+    for name, fn in orig.items():
+        setattr(xlstm, name, timed(name, fn))
+    mops.mlstm_chunkwise = k6_events
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(engine.admit(reqs[0]), "a free slot for the split admit")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in orig.items():
+            setattr(xlstm, name, fn)
+        mops.mlstm_chunkwise = orig_k6
+    cfg = engine.cfg
+    n = {m: sum(s.mixer == m for s in cfg.block_specs)
+         for m in ("mlstm", "slstm")}
+    rest = wall - spent["mlstm_prefill"] - spent["slstm_prefill"]
+    say(phase, f"admit of a {P}-token prompt: {wall:.3f} s host; "
+        f"{n['slstm']} sLSTM layers {spent['slstm_prefill']:.3f} s "
+        f"({100 * spent['slstm_prefill'] / wall:.1f}%, the per-step loop), "
+        f"{n['mlstm']} mLSTM layers {spent['mlstm_prefill']:.3f} s "
+        f"({100 * spent['mlstm_prefill'] / wall:.1f}%) of which K6 "
+        f"{spent['k6']:.4f} s on the device ({n['mlstm']} launches, "
+        f"{1e3 * spent['k6'] / n['mlstm']:.3f} ms each), the rest "
+        f"(embedding, head, cache copy) {rest:.3f} s")
+    profile(f"admit of a {P}-token prompt", lambda: engine.admit(reqs[1]), 6)
+    for r in reqs[2:]:
+        check(engine.admit(r), "a free slot for the decode profile")
+    check(engine.n_active == engine.slots, "every slot busy")
+    steps = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    say(phase, f"decode step with {engine.slots} busy slots: "
+        f"{[round(x, 4) for x in steps]} s host; recurrent state "
+        f"{engine.state_bytes() / 1e9:.2f} GB read and written each step")
+    profile(f"decode step, {engine.slots} slots", engine.step, 6)
+
+
+def phase_check(device="cuda", reduced=False, arch=ARCH, phase="check",
+                prompt_len=64, max_len=128, layers=None):
+    """float32, TF32 off: the fused prefill (through the kernels) against
+    the token-by-token decode loop (no kernel) -- the last position's
+    logits within LOGIT_ATOL, and every layer's decode cache within
+    STATE_RTOL of its largest entry -- then the engine's greedy tokens
+    against the loop's. ``layers`` cuts the depth."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as T
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
-                              dtype="float32", param_dtype="float32")
+                              dtype="float32", param_dtype="float32",
+                              num_layers=layers or cfg.num_layers)
     gen = torch.Generator(device)
     gen.manual_seed(1)
     params = T.init_params(gen, cfg)
@@ -377,15 +521,28 @@ def phase_check(device="cuda", reduced=False, prompt_len=64, max_len=128):
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, prompt_len)),
                              device=device)
     with torch.no_grad():
-        logits, _ = T.forward_prefill_cached(params, {"tokens": prompt}, cfg,
-                                             max_len)
-    _, logs = generate(params, cfg, prompt, max_len, 1, return_logits=True)
-    err = (logits[0, 0] - logs[0][0]).abs().max().item()
-    scale = logs[0].abs().max().item()
+        logits, cache = T.forward_prefill_cached(
+            params, {"tokens": prompt}, cfg, max_len)
+        loop = T.init_decode_cache(cfg, 1, max_len, device=device)
+        for i in range(prompt_len):
+            last, loop = T.decode_step(params, {"tokens": prompt[:, i:i + 1]},
+                                       loop, i, cfg)
+    err = (logits[0, 0] - last[0, 0]).abs().max().item()
+    scale = last.abs().max().item()
     check(err <= LOGIT_ATOL, f"prefill vs loop logits {err} > {LOGIT_ATOL}")
-    say("check", f"{cfg.name} float32: prefill logits (kernel) vs "
-        f"token-by-token loop: max_abs_err={err:.3g} (atol {LOGIT_ATOL}, "
-        f"max |logit| {scale:.3g})")
+    worst = {}
+    for layer, leaves in loop.items():
+        for key, want in leaves.items():
+            e = rel_err(cache[layer][key], want)
+            check(e <= STATE_RTOL, f"prefill vs loop {layer}/{key}: {e} > "
+                  f"{STATE_RTOL} of its largest entry")
+            worst[key] = max(worst.get(key, 0.0), e)
+    say(phase, f"{cfg.name} float32, {cfg.num_layers} layers, a "
+        f"{prompt_len}-token prompt: prefill "
+        f"logits (kernels) vs token-by-token loop: max_abs_err={err:.3g} "
+        f"(atol {LOGIT_ATOL}, max |logit| {scale:.3g}); cache leaves, worst "
+        f"error over the largest entry (tol {STATE_RTOL}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
     engine = ServeEngine(params, cfg, slots=2, max_len=max_len, device=device)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, P), 8)
@@ -397,7 +554,175 @@ def phase_check(device="cuda", reduced=False, prompt_len=64, max_len=128):
                        max_len, r.max_new).cpu().numpy()[0]
         check(np.array_equal(res[r.rid].tokens, ref),
               f"engine tokens == loop tokens for request {r.rid}")
-    say("check", f"engine greedy tokens == loop tokens for {len(reqs)} requests")
+    say(phase, f"engine greedy tokens == loop tokens for {len(reqs)} requests")
+
+
+def phase_xlstm_rounding(device="cuda", reduced=False, prompt_len=77,
+                         layers=None):
+    """Why check-xlstm runs 8 layers: float32 xlstm-1.3b at full width and
+    depth (random weights, TF32 off), the last prompt position through
+    the fused prefill (K6, then the plain chunkwise version) and through
+    the token-by-token loop (``mlstm_step`` as the port sums it, then in
+    the reference's order): logits and every layer's output, each pair's
+    largest difference. Run alone: ``python3 chip_smoke.py
+    xlstm-rounding``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mlstm import ops as mops
+    from repro_torch.kernels.mlstm import ref as mref
+    from repro_torch.models import blocks as B
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import xlstm
+
+    cfg = get_config(XLSTM)
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
+                              dtype="float32", param_dtype="float32",
+                              num_layers=layers or cfg.num_layers)
+    gen = torch.Generator(device)
+    gen.manual_seed(1)
+    params = T.init_params(gen, cfg)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, prompt_len)), device=device)
+    outs = []
+
+    def recorded(fn):
+        def run(*args, **kw):
+            y, cache = fn(*args, **kw)
+            outs.append(y[:, -1].clone())
+            return y, cache
+        return run
+
+    def prefill():
+        outs.clear()
+        logits, _ = T.forward_prefill_cached(params, {"tokens": prompt}, cfg,
+                                             prompt_len)
+        return logits[0, 0], list(outs)
+
+    def loop():
+        cache = T.init_decode_cache(cfg, 1, prompt_len, device=device)
+        for i in range(prompt_len):
+            outs.clear()
+            logits, cache = T.decode_step(
+                params, {"tokens": prompt[:, i:i + 1]}, cache, i, cfg)
+        return logits[0, 0], list(outs)
+
+    def step_reference_order(q, k, v, i_raw, f_log, state):
+        """``xlstm.py:mlstm_step`` of the reference, op for op."""
+        C0, n0, m0 = state
+        m_t = torch.maximum(f_log + m0, i_raw)
+        wf, wi = torch.exp(f_log + m0 - m_t), torch.exp(i_raw - m_t)
+        C = C0 * wf[..., None, None] + wi[..., None, None] * (
+            k[..., :, None] * v[..., None, :])
+        n = n0 * wf[..., None] + wi[..., None] * k
+        num = torch.einsum("bhd,bhde->bhe", q, C)
+        den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", q, n)),
+                            torch.exp(-m_t))
+        return num / den[..., None], (C, n, m_t)
+
+    patches = [(B, "block_prefill", recorded(B.block_prefill)),
+               (B, "block_decode", recorded(B.block_decode))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    saved_k6, saved_step = mops.mlstm_chunkwise, xlstm.mlstm_step
+    runs = {}
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        with torch.no_grad():
+            runs["prefill (K6)"] = prefill()
+            runs["loop"] = loop()
+            mops.mlstm_chunkwise = mref.mlstm_chunk_plain
+            runs["prefill (plain)"] = prefill()
+            xlstm.mlstm_step = step_reference_order
+            runs["loop (reference order)"] = loop()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        mops.mlstm_chunkwise = saved_k6
+        xlstm.mlstm_step = saved_step
+    at = sorted({0, 7} | set(range(15, cfg.num_layers, 8))
+                | {cfg.num_layers - 1})
+    for a, b in (("prefill (K6)", "loop"), ("prefill (plain)", "loop"),
+                 ("prefill (K6)", "prefill (plain)"),
+                 ("loop (reference order)", "loop")):
+        (la, xa), (lb, xb) = runs[a], runs[b]
+        err = (la - lb).abs().max().item()
+        layer_errs = ", ".join(f"{l + 1}: {rel_err(xa[l], xb[l]):.2g}"
+                               for l in at)
+        say("xlstm-rounding", f"{cfg.name} float32, {cfg.num_layers} layers, "
+            f"a {prompt_len}-token prompt, {a} vs {b}: logits max_abs "
+            f"{err:.3g} (max |logit| {lb.abs().max().item():.3g}); output "
+            f"after layer (over its largest entry) {layer_errs}")
+
+
+def mlstm_bound(B, S, H, dk, dv, chunk=MLSTM_CHUNK):
+    """(ms, 'operations' | 'bytes'): the least time for the chunkwise
+    mLSTM over these inputs. Per chunk of L tokens and head: q C0 and the
+    state update (4 L dk dv flops), q.n0 and n (4 L dk), the causal pairs'
+    q.k and score-times-v (L (L + 1) (dk + dv)), at the float32 rate;
+    against one read of q, k, v, the gates and the initial state and one
+    write of h and the final state."""
+    flops = 0
+    for t0 in range(0, S, chunk):
+        L = min(chunk, S - t0)
+        flops += 4 * L * dk * dv + 4 * L * dk + L * (L + 1) * (dk + dv)
+    flops *= B * H
+    nbytes = 4 * (B * S * H * (2 * dk + 2 * dv + 2)
+                  + 2 * B * H * (dk * dv + dk + 1))
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_mlstm():
+    """K6 against its plain version at the served model's prefill shapes:
+    h and the final (C, n, m); then the kernel's, the plain version's and
+    the bound's time. No PyTorch call computes this function."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.mlstm import kernel, ref
+
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    rows, max_err = {}, 0.0
+    for case in MLSTM_CASES:
+        B, S, H, dk, dv = case
+
+        def n(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        # q scaled as the model scales it; forget gates near 1
+        q, k, v = n(B, S, H, dk, scale=dk ** -0.5), n(B, S, H, dk), \
+            n(B, S, H, dv)
+        i_raw, f_log = n(B, S, H), F.logsigmoid(n(B, S, H) + 2.0)
+
+        def run_kernel():
+            return kernel.mlstm_chunk_cuda(q, k, v, i_raw, f_log,
+                                           chunk=MLSTM_CHUNK)
+
+        def run_plain():
+            return ref.mlstm_chunk_plain(q, k, v, i_raw, f_log,
+                                         chunk=MLSTM_CHUNK)
+
+        h, state = run_kernel()
+        torch.cuda.synchronize()
+        want_h, want = run_plain()
+        errs = {"h": rel_err(h, want_h)}
+        errs.update((name, rel_err(a, b))
+                    for name, a, b in zip("Cnm", state, want))
+        err = (h - want_h).abs().max().item()
+        max_err = max(max_err, err)
+        check(all(e <= MLSTM_RTOL for e in errs.values()),
+              f"mlstm kernel vs plain {case}: {errs} > {MLSTM_RTOL}")
+        ms, plain_ms = time_ms(run_kernel), time_ms(run_plain)
+        bound_ms, bound_by = mlstm_bound(B, S, H, dk, dv)
+        rows[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        say("kernels", f"mlstm_chunk B={B} S={S} H={H} dk={dk} dv={dv} "
+            f"L={MLSTM_CHUNK} float32: max_abs_err(h)={err:.3g}, over the "
+            "largest entry " + ", ".join(f"{k} {e:.3g}" for k, e in
+                                         errs.items())
+            + f" (tol {MLSTM_RTOL}) kernel={ms:.4f} ms "
+            f"plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by})")
+    return rows, max_err
 
 
 def sync(device) -> None:
@@ -716,24 +1041,28 @@ def train_launches(spec, cfg):
     n_server = sum(cfg.block_spec(l).mixer == "attn"
                    for l in range(cfg.split_layer, cfg.num_layers))
     return dict(flash_fwd=slots * n_client + n_server,
-                flash_bwd=slots * n_client + 2 * n_server,
+                flash_bwd=slots * n_client + 2 * n_server, mlstm=0,
                 **boundary_launches(spec.execution.boundary))
 
 
 def read_counts():
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.lace import ops as lops
+    from repro_torch.kernels.mlstm import ops as mops
     return dict(flash_fwd=fops.LAUNCHES, flash_bwd=fops.LAUNCHES_BWD,
                 lace_fwd=lops.LAUNCHES_FWD, lace_bwd=lops.LAUNCHES_BWD,
-                lace1_fwd=lops.LAUNCHES_FWD1, lace1_bwd=lops.LAUNCHES_BWD1)
+                lace1_fwd=lops.LAUNCHES_FWD1, lace1_bwd=lops.LAUNCHES_BWD1,
+                mlstm=mops.LAUNCHES)
 
 
 def zero_counts():
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.lace import ops as lops
+    from repro_torch.kernels.mlstm import ops as mops
     fops.LAUNCHES = fops.LAUNCHES_BWD = 0
     lops.LAUNCHES_FWD = lops.LAUNCHES_BWD = 0
     lops.LAUNCHES_FWD1 = lops.LAUNCHES_BWD1 = 0
+    mops.LAUNCHES = 0
 
 
 def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
@@ -1100,12 +1429,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name, count, smi = phase_device()
     phase_build()
+    if sys.argv[1:] == ["xlstm-rounding"]:
+        phase_xlstm_rounding()
+        return 0
     rows, max_err = phase_kernels()
     bwd_rows, bwd_err = phase_flash_bwd()
     lace_rows, lace_err = phase_lace()
     lace1_rows, lace1_err = phase_lace1()
-    serve_launches = phase_serve()
+    mlstm_rows, mlstm_err = phase_mlstm()
+    serve = phase_serve()
     phase_check()
+    serve_x = phase_serve(arch=XLSTM, phase="serve-xlstm")
+    phase_check(arch=XLSTM, phase="check-xlstm", prompt_len=77, max_len=96,
+                layers=XLSTM_CHECK_LAYERS)
     train = phase_train()
     phase_train_check()
     dual = phase_train(flags=TRAIN_DUAL_FLAGS, phase="train-dual")
@@ -1117,7 +1453,7 @@ def main() -> int:
         # forward launches: the serve path's plus both training paths'
         kernel_row("flash_attn_fwd", csrc + "flash_attn.cu",
                    "src/repro/kernels/flash_attn/kernel.py:23",
-                   serve_launches + train["flash_fwd"] + dual["flash_fwd"],
+                   serve["flash_fwd"] + train["flash_fwd"] + dual["flash_fwd"],
                    max_err, rows[REPORT_CASE]),
         # the backward of K3 (the JAX package trains through autodiff)
         kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
@@ -1136,7 +1472,10 @@ def main() -> int:
         # the server side's K5 (with dW), the costlier of the two
         kernel_row("lace_bwd", csrc + "lace1.cu", lace_src + "74",
                    dual["lace1_bwd"], lace1_err["bwd"],
-                   lace1_rows[(LACE1_REPORT["server"], "bwd")])]}))
+                   lace1_rows[(LACE1_REPORT["server"], "bwd")]),
+        kernel_row("mlstm_chunk", csrc + "mlstm.cu",
+                   "src/repro/kernels/mlstm/kernel.py:25", serve_x["mlstm"],
+                   mlstm_err, mlstm_rows[MLSTM_REPORT])]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

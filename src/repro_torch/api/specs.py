@@ -15,10 +15,10 @@ CNN family (``image_synthetic``, backend ``logits``), the host-side
 round per call, the ``fedavg`` / ``weighted`` aggregators -- and raises
 ``NotImplementedError`` naming the missing piece for the rest (masked /
 sparse / async, ``lace_dp``, faults and guards, server-side FedOpt,
-``precision="bf16"``, ``rounds_per_call > 1`` and the FL/SFL
-baselines), and ``ValueError`` for combinations the reference rejects
-too. ``unroll`` and ``donate`` are accepted and have nothing to act on
-in an eager program.
+``precision="bf16"``, ``rounds_per_call > 1``, the FL/SFL baselines and
+training the xLSTM family), and ``ValueError`` for combinations the
+reference rejects too. ``unroll`` and ``donate`` are accepted and have
+nothing to act on in an eager program.
 """
 from __future__ import annotations
 
@@ -236,6 +236,10 @@ class ExperimentSpec:
             raise ValueError(
                 f"backend {ex.backend!r} needs a trunk/head split; the CNN "
                 "(AlexNet) family only supports backend 'logits'")
+        if any(spec.mixer in ("mlstm", "slstm") for spec in cfg.block_specs):
+            raise _not_ported(f"training arch {self.arch!r} (mLSTM/sLSTM "
+                              "blocks)", "the xLSTM training slice (the "
+                              "chunkwise mLSTM kernel's backward)")
         if ex.precision == "bf16":
             raise _not_ported("precision 'bf16'", "the dispatch-knob slice")
         if ex.rounds_per_call > 1:

@@ -1,23 +1,28 @@
 """Residual block assembly: one BlockSpec -> params / apply / cache.
 
-A block is pre-norm -> attention (+residual) -> pre-norm -> dense FFN
-(+residual). The other mixers and FFNs of :mod:`repro.models.blocks`
-(mamba, xLSTM, MoE, cross-attention) raise ``NotImplementedError``.
+A block is pre-norm -> mixer (+residual) [-> pre-norm -> dense FFN
+(+residual)]. The mixer is attention, mLSTM or sLSTM; xLSTM blocks carry
+their FFN inside the mixer (``ffn == 'none'``). The other mixers and
+FFNs of :mod:`repro.models.blocks` (mamba, MoE, cross-attention) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
-from repro_torch.models.layers import attention, mlp, norms
+from repro_torch.models.layers import attention, mlp, norms, xlstm
+
+MIXERS = ("attn", "mlstm", "slstm")
+FFNS = ("dense", "none")
 
 
 def check_spec(spec: BlockSpec) -> None:
-    if spec.mixer != "attn" or spec.ffn != "dense" or spec.cross_attn:
+    if spec.mixer not in MIXERS or spec.ffn not in FFNS or spec.cross_attn:
         raise NotImplementedError(
             f"block mixer={spec.mixer!r} ffn={spec.ffn!r} "
-            f"cross_attn={spec.cross_attn}: only attention + dense FFN "
-            "blocks are ported")
+            f"cross_attn={spec.cross_attn}: the port has mixers {MIXERS} "
+            f"and FFNs {FFNS}, no cross-attention")
 
 
 def cache_length(spec: BlockSpec, max_len: int) -> int:
@@ -25,17 +30,28 @@ def cache_length(spec: BlockSpec, max_len: int) -> int:
     return max_len if spec.window is None else min(max_len, spec.window)
 
 
+_MIXER_INIT = {
+    "attn": attention.attn_init,
+    "mlstm": xlstm.mlstm_init,
+    "slstm": xlstm.slstm_init,
+}
+
+
 def block_init(gen: torch.Generator, spec: BlockSpec, cfg: ModelConfig):
     check_spec(spec)
-    return {
+    p = {
         "norm1": norms.rms_norm_init(cfg, gen.device),
-        "mixer": attention.attn_init(gen, cfg),
-        "norm2": norms.rms_norm_init(cfg, gen.device),
-        "ffn": mlp.mlp_init(gen, cfg),
+        "mixer": _MIXER_INIT[spec.mixer](gen, cfg),
     }
+    if spec.ffn == "dense":
+        p["norm2"] = norms.rms_norm_init(cfg, gen.device)
+        p["ffn"] = mlp.mlp_init(gen, cfg)
+    return p
 
 
-def _ffn(params, x, cfg):
+def _ffn(params, x, spec: BlockSpec, cfg):
+    if spec.ffn == "none":
+        return x
     h = norms.rms_norm_apply(params["norm2"], x, cfg.norm_eps)
     return x + mlp.mlp_apply(params["ffn"], h, cfg)
 
@@ -44,9 +60,14 @@ def block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, *, positions):
     """Full-sequence forward."""
     check_spec(spec)
     h = norms.rms_norm_apply(params["norm1"], x, cfg.norm_eps)
-    x = x + attention.attn_apply(params["mixer"], h, cfg,
+    if spec.mixer == "attn":
+        h = attention.attn_apply(params["mixer"], h, cfg,
                                  positions=positions, window=spec.window)
-    return _ffn(params, x, cfg)
+    elif spec.mixer == "mlstm":
+        h = xlstm.mlstm_apply(params["mixer"], h, cfg)
+    else:
+        h = xlstm.slstm_apply(params["mixer"], h, cfg)
+    return _ffn(params, x + h, spec, cfg)
 
 
 def block_prefill(params, x, spec: BlockSpec, cfg: ModelConfig, *,
@@ -55,27 +76,42 @@ def block_prefill(params, x, spec: BlockSpec, cfg: ModelConfig, *,
     structured like :func:`block_cache_init`. Returns (y, cache)."""
     check_spec(spec)
     h = norms.rms_norm_apply(params["norm1"], x, cfg.norm_eps)
-    h, (k, v) = attention.attn_apply(params["mixer"], h, cfg,
-                                     positions=positions, window=spec.window,
-                                     return_kv=True)
-    cache = attention.prefill_cache(k, v, positions,
-                                    cache_length(spec, max_len), cache_dtype)
-    return _ffn(params, x + h, cfg), cache
+    if spec.mixer == "attn":
+        h, (k, v) = attention.attn_apply(params["mixer"], h, cfg,
+                                         positions=positions,
+                                         window=spec.window, return_kv=True)
+        cache = attention.prefill_cache(k, v, positions,
+                                        cache_length(spec, max_len),
+                                        cache_dtype)
+    elif spec.mixer == "mlstm":
+        h, cache = xlstm.mlstm_prefill(params["mixer"], h, cfg, cache_dtype)
+    else:
+        h, cache = xlstm.slstm_prefill(params["mixer"], h, cfg)
+    return _ffn(params, x + h, spec, cfg), cache
 
 
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int,
                      max_len: int, dtype, device=None):
     check_spec(spec)
+    if spec.mixer == "mlstm":
+        return xlstm.mlstm_init_cache(cfg, batch, dtype, device)
+    if spec.mixer == "slstm":
+        return xlstm.slstm_init_cache(cfg, batch, dtype, device)
     return attention.init_cache(cfg, batch, cache_length(spec, max_len),
                                 dtype, device)
 
 
 def block_decode(params, x, cache, index, spec: BlockSpec, cfg: ModelConfig):
     """One-token decode; ``index`` (B,) holds each row's position.
-    Updates ``cache`` in place. Returns (y, cache)."""
+    Attention updates ``cache`` in place; the recurrent mixers return new
+    state tensors. Returns (y, cache)."""
     check_spec(spec)
     h = norms.rms_norm_apply(params["norm1"], x, cfg.norm_eps)
-    if spec.window is not None:
+    if spec.mixer == "mlstm":
+        h, cache = xlstm.mlstm_decode(params["mixer"], h, cache, cfg)
+    elif spec.mixer == "slstm":
+        h, cache = xlstm.slstm_decode(params["mixer"], h, cache, cfg)
+    elif spec.window is not None:
         # windowed ring cache: write at index % cache_len
         widx = torch.remainder(index, cache["k"].shape[1])
         h, cache = _decode_ring(params["mixer"], h, cache, index, widx, cfg,
@@ -83,7 +119,7 @@ def block_decode(params, x, cache, index, spec: BlockSpec, cfg: ModelConfig):
     else:
         h, cache = attention.attn_decode(params["mixer"], h, cache, index,
                                          cfg, window=None)
-    return _ffn(params, x + h, cfg), cache
+    return _ffn(params, x + h, spec, cfg), cache
 
 
 def _decode_ring(params, x, cache, index, widx, cfg, window):

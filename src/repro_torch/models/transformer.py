@@ -10,7 +10,9 @@ absolute index::
 The reference stacks the server's repeated layer groups for a
 ``lax.scan`` (:func:`_layout`); here they are a per-layer loop, and
 :mod:`repro_torch.convert` unstacks reference params into this layout.
-Decode caches are ``{'blk{l}': {'k', 'v'}}`` over every layer.
+Decode caches are ``{'blk{l}': ...}`` over every layer: ``{'k', 'v'}``
+for attention, the recurrent state for mLSTM (``conv``, ``C``, ``n``,
+``m``) and sLSTM (``c``, ``n``, ``m``, ``h``).
 """
 from __future__ import annotations
 

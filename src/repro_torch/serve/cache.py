@@ -20,6 +20,11 @@ page 0 and their writes are dropped -- by explicit masks, never by
 out-of-range indices; those rows always get exactly zero attention
 weight. Windowed layers keep their ring: a leaf of ring length
 ``L < max_len`` only touches positions ``pos % L``.
+
+Recurrent-mixer state (xLSTM's ``conv``, ``C``, ``n``, ``m`` and sLSTM's
+``c``, ``n``, ``m``, ``h``) is O(1) per slot and stays dense in both
+modes: admission copies a slot's rows, and each step takes the decode's
+new state wholesale. A model without attention needs no page.
 """
 from __future__ import annotations
 
@@ -36,21 +41,25 @@ from repro_torch.models import transformer as T
 @dataclass(frozen=True)
 class _LeafInfo:
     layer: str      # "blk{l}"
-    name: str       # "k" | "v"
-    length: int     # ring / cache length L
+    name: str       # "k" | "v" (attention), or a recurrent state's key
+    attn: bool      # paged KV leaf vs dense recurrent-state leaf
+    length: int     # ring / cache length L of a KV leaf (0 otherwise)
     shape: tuple    # dense shape, slot axis first
     dtype: torch.dtype
 
 
 def _leaf_infos(cfg, slots: int, max_len: int, dtype):
+    """One entry per leaf of the dense decode cache, from a template made
+    on the meta device (no memory)."""
     T.check_supported(cfg)
     infos = []
     for l, spec in enumerate(cfg.block_specs):
-        L = B.cache_length(spec, max_len)
-        for name in ("k", "v"):
-            infos.append(_LeafInfo(f"blk{l}", name, L,
-                                   (slots, L, cfg.num_kv_heads, cfg.head_dim),
-                                   dtype))
+        attn = spec.mixer == "attn"
+        L = B.cache_length(spec, max_len) if attn else 0
+        tpl = B.block_cache_init(spec, cfg, slots, max_len, dtype, "meta")
+        for name, t in tpl.items():
+            infos.append(_LeafInfo(f"blk{l}", name, attn, L, tuple(t.shape),
+                                   t.dtype))
     return infos
 
 
@@ -105,6 +114,8 @@ class PagedOps:
         self.pages, self.page_size = pages, page_size
         self.max_pages = math.ceil(max_len / page_size)
         self.infos = _leaf_infos(cfg, slots, max_len, dtype)
+        self.kv = [i for i in self.infos if i.attn]
+        self.dense = [i for i in self.infos if not i.attn]
 
     def _npages(self, length: int) -> int:
         return math.ceil(length / self.page_size)
@@ -113,26 +124,30 @@ class PagedOps:
         return torch.as_tensor(a, dtype=torch.long, device=self.device)
 
     def init(self):
-        """Pool per leaf, in the dense cache's layout."""
+        """A pool per KV leaf, the dense state per recurrent leaf."""
         pool = {}
         for i in self.infos:
+            shape = ((self.pages, self.page_size) + i.shape[2:] if i.attn
+                     else i.shape)
             pool.setdefault(i.layer, {})[i.name] = torch.zeros(
-                (self.pages, self.page_size) + i.shape[2:], dtype=i.dtype,
-                device=self.device)
+                shape, dtype=i.dtype, device=self.device)
         return pool
 
     def pages_needed(self, target_len: int) -> int:
         """Table columns a request reaching ``target_len`` total tokens
-        touches (budgeted for the longest leaf)."""
-        longest = max(i.length for i in self.infos)
+        touches (budgeted for the longest leaf; 0 without attention)."""
+        longest = max((i.length for i in self.kv), default=0)
         return self._npages(min(target_len, longest))
 
     def gather(self, paged, table: np.ndarray):
         """Materialise the dense (slots, L, kv, hd) view decode expects;
-        unallocated entries read page 0."""
+        unallocated entries read page 0. Recurrent leaves pass as they
+        are."""
         cols = {}
         dense = {}
-        for i in self.infos:
+        for i in self.dense:
+            dense.setdefault(i.layer, {})[i.name] = paged[i.layer][i.name]
+        for i in self.kv:
             L = i.length
             if L not in cols:
                 cols[L] = self._idx(np.maximum(table[:, :self._npages(L)], 0))
@@ -143,9 +158,12 @@ class PagedOps:
 
     def scatter(self, paged, new_dense, table: np.ndarray, idxs: np.ndarray):
         """Write the one KV row each slot produced this step back into its
-        page; rows of slots without a page there are dropped."""
+        page; rows of slots without a page there are dropped. Recurrent
+        leaves are taken wholesale."""
+        for i in self.dense:
+            paged[i.layer][i.name] = new_dense[i.layer][i.name]
         sel = {}
-        for i in self.infos:
+        for i in self.kv:
             L = i.length
             if L not in sel:
                 widx = idxs % L
@@ -161,9 +179,12 @@ class PagedOps:
         return paged
 
     def admit(self, paged, req_cache, table_row: np.ndarray, slot: int):
-        """Scatter a B=1 prefill cache into the slot's pages; columns
-        without a page are dropped."""
-        for i in self.infos:
+        """Scatter a B=1 prefill cache into the slot's pages, and its
+        recurrent state into the slot's rows; columns without a page are
+        dropped."""
+        for i in self.dense:
+            paged[i.layer][i.name][slot] = req_cache[i.layer][i.name][0]
+        for i in self.kv:
             L = i.length
             npg = self._npages(L)
             cols = table_row[:npg]
@@ -176,8 +197,9 @@ class PagedOps:
         return paged
 
     def state_bytes(self) -> int:
-        return sum(_nbytes((self.pages, self.page_size) + i.shape[2:],
-                           i.dtype) for i in self.infos)
+        return (sum(_nbytes((self.pages, self.page_size) + i.shape[2:],
+                            i.dtype) for i in self.kv)
+                + sum(_nbytes(i.shape, i.dtype) for i in self.dense))
 
 
 def make_ops(cfg, slots: int, max_len: int, dtype, device, *,

@@ -5,9 +5,10 @@ paged, see :mod:`repro_torch.serve.cache`) and runs generation as:
 
 * **admit** -- one fused prefill per request
   (:func:`repro_torch.models.transformer.forward_prefill_cached`): the
-  whole prompt in one trunk pass, whose attention is the flash kernel,
-  the cache copied into a freed slot, the first token sampled from the
-  last-position logits. Prompts are never padded.
+  whole prompt in one trunk pass (attention through the flash kernel,
+  mLSTM through the chunkwise kernel), the cache copied into a freed
+  slot, the first token sampled from the last-position logits. Prompts
+  are never padded.
 * **step** -- one batched decode advancing *every* slot by one token.
   Each slot carries its own position (a per-row ``index`` tensor); the
   per-row math is the single-sequence decode path, which keeps engine
@@ -18,9 +19,11 @@ Requests are admitted from an arrival queue into freed slots as
 sequences finish -- no generation barrier -- unless
 ``admission='static'`` restores the barrier for A/B comparison.
 
-The engine serves a copy of the params cast once to the compute dtype
-(norm scales stay float32). The reference casts each weight to the
-compute dtype at every use; casting once yields the same values.
+The engine serves a copy of the params cast once to the compute dtype,
+but for the leaves the reference uses in float32 (norm scales and the
+xLSTM gate weights and biases, :data:`FLOAT32_LEAVES`). The reference
+casts each other weight to the compute dtype at every use; casting once
+yields the same values.
 """
 from __future__ import annotations
 
@@ -85,15 +88,21 @@ class _Slot:
     expiry: float = float("inf")  # absolute eviction time on the timeline
 
 
+# leaves the reference applies in float32 whatever the compute dtype: norm
+# scales, and the mLSTM / sLSTM gate projections and biases
+FLOAT32_LEAVES = ("scale", "w_gates", "b_gates", "r_gates")
+
+
 def serving_params(params, cfg, device):
     """The engine's copy of ``params`` on ``device``: every weight in the
-    compute dtype, norm scales (used in float32) as they are."""
+    compute dtype, the :data:`FLOAT32_LEAVES` in float32."""
     dtype = dtype_of(cfg.dtype)
 
     def conv(tree, key=""):
         if isinstance(tree, dict):
             return {k: conv(v, k) for k, v in tree.items()}
-        return tree.to(device, torch.float32 if key == "scale" else dtype)
+        return tree.to(device, torch.float32 if key in FLOAT32_LEAVES
+                       else dtype)
 
     return conv(params)
 

@@ -13,6 +13,9 @@ import torch
 from repro_torch.kernels.flash_attn import kernel, ops, ref
 from repro_torch.kernels.lace import kernel as lace_kernel
 from repro_torch.kernels.lace import ops as lace_ops
+from repro_torch.kernels.mlstm import kernel as mlstm_kernel
+from repro_torch.kernels.mlstm import ops as mlstm_ops
+from repro_torch.kernels.mlstm import ref as mlstm_ref
 
 
 def _needs_card():
@@ -427,3 +430,112 @@ def test_alexnet_split_step_on_card_matches_cpu(boundary):
         "logits", boundary)
     assert launched == (0,) * 6, launched
     _assert_step_close(dev_res, cpu_res)
+
+
+def _mlstm_inputs(seed, B, S, H, dk, dv, zero_state):
+    """q, k, v, gates and a state on the card; q scaled as the model
+    scales it (q.k of order 1), forget gates log-sigmoid(N(2, 1))."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                * np.float32(scale)).cuda()
+
+    q, k, v = n(B, S, H, dk, scale=dk ** -0.5), n(B, S, H, dk), \
+        n(B, S, H, dv)
+    i_raw = n(B, S, H)
+    f_log = torch.nn.functional.logsigmoid(n(B, S, H) + 2.0)
+    state = None if zero_state else (n(B, H, dk, dv), n(B, H, dk), n(B, H))
+    return q, k, v, i_raw, f_log, state
+
+
+def _rel(got, want):
+    return ((got - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,zero_state", [
+    (1, 777, 4, 1024, 1024, 64, True),     # the served model's prefill
+    (1, 128, 4, 1024, 1024, 64, True),
+    (1, 37, 4, 1024, 1024, 64, False),     # odd S below the chunk
+    (2, 200, 3, 64, 64, 64, False),        # ragged last chunk
+    (1, 13, 2, 128, 96, 8, False),         # short chunks, dv not 64k
+    (2, 100, 2, 256, 512, 16, True),
+    (1, 64, 1, 512, 32, 64, False),        # exactly one chunk
+])
+def test_mlstm_kernel_matches_plain(B, S, H, dk, dv, chunk, zero_state):
+    """K6 against the plain chunkwise version: h and the final (C, n, m)
+    within 1e-4 of each one's largest entry (float32 sums in another
+    order)."""
+    _needs_card()
+    q, k, v, i_raw, f_log, state = _mlstm_inputs(S + dk, B, S, H, dk, dv,
+                                                 zero_state)
+    before = mlstm_ops.LAUNCHES
+    h, got = mlstm_ops.mlstm_chunkwise(q, k, v, i_raw, f_log, state,
+                                       chunk=chunk)
+    torch.cuda.synchronize()
+    assert mlstm_ops.LAUNCHES == before + 1
+    assert h.shape == (B, S, H, dv) and h.dtype == torch.float32
+    want_h, want = mlstm_ref.mlstm_chunk_plain(q, k, v, i_raw, f_log, state,
+                                               chunk=chunk)
+    assert _rel(h, want_h) <= 1e-4, _rel(h, want_h)
+    for name, a, b in zip("Cnm", got, want):
+        assert a.shape == b.shape
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+def test_mlstm_kernel_refuses_grad_and_bad_shapes():
+    """No silent zero gradient: a CUDA call whose inputs require a
+    gradient raises (the backward comes with xLSTM training); what the
+    kernel does not take raises before a launch."""
+    _needs_card()
+    q, k, v, i_raw, f_log, _ = _mlstm_inputs(0, 1, 16, 2, 64, 64, True)
+    before = mlstm_ops.LAUNCHES
+    with pytest.raises(NotImplementedError, match="training slice"):
+        mlstm_ops.mlstm_chunkwise(q.requires_grad_(), k, v, i_raw, f_log)
+    with torch.no_grad():
+        mlstm_ops.mlstm_chunkwise(q, k, v, i_raw, f_log)
+    assert mlstm_ops.LAUNCHES == before + 1
+    q = q.detach()
+    with pytest.raises(TypeError, match="float32"):
+        mlstm_kernel.mlstm_chunk_cuda(q.bfloat16(), k, v, i_raw, f_log)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        mlstm_kernel.mlstm_chunk_cuda(q[..., :32], k[..., :32], v, i_raw,
+                                      f_log)
+    with pytest.raises(ValueError, match="chunk"):
+        mlstm_kernel.mlstm_chunk_cuda(q, k, v, i_raw, f_log, chunk=128)
+
+
+@pytest.mark.gpu
+def test_xlstm_prefill_on_card_matches_cpu():
+    """Reduced xlstm-1.3b in float32 on one period of its layer pattern
+    (8 layers: 7 mLSTM, 1 sLSTM; deeper random stacks amplify float32
+    rounding layer by layer, see PERF.md): the fused prefill on the card
+    (K6 once per mLSTM layer) against the CPU (the plain version): logits
+    and every cache leaf within 1e-4 of its largest entry."""
+    _needs_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("xlstm-1.3b").reduced(num_layers=8)
+    params = transformer.init_params(torch.Generator().manual_seed(3), cfg)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 77)))
+    before = mlstm_ops.LAUNCHES
+    with torch.no_grad():
+        lg, cache = transformer.forward_prefill_cached(
+            tree_map(lambda a: a.cuda(), params), {"tokens": toks.cuda()},
+            cfg, 96)
+        torch.cuda.synchronize()
+        n_mlstm = sum(s.mixer == "mlstm" for s in cfg.block_specs)
+        assert mlstm_ops.LAUNCHES == before + n_mlstm
+        want_lg, want = transformer.forward_prefill_cached(
+            params, {"tokens": toks}, cfg, 96)
+    errs = {"logits": _rel(lg.cpu(), want_lg)}
+    for layer, leaves in want.items():
+        for key, b in leaves.items():
+            errs[f"{layer}/{key}"] = _rel(cache[layer][key].cpu(), b)
+    assert max(errs.values()) <= 1e-4, errs

@@ -7,6 +7,10 @@
   token-by-token loop;
 * static admission == continuous; deadline and token-budget eviction as
   the reference does it;
+* xLSTM (mLSTM + sLSTM, no attention): the fused prefill's logits and
+  every cache leaf against the reference's ``forward_prefill_cached``,
+  paged == dense with no page taken, and the engine's float32 gate
+  weights;
 * ``ServeSpec`` validation and JSON round trip; ``restore_global_params``
   from checkpoints written by ``repro.checkpoint.save`` (K-stacked,
   merged, full training state); ``build_serve`` and the CLI on the CPU.
@@ -20,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from helpers import tiny_cfg
+from helpers import tiny_cfg, tiny_xlstm_cfg
 from repro import checkpoint
 from repro.configs import get_config
 from repro.models import transformer as JT
@@ -30,7 +34,9 @@ from repro_torch import convert
 from repro_torch.api import ServeSpec, build_serve, restore_global_params
 from repro_torch.configs import get_config as tget_config
 from repro_torch.configs.base import ModelConfig as TModelConfig
+from repro_torch.configs.base import XLSTMConfig as TXLSTMConfig
 from repro_torch.launch.serve import generate
+from repro_torch.models import transformer as T
 from repro_torch.serve import Request, ServeEngine
 
 torch.set_num_threads(1)
@@ -38,9 +44,11 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 
 
 def _port_cfg(cfg):
+    xlstm = cfg.xlstm and TXLSTMConfig(**dataclasses.asdict(cfg.xlstm))
     return TModelConfig(**{f.name: getattr(cfg, f.name)
                            for f in dataclasses.fields(cfg)
-                           if f.name not in ("moe", "mamba", "xlstm")})
+                           if f.name not in ("moe", "mamba", "xlstm")},
+                        xlstm=xlstm)
 
 
 def _f32(cfg):
@@ -54,7 +62,13 @@ def _np(tree):
 CONFIGS = {
     "tiny": tiny_cfg,
     "qwen-reduced": lambda: _f32(get_config("qwen1.5-0.5b").reduced()),
+    "xlstm-tiny": tiny_xlstm_cfg,
+    "xlstm-reduced": lambda: _f32(get_config("xlstm-1.3b").reduced()),
 }
+XLSTM = ["xlstm-tiny", "xlstm-reduced"]
+# 16 random xLSTM layers amplify float32 rounding: the reference's own
+# fused prefill and token-by-token decode differ by up to 1.4e-4 there
+MODEL_TOL = {"xlstm-reduced": dict(atol=2e-4, rtol=2e-4)}
 
 
 def _setup(cfg, seed=0):
@@ -90,13 +104,91 @@ def test_engine_matches_reference_engine(name):
     teng = _engine(tparams, cfg, slots=2, max_len=18, record_logits=True)
     got = teng.serve([Request(i, t, n) for i, t, n in reqs],
                      wall_clock=False)
+    tol = MODEL_TOL.get(name, TOL)
     for i, _, n in reqs:
         np.testing.assert_array_equal(got[i].tokens, want[i].tokens)
         assert len(got[i].logits) == len(want[i].logits) == n
         for a, b in zip(got[i].logits, want[i].logits):
-            np.testing.assert_allclose(a, np.asarray(b), **TOL)
+            np.testing.assert_allclose(a, np.asarray(b), **tol)
         assert (got[i].t_admit, got[i].t_finish) == \
             (want[i].t_admit, want[i].t_finish)
+
+
+@pytest.mark.parametrize("name", XLSTM)
+def test_xlstm_prefill_cache_matches_reference(name):
+    """Logits at the last position and every layer's decode cache (the
+    mLSTM conv tail and (C, n, m), the sLSTM (c, n, m, h)) against the
+    reference's fused prefill, on an odd prompt."""
+    cfg = CONFIGS[name]()
+    jparams, tparams = _setup(cfg)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 13))
+    jlogits, jcache = JT.forward_prefill_cached(
+        jparams, {"tokens": jnp.asarray(toks)}, cfg, 20)
+    pcfg = _port_cfg(cfg)
+    logits, cache = T.forward_prefill_cached(
+        tparams, {"tokens": torch.as_tensor(toks)}, pcfg, 20)
+    tol = MODEL_TOL.get(name, TOL)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **tol)
+    want = convert.per_layer(jcache["client"], jcache["prologue"],
+                             jcache["groups"], cfg)
+    assert set(cache) == {f"blk{l}" for l in want}
+    # state leaves (C sums outer products) are held to the tolerance of
+    # their largest entry
+    for l, leaves in want.items():
+        got = cache[f"blk{l}"]
+        assert set(got) == set(leaves)
+        for key, a in leaves.items():
+            a = np.asarray(a)
+            assert got[key].shape == a.shape, f"blk{l}/{key}"
+            err = np.abs(got[key].numpy() - a).max() / np.abs(a).max()
+            assert err <= tol["rtol"], f"blk{l}/{key}: {err}"
+
+
+@pytest.mark.parametrize("name", XLSTM)
+def test_xlstm_paged_equals_dense_without_pages(name):
+    """An attention-free model keeps all its state dense: a paged engine
+    takes no page and serves bitwise what the dense one does, and both
+    equal the token-by-token loop."""
+    cfg = CONFIGS[name]()
+    _, params = _setup(cfg)
+    reqs = _mixed_requests(cfg.vocab_size)
+    dense = _engine(params, cfg, slots=2, max_len=18, record_logits=True)
+    paged = _engine(params, cfg, slots=2, max_len=18, pages=6, page_size=4,
+                    record_logits=True)
+    assert paged.ops.pages_needed(18) == 0
+    assert paged.state_bytes() == dense.state_bytes()
+    rd = dense.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    rp = paged.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    pcfg = _port_cfg(cfg)
+    for i, toks, n in reqs:
+        np.testing.assert_array_equal(rd[i].tokens, rp[i].tokens)
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(rd[i].logits, rp[i].logits))
+        ref = generate(params, pcfg, torch.as_tensor(toks[None]), 18, n)
+        np.testing.assert_array_equal(rd[i].tokens, ref[0].numpy())
+    assert len(paged._free_pages) == 6
+
+
+def test_xlstm_serving_params_keep_float32_gates():
+    """The reference applies the gate projections and biases in float32
+    whatever the compute dtype; the engine's bf16 copy keeps them so."""
+    cfg = tiny_xlstm_cfg(dtype="bfloat16")
+    _, params = _setup(cfg)
+    eng = _engine(params, cfg, slots=2, max_len=18)
+    blocks = eng.params["server"]["blocks"]
+    mlstm, slstm = blocks["blk2"]["mixer"], blocks["blk1"]["mixer"]
+    for leaf in (mlstm["w_gates"], mlstm["b_gates"], slstm["w_gates"],
+                 slstm["b_gates"], slstm["r_gates"],
+                 mlstm["out_norm"]["scale"]):
+        assert leaf.dtype == torch.float32
+    for leaf in (mlstm["up"], mlstm["wq"], mlstm["conv_w"], mlstm["down"],
+                 slstm["ffn_up"]):
+        assert leaf.dtype == torch.bfloat16
+    assert eng._cache["blk0"]["conv"].dtype == torch.bfloat16
+    assert eng._cache["blk0"]["C"].dtype == torch.float32
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 7))
+    out = eng.generate(prompts, 4)
+    assert out.shape == (2, 11) and out.max() < cfg.vocab_size
 
 
 # --------------------------------------------------------------------------

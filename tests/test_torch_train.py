@@ -194,6 +194,9 @@ ALEXNET = dict(arch="alexnet-cifar", reduced=False,
     (dict(fed=dict(aggregator="bias_compensated")), NotImplementedError,
      "bias_compensated"),
     (dict(top=dict(method="fedavg")), NotImplementedError, "baseline"),
+    # xLSTM serves; its training needs K6's backward
+    (dict(top=dict(arch="xlstm-1.3b")), NotImplementedError,
+     "xLSTM training slice"),
     # the paper's setup validates: AlexNet, logits, the dual boundary
     (dict(top=ALEXNET, execution=dict(backend="logits", boundary="dual")),
      None, None),
