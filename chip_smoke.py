@@ -8,17 +8,21 @@ Phases, one or more lines each:
 1. device: the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
 2. build: every kernel source in ``src/repro_torch/kernels/csrc``
-   (flash_attn, flash_attn_bwd, lace, lace1, mlstm), one nvcc each, all
-   at once, for sm_90a;
+   (flash_attn, flash_attn_bwd, lace, lace1, mlstm; the headers
+   flash_common.cuh and lace_common.cuh), one nvcc each, all at once,
+   for sm_90a; each kernel's registers and spills by name;
 3. kernels: each kernel against its plain PyTorch version at the shapes
    its path gives it, with the stated tolerance; then its time (CUDA
    events), the plain version's, PyTorch's own call's (``library_ms``, a
-   yardstick only) and the card's bound for the work -- the attention
-   forward (K3) at the serving shapes, then the attention backward, the
-   fused LACE boundary (K1, K2) and the single-prior LACE kernels of the
-   dual boundary (K4, K5; server side with dW, client side without) at
-   the training shapes, and the chunkwise mLSTM (K6) at the served
-   xlstm-1.3b's prefill shapes (h and the final C, n, m);
+   yardstick only), for K3 also the card's time alone (``device_ms``:
+   the calls queued behind a sleep kernel, no host time), and the card's
+   bound for the work -- the attention forward (K3) at the serving
+   shapes and the training trunk's, then the attention backward (two
+   runs bitwise equal), the fused LACE boundary (K1, K2) and the
+   single-prior LACE kernels of the dual boundary (K4, K5; server side
+   with dW, client side without) at the training shapes, and the
+   chunkwise mLSTM (K6) at the served xlstm-1.3b's prefill shapes (h and
+   the final C, n, m);
 4. serve: full-width qwen1.5-0.5b in bf16 through ServeSpec ->
    build_serve -> ServeEngine.serve, dense and paged cache; paged tokens
    must equal dense tokens, and every admitted request must have
@@ -61,6 +65,8 @@ Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 exits nonzero; without a GPU it exits nonzero before printing a result.
 
+``python3 chip_smoke.py attention`` runs phases 1 and 2 and the
+attention kernels of phase 3 (K3 forward and backward), then stops.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -97,6 +103,7 @@ KERNEL_CASES += [(1, 777, 16, 2, None, torch.bfloat16),      # GQA
                  (1, 1024, 16, 16, 256, torch.bfloat16),     # sliding window
                  (16, 512, 16, 16, None, torch.bfloat16)]    # training
 REPORT_CASE = (1, 777, 16, 16, None, torch.bfloat16)         # the JSON line's
+TRAIN_CASE = KERNEL_CASES[-1]                                # and beside it
 XLSTM = "xlstm-1.3b"
 # the chunkwise mLSTM (K6), (B, S, H, dk, dv): the served xlstm-1.3b's
 # prefill (4 heads of 1024, chunk 64) at prompts of the serving mix (128,
@@ -202,6 +209,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time per call of ``fn``, without the host's time to
+    issue it (which ``time_ms`` includes when the host is the slower of
+    the two): the calls are queued behind a sleep kernel that outlasts
+    their issue, so the events time the card running them back to back.
+    A sleep that the issue outlasted is tried again, four times longer."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    sleep_s = 4 * iters * (time.perf_counter() - t0) + 2e-3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        torch.cuda._sleep(int(sleep_s * 2e9))  # >= sleep_s: SM clock < 2 GHz
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        issue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if issue_s < sleep_s:
+            return start.elapsed_time(end) / iters
+        sleep_s *= 4
+    raise RuntimeError(f"issuing {iters} calls took {issue_s:.4f} s, longer "
+                       f"than a {sleep_s / 4:.4f} s sleep")
+
+
 def causal_pairs(P, window):
     """The (query, key) pairs causal attention over P tokens scores."""
     span = np.arange(P) + 1
@@ -230,14 +267,66 @@ def phase_device():
     return name, count, smi
 
 
+def kernel_label(mangled: str) -> str:
+    """A readable name for a kernel symbol of the port's sources, e.g.
+    ``flash_fwd_mma_kernel<64>`` for its Itanium-mangled name (the
+    kernels live in a namespace of their file, anonymous or named, and
+    take int and type template arguments only)."""
+    s = mangled
+
+    def name_at(i):
+        j = i
+        while j < len(s) and s[j].isdigit():
+            j += 1
+        if j == i:
+            raise ValueError(mangled)
+        n = int(s[i:j])
+        return s[j:j + n], j + n
+
+    try:
+        if not s.startswith("_ZN"):
+            return s
+        name, i = name_at(3)
+        while s[i].isdigit():                # nested names: keep the last
+            name, i = name_at(i)
+        if s[i] != "I":
+            return name
+        i += 1
+        args = []
+        while s[i] != "E":
+            if s[i] == "L":                  # a literal: L<type><value>E
+                end = s.index("E", i)
+                args.append(s[i + 2:end])
+                i = end + 1
+            elif s[i].isdigit():             # a named type
+                arg, i = name_at(i)
+                args.append(arg.replace("__nv_bfloat16", "bf16"))
+            else:                            # a builtin type
+                args.append({"f": "float", "i": "int"}.get(s[i], s[i]))
+                i += 1
+        return f"{name}<{','.join(args)}>"
+    except (IndexError, ValueError):
+        return mangled
+
+
 def phase_build():
+    """Builds every source; prints each kernel's registers and spills
+    from ``ptxas -v``, by kernel name."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(["flash_attn", "flash_attn_bwd", "lace", "lace1",
                         "mlstm"])
     for name, log in logs.items():
+        kern, spill = None, ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "built in" in line:
+            if "Compiling entry function" in line:
+                kern = kernel_label(line.split("'")[1])
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                regs = line.split("Used", 1)[1].split(",")[0].strip()
+                say("build", f"{name}: {kern}: {regs}; {spill}")
+            elif "built in" in line:
                 say("build", f"{name}: {line.strip()}")
     say("build", f"all kernels ready in {time.perf_counter() - t0:.1f} s")
 
@@ -248,6 +337,17 @@ def phase_kernels():
 
     gen = torch.Generator("cuda")
     gen.manual_seed(0)
+    # the launchers' own cost: a call that gives the card next to no work
+    tiny = [torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16, device="cuda")
+            for _ in range(3)]
+    host_ms = time_ms(lambda: kernel.flash_attention_cuda(*tiny), iters=200,
+                      warmup=10)
+    lib_host_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in tiny), is_causal=True), iters=200,
+        warmup=10)
+    say("kernels", f"flash_attn_fwd at 1 token, 1 head: {host_ms:.4f} ms a "
+        f"call (sdpa {lib_host_ms:.4f} ms): below this the host, not the "
+        "card, sets a call's time")
     rows, max_err = {}, 0.0
     for case in KERNEL_CASES:
         B, P, H, KV, window, dtype = case
@@ -283,14 +383,17 @@ def phase_kernels():
         check(err <= TOL[dtype], f"kernel vs plain {case}: {err} > {TOL[dtype]}")
         ms, plain_ms, lib_ms = (time_ms(f) for f in
                                 (run_kernel, run_plain, run_library))
+        dev_ms, lib_dev_ms = device_ms(run_kernel), device_ms(run_library)
         bound_ms, bound_by = attention_bound(B, P, H, KV, hd, window, dtype)
         rows[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          device_ms=dev_ms, library_device_ms=lib_dev_ms)
         say("kernels", f"flash_attn_fwd B={B} P={P} H={H} KV={KV} hd={hd} "
             f"window={window} {str(dtype)[6:]}: max_abs_err={err:.3g} "
             f"(tol {TOL[dtype]}; sdpa vs plain {lib_err:.3g}) "
             f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-            f"sdpa={lib_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by})")
+            f"sdpa={lib_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}); "
+            f"device: kernel={dev_ms:.4f} ms sdpa={lib_dev_ms:.4f} ms")
     return rows, max_err
 
 
@@ -318,11 +421,13 @@ def serve_run(spec, reqs, warm_len: int):
     return engine, results, dt, launches, peak, engine.state_bytes()
 
 
-def profile(what: str, fn, top: int) -> None:
+def profile(what: str, fn, top: int, watch=()) -> None:
     """Run ``fn`` once more under torch.profiler: the wall time, the
-    device's busy time (the sum of kernel times) and the ``top`` kernels
-    that take the most of it. Profiling slows the host, so only the
-    device numbers are read from this run."""
+    device's busy time (the sum of kernel times), the ``top`` kernels
+    that take the most of it and, for each (label, name part) in
+    ``watch``, the share of the kernels whose name holds that part.
+    Profiling slows the host, so only the device numbers are read from
+    this run."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -345,6 +450,11 @@ def profile(what: str, fn, top: int) -> None:
         t = e.self_device_time_total / 1e6
         say("profile", f"  {t:.4f} s ({100 * t / busy:.1f}% of busy) "
             f"x{e.count}: {e.key[:90]}")
+    for label, part in watch:
+        hits = [e for e in kernels if part in e.key]
+        t = sum(e.self_device_time_total for e in hits) / 1e6
+        say("profile", f"  {label}: {t:.4f} s ({100 * t / busy:.1f}% of "
+            f"busy) x{sum(e.count for e in hits)}, kernels named *{part}*")
 
 
 def serve_launches(cfg, n_admits):
@@ -784,7 +894,11 @@ def phase_flash_bwd():
                                        retain_graph=True)
 
         got = run_kernel()
+        again = run_kernel()
         sync("cuda")
+        # one summation order, no atomics: a second run is bitwise equal
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash bwd {case}: two runs differ")
         exp = run_plain()
         tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
         errs = [rel_err(a, b) for a, b in zip(got, exp)]
@@ -794,6 +908,7 @@ def phase_flash_bwd():
               f"flash bwd vs autograd of plain {case}: {errs} > {tol}")
         ms, plain_ms, lib_ms = (time_ms(f, iters=5, warmup=1) for f in
                                 (run_kernel, run_plain, run_library))
+        dev_ms, lib_dev_ms = device_ms(run_kernel), device_ms(run_library)
         pairs = causal_pairs(P, window) * B * H
         flops = 10 * hd * pairs        # S, dP, dV, dK, dQ: 5 products
         el = torch.empty((), dtype=dtype).element_size()
@@ -804,13 +919,15 @@ def phase_flash_bwd():
         rows[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=max(t_ops, t_bytes) * 1e3,
                           bound_by="operations" if t_ops >= t_bytes
-                          else "bytes")
+                          else "bytes", device_ms=dev_ms,
+                          library_device_ms=lib_dev_ms)
         say("kernels", f"flash_attn_bwd B={B} P={P} H={H} KV={KV} hd={hd} "
             f"window={window} {str(dtype)[6:]}: rel err dq/dk/dv "
-            f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol {tol}) "
-            f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+            f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol {tol}; two "
+            f"runs bitwise equal) kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
             f"sdpa_bwd={lib_ms:.4f} ms bound={rows[case]['bound_ms']:.4f} "
-            f"ms ({rows[case]['bound_by']})")
+            f"ms ({rows[case]['bound_by']}); device: kernel={dev_ms:.4f} ms "
+            f"sdpa_bwd={lib_dev_ms:.4f} ms")
     return rows, max_err
 
 
@@ -1127,7 +1244,8 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
         f"per step: {per_step}")
     if profile_round and torch.device(device).type == "cuda":
         profile(f"training round ({spec.execution.boundary} boundary)",
-                trainer.step, 8)
+                trainer.step, 8, watch=[("K3 backward", "flash_bwd"),
+                                        ("K3 forward", "flash_fwd")])
     return counts
 
 
@@ -1414,11 +1532,25 @@ def phase_alexnet(device="cuda", width=ALEXNET["width"], rounds=3):
                           checked)
 
 
+def run_phase(label, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then its wall seconds on a line of its own
+    (what each phase adds to the run's time limit)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    say("time", f"{label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_row(name, source, replaces, launches, max_err, r):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": max_err,
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": max_err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+           "library_ms": r["library_ms"]}
+    # the attention kernels' device times (device_ms), beside the calls'
+    row.update({key: r[key] for key in ("device_ms", "library_device_ms")
+                if key in r})
+    return row
 
 
 def main() -> int:
@@ -1432,29 +1564,38 @@ def main() -> int:
     if sys.argv[1:] == ["xlstm-rounding"]:
         phase_xlstm_rounding()
         return 0
-    rows, max_err = phase_kernels()
-    bwd_rows, bwd_err = phase_flash_bwd()
-    lace_rows, lace_err = phase_lace()
-    lace1_rows, lace1_err = phase_lace1()
-    mlstm_rows, mlstm_err = phase_mlstm()
-    serve = phase_serve()
-    phase_check()
-    serve_x = phase_serve(arch=XLSTM, phase="serve-xlstm")
-    phase_check(arch=XLSTM, phase="check-xlstm", prompt_len=77, max_len=96,
-                layers=XLSTM_CHECK_LAYERS)
-    train = phase_train()
-    phase_train_check()
-    dual = phase_train(flags=TRAIN_DUAL_FLAGS, phase="train-dual")
-    phase_dual_check()
-    phase_alexnet()
+    rows, max_err = run_phase("kernels K3", phase_kernels)
+    bwd_rows, bwd_err = run_phase("kernels K3 bwd", phase_flash_bwd)
+    if sys.argv[1:] == ["attention"]:
+        return 0
+    lace_rows, lace_err = run_phase("kernels K1 K2", phase_lace)
+    lace1_rows, lace1_err = run_phase("kernels K4 K5", phase_lace1)
+    mlstm_rows, mlstm_err = run_phase("kernels K6", phase_mlstm)
+    serve = run_phase("serve", phase_serve)
+    run_phase("check", phase_check)
+    serve_x = run_phase("serve-xlstm", phase_serve, arch=XLSTM,
+                    phase="serve-xlstm")
+    run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
+          prompt_len=77, max_len=96, layers=XLSTM_CHECK_LAYERS)
+    train = run_phase("train", phase_train)
+    run_phase("train-check", phase_train_check)
+    dual = run_phase("train-dual", phase_train, flags=TRAIN_DUAL_FLAGS,
+                 phase="train-dual")
+    run_phase("dual-check", phase_dual_check)
+    run_phase("alexnet", phase_alexnet)
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
+    # forward launches: the serve path's plus both training paths'; its
+    # times at the serving prompt, and at the training trunk's shape beside
+    fwd_row = kernel_row("flash_attn_fwd", csrc + "flash_attn.cu",
+                         "src/repro/kernels/flash_attn/kernel.py:23",
+                         serve["flash_fwd"] + train["flash_fwd"]
+                         + dual["flash_fwd"], max_err, rows[REPORT_CASE])
+    fwd_row.update({f"{key}_train": rows[TRAIN_CASE][key] for key in
+                    ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+                     "library_device_ms")})
     print(json.dumps({"kernels": [
-        # forward launches: the serve path's plus both training paths'
-        kernel_row("flash_attn_fwd", csrc + "flash_attn.cu",
-                   "src/repro/kernels/flash_attn/kernel.py:23",
-                   serve["flash_fwd"] + train["flash_fwd"] + dual["flash_fwd"],
-                   max_err, rows[REPORT_CASE]),
+        fwd_row,
         # the backward of K3 (the JAX package trains through autodiff)
         kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
                    "src/repro/kernels/flash_attn/kernel.py:23",

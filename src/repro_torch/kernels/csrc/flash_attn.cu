@@ -17,17 +17,31 @@
 // so the (B, S, H, hd) layout is read and written without a transpose
 // copy. The heaviest causal tiles (the last query rows) launch first.
 // Two bodies compute the function:
-//  * bf16 with hd a multiple of 16 (the served model): four warps per
-//    64-row query tile run Q K^T and P V on the tensor cores with
-//    mma.sync.m16n8k16 (FA2-style: P stays in registers between the two);
+//  * bf16 with hd a multiple of 16 (the served and trained model): FA2's
+//    shape on mma.sync.m16n8k16 (flash_common.cuh). Each warp owns 16
+//    query rows; Q is staged once by cp.async and held in registers as A
+//    fragments (ldmatrix); K and V tiles of 64 keys are double-buffered
+//    by cp.async, so tile n + 1 loads while tile n is computed. S = Q K^T
+//    reads K through ldmatrix; the scores are masked only in the tiles
+//    that cross an edge and folded into the log2-domain online softmax
+//    (the scale inside the exponent's FFMA); P, rounded to bf16, stays in
+//    registers as the A operand of P V, whose B operand is V read
+//    row-major through ldmatrix.trans. The output strip goes out through
+//    shared memory in 16-byte stores. A block is 4 warps (64 rows): 8
+//    warps (128 rows) were no faster at the shapes timed
+//    (scripts/flash_fwd_ablation.py, PERF.md);
 //  * float32, and bf16 with hd = 8: one thread per query row, both
 //    products on the CUDA cores in float32.
 //
-// Bound. At the prefill shapes (B=1, H=16, hd=64, S=128..2048) the work is
-// 4*hd flops per reachable (q, k) pair against one read of q, k, v and one
-// write of o: about 8.6 GFLOP against 16.8 MB at S=2048 in bf16, so the
-// tensor-core rate bounds it, not the bytes. mma.sync reaches only part of
-// that rate; wgmma with TMA-fed, double-buffered tiles is the way to it.
+// Bound. Per reachable (q, k) pair 4*hd flops against one read of q, k, v
+// and one write of o. At the serving prefill (B=1, H=16, hd=64, P=777,
+// bf16) that is 1.2 GFLOP against 6.4 MB, at the training trunk (16 x 512)
+// 8.6 GFLOP against 67 MB: chip_smoke.py's attention_bound counts the
+// 4*hd flops at 989 TFLOP/s and the bytes at 3.35 TB/s, and the larger,
+// the bytes, bounds both (1.9 and 20 us). What the kernel reaches is set
+// by the products and their operand traffic: mma.sync runs at a fraction
+// of the dense rate, so the design keeps the tensor cores fed (no exposed
+// copy latency, no scalar transposes, conflict-free ldmatrix reads).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,29 +50,18 @@
 
 #include <type_traits>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::bf16;
+using flash::natural_lse;
+using flash::Strides;
+using flash::store;
+using flash::to_f32;
 
 constexpr int BQ = 128;  // query rows per block, one per thread
 constexpr int CH = 16;   // keys per online-softmax rescale
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-struct Strides {
-  long long b, s, h;
-};
-
-// The row's log-sum-exp of the scaled scores, in natural-log units, from
-// the running max m (log2 units) and sum l of exp2(s - m).
-__device__ __forceinline__ float natural_lse(float m, float l) {
-  return l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : -CUDART_INF_F;
-}
 
 template <typename T, int HD, int BK>
 __global__ void __launch_bounds__(BQ)
@@ -176,218 +179,148 @@ __global__ void __launch_bounds__(BQ)
 // bf16 on the tensor cores: mma.sync.m16n8k16, float32 accumulation.
 // ---------------------------------------------------------------------------
 
-constexpr int MQ = 64;        // query rows per block: 4 warps x 16 rows
-constexpr int MK = 64;        // keys per shared-memory tile
-constexpr int MTHREADS = 128;
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// One block per (64-row query tile, batch*head), four warps of 16 rows.
-// Per 64-key tile: S = Q K^T on mma.sync from Q fragments held in
-// registers and K rows in shared memory; scale, mask and the online
-// softmax on the S fragments (each row's max and sum shared by the four
-// lanes that hold it); P rounded to bf16 is reused in registers as the A
-// operand of P V, with V staged transposed in shared memory. Shared rows
-// are padded by 8 elements so the fragment reads hit 32 distinct banks.
+// WARPS warps of 16 query rows each; key tiles of 64 keys.
 template <int HD>
-__global__ void __launch_bounds__(MTHREADS)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o, int S, int Skv, int H,
-                         int group, int BH, int nq, Strides sq, Strides sk,
-                         Strides sv, Strides so, float qscale, int causal,
-                         int window, float* __restrict__ lse) {
+struct MmaCfg {
+  static constexpr int WARPS = 4;
+  static constexpr int BM = 16 * WARPS;  // query rows per block
+  static constexpr int BN = 64;          // keys per tile
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int LD = flash::Tile<HD>::LD;
+  // the Q tile (reused to stage O), then two stages of K and of V
+  static constexpr size_t BYTES =
+      static_cast<size_t>(BM + 4 * BN) * LD * sizeof(bf16);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(MmaCfg<HD>::NT)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         int S, int Skv, int H, int group, int BH, int nq,
+                         Strides sq, Strides sk, Strides sv, Strides so,
+                         float qscale, int causal, int window,
+                         float* __restrict__ lse) {
+  using C = MmaCfg<HD>;
+  constexpr int BM = C::BM, BN = C::BN, NT = C::NT, LD = C::LD;
   constexpr int KS = HD / 16;  // k-steps of Q K^T
-  constexpr int NS = MK / 8;   // n-tiles of S (keys)
+  constexpr int NS = BN / 8;   // n-tiles of S (keys)
   constexpr int NO = HD / 8;   // n-tiles of O (head dim)
-  __shared__ __align__(16) __nv_bfloat16 ks[MK][HD + 8];
-  __shared__ __align__(16) __nv_bfloat16 vt[HD][MK + 8];
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + BM * LD;      // [2][BN][LD]
+  bf16* vs = ks + 2 * BN * LD;  // [2][BN][LD]
 
   const int bh = blockIdx.x % BH;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x) / BH;
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / group;
-  const int q0 = qt * MQ;
+  const int q0 = qt * BM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row (and key / column group)
-  const int t = lane % 4;  // fragment column pair
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
+  const int wr = warp * 16;  // the warp's first row in the tile
+  const int wfirst = q0 + wr, wlast = wfirst + 15;
 
-  const __nv_bfloat16* kbase = k + b * sk.b + kvh * sk.h;
-  const __nv_bfloat16* vbase = v + b * sv.b + kvh * sv.h;
+  // Reachable key tiles of the whole block.
+  int hi = Skv;
+  if (causal) hi = min(hi, q0 + BM);
+  int lo = 0;
+  if (window > 0) lo = max(0, q0 - (window - 1));
+  const int kt0 = lo / BN;
+  const int nkt = hi > kt0 * BN ? (hi - kt0 * BN + BN - 1) / BN : 0;
+  flash::TileStream<BN, HD, NT> kstream(k + b * sk.b + kvh * sk.h, sk.s,
+                                        kt0 * BN);
+  flash::TileStream<BN, HD, NT> vstream(v + b * sv.b + kvh * sv.h, sv.s,
+                                        kt0 * BN);
 
-  // Q fragments (A operand, 16 x HD per warp), zero past the last row.
-  uint32_t qa[KS][4];
-  {
-    const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-    const bool ok0 = row0 < S, ok1 = row1 < S;
-    const __nv_bfloat16* r0 = qb + static_cast<long long>(row0) * sq.s;
-    const __nv_bfloat16* r1 = qb + static_cast<long long>(row1) * sq.s;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qa[kk][0] = ok0 ? ld32(r0 + c) : 0u;
-      qa[kk][1] = ok1 ? ld32(r1 + c) : 0u;
-      qa[kk][2] = ok0 ? ld32(r0 + c + 8) : 0u;
-      qa[kk][3] = ok1 ? ld32(r1 + c + 8) : 0u;
-    }
+  flash::TileStream<BM, HD, NT>(q + b * sq.b + h * sq.h, sq.s, q0)
+      .load(qs, S);
+  flash::cp_async_commit();
+  if (nkt > 0) {
+    kstream.load(ks, Skv);
+    vstream.load(vs, Skv);
   }
+  flash::cp_async_commit();
+  flash::cp_async_wait<1>();
+  __syncthreads();
+
+  uint32_t qa[KS][4];  // the warp's Q rows as A fragments, held all along
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) flash::load_a<LD>(qa[kk], qs, wr, kk * 16);
 
   float acc[NO][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max (log2 units)
-  float l0 = 0.f, l1 = 0.f;  // this lane's share of the running sums
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max (log2 units)
+  float l[2] = {0.f, 0.f};  // this lane's share of the running sums
 
-  int hi = Skv;
-  if (causal) hi = min(hi, q0 + MQ);
-  int lo = 0;
-  if (window > 0) lo = max(0, q0 - (window - 1));
-  const int warp_last = q0 + warp * 16 + 15;  // this warp's last row
-  const int warp_first = q0 + warp * 16;
-
-  for (int k0 = (lo / MK) * MK; k0 < hi; k0 += MK) {
-    __syncthreads();  // the previous tile is no longer read
-    // Stage K rows and V transposed, 2 elements per load; zeros past Skv.
-    for (int idx = threadIdx.x; idx < MK * HD / 2; idx += MTHREADS) {
-      const int r = idx / (HD / 2);
-      const int d = (idx % (HD / 2)) * 2;
-      const int kj = k0 + r;
-      uint32_t kk2 = 0u, vv2 = 0u;
-      if (kj < Skv) {
-        kk2 = ld32(kbase + static_cast<long long>(kj) * sk.s + d);
-        vv2 = ld32(vbase + static_cast<long long>(kj) * sv.s + d);
-      }
-      *reinterpret_cast<uint32_t*>(&ks[r][d]) = kk2;
-      const __nv_bfloat162 vp = *reinterpret_cast<__nv_bfloat162*>(&vv2);
-      vt[d][r] = vp.x;
-      vt[d + 1][r] = vp.y;
+  for (int it = 0; it < nkt; ++it) {
+    const int k0 = (kt0 + it) * BN;
+    if (it + 1 < nkt) {  // the next tile loads while this one is used
+      const int st = (it + 1) & 1;
+      kstream.load(ks + st * BN * LD, Skv);
+      vstream.load(vs + st * BN * LD, Skv);
+      flash::cp_async_commit();
+      flash::cp_async_wait<1>();
+    } else {
+      flash::cp_async_wait<0>();
     }
     __syncthreads();
+    const bf16* kst = ks + (it & 1) * BN * LD;
+    const bf16* vst = vs + (it & 1) * BN * LD;
     // Tiles no row of this warp can see.
-    if (causal && k0 > warp_last) continue;
-    if (window > 0 && k0 + MK - 1 < warp_first - (window - 1)) continue;
-
-    float s[NS][4];
+    const bool skip = (causal && k0 > wlast) ||
+                      (window > 0 && k0 + BN - 1 < wfirst - (window - 1));
+    if (!skip) {
+      float s[NS][4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
+      for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const __nv_bfloat16* kr = &ks[j * 8 + g][kk * 16 + 2 * t];
-        mma16816(s[j], qa[kk], ld32(kr), ld32(kr + 8));
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t bk[4];
+          flash::load_b_nk<LD>(bk, kst, jp * 16, kk * 16);
+          flash::mma16816(s[2 * jp], qa[kk], bk[0], bk[1]);
+          flash::mma16816(s[2 * jp + 1], qa[kk], bk[2], bk[3]);
+        }
+      }
+      if (!flash::tile_visible(wfirst, 16, k0, BN, S, Skv, causal, window))
+        flash::mask_acc<false>(s, wfirst, k0, S, Skv, causal, window,
+                               -CUDART_INF_F);
+      flash::online_softmax(s, acc, m, l, qscale);
+      // O += P V: P's accumulators are the A operand.
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t pa[4];
+        flash::acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int jp = 0; jp < NO / 2; ++jp) {
+          uint32_t bv[4];
+          flash::load_b_kn<LD>(bv, vst, kk * 16, jp * 16);
+          flash::mma16816(acc[2 * jp], pa, bv[0], bv[1]);
+          flash::mma16816(acc[2 * jp + 1], pa, bv[2], bv[3]);
+        }
       }
     }
-
-    // Scale into log2 units and mask; row maxima over the tile.
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        bool ok = key < Skv;
-        if (causal) ok = ok && key <= row;
-        if (window > 0) ok = ok && row - key < window;
-        s[j][e] = ok ? s[j][e] * qscale : -CUDART_INF_F;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    // A row with no visible key yet keeps a zero reference, not -inf.
-    const float mu0 = mn0 == -CUDART_INF_F ? 0.f : mn0;
-    const float mu1 = mn1 == -CUDART_INF_F ? 0.f : mn1;
-    const float a0 = exp2f(m0 - mu0), a1 = exp2f(m1 - mu1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      acc[j][0] *= a0;
-      acc[j][1] *= a0;
-      acc[j][2] *= a1;
-      acc[j][3] *= a1;
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = exp2f(s[j][0] - mu0);
-      s[j][1] = exp2f(s[j][1] - mu0);
-      s[j][2] = exp2f(s[j][2] - mu1);
-      s[j][3] = exp2f(s[j][3] - mu1);
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
-    }
-
-    // O += P V: the S accumulator layout is the A operand layout.
-#pragma unroll
-    for (int kk = 0; kk < MK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        const __nv_bfloat16* vr = &vt[j * 8 + g][kk * 16 + 2 * t];
-        mma16816(acc[j], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    __syncthreads();  // the stage is free for the load after next
   }
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  // Normalise; the warp's own rows of the Q tile stage the output.
+  const int g = lane / 4, t = lane % 4;
+  const float l0 = flash::quad_sum(l[0]);
+  const float l1 = flash::quad_sum(l[1]);
   if (lse && t == 0) {
     float* lb = lse + static_cast<long long>(bh) * S;
-    if (row0 < S) lb[row0] = natural_lse(m0, l0);
-    if (row1 < S) lb[row1] = natural_lse(m1, l1);
+    if (wfirst + g < S) lb[wfirst + g] = natural_lse(m[0], l0);
+    if (wfirst + g + 8 < S) lb[wfirst + g + 8] = natural_lse(m[1], l1);
   }
-  __nv_bfloat16* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row0) * so.s +
-                                   c) =
-          pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row1) * so.s +
-                                   c) =
-          pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
-  }
+  flash::acc_to_tile<HD>(qs, wr, acc, l0 > 0.f ? 1.f / l0 : 0.f,
+                         l1 > 0.f ? 1.f / l1 : 0.f);
+  __syncwarp();
+  flash::store_strip<HD>(o + b * so.b + h * so.h, so.s, qs, wr, wfirst, S);
 }
 
 template <int HD>
@@ -396,14 +329,18 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        Strides sk, Strides sv, Strides so, float qscale,
                        int causal, int window, float* lse,
                        cudaStream_t stream) {
+  using C = MmaCfg<HD>;
+  auto* kern = flash_fwd_mma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::BYTES));
+  if (err != cudaSuccess) return err;
   const int BH = B * H;
-  const int nq = (S + MQ - 1) / MQ;
-  flash_fwd_mma_kernel<HD><<<nq * BH, MTHREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, Skv, H, H / KV, BH, nq, sq, sk, sv, so, qscale, causal, window,
-      lse);
+  const int nq = (S + C::BM - 1) / C::BM;
+  kern<<<nq * BH, C::NT, C::BYTES, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Skv, H, H / KV,
+      BH, nq, sq, sk, sv, so, qscale, causal, window, lse);
   return cudaGetLastError();
 }
 
@@ -413,7 +350,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
                       Strides sk, Strides sv, Strides so, float qscale,
                       int causal, int window, float* lse,
                       cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && HD % 16 == 0) {
+  if constexpr (std::is_same_v<T, bf16> && HD % 16 == 0) {
     return launch_mma<HD>(q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
                           qscale, causal, window, lse, stream);
   } else {
@@ -432,7 +369,8 @@ template <typename T>
 cudaError_t launch(int hd, const void* q, const void* k, const void* v,
                    void* o, int B, int S, int Skv, int H, int KV, Strides sq,
                    Strides sk, Strides sv, Strides so, float qscale,
-                   int causal, int window, float* lse, cudaStream_t stream) {
+                   int causal, int window, float* lse,
+                   cudaStream_t stream) {
   switch (hd) {
     case 8:
       return launch_hd<T, 8>(q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
@@ -457,7 +395,8 @@ cudaError_t launch(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: (B, S, H, hd), k/v: (B, Skv, KV, hd), o: (B, S, H, hd); the last axis
-// contiguous, the other strides in elements. dtype: 0 = float32,
+// contiguous, the other strides in elements; for bf16 every start 16-byte
+// aligned and every stride a multiple of 8. dtype: 0 = float32,
 // 1 = bfloat16. window <= 0 means no window. lse: null, or (B, H, S) f32
 // that receives each row's log-sum-exp of the scaled scores (what the
 // backward recomputes the probabilities from). Returns the launch's
@@ -473,13 +412,13 @@ extern "C" int flash_attn_fwd(
     return cudaErrorInvalidValue;
   const Strides sq{sqb, sqs, sqh}, sk{skb, sks, skh}, sv{svb, svs, svh},
       so{sob, sos, soh};
-  const float qscale = scale * 1.4426950408889634f;  // log2(e)
+  const float qscale = scale * flash::LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(hd, q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
                          qscale, causal, window, lse, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(hd, q, k, v, o, B, S, Skv, H, KV, sq, sk,
-                                 sv, so, qscale, causal, window, lse, st);
+    return launch<bf16>(hd, q, k, v, o, B, S, Skv, H, KV, sq, sk, sv, so,
+                        qscale, causal, window, lse, st);
   return cudaErrorInvalidValue;
 }

@@ -9,7 +9,10 @@
 
 Both take the public (B, S, H, hd) layout and GQA kv heads directly, pass
 strides instead of transposing, and mask ragged edges in the kernel
-instead of padding.
+instead of padding. The bf16 bodies copy rows into shared memory 16 bytes
+at a time, so a bf16 tensor must start on a 16-byte boundary and have
+strides that are multiples of 8 elements (what a fresh or head-sliced
+(B, S, H, hd) tensor has); anything else raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,23 @@ def _fn(name):
     return _FNS[name]
 
 
+def aligned(t: torch.Tensor) -> bool:
+    """Whether a bf16 tensor meets the kernels' 16-byte rule: a 16-byte
+    aligned start and the stride of every axis but the last (and but those
+    of length 1, which no row address reads) a multiple of 8."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)
+
+
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and not aligned(t):
+            raise ValueError(f"bf16 {name} needs a 16-byte aligned start and "
+                             f"strides that are multiples of 8, got start "
+                             f"{t.data_ptr() % 16} bytes past a boundary and "
+                             f"strides {t.stride()}")
+
+
 def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -70,18 +90,21 @@ def _check(q, k, v):
         raise ValueError(f"{k.shape[2]} kv heads do not divide {H} heads")
     if hd not in SUPPORTED_HD:
         raise ValueError(f"head_dim {hd} not in {SUPPORTED_HD}")
-    if q.dtype == torch.bfloat16:
-        # the tensor-core body reads and writes bf16 pairs (4 bytes)
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:3]):
-                raise ValueError(f"bf16 {name} needs even strides and a "
-                                 f"4-byte aligned start, got strides "
-                                 f"{t.stride()}")
+    _check_aligned(q=q, k=k, v=v)
 
 
 def _check_window(window):
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+
+
+def _scale(scale, hd):
+    """The softmax scale, hd ** -0.5 by default; the kernels take the max
+    of the raw scores for the max of the scaled ones, so it must be > 0."""
+    scale = scale or hd ** -0.5
+    if scale <= 0:
+        raise ValueError(f"scale must be > 0, got {scale}")
+    return scale
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,7 +119,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_window(window)
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    scale = scale or hd ** -0.5
+    scale = _scale(scale, hd)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -134,12 +157,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last axis must be contiguous, got "
                              f"strides {t.stride()}")
+    _check_aligned(out=out, dout=dout)
     if (lse.shape != (B, H, S) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be a contiguous float32 (B, H, S) = "
                          f"{(B, H, S)} tensor on {q.device}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    scale = scale or hd ** -0.5
+    scale = _scale(scale, hd)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)

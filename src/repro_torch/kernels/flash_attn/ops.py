@@ -38,8 +38,9 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         global LAUNCHES_BWD
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
+        if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16
+                                    and not kernel.aligned(dout)):
+            dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = kernel.flash_attention_bwd_cuda(q, k, v, out, lse,
                                                      dout, **ctx.opts)
         LAUNCHES_BWD += 1

@@ -134,3 +134,28 @@ def test_gradients_match_reference(B, S, H, KV, hd, window):
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b,
                                    atol=2e-5 * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: torch.zeros((2, 33, 4, 64), dtype=torch.bfloat16), True),
+    # q, k, v as head slices of one fused projection
+    (lambda: torch.zeros((2, 33, 8, 64), dtype=torch.bfloat16)[:, :, 4:6],
+     True),
+    # a length-1 axis's stride is never read
+    (lambda: torch.zeros((1, 40, 2, 8), dtype=torch.bfloat16)
+     .as_strided((1, 40, 2, 8), (3, 16, 8, 1)), True),
+    # a start 2 bytes past a 16-byte boundary
+    (lambda: torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)[1:4 * 64 + 1]
+     .view(1, 4, 1, 64), False),
+    # a row stride of 68 elements
+    (lambda: torch.zeros((1, 4, 2, 68), dtype=torch.bfloat16)[..., :64],
+     False),
+    # a head slice that starts 4 elements into the row
+    (lambda: torch.zeros((1, 4, 2, 68), dtype=torch.bfloat16)
+     .view(1, 4, 136)[..., 4:132].view(1, 4, 2, 64), False),
+])
+def test_bf16_alignment_rule(make, want):
+    """The 16-byte rule the bf16 kernels' cp.async copies need, decided on
+    the tensor's start and strides alone (so the CPU can hold it)."""
+    t = make()
+    assert kernel.aligned(t) is want

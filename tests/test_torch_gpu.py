@@ -41,6 +41,21 @@ def _qkv(seed, B, S, H, KV, hd, dtype):
     (2, 96, 2, 1, 16, None, torch.bfloat16),
     (1, 64, 2, 2, 8, None, torch.bfloat16),         # hd 8: CUDA-core body
     (2, 200, 3, 3, 16, 7, torch.float32),
+    # the tile edges of the tensor-core body: 64- and 128-row query tiles,
+    # 64-key tiles
+    (1, 1, 2, 2, 64, None, torch.bfloat16),         # S = 1
+    (2, 63, 4, 4, 64, None, torch.bfloat16),
+    (2, 65, 4, 4, 64, None, torch.bfloat16),
+    (1, 127, 4, 4, 64, None, torch.bfloat16),
+    (1, 129, 4, 4, 64, None, torch.bfloat16),
+    (1, 200, 4, 4, 64, 5, torch.bfloat16),          # window below a key tile
+    (1, 300, 8, 1, 64, None, torch.bfloat16),       # GQA, 8 heads a kv head
+    (1, 333, 4, 2, 128, None, torch.bfloat16),      # hd 128
+    (1, 130, 2, 2, 128, 37, torch.bfloat16),
+    (1, 257, 2, 2, 128, None, torch.bfloat16),
+    (2, 127, 4, 2, 64, None, torch.bfloat16),
+    (1, 129, 8, 1, 64, 5, torch.bfloat16),
+    (1, 300, 2, 1, 16, 70, torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain(B, S, H, KV, hd, window, dtype):
     _needs_card()
@@ -65,6 +80,16 @@ def test_flash_kernel_matches_plain(B, S, H, KV, hd, window, dtype):
     (2, 70, 4, 1, 16, 9, torch.float32),
     (1, 96, 2, 2, 128, None, torch.bfloat16),
     (1, 40, 2, 2, 8, None, torch.float32),
+    # the tile edges of the tensor-core backward: 64-key dk/dv tiles,
+    # 64-row query steps (32 at hd 128), 64-row dq tiles
+    (1, 1, 2, 2, 64, None, torch.bfloat16),         # S = 1
+    (2, 63, 4, 4, 64, None, torch.bfloat16),
+    (1, 65, 4, 4, 64, None, torch.bfloat16),
+    (1, 129, 8, 1, 64, None, torch.bfloat16),       # GQA, 8 heads a kv head
+    (1, 200, 2, 2, 64, 5, torch.bfloat16),          # window below a key tile
+    (1, 97, 2, 2, 32, None, torch.bfloat16),
+    (1, 33, 2, 2, 128, 9, torch.bfloat16),
+    (1, 40, 2, 2, 8, None, torch.bfloat16),         # hd 8: CUDA-core body
 ])
 def test_flash_backward_matches_autograd_of_plain(B, S, H, KV, hd, window,
                                                   dtype):
@@ -106,6 +131,84 @@ def test_flash_backward_matches_autograd_of_plain(B, S, H, KV, hd, window,
         mask &= (i[:, None] - i[None, :]) < window
     want_lse = s.masked_fill(~mask, float("-inf")).logsumexp(-1)
     assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_strided_views_match_plain(dtype):
+    """q, k, v as head slices of one fused (B, S, H + 2 KV, hd) projection
+    (strided, the last axis contiguous, 16-byte aligned for bf16): the
+    output and the gradient of the fused buffer match the plain version's
+    (bf16 3e-2, f32 1e-4 of the largest entry)."""
+    _needs_card()
+    B, S, H, KV, hd = 2, 150, 4, 2, 64
+    rng = np.random.default_rng(11)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, H + 2 * KV, hd),
+                                               np.float32)).to("cuda", dtype)
+    gout = torch.from_numpy(rng.standard_normal((B, S, H, hd), np.float32)
+                            ).to("cuda", dtype)
+    rtol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}[dtype]
+    grads = []
+    for attend in (ops.flash_attention, ref.mha_ref):
+        x = qkv.clone().requires_grad_()
+        q, k, v = x.split([H, KV, KV], dim=2)
+        assert q.stride() == k.stride() and not q.is_contiguous()
+        out = attend(q, k, v, causal=True, window=None)
+        grads.append((out, torch.autograd.grad(out, x, gout)[0]))
+    torch.cuda.synchronize()
+    for got, exp in zip(grads[0], grads[1]):
+        err = (got.float() - exp.float()).abs().max().item()
+        assert err <= rtol * max(exp.float().abs().max().item(), 1.0), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd,window,dtype", [
+    (2, 300, 8, 2, 64, None, torch.bfloat16),
+    (1, 517, 4, 4, 64, 100, torch.bfloat16),
+    (1, 200, 2, 2, 128, None, torch.bfloat16),
+    (1, 130, 4, 2, 64, None, torch.float32),
+])
+def test_flash_backward_is_deterministic(B, S, H, KV, hd, window, dtype):
+    """The backward sums every gradient in one order, with no atomics:
+    two calls on the same inputs give bitwise-equal dq, dk and dv."""
+    _needs_card()
+    q, k, v = _qkv(S + 5, B, S, H, KV, hd, dtype)
+    out, lse = kernel.flash_attention_cuda(q, k, v, causal=True,
+                                           window=window, return_lse=True)
+    gout = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(
+        7), device="cuda").to(dtype)
+    first = kernel.flash_attention_bwd_cuda(q, k, v, out, lse, gout,
+                                            causal=True, window=window)
+    second = kernel.flash_attention_bwd_cuda(q, k, v, out, lse, gout,
+                                             causal=True, window=window)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_flash_refuses_misaligned_bf16():
+    """A bf16 tensor that breaks the 16-byte rule (a start 2 bytes past a
+    boundary, or a row stride not a multiple of 8 elements) raises
+    ValueError in the forward and the backward launcher alike."""
+    _needs_card()
+    B, S, H, hd = 1, 64, 2, 64
+    q, k, v = _qkv(1, B, S, H, H, hd, torch.bfloat16)
+    flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:1 + q.numel()].view(q.shape)           # start + 2 bytes
+    wide = torch.zeros((B, S, H, hd + 4), dtype=torch.bfloat16,
+                       device="cuda")[..., :hd]             # stride hd + 4
+    out, lse = kernel.flash_attention_cuda(q, k, v, return_lse=True)
+    for bad in (shifted, wide):
+        assert not kernel.aligned(bad)
+        with pytest.raises(ValueError, match="16-byte"):
+            kernel.flash_attention_cuda(bad, k, v)
+        with pytest.raises(ValueError, match="16-byte"):
+            kernel.flash_attention_cuda(q, bad, v)
+        with pytest.raises(ValueError, match="16-byte"):
+            kernel.flash_attention_bwd_cuda(q, k, v, out, lse, bad)
+        with pytest.raises(ValueError, match="16-byte"):
+            kernel.flash_attention_bwd_cuda(q, k, bad, out, lse, out)
 
 
 def _lace_inputs(seed, G, N, d, V, feats_dtype, zero_rows=True):
