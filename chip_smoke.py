@@ -10,7 +10,9 @@ Phases, one or more lines each:
 2. build: every kernel source in ``src/repro_torch/kernels/csrc``
    (flash_attn, flash_attn_bwd, lace, lace1, mlstm; the headers
    flash_common.cuh and lace_common.cuh), one nvcc each, all at once,
-   for sm_90a; each kernel's registers and spills by name;
+   for sm_90a; each kernel's registers and spills by name; the LACE
+   kernels' tensor-core TF32 and FFMA instruction counts from
+   ``cuobjdump -sass`` (each product body must hold TF32 products);
 3. kernels: each kernel against its plain PyTorch version at the shapes
    its path gives it, with the stated tolerance; then its time (CUDA
    events), the plain version's, PyTorch's own call's (``library_ms``, a
@@ -20,9 +22,11 @@ Phases, one or more lines each:
    shapes and the training trunk's, then the attention backward (two
    runs bitwise equal), the fused LACE boundary (K1, K2) and the
    single-prior LACE kernels of the dual boundary (K4, K5; server side
-   with dW, client side without) at the training shapes, and the
-   chunkwise mLSTM (K6) at the served xlstm-1.3b's prefill shapes (h and
-   the final C, n, m);
+   with dW, client side without) at the training shapes (each with its
+   bound, the split-TF32 route's cost and the f32 CUDA cores' beside it,
+   and a bitwise repeat at the main path's case), and the chunkwise
+   mLSTM (K6) at the served xlstm-1.3b's prefill shapes (h and the final
+   C, n, m);
 4. serve: full-width qwen1.5-0.5b in bf16 through ServeSpec ->
    build_serve -> ServeEngine.serve, dense and paged cache; paged tokens
    must equal dense tokens, and every admitted request must have
@@ -66,7 +70,9 @@ as the last line ``{"ok": true, "device": {...}}``. Any failed check
 exits nonzero; without a GPU it exits nonzero before printing a result.
 
 ``python3 chip_smoke.py attention`` runs phases 1 and 2 and the
-attention kernels of phase 3 (K3 forward and backward), then stops.
+attention kernels of phase 3 (K3 forward and backward), then stops;
+``python3 chip_smoke.py lace`` the same for the LACE kernels (K1, K2,
+K4, K5).
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -89,7 +95,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 ARCH = "qwen1.5-0.5b"
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
-              torch.float32: 67e12}     # float32 outside the tensor cores
+              torch.float32: 67e12,     # float32 outside the tensor cores
+              "tf32": 495e12}           # dense tensor-core TF32
 PEAK_BYTES = 3.35e12                    # HBM3, H100 SXM
 TOL = {torch.bfloat16: 3e-2,  # output rounded to bf16 (2^-8 relative)
        torch.float32: 1e-4}   # float32 sums over <= 2048 keys in another order
@@ -139,10 +146,11 @@ FLASH_BWD_REPORT = FLASH_BWD_CASES[0]
 # training width (d 1024, V 151936, 4 per-client prior rows, one
 # concatenated row, the last eighth of each client's tokens weight 0):
 # the main path's 8192 tokens first, then 2048, a ragged N and tau = 0.
-# Tolerance against the plain version, f32 on the CUDA cores with TF32
-# off: nll and lse within 1e-4 of their largest entry, df and dW within
-# 1e-5 of theirs; df of the first 256 tokens also within 1e-5 of the
-# float64 value.
+# Tolerance against the plain version (f32 products, TF32 off; the
+# kernels' split-TF32 products keep f32 accuracy): nll and lse within 1e-4
+# of their largest entry, df and dW within 1e-5 of theirs; df of the first
+# 256 tokens also within 1e-5 of the float64 value. At the main path's
+# case two runs of K1, K2 (and of K4, K5 per side) are bitwise equal.
 LACE_CASES = [(8192, torch.bfloat16, 1.0), (8192, torch.float32, 1.0),
               (2048, torch.bfloat16, 1.0), (2048, torch.float32, 0.0),
               (2047, torch.bfloat16, 1.0)]
@@ -292,7 +300,7 @@ def kernel_label(mangled: str) -> str:
         if s[i] != "I":
             return name
         i += 1
-        args = []
+        args, named = [], "?"
         while s[i] != "E":
             if s[i] == "L":                  # a literal: L<type><value>E
                 end = s.index("E", i)
@@ -301,6 +309,10 @@ def kernel_label(mangled: str) -> str:
             elif s[i].isdigit():             # a named type
                 arg, i = name_at(i)
                 args.append(arg.replace("__nv_bfloat16", "bf16"))
+                named = args[-1]
+            elif s[i] == "S":                # a repeat: the last named type
+                i = s.index("_", i) + 1
+                args.append(named)
             else:                            # a builtin type
                 args.append({"f": "float", "i": "int"}.get(s[i], s[i]))
                 i += 1
@@ -329,6 +341,32 @@ def phase_build():
             elif "built in" in line:
                 say("build", f"{name}: {line.strip()}")
     say("build", f"all kernels ready in {time.perf_counter() - t0:.1f} s")
+    for name in ("lace", "lace1"):
+        lace_sass(build.library_path(name), name)
+
+
+def lace_sass(path, name):
+    """The LACE kernels' instruction mix from ``cuobjdump -sass``: each
+    product body (lace_fwd_kernel, lace_grad_kernel, lace_gemm_kernel)
+    must hold tensor-core TF32 products (HMMA ... TF32); FFMA counts the
+    CUDA-core multiply-adds left (the epilogues' exponentials)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                          "-sass", path], capture_output=True, text=True,
+                         check=True).stdout
+    counts, kern = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            kern = kernel_label(line.split("Function : ", 1)[1].strip())
+            counts[kern] = [0, 0]
+        elif kern is not None:
+            counts[kern][0] += "HMMA" in line and "TF32" in line
+            counts[kern][1] += " FFMA" in line
+    for kern, (hmma, ffma) in sorted(counts.items()):
+        say("build", f"{name}: {kern}: {hmma} HMMA.TF32, {ffma} FFMA")
+        if kern.split("<")[0] in ("lace_fwd_kernel", "lace_grad_kernel",
+                                  "lace_gemm_kernel"):
+            check(hmma > 0, f"{name}: {kern} has no TF32 tensor-core product")
 
 
 def phase_kernels():
@@ -450,11 +488,13 @@ def profile(what: str, fn, top: int, watch=()) -> None:
         t = e.self_device_time_total / 1e6
         say("profile", f"  {t:.4f} s ({100 * t / busy:.1f}% of busy) "
             f"x{e.count}: {e.key[:90]}")
-    for label, part in watch:
-        hits = [e for e in kernels if part in e.key]
+    for label, parts in watch:
+        parts = (parts,) if isinstance(parts, str) else parts
+        hits = [e for e in kernels if any(p in e.key for p in parts)]
         t = sum(e.self_device_time_total for e in hits) / 1e6
         say("profile", f"  {label}: {t:.4f} s ({100 * t / busy:.1f}% of "
-            f"busy) x{sum(e.count for e in hits)}, kernels named *{part}*")
+            f"busy) x{sum(e.count for e in hits)}, kernels named "
+            f"{' or '.join(f'*{p}*' for p in parts)}")
 
 
 def serve_launches(cfg, n_admits):
@@ -975,6 +1015,54 @@ def lace_df_f64(args, ts, n=256):
     return out
 
 
+def lace_passes(feats_dtype, w_dtype):
+    """The operand dtypes (a, b) of the LACE passes z = feats W, df =
+    g W^T and dW = feats^T g (g is f32)."""
+    return ((feats_dtype, w_dtype), (torch.float32, w_dtype),
+            (feats_dtype, torch.float32))
+
+
+def split_products(a, b):
+    """Split-TF32 products the LACE kernels run for one a x b pass
+    (csrc/lace_common.cuh): a bf16 operand is one TF32 term, an f32 one
+    hi + lo; bf16 x bf16 takes 1, bf16 x f32 2, f32 x f32 3 (lo x lo
+    dropped)."""
+    return 1 + (a == torch.float32) + (b == torch.float32)
+
+
+def tc_rate(a, b):
+    """The fastest tensor-core rate that takes both operands of a pass:
+    bf16 x bf16 on the bf16 tensor cores, anything with an f32 operand on
+    the TF32 ones."""
+    both_bf16 = a == b == torch.bfloat16
+    return PEAK_FLOPS[torch.bfloat16 if both_bf16 else "tf32"]
+
+
+def lace_bounds(N, d, V, passes, nbytes):
+    """The bound of a LACE kernel whose function is ``passes``, one
+    (a dtype, b dtype) pair per 2 N d V product (z = feats W, df = g W^T
+    per side, dW = feats^T g; g is f32): ``bound_ms``, each pass once at
+    the fastest tensor-core rate for its operands, or the bytes at HBM's
+    rate, the larger. For the text only (not bounds of the function):
+    ``route_ms``, the split-TF32 products the kernels run at TF32's rate,
+    and ``f32_ms``, the passes at the CUDA cores' f32 rate."""
+    flops = 2 * N * d * V
+    t_ops = sum(flops / tc_rate(a, b) for a, b in passes)
+    t_bytes = nbytes / PEAK_BYTES
+    products = sum(split_products(a, b) for a, b in passes)
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                route_products=products,
+                route_ms=products * flops / PEAK_FLOPS["tf32"] * 1e3,
+                f32_ms=len(passes) * flops / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def bounds_text(r):
+    return (f"bound {r['bound_ms']:.2f} ({r['bound_by']}); route "
+            f"{r['route_products']} split-TF32 products {r['route_ms']:.2f}; "
+            f"f32 CUDA cores {r['f32_ms']:.2f}")
+
+
 def phase_lace():
     """K1 and K2 against their plain versions (same arguments, chunked
     logits); ``library_ms`` is the one cuBLAS product feats @ W, a
@@ -1026,17 +1114,15 @@ def phase_lace():
         G = args[5].shape[0]
         el = feats.element_size()
         in_bytes = el * N * d + 4 * d * V + 4 * N * 2 + 4 * (1 + G) * V
-        for kind, flops, nbytes in (
-                ("fwd", 2 * N * d * V, in_bytes + 4 * 4 * N),
-                ("bwd", 8 * N * d * V,
+        z, df, dw = lace_passes(feats.dtype, w.dtype)
+        for kind, passes, nbytes in (
+                ("fwd", [z], in_bytes + 4 * 4 * N),
+                ("bwd", [z, df, df, dw],
                  in_bytes + 4 * 4 * N + 4 * (2 * N * d + d * V))):
-            t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], \
-                nbytes / PEAK_BYTES
             rows[(case, kind)] = dict(
                 ms=times[kind], plain_ms=times[kind + "_plain"],
                 library_ms=times["library"],
-                bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                **lace_bounds(N, d, V, passes, nbytes))
         say("kernels", f"lace2 N={N} d={d} V={V} feats {str(dtype)[6:]} "
             f"tau={tau}: rel err nll_s/nll_k/lse_s/lse_k "
             f"{'/'.join(f'{e:.3g}' for e in e_fwds)} (tol 1e-4), df_s/df_k/dW_s "
@@ -1045,11 +1131,17 @@ def phase_lace():
             f"{'/'.join(f'{e:.3g}' for e in e_exact)}, plain "
             f"{'/'.join(f'{e:.3g}' for e in e_exact_plain)} (tol 1e-5); "
             f"K1 {times['fwd']:.2f} ms (plain "
-            f"{times['fwd_plain']:.2f}, bound "
-            f"{rows[(case, 'fwd')]['bound_ms']:.2f}); K2 {times['bwd']:.2f} "
-            f"ms (plain {times['bwd_plain']:.2f}, bound "
-            f"{rows[(case, 'bwd')]['bound_ms']:.2f}); cuBLAS feats@W "
+            f"{times['fwd_plain']:.2f}, {bounds_text(rows[(case, 'fwd')])}); "
+            f"K2 {times['bwd']:.2f} ms (plain {times['bwd_plain']:.2f}, "
+            f"{bounds_text(rows[(case, 'bwd')])}); cuBLAS feats@W "
             f"{times['library']:.2f} ms")
+        if case == LACE_REPORT:
+            same = [torch.equal(a, b) for a, b in zip(
+                got + gb, kernel.lace2_fwd_cuda(*args)
+                + kernel.lace2_bwd_cuda(*bargs))]
+            check(all(same), f"K1/K2 repeat bitwise {case}: nll_s, nll_k, "
+                  f"lse_s, lse_k, df_s, df_k, dW_s equal {same}")
+            say("kernels", f"K1, K2 repeat at N={N}: bitwise equal")
     return rows, errs
 
 
@@ -1120,29 +1212,35 @@ def phase_lace1():
         el = feats.element_size()
         in_bytes = (el * N * d + 4 * d * V + 4 * N + 4 * adj.numel()
                     + (0 if ids is None else 4 * N))
-        passes = 3 if want_dw else 2          # z, df (, dW)
-        for kind, flops, nbytes in (
-                ("fwd", 2 * N * d * V, in_bytes + 2 * 4 * N),
-                ("bwd", passes * 2 * N * d * V,
+        z, df, dw = lace_passes(feats.dtype, w.dtype)
+        for kind, passes, nbytes in (
+                ("fwd", [z], in_bytes + 2 * 4 * N),
+                ("bwd", [z, df] + [dw] * want_dw,
                  in_bytes + 2 * 4 * N + 4 * N * d
                  + (4 * d * V if want_dw else 0))):
-            t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], \
-                nbytes / PEAK_BYTES
             rows[(case, kind)] = dict(
                 ms=times[kind], plain_ms=times[kind + "_plain"],
                 library_ms=times["library"],
-                bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                **lace_bounds(N, d, V, passes, nbytes))
         say("kernels", f"lace {side} side N={N} d={d} V={V} rows="
             f"{adj.shape[0]} feats {str(dtype)[6:]}: rel err nll/lse "
             f"{'/'.join(f'{e:.3g}' for e in e_fwds)} (tol 1e-4), df"
             f"{'/dW' if want_dw else ''} "
             f"{'/'.join(f'{e:.3g}' for e in e_bwds)} (tol 1e-5); K4 "
-            f"{times['fwd']:.2f} ms (plain {times['fwd_plain']:.2f}, bound "
-            f"{rows[(case, 'fwd')]['bound_ms']:.2f}); K5 "
-            f"{times['bwd']:.2f} ms (plain {times['bwd_plain']:.2f}, bound "
-            f"{rows[(case, 'bwd')]['bound_ms']:.2f}); cuBLAS feats@W "
+            f"{times['fwd']:.2f} ms (plain {times['fwd_plain']:.2f}, "
+            f"{bounds_text(rows[(case, 'fwd')])}); K5 {times['bwd']:.2f} ms "
+            f"(plain {times['bwd_plain']:.2f}, "
+            f"{bounds_text(rows[(case, 'bwd')])}); cuBLAS feats@W "
             f"{times['library']:.2f} ms")
+        if case in LACE1_REPORT.values():
+            again = (kernel.lace_fwd_cuda(*args)
+                     + kernel.lace_bwd_cuda(*bargs))
+            same = [torch.equal(a, b) for a, b in zip(got + gb, again)
+                    if b is not None]
+            check(all(same), f"K4/K5 repeat bitwise {case}: nll, lse, df"
+                  f"{', dW' if want_dw else ''} equal {same}")
+            say("kernels", f"K4, K5 {side} side repeat at N={N}: bitwise "
+                "equal")
     return rows, errs
 
 
@@ -1244,8 +1342,11 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
         f"per step: {per_step}")
     if profile_round and torch.device(device).type == "cuda":
         profile(f"training round ({spec.execution.boundary} boundary)",
-                trainer.step, 8, watch=[("K3 backward", "flash_bwd"),
-                                        ("K3 forward", "flash_fwd")])
+                trainer.step, 8, watch=[
+                    ("LACE forward (K1/K4)", "lace_fwd"),
+                    ("LACE backward (K2/K5)", ("lace_grad", "lace_gemm")),
+                    ("K3 backward", "flash_bwd"),
+                    ("K3 forward", "flash_fwd")])
     return counts
 
 
@@ -1564,12 +1665,15 @@ def main() -> int:
     if sys.argv[1:] == ["xlstm-rounding"]:
         phase_xlstm_rounding()
         return 0
-    rows, max_err = run_phase("kernels K3", phase_kernels)
-    bwd_rows, bwd_err = run_phase("kernels K3 bwd", phase_flash_bwd)
+    if sys.argv[1:] != ["lace"]:
+        rows, max_err = run_phase("kernels K3", phase_kernels)
+        bwd_rows, bwd_err = run_phase("kernels K3 bwd", phase_flash_bwd)
     if sys.argv[1:] == ["attention"]:
         return 0
     lace_rows, lace_err = run_phase("kernels K1 K2", phase_lace)
     lace1_rows, lace1_err = run_phase("kernels K4 K5", phase_lace1)
+    if sys.argv[1:] == ["lace"]:
+        return 0
     mlstm_rows, mlstm_err = run_phase("kernels K6", phase_mlstm)
     serve = run_phase("serve", phase_serve)
     run_phase("check", phase_check)

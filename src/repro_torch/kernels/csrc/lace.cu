@@ -12,17 +12,22 @@
 // g_s, both sides' g tiles from one recomputed z tile.
 //
 // Bound. At the training shapes (N = 8192 tokens, d = 1024, V = 151936)
-// K1 is 2*N*d*V = 2.55 TFLOP, K2 8*N*d*V = 10.2 TFLOP (z recomputed, two df
-// products, one dW product): 38 ms and 152 ms at the f32 rate of 67
-// TFLOP/s. The workspace traffic of K2 (the g tiles, written once and read
-// twice) is ~30 GB at N = 8192, ~9 ms of HBM.
+// one product pass 2*N*d*V is 2.55 TFLOP, 5.15 ms at TF32's 495 TFLOP/s.
+// K1 is one pass (z), K2 four (z, df_s, df_k, dW_s): bounds of 5.15 and
+// 20.6 ms. Split TF32 on the tensor cores (lace_common.cuh) runs 2
+// products for a bf16 x f32 pass and 3 for f32 x f32, so the route itself
+// costs K1 2 products (10.3 ms) and K2 10 (51.5 ms), against 38 and 152 ms
+// for its passes at the f32 CUDA-core rate of 67 TFLOP/s. The workspace
+// traffic of K2 (the g tiles, written once and read twice) is ~30 GB at
+// N = 8192, ~9 ms of HBM.
 
 #include "lace_common.cuh"
 
 // feats (N, d) with row stride ldf (elements), last axis contiguous; w
 // (d, V) contiguous; labels, ids_* (N,) int32; adj_* (rows, V) f32 or null
 // (side absent; ids_* null: row 0 for every token). dtype codes:
-// 0 = float32, 1 = bfloat16. part: 5 * splits * N floats of scratch.
+// 0 = float32, 1 = bfloat16. splits: cdiv(V, 128), the vocab tiles; part:
+// 5 * splits * N floats of scratch.
 // nll_*, lse_* (N,) f32. Returns the first launch error, or 0.
 extern "C" int lace2_fwd(const void* feats, long long ldf, int feats_dtype,
                          const void* w, int w_dtype, const int* labels,

@@ -15,18 +15,24 @@
 //   dfeats = g @ W^T,  dW = feats^T @ g  (dW only when asked: the client
 // side of the dual boundary reads no head gradient).
 //
-// Bound. At the training shapes (N = 8192, d = 1024, V = 151936) one z
-// pass is 2*N*d*V = 2.55 TFLOP, 38 ms at the f32 rate of 67 TFLOP/s: K4
-// does one pass, K5 three with dW (z, df, dW: 114 ms) and two without
-// (76 ms). The g tile of a vocab chunk goes through device memory (written
-// once, read once or twice): ~10 GB at N = 8192, ~3 ms of HBM.
+// Bound. At the training shapes (N = 8192, d = 1024, V = 151936) one
+// product pass 2*N*d*V is 2.55 TFLOP, 5.15 ms at TF32's 495 TFLOP/s: K4
+// is one pass (z, 5.15 ms), K5 three on the server side (z, df, dW; 15.5
+// ms) and two on the client side (z, df; 10.3 ms). Split TF32
+// (lace_common.cuh) runs 2 products for bf16 feats x f32 W or for dW, 3
+// for f32 x f32 (df), so the route itself costs K4 2 products (10.3 ms)
+// and K5 7 (36.1 ms) or 5 (25.8 ms), against 38, 114 and 76 ms for the
+// passes at the f32 CUDA-core rate of 67 TFLOP/s. The g tile of a vocab
+// chunk goes through device memory (written once, read once or twice):
+// ~10 GB at N = 8192, ~3 ms of HBM.
 
 #include "lace_common.cuh"
 
 // feats (N, d) with row stride ldf (elements), last axis contiguous; w
 // (d, V) contiguous; labels, ids (N,) int32; adj (rows, V) f32 or null
 // (plain CE; ids null: row 0 for every token). dtype codes: 0 = float32,
-// 1 = bfloat16. part: 3 * splits * N floats of scratch. nll, lse (N,) f32.
+// 1 = bfloat16. splits: cdiv(V, 128), the vocab tiles; part: 3 * splits *
+// N floats of scratch. nll, lse (N,) f32.
 // Returns the first launch error, or 0.
 extern "C" int lace_fwd(const void* feats, long long ldf, int feats_dtype,
                         const void* w, int w_dtype, const int* labels,

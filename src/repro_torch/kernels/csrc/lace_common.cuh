@@ -16,30 +16,60 @@
 //
 // Design. The TPU walks the vocab grid in order and carries the running
 // (max, sumexp, label logit) in scratch; blocks here run in no order. The
-// forward gives each block one 128-token tile and a strided share of the
-// 128-column vocab tiles ("splits"): every thread keeps its own online
-// (max, sum) per row and side over the columns it computes, the 16 threads
-// of a row merge theirs with shuffles, and a second small kernel merges the
-// splits' partial (max, sum, label logit) per token. The split count is
-// chosen by the caller so the grid fills the SMs (N = 8192 is only 64 token
-// tiles). Columns are masked by index (c < V), never by a -inf prior: at
-// tau = 0 a padded prior would mask nothing. The backward's two reductions
-// run over different axes (df over the vocab, dW over the tokens), so it
-// walks the vocab in chunks of vc columns: one kernel recomputes the z
-// tiles of the chunk and writes each side's cotangent tile g_x (N, vc) to a
-// workspace -- the sides share one z tile -- then plain GEMMs fold the
-// chunk into every df_x (accumulated over chunks) and, when asked, write
-// dW_s's vc columns. No atomics, so the sums are deterministic; each
-// output's sum runs in chains of at most 1024 products (gemm_kernel), which
-// keeps its f32 rounding near that of the chunked plain version.
+// forward gives each block one 128-token tile and one 128-column vocab
+// tile: each warp reduces its rows' (max, sumexp) over the tile's columns
+// with shuffles in a fixed order, the label logit is written by the one
+// thread whose columns hold it, and a second small kernel merges each
+// token's partials over the vocab tiles. Columns are masked by index
+// (c < V), never by a -inf prior: at tau = 0 a padded prior would mask
+// nothing. The backward's two reductions run over different axes (df over
+// the vocab, dW over the tokens), so it walks the vocab in chunks of vc
+// columns: one kernel recomputes the z tiles of the chunk and writes each
+// side's cotangent tile g_x (N, vc) to a workspace -- the sides share one
+// z tile -- then product kernels fold the chunk into every df_x
+// (accumulated over chunks) and, when asked, write dW_s's vc columns. No
+// atomics: two runs on the same inputs are bitwise equal. Each df and dW
+// entry sums in chains of at most KSEG = 1024 products, each a fresh
+// accumulator added into the output, as the plain version slices its
+// sums, so the two round alike.
 //
-// Every product runs on the CUDA cores in f32 (the reference upcasts each
-// chunk to f32; TF32 or bf16 tensor cores would change the numbers): a
-// 128x128x8 tile per block, 8x8 outputs per thread, a register-staged
-// double buffer in shared memory. At the training shapes (N = 8192 tokens,
-// d = 1024, V = 151936) one z pass is 2*N*d*V = 2.55 TFLOP, far above the
-// ridge point: the f32 rate bounds every kernel here (38 ms a pass at 67
-// TFLOP/s), not the 622 MB of W.
+// Products: split TF32 on the tensor cores, at f32 accuracy. Every product
+// is mma.sync.m16n8k8 with TF32 operands and f32 accumulators. A bf16
+// operand is exact in TF32 (8 significant bits of TF32's 11) and enters as
+// one term; an f32 operand x splits into hi = tf32(x) and lo = tf32(x - hi)
+// (cvt.rna: to nearest, ties away), and every TF32 x TF32 product is exact
+// in f32. bf16 x f32 takes a.hi + a.lo: 2 products; f32 x f32 takes hi.hi +
+// hi.lo + lo.hi: 3 (lo.lo, under 2^-22 of the term, is dropped). What is
+// lost is lo's own rounding and lo.lo, both near 2^-22 relative, against
+// f32's 2^-24 per operation; the products' sums carry more error than
+// that, so the result keeps the f32 product's accuracy, provided the sums
+// round to nearest: the tensor cores' own accumulation truncates, so each
+// chain on them is one 32-deep stage, added into the accumulator on the
+// CUDA cores (tests/test_torch_lace_split.py emulates the scheme); bf16 x
+// bf16 takes 1 product. Training feats are bf16 and W f32: z and dW take 2
+// products, df 3.
+//
+// Tile. A block of 8 warps computes a 128 x 128 output tile, each warp
+// 64 x 32 (4 x 4 mma tiles, 64 f32 accumulators a thread), over stages of
+// 32 in the reduction, 4 in flight in shared memory. cp.async copies each
+// operand's stage as it lies in memory (bf16 or f32, 16-byte chunks;
+// ragged edges zero-filled by the copy, nothing read out of bounds; rows
+// not on 16-byte boundaries go through plain copies) in the layout its
+// memory order gives, [mn][k] or [k][mn], padded so that every fragment
+// read is conflict-free. A fragment is split into its TF32 terms as it is
+// read (3 instructions an f32 value), so no register holds a copy in
+// flight: the loads overlap the products (register-staged copies, split
+// at the store, did not: the products and the copies took as long as
+// each alone, summed). Every epilogue reads the finished tile back from
+// shared memory a row a warp (stash), so none of its registers is live
+// during the products: no kernel here spills.
+//
+// Bound. At the training shapes (N = 8192 tokens, d = 1024, V = 151936)
+// one product pass 2*N*d*V is 2.55 TFLOP: 5.15 ms at TF32's 495 TFLOP/s,
+// the bound of z; its 2 split products take 10.3 ms at that rate (one
+// pass takes 38 ms at the f32 CUDA-core rate of 67 TFLOP/s). Far above
+// the ridge point: operations bound every kernel here, not the 622 MB of
+// W.
 
 #pragma once
 
@@ -50,156 +80,348 @@
 
 namespace {
 
-constexpr int BM = 128;   // rows (tokens, or d for dW) per block
-constexpr int BN = 128;   // columns per block
-constexpr int BK = 8;     // reduction depth per shared-memory stage
-constexpr int NT = 256;   // threads: 16 x 16, 8 x 8 outputs each
-constexpr int KSEG = 1024;  // products per register chain in the GEMMs
+constexpr int BM = 128;     // rows (tokens, or d for dW) per block
+constexpr int BN = 128;     // columns per block
+constexpr int BK = 32;      // reduction depth per shared-memory stage
+constexpr int NT = 256;     // threads: 8 warps, 2 x 4 of 64 x 32 outputs
+constexpr int KSEG = 1024;  // products per accumulator chain in the GEMMs
+constexpr int AP = BN + 8;  // row pitch of a stashed accumulator tile
+constexpr int ROWS_PER_WARP = BM / (NT / 32);  // in the epilogues
+static_assert(BN == 4 * 32, "an epilogue lane takes 4 columns of a row");
+static_assert(BM == BN, "one MN-major pitch serves both operands");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Row i (0..7) and column j (0..7) of a thread's 8 x 8 outputs: two 4-wide
-// groups 64 apart, so the shared-memory reads are 16-byte vectors.
-__device__ __forceinline__ int row_of(int ty, int i) {
-  return (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-}
-__device__ __forceinline__ int col_of(int tx, int j) {
-  return (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+// Round to TF32 (to nearest, ties away from zero): the low 13 bits are 0.
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
 }
 
-// C(BM x BN) += A(m0.., k) B(k, n0..) over k < K, in f32.
-//   A(m, k) = TA_T ? A[k * lda + m] : A[m * lda + k]
-//   B(k, n) = TB_T ? B[n * ldb + k] : B[k * ldb + n]
-// Rows m >= M, columns n >= Nc and depth k >= K read as 0. Every thread of
-// the block must call it; it leaves the shared buffers free on return.
-template <typename TA, bool TA_T, typename TB, bool TB_T>
-struct Gemm {
-  float (*As)[BK][BM];
-  float (*Bs)[BK][BN];
-  const TA* A;
-  long long lda;
-  const TB* B;
-  long long ldb;
-  int M, Nc, K;
+// c += a b for one 16 x 8 x 8 tile. Lane 4g + t holds A (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); B (k = t, n = g), (k = t + 4, n = g); C (g,
+// 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) (PTX ISA, m16n8k8 .tf32).
+// fresh: c = a b (the chain's first product).
+template <bool fresh>
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  if constexpr (fresh)
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+          "f"(0.f));
+  else
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-  __device__ __forceinline__ void load(int m0, int n0, int k0, float (&ra)[4],
-                                       float (&rb)[4]) const {
-    const int t = threadIdx.x;
+// cp.async: a 16-byte chunk global -> shared without a register round
+// trip; the bytes past `bytes` (0..16) are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x as its TF32 terms: a bf16 value is exact (P == 1); an f32 one is
+// hi = tf32(x) and lo = tf32(x - hi) (P == 2).
+template <int P>
+__device__ __forceinline__ void terms(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (P == 1) {
+    hi = __float_as_uint(x);
+  } else {
+    const float h = tf32(x);
+    hi = __float_as_uint(h);
+    lo = __float_as_uint(tf32(x - h));
+  }
+}
+
+// One operand of a product tile, the (MN x K) matrix whose element (mn, k)
+// is p[mn * ld + k] (KMAJ) or p[k * ld + mn], staged as it lies in memory
+// (bf16 or f32) in 16-byte chunks: a K-major stage as [mn][k] rows of BK +
+// E elements, an MN-major one as [k][mn] rows of BM + 2E (E elements a
+// chunk). Every fragment read is then conflict-free: lane 4g + t reads
+// (mn = g, k = t) at word 4g + t (f32) or 20g + t/2 (bf16), or (k = t, mn =
+// g) at word 8t + g or 8t + g/2, mod 32, two bf16 lanes sharing a word.
+template <typename T, bool KMAJ>
+struct Operand {
+  static constexpr int P = sizeof(T) == 4 ? 2 : 1;  // TF32 terms
+  static constexpr int E = 16 / static_cast<int>(sizeof(T));
+  static constexpr int PITCH = KMAJ ? BK + E : BM + 2 * E;
+  static constexpr int ROWS = KMAJ ? BM : BK;
+  static constexpr int BYTES = ROWS * PITCH * static_cast<int>(sizeof(T));
+  static constexpr int CPR = (KMAJ ? BK : BM) / E;  // chunks a row
+  static constexpr int PER_THREAD = ROWS * CPR / NT;
+  static_assert(ROWS * CPR % NT == 0 && BYTES % 16 == 0, "whole chunks");
+  const T* p;
+  long long ld;
+  int MN, K;
+  bool vec;  // rows on 16-byte boundaries: cp.async; else plain copies
+
+  __device__ __forceinline__ Operand(const T* p_, long long ld_, int MN_,
+                                     int K_)
+      : p(p_), ld(ld_), MN(MN_), K(K_) {
+    vec = reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % E == 0;
+  }
+
+  // Start the copy of the stage at (mn0, k0) into s: past the edges zeros.
+  __device__ __forceinline__ void load(T* s, int mn0, int k0) const {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      int m, k;
-      if (TA_T) {
-        k = k0 + (t >> 5);
-        m = m0 + (t & 31) * 4 + e;
+    for (int e = 0; e < PER_THREAD; ++e) {
+      const int id = e * NT + threadIdx.x;
+      const int row = id / CPR, j = id % CPR;
+      const int outer = (KMAJ ? mn0 : k0) + row;
+      const int inner = (KMAJ ? k0 : mn0) + j * E;
+      int n = outer < (KMAJ ? MN : K) ? (KMAJ ? K : MN) - inner : 0;
+      n = n < 0 ? 0 : (n > E ? E : n);
+      T* dst = s + row * PITCH + j * E;
+      const T* src = n > 0 ? p + outer * ld + inner : p;
+      if (vec) {
+        cp_async16(dst, src, n * static_cast<int>(sizeof(T)));
       } else {
-        m = m0 + (t >> 1);
-        k = k0 + (t & 1) * 4 + e;
+#pragma unroll
+        for (int i = 0; i < E; ++i) dst[i] = i < n ? src[i] : from_f32<T>(0.f);
       }
-      float a = 0.f;
-      if (m < M && k < K)
-        a = to_f32(TA_T ? A[static_cast<long long>(k) * lda + m]
-                        : A[static_cast<long long>(m) * lda + k]);
-      ra[e] = a;
-      int n;
-      if (TB_T) {
-        n = n0 + (t >> 1);
-        k = k0 + (t & 1) * 4 + e;
-      } else {
-        k = k0 + (t >> 5);
-        n = n0 + (t & 31) * 4 + e;
-      }
-      float b = 0.f;
-      if (n < Nc && k < K)
-        b = to_f32(TB_T ? B[static_cast<long long>(n) * ldb + k]
-                        : B[static_cast<long long>(k) * ldb + n]);
-      rb[e] = b;
     }
   }
 
-  __device__ __forceinline__ void store(int buf, const float (&ra)[4],
-                                        const float (&rb)[4]) const {
-    const int t = threadIdx.x;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (TA_T)
-        As[buf][t >> 5][(t & 31) * 4 + e] = ra[e];
-      else
-        As[buf][(t & 1) * 4 + e][t >> 1] = ra[e];
-      if (TB_T)
-        Bs[buf][(t & 1) * 4 + e][t >> 1] = rb[e];
-      else
-        Bs[buf][t >> 5][(t & 31) * 4 + e] = rb[e];
-    }
-  }
-
-  __device__ __forceinline__ void run(int m0, int n0,
-                                      float (&acc)[8][8]) const {
-    const int tx = threadIdx.x % 16;
-    const int ty = threadIdx.x / 16;
-    float ra[4], rb[4];
-    __syncthreads();  // the caller may still read the buffers
-    load(m0, n0, 0, ra, rb);
-    store(0, ra, rb);
-    __syncthreads();
-    int buf = 0;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      const bool next = k0 + BK < K;
-      if (next) load(m0, n0, k0 + BK, ra, rb);
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      if (next) store(buf ^ 1, ra, rb);
-      __syncthreads();
-      buf ^= 1;
-    }
+  // Element (mn, k) of the stage at s.
+  __device__ __forceinline__ float at(const T* s, int mn, int k) const {
+    return to_f32(s[KMAJ ? mn * PITCH + k : k * PITCH + mn]);
   }
 };
 
-__device__ __forceinline__ void zero(float (&acc)[8][8]) {
+// A thread's accumulators: [m tile][n tile][C fragment].
+using Acc = float[4][4][4];
+
+__device__ __forceinline__ void zero(Acc& acc) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 }
 
-// One side's online (max, sumexp) update over a thread's 8 columns of row
-// i; adj is the row's prior-adjustment row (null: no adjustment).
-__device__ __forceinline__ void online(const float (&z)[8], const float* adj,
-                                       int n0, int tx, int V, float& m,
-                                       float& s) {
-  float zz[8];
+// Where acc[mi][ni][c] of this thread lies in the block's 128 x 128 tile.
+struct Frag {
+  int g, t, wm, wn;
+  __device__ __forceinline__ Frag() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    g = lane >> 2, t = lane & 3;
+    wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  }
+  // row of m tile mi, half h (c >> 1); first column of n tile ni (c & 1 adds)
+  __device__ __forceinline__ int row(int mi, int h) const {
+    return wm + mi * 16 + g + 8 * h;
+  }
+  __device__ __forceinline__ int col(int ni) const {
+    return wn + ni * 8 + 2 * t;
+  }
+};
+
+// The product tile: acc += A(m0.., k) B(k, n0..) over k < K, with A the
+// (M x K) operand and B the (Nc x K) one (so B(k, n) is element (n, k)).
+// Rows m >= M, columns n >= Nc and depth k >= K read as 0. Every thread of
+// the block calls it; smem holds SMEM bytes; it returns with the block
+// synchronised and the buffers free.
+//
+// NSTAGE stages in flight: while the tensor cores work on one, cp.async
+// brings the next NSTAGE - 1 (no register holds a copy in flight). Each
+// fragment is split into its TF32 terms as it is read. Each 32-deep stage
+// sums in a fresh partial on the tensor cores (up to 12 products a chain),
+// added into acc on the CUDA cores: the tensor cores' own accumulation
+// truncates, and a chain over all K would add that bias up. An m tile's
+// products go out a term at a time for its 4 n tiles, so consecutive
+// products never wait on one another, and one m tile's A fragment is live
+// at a time.
+template <typename TA, bool AK, typename TB, bool BKM>
+struct Tile {
+  using OA = Operand<TA, AK>;
+  using OB = Operand<TB, BKM>;
+  static constexpr int NSTAGE = 4;
+  static constexpr int STAGE = OA::BYTES + OB::BYTES;
+  static constexpr int SMEM = NSTAGE * STAGE;
+  static_assert(SMEM >= BM * AP * 4, "the stages hold a stashed tile");
+  char* sm;
+  OA a;
+  OB b;
+
+  __device__ __forceinline__ Tile(float* sm_, const TA* A, long long lda,
+                                  int M, const TB* B, long long ldb, int Nc,
+                                  int K)
+      : sm(reinterpret_cast<char*>(sm_)), a(A, lda, M, K), b(B, ldb, Nc, K) {}
+
+  __device__ __forceinline__ void load(int slot, int m0, int n0,
+                                       int k0) const {
+    char* s = sm + slot * STAGE;
+    a.load(reinterpret_cast<TA*>(s), m0, k0);
+    b.load(reinterpret_cast<TB*>(s + OA::BYTES), n0, k0);
+  }
+
+  __device__ __forceinline__ void run(int m0, int n0, Acc& acc) const {
+    const Frag f;
+    const int nk = (a.K + BK - 1) / BK;
+#pragma unroll
+    for (int s = 0; s < NSTAGE - 1; ++s) {
+      if (s < nk) load(s, m0, n0, s * BK);
+      cp_async_commit();
+    }
+    Acc part;
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<NSTAGE - 2>();  // stage kt has landed
+      __syncthreads();              // ... for every thread; kt - 1 is free
+      const int nxt = kt + NSTAGE - 1;
+      if (nxt < nk) load(nxt % NSTAGE, m0, n0, nxt * BK);
+      cp_async_commit();
+      const char* s = sm + (kt % NSTAGE) * STAGE;
+      const TA* sa = reinterpret_cast<const TA*>(s);
+      const TB* sb = reinterpret_cast<const TB*>(s + OA::BYTES);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 8) {
+        uint32_t fb[OB::P][4][2];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int n = f.wn + ni * 8 + f.g;
+          terms<OB::P>(b.at(sb, n, kk + f.t), fb[0][ni][0],
+                       fb[OB::P - 1][ni][0]);
+          terms<OB::P>(b.at(sb, n, kk + f.t + 4), fb[0][ni][1],
+                       fb[OB::P - 1][ni][1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          const int m = f.wm + mi * 16 + f.g;
+          const float x[4] = {a.at(sa, m, kk + f.t), a.at(sa, m + 8, kk + f.t),
+                              a.at(sa, m, kk + f.t + 4),
+                              a.at(sa, m + 8, kk + f.t + 4)};
+          uint32_t fa[OA::P][4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            terms<OA::P>(x[r], fa[0][r], fa[OA::P - 1][r]);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {  // hi.hi
+            if (kk == 0)
+              mma_tf32<true>(part[mi][ni], fa[0], fb[0][ni]);
+            else
+              mma_tf32<false>(part[mi][ni], fa[0], fb[0][ni]);
+          }
+          if constexpr (OB::P == 2)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)  // hi.lo
+              mma_tf32<false>(part[mi][ni], fa[0], fb[OB::P - 1][ni]);
+          if constexpr (OA::P == 2)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)  // lo.hi
+              mma_tf32<false>(part[mi][ni], fa[OA::P - 1], fb[0][ni]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mi][ni][c] += part[mi][ni][c];
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next run's copies may overwrite every slot
+  }
+};
+
+// The forward's and the z recompute's tile: feats (N x d, K-major) times W
+// (d x V: element (c, j) at w[j * V + c], MN-major).
+template <typename TF, typename TW>
+using ZTile = Tile<TF, true, TW, false>;
+
+// The block's 128 x 128 accumulator tile through shared memory: acc to
+// rows of AP floats at s (conflict-free 8-byte stores), then a barrier.
+// The epilogues read it back a row a warp, 4 adjacent columns a lane:
+// their loads and stores of the row are 16-byte vectors, and no register
+// of theirs is live during the products.
+__device__ __forceinline__ void stash(float* s, const Acc& acc) {
+  const Frag f;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        *reinterpret_cast<float2*>(s + f.row(mi, h) * AP + f.col(ni)) =
+            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+  __syncthreads();
+}
+
+// Row r of a stashed tile: this lane's 4 columns.
+__device__ __forceinline__ void row4(const float* s, int r, float (&z)[4]) {
+  const float4 v =
+      *reinterpret_cast<const float4*>(s + r * AP + 4 * (threadIdx.x & 31));
+  z[0] = v.x, z[1] = v.y, z[2] = v.z, z[3] = v.w;
+}
+
+// One side's online (max, sumexp) update of a row from one vocab tile: the
+// lanes' columns c .. c + 3 (real where c < V; adj the row's prior-
+// adjustment row, null: none), reduced across the warp in a fixed order.
+// Lane `keeper` holds the row's running (m, s). The exponentials are
+// ex2.approx (__expf, ~2^-22 relative): the lse's tolerance is 1e-4.
+__device__ __forceinline__ void row_online(const float (&z)[4],
+                                           const float* adj, int c, int V,
+                                           int keeper, float& m, float& s) {
+  float zz[4];
   float mt = -CUDART_INF_F;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = n0 + col_of(tx, j);
+  for (int j = 0; j < 4; ++j) {
     zz[j] = -CUDART_INF_F;
-    if (c < V) {
-      zz[j] = adj ? z[j] + adj[c] : z[j];
-      mt = fmaxf(mt, zz[j]);
-    }
+    if (c + j < V) zz[j] = adj ? z[j] + adj[c + j] : z[j];
+    mt = fmaxf(mt, zz[j]);
   }
-  if (mt == -CUDART_INF_F) return;  // no column of this tile is real
-  const float mn = fmaxf(m, mt);
-  s *= expf(m - mn);  // exactly 0 while m is still -inf
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (zz[j] != -CUDART_INF_F) s += expf(zz[j] - mn);
-  m = mn;
+  for (int off = 16; off > 0; off >>= 1)
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+  if (mt == -CUDART_INF_F) return;  // no column of this tile is real
+  const float mn = fmaxf(__shfl_sync(0xffffffffu, m, keeper), mt);
+  float e = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (zz[j] != -CUDART_INF_F) e += __expf(zz[j] - mn);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    e += __shfl_xor_sync(0xffffffffu, e, off);
+  if ((threadIdx.x & 31) == keeper) {
+    s = s * __expf(m - mn) + e;  // exactly e while m is still -inf
+    m = mn;
+  }
+}
+
+// z[lab - c] when lab is one of the lane's columns c .. c + 3.
+__device__ __forceinline__ bool pick(const float (&z)[4], int lab, int c,
+                                     float& out) {
+  if (lab < c || lab >= c + 4) return false;
+  out = lab == c ? z[0] : lab == c + 1 ? z[1] : lab == c + 2 ? z[2] : z[3];
+  return true;
 }
 
 // Merge (m, s) with another stream's (mo, so).
@@ -210,10 +432,11 @@ __device__ __forceinline__ void merge(float& m, float& s, float mo, float so) {
   m = mn;
 }
 
-// Forward, pass 1. Grid (token tiles, splits); split p computes the vocab
-// tiles p, p + splits, ... and writes per-token partials
-// part[(q * splits + p) * N + row] for q = 0 .. 2 NS: (m, s) of each side,
-// then the label logit z_label.
+// Forward, pass 1. Grid (token tiles, vocab tiles): block (x, p) computes
+// z for token tile x and vocab tile p and writes per-token partials over
+// the tile's columns, part[(q * n_vt + p) * N + row] for q = 0 .. 2 NS:
+// (m, s) of each side, then the label logit (0 where the label is not in
+// the tile).
 template <typename TF, typename TW, int NS>
 __global__ void __launch_bounds__(NT, 1)
     lace_fwd_kernel(const TF* __restrict__ feats, long long ldf,
@@ -222,16 +445,15 @@ __global__ void __launch_bounds__(NT, 1)
                     const int* __restrict__ ids_s,
                     const float* __restrict__ adj_k,
                     const int* __restrict__ ids_k, int N, int d, int V,
-                    int n_vt, int splits, float* __restrict__ part) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+                    float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ int s_lab[BM];
   __shared__ long long s_rs[BM], s_rk[BM];  // prior row offsets
+  __shared__ float s_zl[BM];                // label logit (one writer a row)
 
   const int m0 = blockIdx.x * BM;
-  const int split = blockIdx.y;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int n0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = threadIdx.x; r < BM; r += NT) {
     const int row = m0 + r;
     const bool ok = row < N;
@@ -239,66 +461,40 @@ __global__ void __launch_bounds__(NT, 1)
     s_rs[r] = (ok && ids_s) ? static_cast<long long>(ids_s[row]) * V : 0;
     s_rk[r] = (NS == 2 && ok && ids_k) ? static_cast<long long>(ids_k[row]) * V
                                        : 0;
+    s_zl[r] = 0.f;
   }
-  // (the first Gemm::run synchronises before any read of these)
-
-  const Gemm<TF, false, TW, false> gemm{As, Bs, feats, ldf, w, V, N, V, d};
-  float ms[8], ss[8], mk[8], sk[8], zl[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    ms[i] = mk[i] = -CUDART_INF_F;
-    ss[i] = sk[i] = zl[i] = 0.f;
+  // (Tile::run synchronises before any read of these)
+  const ZTile<TF, TW> tile(smem, feats, ldf, N, w, V, V, d);
+  Acc acc;
+  zero(acc);
+  tile.run(m0, n0, acc);
+  stash(smem, acc);
+  // Warp w reduces its rows w * 16 + rr; lane rr keeps row rr's (m, s).
+  const int c = n0 + 4 * lane;
+  float ms = -CUDART_INF_F, ss = 0.f, mk = -CUDART_INF_F, sk = 0.f;
+  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
+    const int r = warp * ROWS_PER_WARP + rr;
+    if (m0 + r >= N) break;
+    float z[4];
+    row4(smem, r, z);
+    float zl;
+    if (pick(z, s_lab[r], c, zl)) s_zl[r] = zl;
+    row_online(z, adj_s ? adj_s + s_rs[r] : nullptr, c, V, rr, ms, ss);
+    if constexpr (NS == 2)
+      row_online(z, adj_k ? adj_k + s_rk[r] : nullptr, c, V, rr, mk, sk);
   }
-  float acc[8][8];
-  for (int vt = split; vt < n_vt; vt += splits) {
-    const int n0 = vt * BN;
-    zero(acc);
-    gemm.run(m0, n0, acc);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = row_of(ty, i);
-      const int lab = s_lab[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (n0 + col_of(tx, j) == lab) zl[i] = acc[i][j];
-      online(acc[i], adj_s ? adj_s + s_rs[r] : nullptr, n0, tx, V, ms[i],
-             ss[i]);
-      if constexpr (NS == 2)
-        online(acc[i], adj_k ? adj_k + s_rk[r] : nullptr, n0, tx, V, mk[i],
-               sk[i]);
+  __syncthreads();  // every s_zl written
+  const int r = warp * ROWS_PER_WARP + lane;
+  if (lane < ROWS_PER_WARP && m0 + r < N) {
+    const long long o = static_cast<long long>(blockIdx.y) * N + m0 + r;
+    const long long q = static_cast<long long>(gridDim.y) * N;
+    part[o] = ms;
+    part[q + o] = ss;
+    if constexpr (NS == 2) {
+      part[2 * q + o] = mk;
+      part[3 * q + o] = sk;
     }
-  }
-  // The 16 threads that hold a row (one half-warp) merge their streams.
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) {
-      const float mso = __shfl_xor_sync(0xffffffffu, ms[i], off);
-      const float sso = __shfl_xor_sync(0xffffffffu, ss[i], off);
-      zl[i] += __shfl_xor_sync(0xffffffffu, zl[i], off);  // one holder
-      merge(ms[i], ss[i], mso, sso);
-      if constexpr (NS == 2) {
-        const float mko = __shfl_xor_sync(0xffffffffu, mk[i], off);
-        const float sko = __shfl_xor_sync(0xffffffffu, sk[i], off);
-        merge(mk[i], sk[i], mko, sko);
-      }
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = m0 + row_of(ty, i);
-      if (row >= N) continue;
-      const long long o = static_cast<long long>(split) * N + row;
-      const long long q = static_cast<long long>(splits) * N;
-      part[o] = ms[i];
-      part[q + o] = ss[i];
-      if constexpr (NS == 2) {
-        part[2 * q + o] = mk[i];
-        part[3 * q + o] = sk[i];
-      }
-      part[2 * NS * q + o] = zl[i];
-    }
+    part[2 * NS * q + o] = s_zl[r];
   }
 }
 
@@ -350,16 +546,13 @@ __global__ void __launch_bounds__(NT, 1) lace_grad_kernel(
     const float* __restrict__ lse_k, const float* __restrict__ ts_s,
     const float* __restrict__ ts_k, int N, int d, int V, int v0, int v_end,
     int ldg, float* __restrict__ g_s, float* __restrict__ g_k) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+  extern __shared__ __align__(16) float smem[];
   __shared__ int s_lab[BM];
   __shared__ long long s_rs[BM], s_rk[BM];
   __shared__ float s_ls[BM], s_lk[BM], s_ts[BM], s_tk[BM];
 
   const int m0 = blockIdx.x * BM;
   const int n0 = v0 + blockIdx.y * BN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
   for (int r = threadIdx.x; r < BM; r += NT) {
     const int row = m0 + r;
     const bool ok = row < N;
@@ -373,91 +566,134 @@ __global__ void __launch_bounds__(NT, 1) lace_grad_kernel(
       s_tk[r] = ok ? ts_k[row] : 0.f;
     }
   }
-  const Gemm<TF, false, TW, false> gemm{As, Bs, feats, ldf, w, V, N, v_end, d};
-  float acc[8][8];
+  const ZTile<TF, TW> tile(smem, feats, ldf, N, w, V, v_end, d);
+  Acc acc;
   zero(acc);
-  gemm.run(m0, n0, acc);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row_of(ty, i);
+  tile.run(m0, n0, acc);
+  stash(smem, acc);
+  const int warp = threadIdx.x >> 5;
+  const int c = n0 + 4 * (threadIdx.x & 31);
+  const bool full = ldg % 4 == 0 && c + 3 < v_end;  // one 16-byte store
+  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
+    const int r = warp * ROWS_PER_WARP + rr;
     const int row = m0 + r;
-    if (row >= N) continue;
+    if (row >= N) break;
+    float z[4], gs[4], gk[4];
+    row4(smem, r, z);
     const float* as = adj_s ? adj_s + s_rs[r] : nullptr;
     const float* ak = (NS == 2 && adj_k) ? adj_k + s_rk[r] : nullptr;
-    const long long o = static_cast<long long>(row) * ldg - v0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + col_of(tx, j);
-      if (c >= v_end) continue;
-      const float onehot = c == s_lab[r] ? 1.f : 0.f;
-      const float zs = as ? acc[i][j] + as[c] : acc[i][j];
-      g_s[o + c] = (expf(zs - s_ls[r]) - onehot) * s_ts[r];
+    for (int j = 0; j < 4; ++j) {
+      const bool real = c + j < v_end;
+      const float onehot = c + j == s_lab[r] ? 1.f : 0.f;
+      const float zs = (as && real) ? z[j] + as[c + j] : z[j];
+      gs[j] = (expf(zs - s_ls[r]) - onehot) * s_ts[r];
       if constexpr (NS == 2) {
-        const float zk = ak ? acc[i][j] + ak[c] : acc[i][j];
-        g_k[o + c] = (expf(zk - s_lk[r]) - onehot) * s_tk[r];
+        const float zk = (ak && real) ? z[j] + ak[c + j] : z[j];
+        gk[j] = (expf(zk - s_lk[r]) - onehot) * s_tk[r];
+      }
+    }
+    const long long o = static_cast<long long>(row) * ldg + c - v0;
+    if (full) {
+      *reinterpret_cast<float4*>(g_s + o) = make_float4(gs[0], gs[1], gs[2],
+                                                        gs[3]);
+      if constexpr (NS == 2)
+        *reinterpret_cast<float4*>(g_k + o) =
+            make_float4(gk[0], gk[1], gk[2], gk[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c + j >= v_end) continue;
+        g_s[o + j] = gs[j];
+        if constexpr (NS == 2) g_k[o + j] = gk[j];
       }
     }
   }
 }
 
-// Plain GEMM for the backward's df and dW steps: C = A B, or C += A B when
-// accumulate. blockIdx.z picks one of two (A, C) pairs sharing B. Each
-// output sums its K products in segments of KSEG, each a fresh register
-// chain added into C: the rounding of the f32 sum then grows with the
-// segment, not with all of K (the vocab chunk for df, every token for dW).
-template <typename TA, bool TA_T, typename TB, bool TB_T>
-__global__ void __launch_bounds__(NT, 2)
-    gemm_kernel(const TA* __restrict__ a0, const TA* __restrict__ a1,
-                long long lda, const TB* __restrict__ b, long long ldb,
-                float* __restrict__ c0, float* __restrict__ c1,
-                long long ldc, int M, int Nc, int K, int accumulate) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+// The backward's df and dW products: C = A B, or C += A B when accumulate,
+// A the (M x K) operand, B the (Nc x K) one (AK, BKM: K-major). blockIdx.z
+// picks one of two (A, C) pairs sharing B. Each output sums its K products
+// in segments of KSEG, each a fresh accumulator chain added into C: the
+// rounding of the f32 sum then grows with the segment, not with all of K
+// (the vocab chunk for df, every token for dW).
+template <typename TA, bool AK, typename TB, bool BKM>
+__global__ void __launch_bounds__(NT, 1)
+    lace_gemm_kernel(const TA* __restrict__ a0, const TA* __restrict__ a1,
+                     long long lda, const TB* __restrict__ b, long long ldb,
+                     float* __restrict__ c0, float* __restrict__ c1,
+                     long long ldc, int M, int Nc, int K, int accumulate) {
+  extern __shared__ __align__(16) float smem[];
   const TA* a = blockIdx.z == 0 ? a0 : a1;
   float* c = blockIdx.z == 0 ? c0 : c1;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[8][8];
+  const int warp = threadIdx.x >> 5;
+  const int n = n0 + 4 * (threadIdx.x & 31);
+  // one 16-byte read-modify-write of C a row
+  const bool full = reinterpret_cast<uintptr_t>(c) % 16 == 0 &&
+                    ldc % 4 == 0 && n + 3 < Nc;
+  Acc acc;
   for (int k0 = 0; k0 < K; k0 += KSEG) {
     const long long kk = k0;
-    const Gemm<TA, TA_T, TB, TB_T> gemm{
-        As, Bs, a + (TA_T ? kk * lda : kk), lda, b + (TB_T ? kk : kk * ldb),
-        ldb, M, Nc, min(KSEG, K - k0)};
+    const Tile<TA, AK, TB, BKM> tile(smem, a + (AK ? kk : kk * lda), lda, M,
+                                     b + (BKM ? kk : kk * ldb), ldb, Nc,
+                                     min(KSEG, K - k0));
     zero(acc);
-    gemm.run(m0, n0, acc);
+    tile.run(m0, n0, acc);
+    stash(smem, acc);
     const bool add = accumulate || k0 > 0;
+    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
+      const int r = warp * ROWS_PER_WARP + rr;
+      const int m = m0 + r;
+      if (m >= M) break;
+      float v[4];
+      row4(smem, r, v);
+      float* cr = c + static_cast<long long>(m) * ldc + n;
+      if (full) {
+        float4 o = make_float4(v[0], v[1], v[2], v[3]);
+        if (add) {
+          const float4 old = *reinterpret_cast<const float4*>(cr);
+          o.x += old.x, o.y += old.y, o.z += old.z, o.w += old.w;
+        }
+        *reinterpret_cast<float4*>(cr) = o;
+      } else {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + row_of(ty, i);
-      if (m >= M) continue;
-      float* cr = c + static_cast<long long>(m) * ldc;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + col_of(tx, j);
-        if (n >= Nc) continue;
-        cr[n] = add ? cr[n] + acc[i][j] : acc[i][j];
+        for (int j = 0; j < 4; ++j)
+          if (n + j < Nc) cr[j] = add ? cr[j] + v[j] : v[j];
       }
     }
+    __syncthreads();  // the next segment's copies overwrite the stash
   }
 }
 
 int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
 
-// The forward of NS sides: pass 1 over (token tiles, splits), then the
-// merge. The _k arguments are unused when NS == 1.
+// Allow a kernel its dynamic shared memory (above 48 KB only on request).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// The forward of NS sides: pass 1 over (token tiles, vocab tiles), then
+// the merge of each token's splits = cdiv(V, BN) partials. The _k
+// arguments are unused when NS == 1.
 template <typename TF, typename TW, int NS>
 cudaError_t fwd(const void* feats, long long ldf, const void* w,
                 const int* labels, const float* adj_s, const int* ids_s,
                 const float* adj_k, const int* ids_k, int N, int d, int V,
                 int splits, float* part, float* nll_s, float* nll_k,
                 float* lse_s, float* lse_k, cudaStream_t st) {
-  const int n_vt = cdiv(V, BN);
-  lace_fwd_kernel<TF, TW, NS><<<dim3(cdiv(N, BM), splits), NT, 0, st>>>(
+  if (splits != cdiv(V, BN)) return cudaErrorInvalidValue;
+  constexpr int smem = ZTile<TF, TW>::SMEM;
+  cudaError_t err = allow_smem(lace_fwd_kernel<TF, TW, NS>, smem);
+  if (err != cudaSuccess) return err;
+  lace_fwd_kernel<TF, TW, NS><<<dim3(cdiv(N, BM), splits), NT, smem, st>>>(
       static_cast<const TF*>(feats), ldf, static_cast<const TW*>(w), labels,
-      adj_s, ids_s, adj_k, ids_k, N, d, V, n_vt, splits, part);
-  cudaError_t err = cudaGetLastError();
+      adj_s, ids_s, adj_k, ids_k, N, d, V, part);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   lace_fwd_merge_kernel<NS><<<cdiv(N, 256), 256, 0, st>>>(
       part, splits, N, V, labels, adj_s, ids_s, adj_k, ids_k, nll_s, nll_k,
@@ -476,25 +712,36 @@ cudaError_t bwd(const void* feats_v, long long ldf, const void* w_v,
                 float* df_s, float* df_k, float* dw, cudaStream_t st) {
   const TF* feats = static_cast<const TF*>(feats_v);
   const TW* w = static_cast<const TW*>(w_v);
+  // df_x = g_x (N x width, K-major) W[:, chunk]^T (d x width, K-major);
+  // dW = feats^T (d x N, MN-major) g_s (width x N, MN-major)
+  using DfTile = Tile<float, true, TW, true>;
+  using DwTile = Tile<TF, false, float, false>;
+  constexpr int z_smem = ZTile<TF, TW>::SMEM;
+  cudaError_t err = allow_smem(lace_grad_kernel<TF, TW, NS>, z_smem);
+  if (err == cudaSuccess)
+    err = allow_smem(lace_gemm_kernel<float, true, TW, true>, DfTile::SMEM);
+  if (err == cudaSuccess)
+    err = allow_smem(lace_gemm_kernel<TF, false, float, false>, DwTile::SMEM);
+  if (err != cudaSuccess) return err;
   for (int v0 = 0; v0 < V; v0 += vc) {
     const int v_end = v0 + vc < V ? v0 + vc : V;
     const int width = v_end - v0;
-    lace_grad_kernel<TF, TW, NS><<<dim3(cdiv(N, BM), cdiv(width, BN)), NT, 0,
-                                   st>>>(
+    lace_grad_kernel<TF, TW, NS><<<dim3(cdiv(N, BM), cdiv(width, BN)), NT,
+                                   z_smem, st>>>(
         feats, ldf, w, labels, adj_s, ids_s, adj_k, ids_k, lse_s, lse_k,
         ts_s, ts_k, N, d, V, v0, v_end, vc, g_s, g_k);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     // df_x (N, d) (+)= g_x (N, width) @ W[:, v0:v_end]^T, one z slice a side
-    gemm_kernel<float, false, TW, true>
-        <<<dim3(cdiv(N, BM), cdiv(d, BN), NS), NT, 0, st>>>(
+    lace_gemm_kernel<float, true, TW, true>
+        <<<dim3(cdiv(N, BM), cdiv(d, BN), NS), NT, DfTile::SMEM, st>>>(
             g_s, g_k, vc, w + v0, V, df_s, df_k, d, N, d, width, v0 > 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     if (dw == nullptr) continue;
     // dW[:, v0:v_end] (d, width) = feats^T (d, N) @ g_s (N, width)
-    gemm_kernel<TF, true, float, false>
-        <<<dim3(cdiv(d, BM), cdiv(width, BN), 1), NT, 0, st>>>(
+    lace_gemm_kernel<TF, false, float, false>
+        <<<dim3(cdiv(d, BM), cdiv(width, BN), 1), NT, DwTile::SMEM, st>>>(
             feats, nullptr, ldf, g_s, vc, dw + v0, nullptr, V, d, width, N, 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;

@@ -55,12 +55,11 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def fwd_splits(n_tokens: int, vocab: int, device) -> int:
-    """How many ways K1 splits the vocab: enough blocks for ~8 waves over
-    the card's SMs (one block per SM), at most one vocab tile each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(_cdiv(vocab, BLOCK),
-                      _cdiv(8 * sms, _cdiv(n_tokens, BLOCK))))
+def fwd_splits(vocab: int) -> int:
+    """The forward's partials per token: one per 128-column vocab tile
+    (a block computes one token tile by one vocab tile; the merge kernel
+    folds each token's partials)."""
+    return _cdiv(vocab, BLOCK)
 
 
 def bwd_chunk(n_tokens: int, vocab: int, sides: int = 2) -> int:
@@ -144,7 +143,7 @@ def lace2_fwd_cuda(feats, w_head, labels, adj_s=None, ids_s=None, adj_k=None,
     N, d, V = _check(feats, w_head, labels,
                      {"_s": (adj_s, ids_s), "_k": (adj_k, ids_k)})
     dev = feats.device
-    splits = fwd_splits(N, V, dev)
+    splits = fwd_splits(V)
     part = torch.empty(5 * splits * N, dtype=torch.float32, device=dev)
     nll_s, nll_k, lse_s, lse_k = torch.empty((4, N), dtype=torch.float32,
                                              device=dev)
@@ -192,7 +191,7 @@ def lace_fwd_cuda(feats, w_head, labels, adj=None, ids=None):
     int32 or None (row 0). Returns (nll, lse), each (N,) float32."""
     N, d, V = _check(feats, w_head, labels, {"": (adj, ids)})
     dev = feats.device
-    splits = fwd_splits(N, V, dev)
+    splits = fwd_splits(V)
     part = torch.empty(3 * splits * N, dtype=torch.float32, device=dev)
     nll, lse = torch.empty((2, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -236,13 +236,15 @@ def _lace_inputs(seed, G, N, d, V, feats_dtype, zero_rows=True):
     # over vocab chunks of 256 columns (10 chunks), then over 3000 columns
     (3, 400, 64, 2500, torch.float32, 1.0, 256),
     (2, 700, 32, 3000, torch.bfloat16, 1.0, None),
+    # d not a multiple of 8: the masked depth edge of the product tiles
+    (2, 150, 100, 1200, torch.bfloat16, 1.0, None),
 ])
 def test_lace_kernels_match_plain(G, N, d, V, feats_dtype, tau, vchunk,
                                   monkeypatch):
     """K1 + K2 against the plain chunked version on the same inputs: the
     losses at rel 1e-4, df and dW at 1e-5 of their largest entry (f32 on
-    the CUDA cores, sums in another order); weight-0 rows get exactly
-    zero gradient. ``vchunk`` shrinks K2's workspace to that many vocab
+    the tensor cores in split TF32, sums in another order); weight-0 rows
+    get exactly zero gradient. ``vchunk`` shrinks K2's workspace to that many vocab
     columns per chunk."""
     _needs_card()
     if vchunk is not None:
@@ -270,6 +272,46 @@ def test_lace_kernels_match_plain(G, N, d, V, feats_dtype, tau, vchunk,
     zero = weights == 0
     assert torch.all(got[2][zero] == 0) and torch.all(got[3][zero] == 0)
     assert got[5].item() == weights.sum().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feats_dtype", [torch.bfloat16, torch.float32])
+def test_lace_kernels_are_deterministic(feats_dtype, monkeypatch):
+    """K1, K2, K4 and K5 (server side with dW, client side without), each
+    run twice on the same inputs: bitwise equal (no atomics, every sum in
+    one fixed order). The backward walks the vocab in chunks of 1024
+    columns (2048 for one side), so df sums across chunks."""
+    _needs_card()
+    G, N, d, V = 4, 1100, 96, 3000
+    monkeypatch.setattr(lace_kernel, "WORKSPACE_BYTES", 8 * N * 1024)
+    feats, w_head, labels, weights, p_s, p_k = _lace_inputs(
+        7, G, N // G, d, V, feats_dtype)
+    feats = feats.reshape(N, d)
+    labels = labels.reshape(N).to(torch.int32).contiguous()
+    adj_s = torch.log(p_s + 1e-8).contiguous()
+    adj_k = torch.log(p_k + 1e-8).contiguous()
+    ids = torch.arange(N, device="cuda", dtype=torch.int32) * G // N
+    ts = (weights.reshape(N) / weights.sum()).contiguous()
+    fwd = lace_kernel.lace2_fwd_cuda(feats, w_head, labels, adj_s, None,
+                                     adj_k, ids)
+    runs = {
+        "K1": lambda: lace_kernel.lace2_fwd_cuda(
+            feats, w_head, labels, adj_s, None, adj_k, ids),
+        "K2": lambda: lace_kernel.lace2_bwd_cuda(
+            feats, w_head, labels, adj_s, None, adj_k, ids, fwd[2], fwd[3],
+            ts, ts),
+        "K4": lambda: lace_kernel.lace_fwd_cuda(feats, w_head, labels,
+                                                adj_k, ids),
+        "K5 server": lambda: lace_kernel.lace_bwd_cuda(
+            feats, w_head, labels, adj_s, None, fwd[2], ts, True),
+        "K5 client": lambda: lace_kernel.lace_bwd_cuda(
+            feats, w_head, labels, adj_k, ids, fwd[3], ts, False),
+    }
+    for name, run in runs.items():
+        first, second = run(), run()
+        for a, b in zip(first, second):
+            assert (a is None) == (b is None), name
+            assert a is None or torch.equal(a, b), name
 
 
 @pytest.mark.gpu
@@ -351,14 +393,15 @@ def test_split_step_on_card_matches_cpu():
     (128, 64, 256, torch.bfloat16, 0.5, "client", None),
     (1201, 64, 2500, torch.float32, 1.0, "server", 256),    # long sums
     (700, 32, 3000, torch.bfloat16, 1.0, "none", None),     # plain CE
+    (300, 100, 1200, torch.float32, 1.0, "server", None),   # d % 8 != 0
 ])
 def test_lace_single_kernels_match_plain(N, d, V, feats_dtype, tau, side,
                                          vchunk, monkeypatch):
     """K4 and K5 against their plain versions on the same arguments: the
     server side (one prior row, dW) and the client side (4 rows picked
     per token, no dW), or no prior. nll and lse within 1e-4 of their
-    largest entry, df and dW within 1e-5 (f32 on the CUDA cores, sums in
-    the same 1024-product slices); weight-0 rows get exactly zero df.
+    largest entry, df and dW within 1e-5 (split TF32 at f32 accuracy,
+    sums in the same 1024-product slices); weight-0 rows get exactly zero df.
     ``vchunk`` shrinks K5's workspace to that many vocab columns per
     chunk, so df sums over several chunks."""
     _needs_card()
