@@ -11,7 +11,7 @@ Phases, one or more lines each:
    (flash_attn, flash_attn_bwd, lace, lace1, mlstm; the headers
    flash_common.cuh and lace_common.cuh), one nvcc each, all at once,
    for sm_90a; each kernel's registers and spills by name; the LACE
-   kernels' tensor-core TF32 and FFMA instruction counts from
+   and K6 kernels' tensor-core TF32 and FFMA instruction counts from
    ``cuobjdump -sass`` (each product body must hold TF32 products);
 3. kernels: each kernel against its plain PyTorch version at the shapes
    its path gives it, with the stated tolerance; then its time (CUDA
@@ -25,8 +25,11 @@ Phases, one or more lines each:
    with dW, client side without) at the training shapes (each with its
    bound, the split-TF32 route's cost and the f32 CUDA cores' beside it,
    and a bitwise repeat at the main path's case), and the chunkwise
-   mLSTM (K6) at the served xlstm-1.3b's prefill shapes (h and the final
-   C, n, m);
+   mLSTM (K6) at the served xlstm-1.3b's prefill shapes, every prompt
+   length of the serving mix, q, k, v in float32 and in bfloat16 (h and
+   the final C, n, m against the plain version, a bitwise repeat, the
+   bound at the tensor cores' rate, the split products' and the q/k
+   re-reads' rates, and a profile of its four kernels);
 4. serve: full-width qwen1.5-0.5b in bf16 through ServeSpec ->
    build_serve -> ServeEngine.serve, dense and paged cache; paged tokens
    must equal dense tokens, and every admitted request must have
@@ -72,7 +75,8 @@ exits nonzero; without a GPU it exits nonzero before printing a result.
 ``python3 chip_smoke.py attention`` runs phases 1 and 2 and the
 attention kernels of phase 3 (K3 forward and backward), then stops;
 ``python3 chip_smoke.py lace`` the same for the LACE kernels (K1, K2,
-K4, K5).
+K4, K5); ``python3 chip_smoke.py mlstm`` the same for K6, then
+check-xlstm (5c).
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -112,14 +116,19 @@ KERNEL_CASES += [(1, 777, 16, 2, None, torch.bfloat16),      # GQA
 REPORT_CASE = (1, 777, 16, 16, None, torch.bfloat16)         # the JSON line's
 TRAIN_CASE = KERNEL_CASES[-1]                                # and beside it
 XLSTM = "xlstm-1.3b"
-# the chunkwise mLSTM (K6), (B, S, H, dk, dv): the served xlstm-1.3b's
-# prefill (4 heads of 1024, chunk 64) at prompts of the serving mix (128,
-# and 777: odd, a ragged last chunk) and an odd prompt below one chunk.
-# Tolerance against the plain version, float32 with TF32 off: h and the
-# final C, n, m within 1e-4 of each one's largest entry (sums over 1024
-# products in another order).
-MLSTM_CASES = [(1, S, 4, 1024, 1024) for S in (128, 777, 37)]
-MLSTM_REPORT = MLSTM_CASES[1]
+# the chunkwise mLSTM (K6), (B, S, H, dk, dv, q/k/v dtype): the served
+# xlstm-1.3b's prefill (4 heads of 1024, chunk 64) at every prompt of the
+# serving mix (777 odd: a ragged last chunk) and an odd prompt below one
+# chunk, in float32, then the mix in bfloat16 (as the served bf16 model
+# passes q, k, v), held against the plain version on the same values in
+# float32 (TF32 off): h and the final C, n, m within 1e-4 of each one's
+# largest entry (sums over 1024 products in another order). Two runs of
+# each case are bitwise equal.
+SERVE_LENS, SERVE_REQS = (128, 333, 512, 777), 16
+MLSTM_CASES = ([(1, S, 4, 1024, 1024, torch.float32)
+                for S in SERVE_LENS + (37,)]
+               + [(1, S, 4, 1024, 1024, torch.bfloat16) for S in SERVE_LENS])
+MLSTM_REPORT = (1, 777, 4, 1024, 1024, torch.bfloat16)   # as served
 MLSTM_CHUNK, MLSTM_RTOL = 64, 1e-4
 # the prefill against its token-by-token decode, float32: every layer's
 # final state within 1e-3 of its largest entry. xlstm-1.3b is checked at
@@ -341,15 +350,20 @@ def phase_build():
             elif "built in" in line:
                 say("build", f"{name}: {line.strip()}")
     say("build", f"all kernels ready in {time.perf_counter() - t0:.1f} s")
-    for name in ("lace", "lace1"):
-        lace_sass(build.library_path(name), name)
+    for name in ("lace", "lace1", "mlstm"):
+        sass_mix(build.library_path(name), name)
 
 
-def lace_sass(path, name):
-    """The LACE kernels' instruction mix from ``cuobjdump -sass``: each
-    product body (lace_fwd_kernel, lace_grad_kernel, lace_gemm_kernel)
-    must hold tensor-core TF32 products (HMMA ... TF32); FFMA counts the
-    CUDA-core multiply-adds left (the epilogues' exponentials)."""
+# the kernels of split-TF32 sources whose bodies run tensor-core products
+PRODUCT_BODIES = ("lace_fwd_kernel", "lace_grad_kernel", "lace_gemm_kernel",
+                  "mlstm_scores_kernel", "mlstm_state_kernel")
+
+
+def sass_mix(path, name):
+    """The LACE and K6 kernels' instruction mix from ``cuobjdump -sass``:
+    each product body (PRODUCT_BODIES) must hold tensor-core TF32 products
+    (HMMA ... TF32); FFMA counts the CUDA-core multiply-adds left (the
+    epilogues' exponentials, K6's n and q.n0)."""
     from torch.utils.cpp_extension import CUDA_HOME
     out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
                           "-sass", path], capture_output=True, text=True,
@@ -364,8 +378,7 @@ def lace_sass(path, name):
             counts[kern][1] += " FFMA" in line
     for kern, (hmma, ffma) in sorted(counts.items()):
         say("build", f"{name}: {kern}: {hmma} HMMA.TF32, {ffma} FFMA")
-        if kern.split("<")[0] in ("lace_fwd_kernel", "lace_grad_kernel",
-                                  "lace_gemm_kernel"):
+        if kern.split("<")[0] in PRODUCT_BODIES:
             check(hmma > 0, f"{name}: {kern} has no TF32 tensor-core product")
 
 
@@ -509,7 +522,7 @@ def serve_launches(cfg, n_admits):
 
 
 def phase_serve(device="cuda", reduced=False, arch=ARCH, phase="serve",
-                n_req=16, lens=(128, 333, 512, 777), gen=32, slots=8,
+                n_req=SERVE_REQS, lens=SERVE_LENS, gen=32, slots=8,
                 max_len=1024, page_size=16):
     """Serve the request mix through ``ServeSpec`` -> ``build_serve`` ->
     ``ServeEngine.serve``, dense and then paged; returns the launch
@@ -803,53 +816,92 @@ def phase_xlstm_rounding(device="cuda", reduced=False, prompt_len=77,
             f"after layer (over its largest entry) {layer_errs}")
 
 
-def mlstm_bound(B, S, H, dk, dv, chunk=MLSTM_CHUNK):
-    """(ms, 'operations' | 'bytes'): the least time for the chunkwise
-    mLSTM over these inputs. Per chunk of L tokens and head: q C0 and the
-    state update (4 L dk dv flops), q.n0 and n (4 L dk), the causal pairs'
-    q.k and score-times-v (L (L + 1) (dk + dv)), at the float32 rate;
-    against one read of q, k, v, the gates and the initial state and one
-    write of h and the final state."""
+def mlstm_bound(B, S, H, dk, dv, dtype, chunk=MLSTM_CHUNK):
+    """(ms, 'operations' | 'bytes', f32 ms): the least time for the
+    chunkwise mLSTM over these inputs, from the zero state (as the served
+    prefill starts; no state is read). Its operations -- per chunk of L
+    tokens and head, the state update of C and n (2 L dk dv + 2 L dk
+    flops), q C0 and q.n0 (as many again, but not in the first chunk,
+    whose state is zero), the causal pairs' q.k and score-times-v (L (L +
+    1) (dk + dv)) -- once at TF32's tensor-core rate (the fastest that
+    takes an f32 operand: the state is f32), or one read of q, k, v (in
+    ``dtype``) and the gates and one write of h and the final state, the
+    larger. The third, for the text only, is the operations at the f32
+    CUDA cores' rate."""
     flops = 0
     for t0 in range(0, S, chunk):
         L = min(chunk, S - t0)
-        flops += 4 * L * dk * dv + 4 * L * dk + L * (L + 1) * (dk + dv)
+        flops += ((2 if t0 == 0 else 4) * L * (dk * dv + dk)
+                  + L * (L + 1) * (dk + dv))
     flops *= B * H
-    nbytes = 4 * (B * S * H * (2 * dk + 2 * dv + 2)
-                  + 2 * B * H * (dk * dv + dk + 1))
-    t_ops = flops / PEAK_FLOPS[torch.float32]
+    el = torch.empty((), dtype=dtype).element_size()
+    nbytes = (el * B * S * H * (2 * dk + dv)
+              + 4 * (B * S * H * (dv + 2) + B * H * (dk * dv + dk + 1)))
+    t_ops = flops / PEAK_FLOPS["tf32"]
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes",
+            flops / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def mlstm_route(B, S, H, dk, dv, dtype, chunk=MLSTM_CHUNK):
+    """(split-TF32 flops, bytes of q and k the state blocks read): what K6
+    runs (csrc/mlstm.cu) from the zero state -- q k^T of every 64-row
+    chunk tile (3 products with f32 q, k; 1 with bf16), the state update
+    (3; 2 with bf16 q, k), q C0 (as many, from the second chunk on) and
+    scores . v (3; 2 with bf16 v), each on the whole tile -- and the k
+    chunks, and the q chunks from the second on, that each of a head's
+    dv / 32 blocks reads (from L2: 16 MB in f32 at 777 tokens, the read
+    once)."""
+    f32 = dtype == torch.float32
+    nc = -(-S // chunk)
+    tiles = 2 * 64 * 64 * (dk * (3 if f32 else 1) + dv * (3 if f32 else 2))
+    state = 2 * 64 * dk * dv * (3 if f32 else 2)
+    el = torch.empty((), dtype=dtype).element_size()
+    return (B * H * (nc * (tiles + state) + (nc - 1) * state),
+            B * H * (dv // 32) * (2 * nc - 1) * 64 * dk * el)
+
+
+def serve_mix():
+    """{prompt length: requests} of the serving phases' mix (phase_serve's
+    first draw from its generator)."""
+    lens = np.random.default_rng(0).choice(SERVE_LENS, SERVE_REQS)
+    return {int(P): int((lens == P).sum()) for P in SERVE_LENS}
 
 
 def phase_mlstm():
-    """K6 against its plain version at the served model's prefill shapes:
-    h and the final (C, n, m); then the kernel's, the plain version's and
-    the bound's time. No PyTorch call computes this function."""
+    """K6 against its plain version at the served model's prefill shapes,
+    q, k, v in f32 and in bf16 (the plain version on their f32 copies): h
+    and the final (C, n, m), then a bitwise repeat; the kernel's time
+    (events, and the card's alone), the plain version's and the bound's;
+    then launches x (time - bound) over the serving mix, and a profile of
+    the four kernels at 777 tokens. No PyTorch call computes this
+    function."""
     import torch.nn.functional as F
+    from repro_torch.configs import get_config
     from repro_torch.kernels.mlstm import kernel, ref
 
     gen = torch.Generator("cuda")
     gen.manual_seed(0)
-    rows, max_err = {}, 0.0
+    rows, max_err, calls = {}, 0.0, {}
     for case in MLSTM_CASES:
-        B, S, H, dk, dv = case
+        B, S, H, dk, dv, dtype = case
 
         def n(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device="cuda") * scale
 
         # q scaled as the model scales it; forget gates near 1
-        q, k, v = n(B, S, H, dk, scale=dk ** -0.5), n(B, S, H, dk), \
-            n(B, S, H, dv)
+        q, k, v = (x.to(dtype) for x in (n(B, S, H, dk, scale=dk ** -0.5),
+                                         n(B, S, H, dk), n(B, S, H, dv)))
         i_raw, f_log = n(B, S, H), F.logsigmoid(n(B, S, H) + 2.0)
+        q32, k32, v32 = q.float(), k.float(), v.float()
 
-        def run_kernel():
+        def run_kernel(q=q, k=k, v=v, i_raw=i_raw, f_log=f_log):
             return kernel.mlstm_chunk_cuda(q, k, v, i_raw, f_log,
                                            chunk=MLSTM_CHUNK)
 
         def run_plain():
-            return ref.mlstm_chunk_plain(q, k, v, i_raw, f_log,
+            return ref.mlstm_chunk_plain(q32, k32, v32, i_raw, f_log,
                                          chunk=MLSTM_CHUNK)
 
         h, state = run_kernel()
@@ -860,18 +912,50 @@ def phase_mlstm():
                     for name, a, b in zip("Cnm", state, want))
         err = (h - want_h).abs().max().item()
         max_err = max(max_err, err)
-        check(all(e <= MLSTM_RTOL for e in errs.values()),
+        check(h.dtype == torch.float32 and all(e <= MLSTM_RTOL
+                                               for e in errs.values()),
               f"mlstm kernel vs plain {case}: {errs} > {MLSTM_RTOL}")
+        h2, state2 = run_kernel()
+        torch.cuda.synchronize()
+        check(torch.equal(h, h2) and all(torch.equal(a, b) for a, b in
+                                         zip(state, state2)),
+              f"K6 repeat bitwise {case}: h, C, n, m")
         ms, plain_ms = time_ms(run_kernel), time_ms(run_plain)
-        bound_ms, bound_by = mlstm_bound(B, S, H, dk, dv)
+        dev_ms = device_ms(run_kernel)
+        bound_ms, bound_by, f32_ms = mlstm_bound(B, S, H, dk, dv, dtype)
+        route, l2 = mlstm_route(B, S, H, dk, dv, dtype)
         rows[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          device_ms=dev_ms)
+        calls[case] = run_kernel
         say("kernels", f"mlstm_chunk B={B} S={S} H={H} dk={dk} dv={dv} "
-            f"L={MLSTM_CHUNK} float32: max_abs_err(h)={err:.3g}, over the "
-            "largest entry " + ", ".join(f"{k} {e:.3g}" for k, e in
-                                         errs.items())
-            + f" (tol {MLSTM_RTOL}) kernel={ms:.4f} ms "
-            f"plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by})")
+            f"L={MLSTM_CHUNK} q/k/v {str(dtype)[6:]}: max_abs_err(h)="
+            f"{err:.3g}, over the largest entry "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + f" (tol {MLSTM_RTOL}); repeat bitwise; kernel={ms:.4f} ms "
+            f"device={dev_ms:.4f} ms plain={plain_ms:.4f} ms "
+            f"bound={bound_ms:.4f} ms ({bound_by}; f32 CUDA cores "
+            f"{f32_ms:.4f}); route {route / 1e9:.2f} GFLOP of split "
+            f"products, {route / dev_ms / 1e9:.1f} TFLOP/s; q/k read by "
+            f"the state blocks {l2 / 1e6:.0f} MB, "
+            f"{l2 / dev_ms / 1e9:.2f} TB/s")
+    # launches x (time - bound) over the serving mix: every admit runs K6
+    # once per mLSTM layer, in the dense and the paged run
+    layers = sum(s.mixer == "mlstm" for s in get_config(XLSTM).block_specs)
+    mix = serve_mix()
+    for dtype in (torch.bfloat16, torch.float32):
+        parts = {P: 2 * c * layers * (rows[(1, P, 4, 1024, 1024, dtype)]["ms"]
+                                      - rows[(1, P, 4, 1024, 1024, dtype)]
+                                      ["bound_ms"])
+                 for P, c in mix.items()}
+        say("kernels", f"K6 over the serving mix, q/k/v {str(dtype)[6:]} "
+            f"(prompts {mix}, {layers} launches an admit, dense + paged: "
+            f"{2 * layers * sum(mix.values())} launches): launches x (ms - "
+            f"bound) = {sum(parts.values()):.1f} ms ("
+            + ", ".join(f"{P}: {x:.1f}" for P, x in parts.items()) + ")")
+    for case in (MLSTM_REPORT, (1, 777, 4, 1024, 1024, torch.float32)):
+        profile(f"K6 at {case[1]} tokens, q/k/v {str(case[5])[6:]}",
+                calls[case], 5)
     return rows, max_err
 
 
@@ -1664,6 +1748,11 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] == ["xlstm-rounding"]:
         phase_xlstm_rounding()
+        return 0
+    if sys.argv[1:] == ["mlstm"]:
+        run_phase("kernels K6", phase_mlstm)
+        run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
+                  prompt_len=77, max_len=96, layers=XLSTM_CHECK_LAYERS)
         return 0
     if sys.argv[1:] != ["lace"]:
         rows, max_err = run_phase("kernels K3", phase_kernels)

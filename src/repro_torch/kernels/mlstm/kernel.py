@@ -3,9 +3,12 @@
 :func:`mlstm_chunk_cuda` replaces ``repro/kernels/mlstm/kernel.py:
 mlstm_chunk_pallas`` together with its batch x head vmap
 (``mlstm/ops.py:mlstm_chunkwise``): it takes the (B, S, H, hd) layout
-with the caller's strides, the initial (C, n, m) state, and returns the
-final one beside h. A ragged last chunk is masked in the kernel, never
-padded here.
+with the caller's strides, q, k and v in float32 or bfloat16 (the Pallas
+kernel casts them to float32 inside; so does this one), the initial
+(C, n, m) state, and returns h in float32 and the final state beside it.
+A ragged last chunk is masked in the kernel, never padded here. Its
+scratch (the gates, the split q k^T partials, the decayed scores) is one
+float32 buffer allocated here.
 """
 from __future__ import annotations
 
@@ -14,25 +17,28 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mlstm.ref import zero_state
 
 LC = 64      # the kernel's chunk tile: the longest chunk it takes
 DKT = 64     # dk is streamed in slices of this many rows
 TV = 32      # dv is split over blocks in tiles of this many columns
 MAX_DK = 1024
-_FN = []     # the bound C function, resolved on first launch
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C entry's codes
+_FNS = {}    # the bound C functions, resolved on first launch
 
-_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
 
 
-def _fn():
-    if not _FN:
-        fn = build.load("mlstm").mlstm_fwd
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _FN.append(fn)
-    return _FN[0]
+def _fns():
+    if not _FNS:
+        lib = build.load("mlstm")
+        lib.mlstm_fwd.argtypes = _ARGTYPES
+        lib.mlstm_fwd.restype = ctypes.c_int
+        lib.mlstm_workspace.argtypes = [ctypes.c_int] * 5
+        lib.mlstm_workspace.restype = ctypes.c_longlong
+        _FNS.update(fwd=lib.mlstm_fwd, workspace=lib.mlstm_workspace)
+    return _FNS
 
 
 def _check(q, k, v, i_raw, f_log, chunk):
@@ -42,8 +48,13 @@ def _check(q, k, v, i_raw, f_log, chunk):
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.device != q.device:
             raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share one dtype, torch.float32 or "
+                        f"torch.bfloat16; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    for name, t in (("i_raw", i_raw), ("f_log", f_log)):
         if t.dtype != torch.float32:
-            raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes "
+            raise TypeError(f"{name} has dtype {t.dtype}; the gates are "
                             "torch.float32")
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
             or v.shape[:3] != q.shape[:3]:
@@ -70,8 +81,10 @@ def _check(q, k, v, i_raw, f_log, chunk):
 
 
 def _state(state, B, H, dk, dv, device):
+    """The caller's (C, n, m), checked and contiguous; None (the zero
+    state, which the kernel starts from without reading) stays None."""
     if state is None:
-        return zero_state(B, H, dk, dv, device)
+        return None, None, None
     shapes = ((B, H, dk, dv), (B, H, dk), (B, H))
     out = []
     for name, t, s in zip(("C", "n", "m"), state, shapes):
@@ -84,11 +97,11 @@ def _state(state, B, H, dk, dv, device):
 
 
 def mlstm_chunk_cuda(q, k, v, i_raw, f_log, state=None, *, chunk: int = 64):
-    """q, k: (B, S, H, dk); v: (B, S, H, dv); i_raw, f_log: (B, S, H); all
-    float32 on one CUDA device. ``state``: (C (B, H, dk, dv), n (B, H, dk),
-    m (B, H)) float32, zeros when None. Returns (h (B, S, H, dv) float32,
-    (C, n, m) after the last token). Raises on what the kernel does not
-    take and on a failed launch."""
+    """q, k: (B, S, H, dk); v: (B, S, H, dv), all float32 or all bfloat16;
+    i_raw, f_log: (B, S, H) float32; all on one CUDA device. ``state``: (C
+    (B, H, dk, dv), n (B, H, dk), m (B, H)) float32, zeros when None.
+    Returns (h (B, S, H, dv) float32, (C, n, m) after the last token).
+    Raises on what the kernel does not take and on a failed launch."""
     _check(q, k, v, i_raw, f_log, chunk)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
@@ -96,19 +109,22 @@ def mlstm_chunk_cuda(q, k, v, i_raw, f_log, state=None, *, chunk: int = 64):
     C0, n0, m0 = _state(state, B, H, dk, dv, dev)
     ig, fg = i_raw.contiguous(), f_log.contiguous()
     h = torch.empty((B, S, H, dv), dtype=torch.float32, device=dev)
-    C1, n1, m1 = (torch.empty_like(t) for t in (C0, n0, m0))
-    nc = -(-S // chunk)
-    G = torch.empty((B * H, nc, LC, LC), dtype=torch.float32, device=dev)
+    C1, n1, m1 = (torch.empty(shape, dtype=torch.float32, device=dev)
+                  for shape in ((B, H, dk, dv), (B, H, dk), (B, H)))
+    fns = _fns()
+    work = torch.empty((fns["workspace"](B, S, H, dk, int(chunk)),),
+                       dtype=torch.float32, device=dev)
+    state_in = [None if t is None else t.data_ptr() for t in (C0, n0, m0)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
-            fg.data_ptr(), C0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
-            h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
-            G.data_ptr(), B, S, H, dk, dv, int(chunk), *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], stream)
+        err = fns["fwd"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPES[q.dtype],
+            ig.data_ptr(), fg.data_ptr(), *state_in, h.data_ptr(),
+            C1.data_ptr(), n1.data_ptr(), m1.data_ptr(), work.data_ptr(),
+            B, S, H, dk, dv, int(chunk),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     if err != 0:
         raise RuntimeError(f"mlstm_fwd launch failed with CUDA error {err} "
                            f"(B={B} S={S} H={H} dk={dk} dv={dv} "
-                           f"chunk={chunk})")
+                           f"chunk={chunk} {q.dtype})")
     return h, (C1, n1, m1)

@@ -17,9 +17,12 @@ LAUNCHES = 0
 
 
 def mlstm_chunkwise(q, k, v, i_raw, f_log, state=None, *, chunk: int = 64):
-    """q, k: (B, S, H, dk); v: (B, S, H, dv); i_raw, f_log: (B, S, H)
-    float32; state: (C, n, m) or None for zeros. Returns (h (B, S, H, dv)
-    in q's dtype, the final (C, n, m)). The kernel takes float32 only."""
+    """q, k: (B, S, H, dk); v: (B, S, H, dv), float32 or bfloat16 (the
+    kernel takes the three in one of the two; the served bf16 model passes
+    them as it computes them); i_raw, f_log: (B, S, H) float32; state: (C,
+    n, m) or None for zeros. Computes in float32 and returns (h (B, S, H,
+    dv) float32 -- float64 only for float64 inputs on the CPU --, the final
+    (C, n, m) float32)."""
     global LAUNCHES
     tensors = (q, k, v, i_raw, f_log) + tuple(state or ())
     kinds = {t.device.type for t in tensors}

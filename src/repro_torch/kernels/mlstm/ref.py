@@ -12,7 +12,7 @@
   state and changes no real row, so h and the final state are the same
   function of the real tokens.
 
-Both compute in float32.
+Both compute in float32 (a bfloat16 q, k or v is exact in float32).
 """
 from __future__ import annotations
 
@@ -51,7 +51,10 @@ def zero_state(B, H, dk, dv, device):
 def mlstm_chunk_plain(q, k, v, i_raw, f_log, state=None, *, chunk: int = 64):
     """q, k: (B, S, H, dk); v: (B, S, H, dv); i_raw, f_log: (B, S, H);
     state: (C (B, H, dk, dv), n (B, H, dk), m (B, H)) float32, zeros when
-    None. Returns (h (B, S, H, dv) in q's dtype, (C, n, m))."""
+    None. Returns (h (B, S, H, dv), (C, n, m)). h is float32 for float32 or
+    bfloat16 inputs, as the kernel returns it: the one caller with bf16 q,
+    k, v is the served model's prefill (``models/layers/xlstm.py``), which
+    passes them uncast; float64 inputs keep float64."""
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     C, n, m = state if state is not None else zero_state(B, H, dk, dv,
@@ -94,4 +97,4 @@ def mlstm_chunk_plain(q, k, v, i_raw, f_log, state=None, *, chunk: int = 64):
         n = n * wC0[..., None] + kw.sum(dim=1)
         m = m_new
     h = torch.cat(hs, dim=1)[:, :S]
-    return h.to(q.dtype), (C, n, m)
+    return h.to(torch.promote_types(q.dtype, torch.float32)), (C, n, m)

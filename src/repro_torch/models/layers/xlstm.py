@@ -134,8 +134,9 @@ def _mlstm_seq(params, x, cfg):
     """The full-sequence pass from the zero state: (y, conv_state, the
     final (C, n, m))."""
     q, k, v, i_raw, f_log, z, conv_state = _mlstm_qkvg(params, x, cfg)
-    h, state = mlstm_ops.mlstm_chunkwise(q.float(), k.float(), v.float(),
-                                         i_raw, f_log,
+    # q, k, v in the compute dtype: K6 (and the plain version) take bf16 as
+    # it is and compute in float32, as the reference's float32 casts do
+    h, state = mlstm_ops.mlstm_chunkwise(q, k, v, i_raw, f_log,
                                          chunk=cfg.xlstm.chunk_size)
     return _mlstm_out(params, h, z, cfg, x.dtype), conv_state, state
 

@@ -601,34 +601,96 @@ def _rel(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,H,dk,dv,chunk,zero_state", [
-    (1, 777, 4, 1024, 1024, 64, True),     # the served model's prefill
-    (1, 128, 4, 1024, 1024, 64, True),
-    (1, 37, 4, 1024, 1024, 64, False),     # odd S below the chunk
-    (2, 200, 3, 64, 64, 64, False),        # ragged last chunk
-    (1, 13, 2, 128, 96, 8, False),         # short chunks, dv not 64k
-    (2, 100, 2, 256, 512, 16, True),
-    (1, 64, 1, 512, 32, 64, False),        # exactly one chunk
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,zero_state,dtype", [
+    (1, 777, 4, 1024, 1024, 64, True, torch.float32),  # the served prefill
+    (1, 128, 4, 1024, 1024, 64, True, torch.float32),
+    (1, 37, 4, 1024, 1024, 64, False, torch.float32),  # odd S below the chunk
+    (2, 200, 3, 64, 64, 64, False, torch.float32),     # ragged last chunk
+    (1, 13, 2, 128, 96, 8, False, torch.float32),  # short chunks, dv not 64k
+    (2, 100, 2, 256, 512, 16, True, torch.float32),
+    (1, 64, 1, 512, 32, 64, False, torch.float32),     # exactly one chunk
+    # bf16 q, k, v, as the served model passes them
+    (1, 777, 4, 1024, 1024, 64, False, torch.bfloat16),
+    (1, 128, 4, 1024, 1024, 64, False, torch.bfloat16),
+    (2, 200, 3, 64, 64, 64, False, torch.bfloat16),    # ragged last chunk
+    (1, 13, 2, 128, 96, 8, False, torch.bfloat16),     # short chunks
 ])
-def test_mlstm_kernel_matches_plain(B, S, H, dk, dv, chunk, zero_state):
-    """K6 against the plain chunkwise version: h and the final (C, n, m)
-    within 1e-4 of each one's largest entry (float32 sums in another
-    order)."""
+def test_mlstm_kernel_matches_plain(B, S, H, dk, dv, chunk, zero_state,
+                                    dtype):
+    """K6 against the plain chunkwise version on the same values in
+    float32 (bf16 q, k, v: their float32 copies): h in float32 and the
+    final (C, n, m) within 1e-4 of each one's largest entry (float32 sums
+    in another order)."""
     _needs_card()
     q, k, v, i_raw, f_log, state = _mlstm_inputs(S + dk, B, S, H, dk, dv,
                                                  zero_state)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
     before = mlstm_ops.LAUNCHES
     h, got = mlstm_ops.mlstm_chunkwise(q, k, v, i_raw, f_log, state,
                                        chunk=chunk)
     torch.cuda.synchronize()
     assert mlstm_ops.LAUNCHES == before + 1
     assert h.shape == (B, S, H, dv) and h.dtype == torch.float32
-    want_h, want = mlstm_ref.mlstm_chunk_plain(q, k, v, i_raw, f_log, state,
-                                               chunk=chunk)
+    want_h, want = mlstm_ref.mlstm_chunk_plain(q.float(), k.float(),
+                                               v.float(), i_raw, f_log,
+                                               state, chunk=chunk)
     assert _rel(h, want_h) <= 1e-4, _rel(h, want_h)
     for name, a, b in zip("Cnm", got, want):
         assert a.shape == b.shape
         assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_kernel_strided_views_match_plain(dtype):
+    """q, k, v as views: (B, H, S, d) storage seen as (B, S, H, d), and rows
+    that start 4 bytes past a 16-byte boundary (the kernel's plain copies
+    instead of cp.async), against the plain version on the same values."""
+    _needs_card()
+    B, S, H, dk, dv = 2, 150, 3, 128, 64
+    rng = np.random.default_rng(5)
+
+    def n(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
+
+    q = (n(B, H, S, dk) * dk ** -0.5).to(dtype).transpose(1, 2)
+    k = n(B, S, H, dk + 1).to(dtype)[..., 1:]
+    v = n(B, H, S, dv + 2).to(dtype)[..., 2:].transpose(1, 2)
+    i_raw = n(B, S, H)
+    f_log = torch.nn.functional.logsigmoid(n(B, S, H) + 2.0)
+    h, got = mlstm_ops.mlstm_chunkwise(q, k, v, i_raw, f_log, chunk=64)
+    torch.cuda.synchronize()
+    want_h, want = mlstm_ref.mlstm_chunk_plain(q.float(), k.float(),
+                                               v.float(), i_raw, f_log,
+                                               chunk=64)
+    assert _rel(h, want_h) <= 1e-4, _rel(h, want_h)
+    for name, a, b in zip("Cnm", got, want):
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,dtype", [
+    (1, 777, 4, 1024, 1024, 64, torch.float32),    # the served shape
+    (1, 777, 4, 1024, 1024, 64, torch.bfloat16),
+    (2, 200, 3, 64, 64, 64, torch.float32),        # ragged last chunk
+    (1, 13, 2, 128, 96, 8, torch.bfloat16),
+])
+def test_mlstm_kernel_is_deterministic(B, S, H, dk, dv, chunk, dtype):
+    """Two calls on the same inputs give bitwise equal h, C, n and m: the
+    kernel sums every split and every warp's share in a fixed order, with
+    no atomics."""
+    _needs_card()
+    q, k, v, i_raw, f_log, state = _mlstm_inputs(S + 2 * dk, B, S, H, dk,
+                                                 dv, False)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    h1, s1 = mlstm_ops.mlstm_chunkwise(q, k, v, i_raw, f_log, state,
+                                       chunk=chunk)
+    h2, s2 = mlstm_ops.mlstm_chunkwise(q, k, v, i_raw, f_log, state,
+                                       chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h2)
+    for name, a, b in zip("Cnm", s1, s2):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

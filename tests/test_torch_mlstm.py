@@ -8,14 +8,21 @@
 * the batched wrapper against the reference's ``mlstm_chunkwise``;
 * h and the final (C, n, m) against the reference's
   ``xlstm.mlstm_chunk``, from zero and from a nonzero state;
-* the device rule: a CPU tensor launches nothing, other devices raise.
+* the device rule: a CPU tensor launches nothing, other devices raise;
+* bf16 q, k, v (what the served bf16 model passes, uncast): the plain
+  version and the model's mLSTM layer give bitwise what their float32
+  copies give, with h in float32, and the port matches the reference on
+  the float32-cast values.
 
-Float32 throughout. The chunkwise form sums in another order than the
+Float32 throughout (bf16 inputs beside their float32 copies). The
+chunkwise form sums in another order than the
 step-by-step recurrence: h within 2e-4 (the reference's own tolerance
 for its kernel against ``mlstm_ref``); the port against the reference's
 same function within 2e-5. The Hopper kernel itself is held against the
 plain version on a card by ``tests/test_torch_gpu.py``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,3 +136,68 @@ def test_device_rule():
     # the plain version keeps q's dtype for h, and computes in float32
     h, (C, _, _) = ops.mlstm_chunkwise(q.double(), k, v, i_raw, f_log)
     assert h.dtype == torch.float64 and C.dtype == torch.float32
+
+
+@pytest.mark.parametrize("S,chunk", [(24, 8), (13, 8), (70, 64)])
+def test_bf16_operands_are_their_float32_copies(S, chunk):
+    """bf16 q, k, v (what the served bf16 model passes): the plain version
+    gives bitwise the h and final state of their float32 copies, with h in
+    float32, and matches the reference's ``xlstm.mlstm_chunk`` on the
+    float32-cast values within SAME_TOL."""
+    B, H, hd = 2, 2, 16
+    q, k, v, i_raw, f_log = _inputs(S + 3, (B, S, H), hd, hd)
+    tq, tk, tv, ti, tf = _t(q, k, v, i_raw, f_log)
+    qb, kb, vb = (x.bfloat16() for x in (tq, tk, tv))
+    h, state = ops.mlstm_chunkwise(qb, kb, vb, ti, tf, chunk=chunk)
+    h32, state32 = ops.mlstm_chunkwise(qb.float(), kb.float(), vb.float(),
+                                       ti, tf, chunk=chunk)
+    assert h.dtype == torch.float32
+    assert torch.equal(h, h32)
+    for a, b in zip(state, state32):
+        assert torch.equal(a, b)
+    zero = (np.zeros((B, H, hd, hd), np.float32),
+            np.zeros((B, H, hd), np.float32), np.zeros((B, H), np.float32))
+    jh, jstate = jxlstm.mlstm_chunk(
+        *map(jnp.asarray, (qb.float().numpy(), kb.float().numpy(),
+                           vb.float().numpy(), i_raw, f_log)),
+        tuple(map(jnp.asarray, zero)), chunk)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **SAME_TOL)
+    for got, want in zip(state, jstate):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **SAME_TOL)
+
+
+def test_bf16_model_passes_qkv_uncast(monkeypatch):
+    """xlstm.py's ``mlstm_apply`` and ``mlstm_prefill`` in bf16 hand q, k, v
+    to ``mlstm_chunkwise`` in bf16, uncast; casting them to float32 first
+    (the route before) gives bitwise the same output and cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import xlstm
+
+    cfg = dataclasses.replace(get_config("xlstm-1.3b").reduced(),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    params = xlstm.mlstm_init(torch.Generator().manual_seed(4), cfg)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 77, cfg.d_model), np.float32)).bfloat16()
+    seen = []
+    plain = ops.mlstm_chunkwise
+
+    def recorded(q, k, v, *args, **kw):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return plain(q, k, v, *args, **kw)
+
+    def cast_first(q, k, v, *args, **kw):
+        return plain(q.float(), k.float(), v.float(), *args, **kw)
+
+    runs = []
+    for fn in (recorded, cast_first):
+        monkeypatch.setattr(xlstm.mlstm_ops, "mlstm_chunkwise", fn)
+        with torch.no_grad():
+            runs.append((xlstm.mlstm_apply(params, x, cfg),
+                         xlstm.mlstm_prefill(params, x, cfg, torch.bfloat16)))
+    assert seen == [(torch.bfloat16,) * 3] * 2
+    (y, (yp, cache)), (y32, (yp32, cache32)) = runs
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, y32) and torch.equal(yp, yp32)
+    assert set(cache) == set(cache32)
+    for key in cache:
+        assert torch.equal(cache[key], cache32[key]), key
