@@ -66,7 +66,23 @@ Phases, one or more lines each:
    accuracy and class-balanced accuracy), then one split step per
    boundary on the card in float32 with cuDNN off, held against the same
    step in float64 on the CPU (cuDNN's and the CPU's own float32 steps
-   are reported beside it).
+   are reported beside it);
+11. baselines: the same AlexNet and settings, one round of every method
+   but scala (the FL / SFL baselines and scala_noadj) from one seeded
+   state, held against the round on the CPU in float64 (every leaf's
+   update within 1e-3 of its largest entry): over one local step the
+   card's float32 round with cuDNN off, over the tables' five the card's
+   float64 round (float32 reported beside it); then the paper tables T1,
+   T5 and T8 (quick) through the port's table runner at width 1.0 -- the
+   reference's CSV rows, each experiment's round seconds and peak device
+   memory, and whether its final state is finite (a diverged baseline
+   row is marked; a diverged SCALA row fails);
+12. resume: ``Trainer.save`` -> a fresh Trainer -> ``resume`` against an
+   uninterrupted run whose state is finite, bitwise in every leaf and in
+   the history: AlexNet (scala, feddyn, splitfed_v1, sfl_localloss at
+   its own rate; cuDNN deterministic in this phase), then phase 6's
+   full-width qwen1.5-0.5b training (K1, K2, K3 forward and backward);
+   the ``.npz`` size, save and restore seconds.
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -77,6 +93,7 @@ attention kernels of phase 3 (K3 forward and backward), then stops;
 ``python3 chip_smoke.py lace`` the same for the LACE kernels (K1, K2,
 K4, K5); ``python3 chip_smoke.py mlstm`` the same for K6, then
 check-xlstm (5c).
+``python3 chip_smoke.py baselines`` runs phases 1, 2, 11 and 12.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -1717,6 +1734,333 @@ def phase_alexnet(device="cuda", width=ALEXNET["width"], rounds=3):
                           checked)
 
 
+# the round check of phase 11: one round of every method but scala (the
+# baselines and scala_noadj) from one seeded state, on the card against the
+# CPU in float64; every leaf of the round's update (w' - w) within 1e-3 of
+# that update's largest entry. Over one local step the card's float32 round
+# (cuDNN off) is held so. Over the tables' 5 local steps float32 is no
+# check: a ReLU or max-pool input within rounding of its switch point falls
+# on the other side from the second forward on, a bias with 12 terms a
+# gradient then moves by a visible part of its update, and the difference
+# grows through the later steps (PERF.md §6); at 5 steps the card runs the
+# round in float64, its float32 round and the CPU's reported beside it.
+UPDATE_RTOL = 1e-3
+# FedDecorr divides each feature by its std over a client's ~12 images
+# plus 1e-5: over 5 local steps its round amplifies differences in the
+# last bits by ~1e8 (float64 on the card and on the CPU part by 9% of the
+# update), so its float64 round is checked over one local step and
+# reported over five
+CHAOTIC = ("feddecorr",)
+# sfl_localloss's one local step already holds a second client forward:
+# the server half trains on the activations recomputed after the client's
+# update. So over one step the float32 update of its server half (leaves
+# under this path) is reported, and the client half and aux head checked
+F32_ONE_STEP_REPORTED = {"sfl_localloss": ".inner/ws/"}
+# the CPU's own float32 round, reported for these (it lands further from
+# float64 than the card's: its convolutions' weight gradients)
+F32_CPU_REPORTED = ("scala_noadj", "fedavg")
+# the tables of phase 11 (benchmarks/run.py's quick settings) and the
+# methods of phase 12's AlexNet resume check, each with its learning rate:
+# sfl_localloss at the tables' 0.05 diverges at width 1.0 (its server
+# leaves hold inf or NaN by round 3), so it runs at a rate where it stays
+# finite and the bitwise check compares real values
+BASELINE_TABLES = ("t1", "t5", "t8")
+RESUME_METHODS = (("scala", ALEXNET["lr"]), ("feddyn", ALEXNET["lr"]),
+                  ("splitfed_v1", ALEXNET["lr"]), ("sfl_localloss", 0.01))
+
+
+def alexnet_method_spec(method, rounds, width=ALEXNET["width"],
+                        local_iters=ALEXNET["local_iters"], lr=ALEXNET["lr"]):
+    """:func:`alexnet_spec`'s experiment (fused boundary) for ``method``:
+    SCALA, scala_noadj or an FL / SFL baseline."""
+    return dataclasses.replace(
+        alexnet_spec("fused", rounds, width), method=method,
+        scala=dataclasses.replace(alexnet_spec("fused").scala,
+                                  local_iters=local_iters, lr=lr)).validate()
+
+
+def state_leaves(state):
+    """{path: leaf} of a program state (the checkpoint's own paths)."""
+    from repro_torch.checkpoint.checkpoint import flatten_with_paths
+    return flatten_with_paths(state)
+
+
+def update_gap(old, want, got, reported=None):
+    """How far ``got``'s round lies from ``want``'s (both from ``old``):
+    over all leaves, the worst leaf's largest error over its update's
+    largest entry, that leaf, the entries over UPDATE_RTOL and the worst
+    ||got - want|| / ||update||; and the worst of the first over the
+    leaves whose path does not start with ``reported``."""
+    worst, worst_key, n_off, fro, checked = 0.0, "", 0, 0.0, 0.0
+    for key, b in want.items():
+        if not isinstance(b, torch.Tensor):
+            check(got[key] == b, f"{key}: {got[key]} != {b}")
+            continue
+        a = got[key].double().cpu()
+        check(bool(torch.isfinite(a).all()), f"{key} finite")
+        upd = b - old[key]
+        top = max(upd.abs().max().item(), 1e-30)
+        err = (a - b).abs()
+        gap = err.max().item() / top
+        if gap > worst:
+            worst, worst_key = gap, key
+        if not (reported and key.startswith(reported)):
+            checked = max(checked, gap)
+        n_off += int((err > UPDATE_RTOL * top).sum())
+        fro = max(fro, ((a - b).norm() / max(upd.norm().item(),
+                                             1e-30)).item())
+    return worst, worst_key, n_off, fro, checked
+
+
+def phase_baselines(device="cuda", width=ALEXNET["width"],
+                    local_iters=ALEXNET["local_iters"]):
+    """The paper's baselines on the card. One round of every method but
+    scala from one seeded state, against the CPU in float64, every leaf's
+    update within UPDATE_RTOL of its largest entry: over 1 local step on
+    ``device`` in float32 (cuDNN off), over ``local_iters`` in float64
+    (the float32 rounds reported beside it). Then the paper tables T1, T5
+    and T8 (quick) through the port's table runner at ``width``: the
+    reference's CSV rows, each experiment's steady round seconds and peak
+    device memory, finite losses, and each row's final state checked for
+    inf and NaN (a diverged row is marked and counted)."""
+    from repro_torch import api
+    from repro_torch.benchmarks import run as tables_run
+    from repro_torch.benchmarks.common import run_experiment
+    from repro_torch.tree import tree_map
+
+    cuda = torch.device(device).type == "cuda"
+    cpu_s, failed = 0.0, []
+    for method in (m for m in api.METHODS if m != "scala"):
+        for T in (local_iters, 1):
+            spec = alexnet_method_spec(method, 1, width, T)
+            host = api.Trainer(spec, device="cpu")
+            batches, sizes = host._next_round_batches()
+            p0 = (host.state.inner.params if method in api.SCALA_METHODS
+                  else host.state.inner)
+
+            def round_on(dev, dtype, cudnn):
+                program = api.build(spec, device=dev, params=tree_map(
+                    lambda a: a.to(dtype), p0))
+                state = program.init()
+                b = {k: v.to(dev, dtype if k == "x" else v.dtype)
+                     for k, v in batches.items()}
+                prev = torch.backends.cudnn.enabled
+                torch.backends.cudnn.enabled = cudnn
+                t0 = time.perf_counter()
+                try:
+                    new, _ = program.step(state, b, sizes.to(dev))
+                finally:
+                    torch.backends.cudnn.enabled = prev
+                sync(dev)
+                return (state_leaves(state), state_leaves(new),
+                        time.perf_counter() - t0)
+
+            old_c, new_c, sec_c = round_on("cpu", torch.float64, True)
+            cpu_s += sec_c
+            f32 = f"{device} float32 cuDNN off"
+            # (what, device, dtype, cuDNN, checked, leaves reported)
+            if T == 1:
+                variants = [(f32, device, torch.float32, False, True,
+                             F32_ONE_STEP_REPORTED.get(method))]
+                if method in CHAOTIC:
+                    variants.append((f"{device} float64", device,
+                                     torch.float64, True, True, None))
+            else:
+                variants = [(f"{device} float64", device, torch.float64,
+                             True, method not in CHAOTIC, None)]
+                if method not in CHAOTIC:
+                    variants.append((f32, device, torch.float32, False,
+                                     False, None))
+                if method in F32_CPU_REPORTED:
+                    variants.append(("cpu float32", "cpu", torch.float32,
+                                     True, False, None))
+            for what, dev, dtype, cudnn, checked, reported in variants:
+                _, new_d, sec_d = round_on(dev, dtype, cudnn)
+                check(new_d.keys() == new_c.keys(),
+                      f"{method}: state trees differ")
+                worst, worst_key, n_off, fro, gated = update_gap(
+                    old_c, new_c, new_d, reported)
+                if checked and gated > UPDATE_RTOL:
+                    failed.append((method, T, what, gated))
+                say("baselines", f"{method}: one round ({T} local steps, "
+                    f"{spec.slots} clients), {what} {sec_d:.3f} s vs cpu "
+                    f"float64 {sec_c:.2f} s: worst leaf update off by "
+                    f"{worst:.3g} of its largest entry ({worst_key}; "
+                    f"{n_off} entries over {UPDATE_RTOL}), worst leaf's "
+                    f"||a - b|| / ||update|| {fro:.3g}"
+                    + ("" if not checked else
+                       f" (tol {UPDATE_RTOL})" if not reported else
+                       f" (leaves under {reported} reported; the others' "
+                       f"worst {gated:.3g}, tol {UPDATE_RTOL})")
+                    + ("" if checked else " (reported, not checked)"))
+            del host
+    say("baselines", f"round check: cpu float64 side {cpu_s:.1f} s in all, "
+        f"T = {local_iters} and 1")
+    check(not failed, f"round updates off: {failed}")
+    print(tables_run.HEADER, flush=True)
+    timings = []
+
+    def run(method, **kw):
+        """run_experiment at ``width`` on ``device``, its round seconds,
+        peak memory, finite losses and final state recorded."""
+        secs, finite = [], []
+
+        def on_round(rnd, metrics, dt):
+            secs.append(dt)
+            finite.append(all(np.isfinite(v) for v in metrics.values()))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res = run_experiment(method, device=device, width=width,
+                             on_round=on_round, **kw)
+        check(all(finite) and np.isfinite(res["acc"])
+              and np.isfinite(res["balanced_acc"]),
+              f"{method} {kw}: finite losses and accuracies")
+        timings.append((method, kw, secs,
+                        torch.cuda.max_memory_allocated() if cuda else 0,
+                        res["nonfinite_leaves"]))
+        return res
+
+    rows = []
+    for name in BASELINE_TABLES:
+        tables_run.TABLES[name](True, run, rows)
+    diverged = []
+    for method, kw, secs, peak, nonfinite in timings:
+        steady = secs[1:] or secs
+        setting = ",".join(f"{k}={v}" for k, v in kw.items())
+        if nonfinite:
+            diverged.append(f"{method} [{setting}]")
+        say("baselines", f"{method} [{setting}]: round seconds (rounds "
+            f"1..{len(secs) - 1}) mean {float(np.mean(steady)):.4f} "
+            f"{[round(x, 4) for x in steady]}; round 0 {secs[0]:.3f} s; "
+            f"peak {peak / 2**20:.0f} MiB; final state "
+            + (f"DIVERGED, {nonfinite} leaves hold inf or NaN (its acc is "
+               f"argmax over non-finite logits)" if nonfinite
+               else "finite"))
+    check(not any(m.split()[0] in api.SCALA_METHODS for m in diverged),
+          f"a SCALA row diverged: {diverged}")
+    say("baselines", f"{len(timings)} table rows, {len(diverged)} diverged "
+        f"(marked, not failed: the baselines at the paper's lr): "
+        f"{diverged or 'none'}")
+
+
+def bits(t):
+    """A tensor's bytes (a NaN equals itself bit for bit)."""
+    return t.contiguous().view(torch.uint8)
+
+
+def states_equal(a, b, what):
+    """Check two flattened program states bit for bit; returns the leaf
+    count."""
+    check(a.keys() == b.keys(), f"{what}: state trees differ")
+    for key, x in a.items():
+        y = b[key]
+        if isinstance(x, torch.Tensor):
+            check(x.dtype == y.dtype and x.shape == y.shape
+                  and torch.equal(bits(x), bits(y.to(x.device))),
+                  f"{what}: leaf {key} differs")
+        else:
+            check(x == y, f"{what}: leaf {key} {x} != {y}")
+    return len(a)
+
+
+def resume_check(what, make_trainer, rounds_before, rounds_after, device):
+    """``rounds_before + rounds_after`` rounds uninterrupted against
+    ``rounds_before``, ``Trainer.save``, a fresh Trainer, ``resume`` and
+    ``rounds_after``: bitwise equal states and histories. One Trainer is
+    alive at a time; the uninterrupted state is kept on the host."""
+    import shutil
+    import tempfile
+
+    t = make_trainer()
+    t.run(rounds_before + rounds_after)
+    want = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in state_leaves(t.state).items()}
+    want_hist = list(t.history)
+    del t
+    nonfinite = [k for k, v in want.items()
+                 if isinstance(v, torch.Tensor) and v.is_floating_point()
+                 and not bool(torch.isfinite(v).all())]
+    check(not nonfinite, f"{what}: the uninterrupted run diverged ("
+          f"{len(nonfinite)} leaves hold inf or NaN), so a bitwise check "
+          f"would compare NaN payloads")
+    directory = tempfile.mkdtemp(prefix="resume-")
+    try:
+        t = make_trainer()
+        t.run(rounds_before)
+        sync(device)
+        t0 = time.perf_counter()
+        path = t.save(directory)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del t
+        t = make_trainer()
+        t0 = time.perf_counter()
+        got_round = t.resume(directory)
+        sync(device)
+        restore_s = time.perf_counter() - t0
+        check(got_round == rounds_before, f"{what}: resumed at round "
+              f"{got_round}")
+        t.run(rounds_after)
+        n = states_equal(state_leaves(t.state), want, what)
+        check(t.history == want_hist, f"{what}: histories differ: "
+              f"{t.history} vs {want_hist}")
+        del t
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    say("resume", f"{what}: {rounds_before} rounds, save, resume, "
+        f"{rounds_after} more == {rounds_before + rounds_after} rounds "
+        f"uninterrupted, bitwise in all {n} leaves (finite) and the "
+        f"history; npz "
+        f"{size} bytes ({size / 2**30:.3f} GiB), save {save_s:.3f} s, "
+        f"restore {restore_s:.3f} s")
+
+
+def phase_resume(device="cuda", width=ALEXNET["width"], flags=TRAIN_FLAGS):
+    """Trainer.save -> resume, bit for bit, on finite states: AlexNet at
+    ``width`` with scala, feddyn, splitfed_v1 and sfl_localloss (2 rounds,
+    save, 1 more against 3; cuDNN deterministic in this phase only;
+    sfl_localloss at its own rate, its run at the tables' rate reported),
+    then the training cell of phase 6 (full-width qwen1.5-0.5b, K1, K2, K3
+    forward and backward; 1 round, save, 1 more against 2), its launches
+    counted."""
+    from repro_torch import api
+    from repro_torch.benchmarks.common import nonfinite_leaves
+    from repro_torch.launch import train
+
+    t = api.Trainer(alexnet_method_spec("sfl_localloss", 3, width),
+                    device=device)
+    t.run()
+    say("resume", f"sfl_localloss width {width} at lr {ALEXNET['lr']}: "
+        f"after 3 rounds {nonfinite_leaves(t.state)} leaves hold inf or NaN "
+        f"(reported; its resume check runs at lr "
+        f"{dict(RESUME_METHODS)['sfl_localloss']})")
+    del t
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for method, lr in RESUME_METHODS:
+            spec = alexnet_method_spec(method, 3, width, lr=lr)
+            resume_check(f"alexnet-cifar width {width} {method} lr {lr}",
+                         lambda: api.Trainer(spec, device=device), 2, 1,
+                         device)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    spec = train.spec_from_args(train.build_parser().parse_args(flags))
+    zero_counts()
+    resume_check(f"{spec.arch} {'reduced' if spec.reduced else 'full'} "
+                 f"width, {spec.slots} slots, boundary "
+                 f"{spec.execution.boundary}",
+                 lambda: api.Trainer(spec, device=device), 1, 1, device)
+    n = read_counts()
+    if torch.device(device).type == "cuda":
+        check(all(n[k] > 0 for k in ("flash_fwd", "flash_bwd", "lace_fwd",
+                                     "lace_bwd")),
+              f"resume: the qwen rounds launched {n}")
+    say("resume", f"launches in the qwen resume check (2 + 1 + 1 rounds): K3 "
+        f"fwd {n['flash_fwd']} bwd {n['flash_bwd']}, K1 {n['lace_fwd']}, "
+        f"K2 {n['lace_bwd']}")
+
+
 def run_phase(label, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, then its wall seconds on a line of its own
     (what each phase adds to the run's time limit)."""
@@ -1749,6 +2093,10 @@ def main() -> int:
     if sys.argv[1:] == ["xlstm-rounding"]:
         phase_xlstm_rounding()
         return 0
+    if sys.argv[1:] == ["baselines"]:
+        run_phase("baselines", phase_baselines)
+        run_phase("resume", phase_resume)
+        return 0
     if sys.argv[1:] == ["mlstm"]:
         run_phase("kernels K6", phase_mlstm)
         run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
@@ -1776,6 +2124,8 @@ def main() -> int:
                  phase="train-dual")
     run_phase("dual-check", phase_dual_check)
     run_phase("alexnet", phase_alexnet)
+    run_phase("baselines", phase_baselines)
+    run_phase("resume", phase_resume)
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
     # forward launches: the serve path's plus both training paths'; its

@@ -21,7 +21,11 @@ from repro_torch.api.serving import (  # noqa: F401
     restore_global_params,
 )
 from repro_torch.api.specs import (  # noqa: F401
+    FL_METHODS,
+    METHODS,
     OPTIMIZER_ALIASES,
+    SCALA_METHODS,
+    SFL_METHODS,
     DataSpec,
     ExecutionSpec,
     ExperimentSpec,
@@ -35,7 +39,8 @@ from repro_torch.api.trainer import (  # noqa: F401
 )
 
 __all__ = ["ADMISSION_MODES", "DataSpec", "ExecutionSpec", "ExperimentSpec",
-           "FedSpec", "OPTIMIZER_ALIASES", "OptimSpec", "ProgramState",
+           "FL_METHODS", "FedSpec", "METHODS", "OPTIMIZER_ALIASES",
+           "OptimSpec", "ProgramState", "SCALA_METHODS", "SFL_METHODS",
            "RoundProgram", "ServeProgram", "ServeSpec", "Trainer", "build",
            "build_image_data", "build_lm_data", "build_serve",
            "restore_global_params", "text_split_init"]

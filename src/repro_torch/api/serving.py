@@ -23,14 +23,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
-import re
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
-from repro_torch import convert
+from repro_torch import checkpoint, convert
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import resolve_device
@@ -134,30 +133,49 @@ class ServeProgram:
     predict: Callable
 
 
-def _latest_step(directory: str) -> Optional[int]:
-    if not os.path.isdir(directory):
-        return None
-    steps = [int(m.group(1)) for m in
-             (re.match(r"ckpt_(\d+)\.npz$", n) for n in os.listdir(directory))
-             if m]
-    return max(steps) if steps else None
+def _port_params(arrays, cfg: ModelConfig, device):
+    """The served params of a port checkpoint's arrays: the port's own
+    layout, slot 0 of a stacked client half."""
+    flat = checkpoint.expanded_arrays(arrays)
+    probe = "client/embed/tok"
+    prefix = "" if probe in flat else convert.FULL_STATE_PREFIX
+    if prefix + probe not in flat:
+        raise ValueError(f"port checkpoint has neither {probe!r} nor "
+                         f"{convert.FULL_STATE_PREFIX + probe!r}: not a "
+                         "params or full-state training checkpoint")
+    tree = convert._nest({k[len(prefix):]: v for k, v in flat.items()
+                          if k.startswith(prefix + "client/")
+                          or k.startswith(prefix + "server/")})
+    if np.shape(tree["client"]["embed"]["tok"]) != (cfg.vocab_size,
+                                                    cfg.d_model):
+        tree["client"] = convert._map(lambda a: a[0], tree["client"])
+    return convert._map(lambda a: convert.to_tensor(a, device), tree)
 
 
 def restore_global_params(cfg: ModelConfig, directory: str,
                           step: Optional[int] = None, device="cuda"):
-    """Restore a federated training checkpoint written by
-    ``repro.checkpoint.save`` and merge it into the served global model.
+    """Restore a federated training checkpoint and merge it into the
+    served global model: one the port wrote
+    (:mod:`repro_torch.checkpoint`) or ``repro.checkpoint.save``.
 
     A ``{'client': (K, ...) stacked, 'server': ...}`` params checkpoint
     serves client slot 0 (the aggregated global client half) with the
     server half; an already merged one restores as it is; a full-state
-    checkpoint serves the params under its ``.inner/.params/`` keys.
+    checkpoint (``Trainer.save``) serves the params under its
+    ``.inner/.params/`` keys. As in the reference, the newest file is
+    read even when it is torn (the error is raised, no older step is
+    tried).
     """
-    step = _latest_step(directory) if step is None else step
+    step = checkpoint.latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {directory!r}")
-    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
-    return convert.params_from_npz(path, cfg, resolve_device(device))
+    device = resolve_device(device)
+    path = checkpoint.checkpoint_path(directory, step)
+    with np.load(path) as data:
+        port = checkpoint.PORT_KEY in data.files
+    if port:
+        return _port_params(checkpoint.load_arrays(path), cfg, device)
+    return convert.params_from_npz(path, cfg, device)
 
 
 def build_serve(spec: ServeSpec) -> ServeProgram:

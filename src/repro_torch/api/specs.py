@@ -12,12 +12,12 @@ CLI's ``--dump-config`` output runs verbatim here.
 text arch (``lm_synthetic``, backends ``lace`` or ``logits``) or on the
 CNN family (``image_synthetic``, backend ``logits``), the host-side
 ``subset`` mode, both boundaries (``fused``, ``dual``), f32 policy, one
-round per call, the ``fedavg`` / ``weighted`` aggregators -- and raises
+round per call, the ``fedavg`` / ``weighted`` aggregators, and the FL /
+SFL baselines on the CNN family in ``subset`` mode -- and raises
 ``NotImplementedError`` naming the missing piece for the rest (masked /
 sparse / async, ``lace_dp``, faults and guards, server-side FedOpt,
-``precision="bf16"``, ``rounds_per_call > 1``, the FL/SFL baselines and
-training the xLSTM family), and ``ValueError`` for combinations the
-reference rejects too. ``unroll`` and ``donate`` are accepted and have
+``precision="bf16"``, ``rounds_per_call > 1`` and training the xLSTM
+family), and ``ValueError`` for combinations the reference rejects too. ``unroll`` and ``donate`` are accepted and have
 nothing to act on in an eager program.
 """
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional
 
 from repro_torch.configs import ScalaConfig, get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.baselines import FL_METHODS, SFL_METHODS
 from repro_torch.core.engine import (BACKENDS, BOUNDARIES,
                                      OPT_STATE_POLICIES, PRECISIONS)
 
@@ -42,8 +43,6 @@ LR_SCALES = ("none", "cohort")
 ARRIVALS = ("sort", "topk", "topk:sharded")
 
 SCALA_METHODS = ("scala", "scala_noadj")
-FL_METHODS = ("fedavg", "fedprox", "feddyn", "feddecorr", "fedlogit", "fedla")
-SFL_METHODS = ("splitfed_v1", "splitfed_v2", "splitfed_v3", "sfl_localloss")
 METHODS = SCALA_METHODS + FL_METHODS + SFL_METHODS
 
 
@@ -72,6 +71,10 @@ class OptimSpec:
     def __post_init__(self):
         _one_of("optimizer", self.name, OPTIMIZERS)
         _one_of("schedule", self.schedule, ("constant", "cosine"))
+
+    def resolve_lr(self, default_lr: float) -> float:
+        """The effective base lr (``scala.lr`` unless overridden here)."""
+        return default_lr if self.lr is None else self.lr
 
     def make(self):
         from repro_torch.optim import make_optimizer
@@ -220,8 +223,19 @@ class ExperimentSpec:
         cfg = self.model_config()
         _one_of("method", self.method, METHODS)
         if self.method not in SCALA_METHODS:
-            raise _not_ported(f"method {self.method!r} (an FL/SFL baseline)",
-                              "the baselines slice")
+            if ex.mode != "subset":
+                raise ValueError(
+                    f"method {self.method!r} (a baseline) only supports "
+                    "mode 'subset' (host-side sampling); the in-program "
+                    "modes are SCALA engine programs")
+            if cfg.family != "cnn":
+                raise ValueError(
+                    f"method {self.method!r} needs the CNN (AlexNet) "
+                    f"family; arch {self.arch!r} is {cfg.family!r}")
+            if self.method in SFL_METHODS and ex.server_optimizer is not None:
+                raise ValueError(
+                    "server_optimizer (FedOpt) is not supported by the SFL "
+                    "baselines; use an FL method or SCALA")
         if ex.mode != "subset":
             raise _not_ported(f"execution mode {ex.mode!r}",
                               "the federation slice (masked) or the "

@@ -13,18 +13,26 @@ from ``default_rng(seed + 7)``.
 
     trainer = Trainer(spec, device="cuda")
     history = trainer.run()            # spec.rounds rounds
+    trainer.save("state/")             # resume("state/") continues it
 
-``save`` / ``resume`` wait for the checkpoint slice.
+``save`` / ``resume`` checkpoint the whole run, bit for bit: the program
+state and the host side (round, history, the numpy bit generator).
+``resume`` also reads a directory that the reference ``Trainer.save``
+wrote, for the subset-mode SCALA and baseline states, through
+:mod:`repro_torch.convert`; its host streams are the reference's, so the
+port continues the reference's own batches.
 """
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.api.build import build
+from repro_torch.api.build import ProgramState, build
 from repro_torch.api.specs import ExperimentSpec
 
 
@@ -103,9 +111,13 @@ class Trainer:
                  for k, v in rb.items()}, sizes)
 
     def step(self) -> Dict[str, float]:
-        """One round; returns its (last local step's) scalar metrics."""
+        """One round; returns its (last local step's) scalar metrics. A
+        baseline round has none, so it waits for the device itself, as
+        the metrics' host copy does for SCALA."""
         batches, sizes = self._next_round_batches()
         self.state, metrics = self.program.step(self.state, batches, sizes)
+        if not metrics and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         scalars = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
         self.history.append(scalars)
         self.round += 1
@@ -126,6 +138,72 @@ class Trainer:
             if on_round is not None:
                 on_round(self.round - 1, metrics, dt)
         return self.history
+
+    # ------------------------------------------------------------------
+    # crash recovery
+    # ------------------------------------------------------------------
+
+    def save(self, directory: str) -> str:
+        """Checkpoint the whole run: the ``.npz`` holds the
+        :class:`ProgramState` (params, optimizer state, the baselines'
+        state), ``meta_{round:08d}.json`` the round, the metric history
+        and the numpy bit generator's state. Both writes are atomic;
+        :meth:`resume` from the pair is bit-identical to never having
+        stopped."""
+        from repro_torch import checkpoint as C
+
+        path = C.save(directory, self.round, self.state)
+        C.write_json_atomic(
+            os.path.join(directory, f"meta_{self.round:08d}.json"),
+            {"round": self.round, "history": self.history,
+             "rng_state": self._rng.bit_generator.state})
+        return path
+
+    def _restored_state(self, arrays) -> ProgramState:
+        from repro_torch import checkpoint as C
+        from repro_torch import convert
+
+        if C.PORT_KEY in arrays:
+            return C.restore_arrays(arrays, self.state)
+        inner, fed = convert.program_state_from_reference(
+            arrays, self.spec, self.device)
+        return ProgramState(inner=inner, fed=fed)
+
+    def resume(self, directory: str, step: Optional[int] = None) -> int:
+        """Restore the newest complete checkpoint (the port's or the
+        reference's); returns its round.
+
+        A checkpoint counts only when both its ``.npz`` and its
+        ``meta_{round}.json`` are readable: a torn pair is skipped and the
+        next older step tried, unless ``step`` pins one (which raises).
+        After resume, :meth:`run` / :meth:`step` continue the interrupted
+        batch stream and program state exactly."""
+        from repro_torch import checkpoint as C
+
+        candidates = ([step] if step is not None
+                      else C.all_steps(directory)[::-1])
+        if not candidates:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+        for s in candidates:
+            try:
+                with open(os.path.join(directory,
+                                       f"meta_{s:08d}.json")) as f:
+                    meta = json.load(f)
+                state = self._restored_state(
+                    C.load_arrays(C.checkpoint_path(directory, s)))
+            except C.CORRUPT_ERRORS + (AssertionError,):
+                if step is not None:
+                    raise
+                continue
+            break
+        else:
+            raise FileNotFoundError(
+                f"no complete (npz + meta) checkpoint in {directory}")
+        self.state = state
+        self.round = int(meta["round"])
+        self.history = list(meta["history"])
+        self._rng.bit_generator.state = meta["rng_state"]
+        return self.round
 
     def evaluate(self) -> Dict[str, float]:
         """The global model on held-out data: for ``image_synthetic`` the

@@ -15,6 +15,10 @@ AlexNet (the CNN family) keeps the reference's tree -- ``convs``, ``fcs``
 (tuples here) and ``head`` -- and changes one layout: conv weights go from
 HWIO to the OIHW of ``F.conv2d``. The FC weights keep theirs, because
 :mod:`repro_torch.models.alexnet` flattens in the reference's NHWC order.
+The FL / SFL baselines' states convert the same way
+(:func:`baseline_state_from_reference`), and a whole reference
+``Trainer.save`` checkpoint converts to the port's program state
+(:func:`program_state_from_reference`).
 """
 from __future__ import annotations
 
@@ -204,3 +208,64 @@ def train_params_from_npz(path: str, cfg: ModelConfig, device="cpu"):
     ``repro.checkpoint`` file."""
     return train_params_from_reference(_params_tree_from_npz(path), cfg,
                                        device)
+
+
+def baseline_state_from_reference(tree, method: str, device="cpu"):
+    """A reference baseline state (numpy leaves; leading slot axes kept)
+    -> the port's. For an FL method: the AlexNet weights, or FedDyn's
+    ``{'h': slot-stacked weights}``; for an SFL method ``{'wc', 'ws'}``
+    and sfl_localloss's ``'aux'`` head (its (feat_dim, N) weight applies
+    unchanged: the port flattens in the reference's NHWC order)."""
+    from repro_torch.core.baselines import FL_METHODS, SFL_METHODS
+
+    conv = lambda sub: alexnet_params_from_reference(sub, device)
+    if method in FL_METHODS:
+        if set(tree) == {"h"}:
+            return {"h": conv(tree["h"])}
+        return conv(tree)
+    if method not in SFL_METHODS:
+        raise ValueError(f"{method!r} is not an FL/SFL baseline")
+    out = {"wc": conv(tree["wc"]), "ws": conv(tree["ws"])}
+    if "aux" in tree:
+        out["aux"] = {"w": to_tensor(tree["aux"]["w"], device)}
+    return out
+
+
+def _listify(tree):
+    """Nested dicts from :func:`_nest` with the reference's lists back:
+    a dict whose keys are all indices becomes a list."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _listify(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def program_state_from_reference(flat: Dict[str, np.ndarray], spec,
+                                 device="cpu"):
+    """The ``(inner, fed)`` of the port's program state from a reference
+    ``Trainer.save`` checkpoint's arrays (``.inner/...``, ``.fed/...``
+    keys): the subset-mode SCALA state (params, optimizer state, step)
+    or a baseline's."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.baselines import FL_METHODS, SFL_METHODS
+
+    tree = _listify(_nest(flat))
+    inner, fed = tree[".inner"], tree.get(".fed")
+    if spec.method in FL_METHODS + SFL_METHODS:
+        fed_state = {} if spec.method in FL_METHODS else ()
+        if fed:
+            fed_state = baseline_state_from_reference(fed, spec.method,
+                                                      device)
+        return (baseline_state_from_reference(inner, spec.method, device),
+                fed_state)
+    if fed:
+        raise ValueError("a reference federation state (masked / sparse / "
+                         "async modes) is not ported yet")
+    state = SimpleNamespace(
+        params=inner[".params"],
+        opt_state=inner.get(".opt_state", {"client": (), "server": ()}),
+        step=inner[".step"])
+    return train_state_from_reference(state, spec.model_config(), device), ()

@@ -432,6 +432,16 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
     return round_fn
 
 
+def split_ce(model: SplitModel, wc, ws, batch):
+    """Plain CE through the split: ONE client's forward into the server
+    half, no concatenation and no logit adjustment, plus the server's
+    ``aux`` loss. The local objective of the SFL baselines
+    (:mod:`repro_torch.core.baselines`)."""
+    acts = model.client_fwd(wc, batch)
+    logits, aux = model.server_fwd(ws, acts)
+    return losses.softmax_xent(logits, batch["labels"]) + aux
+
+
 def init_scala_params(gen: torch.Generator, init_client, init_server,
                       num_clients: int):
     """The stacked-client SCALA layout from per-half inits, both drawn

@@ -23,13 +23,23 @@ Added here: ``--device`` (``cuda`` unless given; no CPU fallback) and
 merged or stacked over the slots) to start from instead of the port's own
 seeded init -- so one spec and one set of params run through both
 CLIs.
+
+Checkpoints as in the reference: ``--checkpoint-dir`` saves the params
+after every round (servable by :mod:`repro_torch.launch.serve`),
+``--state-dir`` the whole run (``Trainer.save``), and ``--resume``
+restores the newest complete one from ``--state-dir`` and runs only the
+remaining rounds, bit for bit as if never stopped. The FL / SFL
+baselines have no split losses to print (the reference's driver cannot
+run them either): this driver refuses them and names
+:class:`repro_torch.api.Trainer` and ``python -m
+repro_torch.benchmarks.run``, which run them.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-from repro_torch import api
+from repro_torch import api, checkpoint
 from repro_torch.configs import ScalaConfig
 from repro_torch.core import engine
 from repro_torch.tree import leaves
@@ -151,9 +161,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--guards", default="")
     ap.add_argument("--deadline", type=float, default=None)
     ap.add_argument("--backoff", type=float, default=2.0)
-    ap.add_argument("--checkpoint-dir", default="")
-    ap.add_argument("--state-dir", default="")
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="save params-only checkpoints (servable) after "
+                         "every round")
+    ap.add_argument("--state-dir", default="",
+                    help="save full crash-recovery checkpoints "
+                         "(Trainer.save) after every round")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest complete checkpoint from "
+                         "--state-dir and run only the remaining rounds")
     return ap
 
 
@@ -177,9 +193,14 @@ def main(argv=None):
                 f.write(payload + "\n")
             print(f"wrote {args.dump_config}", file=sys.stderr)
         return spec
-    if args.checkpoint_dir or args.state_dir or args.resume:
-        raise SystemExit("--checkpoint-dir / --state-dir / --resume are not "
-                         "ported yet; they come with the checkpoint slice")
+    if spec.method not in api.SCALA_METHODS:
+        raise SystemExit(
+            f"method {spec.method!r} is an FL/SFL baseline, which has no "
+            "split losses to report: run it through repro_torch.api."
+            "Trainer or python -m repro_torch.benchmarks.run")
+    if args.resume and not args.state_dir:
+        raise SystemExit("--resume needs --state-dir (the directory "
+                         "Trainer.save wrote full-state checkpoints to)")
 
     cfg = spec.model_config()
     print(f"arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
@@ -201,11 +222,21 @@ def main(argv=None):
           f"optimizer: {spec.optim.name}, schedule: {spec.optim.schedule}, "
           f"device: {meta['device']}")
 
+    start = 0
+    if args.resume:
+        start = trainer.resume(args.state_dir)
+        print(f"resumed at round {start} from {args.state_dir}")
+
     def on_round(rnd, metrics, dt):
         print(f"round {rnd:3d} loss_s={metrics['loss_server']:.4f} "
               f"loss_c={metrics['loss_client']:.4f} ({dt:.1f}s)", flush=True)
+        if args.checkpoint_dir:
+            checkpoint.save(args.checkpoint_dir, rnd,
+                            trainer.state.inner.params)
+        if args.state_dir:
+            trainer.save(args.state_dir)
 
-    trainer.run(spec.rounds, on_round=on_round)
+    trainer.run(spec.rounds - start, on_round=on_round)
     print("done")
     return trainer
 

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, dtype_of, embed_init
 
@@ -12,7 +13,10 @@ def embedding_init(gen: torch.Generator, cfg):
 
 
 def embedding_apply(params, tokens: torch.Tensor, cfg):
-    return params["tok"][tokens].to(dtype_of(cfg.dtype))
+    # F.embedding, not indexing: its backward sums the rows of a repeated
+    # token in a fixed order (indexing's accumulating put does not on a
+    # multi-threaded CPU), so a resumed run stays bitwise on its path
+    return F.embedding(tokens, params["tok"]).to(dtype_of(cfg.dtype))
 
 
 def head_init(gen: torch.Generator, cfg):

@@ -1,6 +1,7 @@
 """Functional optimizers on param trees: SGD (the paper's default, §5.1),
 momentum and AdamW. The math runs in float32 and the new params are cast
-back to each param's dtype, as in the reference.
+back to each param's dtype, as in the reference (SGD keeps float64
+params in float64, for the float64 reference runs of the card checks).
 
 ``update(grads, state, params, lr) -> (new_params, new_state)``; the
 state mirrors the reference's tree (``()`` for SGD, a params-shaped tree
@@ -29,16 +30,22 @@ def _zeros(p):
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
+def _math(a):
+    """``a`` in float32, or in float64 when it already is (a float64
+    reference run keeps its precision)."""
+    return a.to(torch.promote_types(a.dtype, torch.float32))
+
+
 def sgd(weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         return ()
 
     def update(grads, state, params, lr):
         def step(p, g):
-            g = g.float()
+            g = _math(g)
             if weight_decay:
-                g = g + weight_decay * p.float()
-            return (p.float() - lr * g).to(p.dtype)
+                g = g + weight_decay * _math(p)
+            return (_math(p) - lr * g).to(p.dtype)
         return tree_map(step, params, grads), state
 
     return Optimizer(init, update)

@@ -747,3 +747,122 @@ def test_xlstm_prefill_on_card_matches_cpu():
         for key, b in leaves.items():
             errs[f"{layer}/{key}"] = _rel(cache[layer][key].cpu(), b)
     assert max(errs.values()) <= 1e-4, errs
+
+
+def _baseline_spec(method, rounds=1, width=0.25, local_iters=5):
+    """The paper-table AlexNet experiment (s2, 10 classes) at ``width``:
+    20 clients, 4 a round, ``local_iters`` local steps of 48 images in
+    all."""
+    from repro_torch import api
+    from repro_torch.configs import ScalaConfig
+
+    return api.ExperimentSpec(
+        arch="alexnet-cifar", width=width, method=method, rounds=rounds,
+        seed=0, scala=ScalaConfig(num_clients=20, participation=0.2,
+                                  local_iters=local_iters, server_batch=48,
+                                  lr=0.05),
+        execution=api.ExecutionSpec(mode="subset", backend="logits"),
+        data=api.DataSpec(kind="image_synthetic", n_train=2000, alpha=2))
+
+
+def _flat(state):
+    from repro_torch.checkpoint.checkpoint import flatten_with_paths
+    return flatten_with_paths(state)
+
+
+def _baseline_round_gaps(method, local_iters, card_dtype):
+    """One round of a baseline from the same state and batches on the
+    card in ``card_dtype`` (cuDNN off) and on the CPU in float64: {leaf:
+    its largest error over its update's largest entry}."""
+    from repro_torch import api
+    from repro_torch.tree import tree_map
+
+    spec = _baseline_spec(method, local_iters=local_iters)
+    host = api.Trainer(spec, device="cpu")
+    batches, sizes = host._next_round_batches()
+    out = []
+    for dev, dtype in (("cuda", card_dtype), ("cpu", torch.float64)):
+        program = api.build(spec, device=dev, params=tree_map(
+            lambda a: a.to(dtype), host.state.inner))
+        state = program.init()
+        b = {k: v.to(dev, dtype if k == "x" else v.dtype)
+             for k, v in batches.items()}
+        prev = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = False
+        try:
+            new, metrics = program.step(state, b, sizes.to(dev))
+        finally:
+            torch.backends.cudnn.enabled = prev
+        assert metrics == {}
+        out.append((_flat(state), _flat(new)))
+    (_, got), (old, want) = out
+    assert got.keys() == want.keys()
+    return {key: (got[key].cpu().double() - b).abs().max().item()
+            / max((b - old[key]).abs().max().item(), 1e-30)
+            for key, b in want.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["fedavg", "feddyn", "splitfed_v2",
+                                    "sfl_localloss"])
+def test_baseline_round_on_card_matches_cpu(method):
+    """One round (5 local steps) of a baseline on the card and on the
+    CPU, both in float64 (in float32 a ReLU or max-pool input within
+    rounding of its switch point may flip from the second local step on;
+    PERF.md §6): every leaf's update within 1e-3 of its largest entry."""
+    _needs_card()
+    gaps = _baseline_round_gaps(method, 5, torch.float64)
+    assert max(gaps.values()) <= 1e-3, (method, gaps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["fedavg", "feddyn", "splitfed_v2",
+                                    "sfl_localloss"])
+def test_baseline_one_step_float32_on_card_matches_cpu_float64(method):
+    """One round of one local step of a baseline, the card in float32
+    (cuDNN off) against the CPU in float64: every leaf's update within
+    1e-3 of its largest entry. sfl_localloss's server half trains on the
+    activations recomputed after the client's update, a second forward
+    where a ReLU may flip, so its leaves are left out."""
+    _needs_card()
+    gaps = _baseline_round_gaps(method, 1, torch.float32)
+    held = {k: g for k, g in gaps.items()
+            if not (method == "sfl_localloss" and k.startswith(".inner/ws/"))}
+    assert held and max(held.values()) <= 1e-3, (method, gaps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["scala", "feddyn", "splitfed_v1",
+                                    "sfl_localloss"])
+def test_resume_on_card_is_bitwise(method, tmp_path):
+    """Trainer.save -> a fresh Trainer -> resume, on the card: 2 rounds, a
+    save and 1 more round equal 3 rounds uninterrupted in every leaf and
+    in the history (cuDNN deterministic)."""
+    _needs_card()
+    from repro_torch import api
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        spec = _baseline_spec(method, rounds=3)
+        straight = api.Trainer(spec, device="cuda")
+        straight.run(3)
+        first = api.Trainer(spec, device="cuda")
+        first.run(2)
+        first.save(str(tmp_path))
+        resumed = api.Trainer(spec, device="cuda")
+        assert resumed.resume(str(tmp_path)) == 2
+        resumed.run(1)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    got, want = _flat(resumed.state), _flat(straight.state)
+    assert got.keys() == want.keys()
+    assert all(bool(torch.isfinite(a).all()) for a in want.values()
+               if isinstance(a, torch.Tensor) and a.is_floating_point())
+    for key, a in want.items():
+        if isinstance(a, torch.Tensor):
+            assert got[key].device == a.device and torch.equal(got[key], a), \
+                key
+        else:
+            assert got[key] == a, key
+    assert resumed.history == straight.history
