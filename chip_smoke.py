@@ -20,7 +20,8 @@ Phases, one or more lines each:
    the calls queued behind a sleep kernel, no host time), and the card's
    bound for the work -- the attention forward (K3) at the serving
    shapes and the training trunk's, then the attention backward (two
-   runs bitwise equal), the fused LACE boundary (K1, K2) and the
+   runs bitwise equal), the fused LACE boundary (K1, K2; also at the
+   masked round's 16 client prior rows, 12 of them absent) and the
    single-prior LACE kernels of the dual boundary (K4, K5; server side
    with dW, client side without) at the training shapes (each with its
    bound, the split-TF32 route's cost and the f32 CUDA cores' beside it,
@@ -82,7 +83,20 @@ Phases, one or more lines each:
    the history: AlexNet (scala, feddyn, splitfed_v1, sfl_localloss at
    its own rate; cuDNN deterministic in this phase), then phase 6's
    full-width qwen1.5-0.5b training (K1, K2, K3 forward and backward);
-   the ``.npz`` size, save and restore seconds.
+   the ``.npz`` size, save and restore seconds;
+13. fed: the synchronous federation layer on full-width qwen1.5-0.5b
+   through the training CLI's spec and Trainer -- (a) masked, the
+   reference driver's own example (16 slots all computed, uniform:0.25,
+   bias_compensated, momentum, one document a slot) and (b) sparse (the
+   4 participating slots gathered, 4 documents each, staleness_weighted,
+   server FedAdam), each with phase 6's launch check against the
+   computed slots, finite losses, round seconds, participating tokens/s,
+   peak memory and a profiled round; (c) fed-check: f32 full width, 4
+   slots, one masked round with injected masks (bias_compensated,
+   momentum, server adamw) on the card against the CPU, then sparse
+   against masked on the card (SGD); (d) resume with federation state,
+   bitwise: (b)'s run, and masked AlexNet width 1.0 with
+   staleness_weighted.
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -93,7 +107,8 @@ attention kernels of phase 3 (K3 forward and backward), then stops;
 ``python3 chip_smoke.py lace`` the same for the LACE kernels (K1, K2,
 K4, K5); ``python3 chip_smoke.py mlstm`` the same for K6, then
 check-xlstm (5c).
-``python3 chip_smoke.py baselines`` runs phases 1, 2, 11 and 12.
+``python3 chip_smoke.py baselines`` runs phases 1, 2, 11 and 12;
+``python3 chip_smoke.py fed`` phases 1, 2 and 13.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -168,20 +183,25 @@ FLASH_BWD_CASES = [(16, 512, 16, 16, None, torch.bfloat16),
                    (4, 512, 16, 2, None, torch.bfloat16),          # GQA
                    (2, 1024, 16, 16, 256, torch.bfloat16)]         # window
 FLASH_BWD_REPORT = FLASH_BWD_CASES[0]
-# the fused LACE boundary (K1, K2), (N tokens, feats dtype, tau) at the
-# training width (d 1024, V 151936, 4 per-client prior rows, one
-# concatenated row, the last eighth of each client's tokens weight 0):
-# the main path's 8192 tokens first, then 2048, a ragged N and tau = 0.
+# the fused LACE boundary (K1, K2), (N tokens, feats dtype, tau, G client
+# prior rows, absent clients) at the training width (d 1024, V 151936, G
+# per-client prior rows, one concatenated row, the last eighth of each
+# client's tokens weight 0): the main path's 8192 tokens first, then 2048,
+# a ragged N and tau = 0, then the masked round's shape: 16 prior rows, 12
+# of them absent clients (every token weight 0, a uniform prior row).
 # Tolerance against the plain version (f32 products, TF32 off; the
 # kernels' split-TF32 products keep f32 accuracy): nll and lse within 1e-4
 # of their largest entry, df and dW within 1e-5 of theirs; df of the first
 # 256 tokens also within 1e-5 of the float64 value. At the main path's
 # case two runs of K1, K2 (and of K4, K5 per side) are bitwise equal.
-LACE_CASES = [(8192, torch.bfloat16, 1.0), (8192, torch.float32, 1.0),
-              (2048, torch.bfloat16, 1.0), (2048, torch.float32, 0.0),
-              (2047, torch.bfloat16, 1.0)]
-LACE_REPORT = LACE_CASES[0]
 LACE_CLIENTS = 4
+LACE_CASES = [(8192, torch.bfloat16, 1.0, LACE_CLIENTS, 0),
+              (8192, torch.float32, 1.0, LACE_CLIENTS, 0),
+              (2048, torch.bfloat16, 1.0, LACE_CLIENTS, 0),
+              (2048, torch.float32, 0.0, LACE_CLIENTS, 0),
+              (2047, torch.bfloat16, 1.0, LACE_CLIENTS, 0),
+              (8192, torch.bfloat16, 1.0, 16, 12)]
+LACE_REPORT = LACE_CASES[0]
 # the single-prior LACE kernels (K4, K5) of the dual boundary, (N tokens,
 # feats dtype, side) at the training width: the server side (one
 # concatenated prior row, dW) and the client side (4 per-client rows
@@ -217,6 +237,40 @@ LOSS_RTOL, LEAF_RTOL = 1e-4, 1e-3
 # cuDNN (im2col and float32 products, as TF32 is off for the matmuls) and
 # is held against the step in float64 on the CPU.
 DUAL_LOSS_RTOL, DUAL_LEAF_RTOL = 1e-5, 1e-4
+# the federation phase: (a) the reference driver's own example at full
+# width, masked -- 16 client slots all computed, a quarter of them
+# participating, one document a slot (16 x 512 tokens at the boundary);
+# (b) sparse at phase 6's shape -- the scheduler's 4 slots gathered, 4
+# documents each -- with staleness-weighted FedAvg and server FedAdam at
+# lr 1e-3 (the reference driver's default server lr, 1.0, moves every
+# server weight by about 1 a round: FedAdam's first step is ~sign(delta))
+FED_MASKED_FLAGS = ["--arch", ARCH, "--clients", "16", "--participation",
+                    "uniform:0.25", "--aggregator", "bias_compensated",
+                    "--optimizer", "momentum", "--local-iters", "2", "--seq",
+                    "512", "--server-batch", "16", "--docs-per-client", "8",
+                    "--rounds", "3", "--seed", "0"]
+FED_SPARSE_FLAGS = ["--arch", ARCH, "--clients", "16", "--participation",
+                    "uniform:0.25", "--slot-gather", "--aggregator",
+                    "staleness_weighted", "--server-optimizer", "fedadam",
+                    "--server-lr", "1e-3", "--local-iters", "2", "--seq",
+                    "512", "--server-batch", "64", "--docs-per-client", "8",
+                    "--rounds", "3", "--seed", "0"]
+# (c) fed-check: f32 full width, 4 slots, uniform:0.5 masks injected,
+# S = 64, T = 2, bias_compensated, momentum and server adamw. The server
+# adamw runs at eps 1e-3 there: its first step is delta / (|delta| + eps),
+# so at the default 1e-8 an entry whose round delta is float32 noise
+# would flip its step's sign between two devices, which says nothing
+# about the kernels. Card against CPU, every param (the server half also
+# before its FedOpt step, w_start - delta) is held by phase 7's rule and
+# every other float leaf to LEAF_RTOL of its largest entry, except the
+# server optimizer's state: delta is the difference of two float32
+# params, so between devices it parts by their rounding however small the
+# update. That state is held on each device instead, bit for bit, against
+# Adam's first step on that device's own delta, written out here
+# (:func:`adam_first_step`); the delta itself against the reference's
+# round is the CPU parity tests' (tests/test_torch_fed.py).
+FED_CHECK_SERVER_EPS, FED_CHECK_SERVER_LR = 1e-3, 1e-3
+ADAM_B1, ADAM_B2 = 0.9, 0.95          # repro_torch.optim.adamw's defaults
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1072,10 +1126,12 @@ def phase_flash_bwd():
     return rows, max_err
 
 
-def lace_inputs(N, dtype, tau, d=1024, V=151936, G=LACE_CLIENTS):
+def lace_inputs(N, dtype, tau, G=LACE_CLIENTS, absent=0, d=1024, V=151936):
     """Boundary inputs at the training width, from a seeded generator:
     feats (N, d), w_head (d, V) f32, labels, the two sides' prior tables
-    and per-token client ids, and the per-token scale weight / sum."""
+    and per-token client ids, and the per-token scale weight / sum. The
+    last ``absent`` of the G clients are masked out, as a masked round
+    gives them: every token weight 0 and the uniform prior row."""
     from repro_torch.kernels.lace import ops
 
     gen = torch.Generator("cuda")
@@ -1089,9 +1145,12 @@ def lace_inputs(N, dtype, tau, d=1024, V=151936, G=LACE_CLIENTS):
     for c in range(G):            # the last eighth of each client: weight 0
         rows = (cid == c).nonzero()[:, 0]
         weights[rows[-(len(rows) // 8):]] = 0.0
+    weights[cid >= G - absent] = 0.0
     p = torch.rand((1 + G, V), generator=gen, device="cuda") ** 4
     p[1:, : V // 10] = 0.0        # classes a client never saw
     p = p / p.sum(-1, keepdim=True)
+    if absent:
+        p[1 + G - absent:] = 1.0 / V
     adj_s, _ = ops._side_table(p[:1], None, tau, 1e-8, 1, N)
     adj_k = (tau * torch.log(p[1:] + 1e-8)).contiguous()
     ts = (weights / weights.sum()).contiguous()
@@ -1172,8 +1231,8 @@ def phase_lace():
 
     rows, errs = {}, {"fwd": 0.0, "bwd": 0.0}
     for case in LACE_CASES:
-        N, dtype, tau = case
-        args, weights, ts = lace_inputs(N, dtype, tau)
+        N, dtype, tau, G, absent = case
+        args, weights, ts = lace_inputs(N, dtype, tau, G, absent)
         feats, w = args[0], args[1]
         d, V = w.shape
         got = kernel.lace2_fwd_cuda(*args)
@@ -1225,7 +1284,8 @@ def phase_lace():
                 library_ms=times["library"],
                 **lace_bounds(N, d, V, passes, nbytes))
         say("kernels", f"lace2 N={N} d={d} V={V} feats {str(dtype)[6:]} "
-            f"tau={tau}: rel err nll_s/nll_k/lse_s/lse_k "
+            f"tau={tau}, {G} client prior rows ({absent} absent): rel err "
+            f"nll_s/nll_k/lse_s/lse_k "
             f"{'/'.join(f'{e:.3g}' for e in e_fwds)} (tol 1e-4), df_s/df_k/dW_s "
             f"{'/'.join(f'{e:.3g}' for e in e_bwds)} (tol 1e-5); df_s/df_k "
             f"of 256 tokens vs float64: kernel "
@@ -1259,7 +1319,7 @@ def lace1_inputs(N, dtype, side, d=1024, V=151936, G=LACE_CLIENTS):
     generator: feats (N, d), w_head (d, V) f32, int32 labels, the side's
     prior table and per-token client ids (server: one concatenated row,
     no ids; client: G rows), and the per-token scale weight / sum."""
-    args, weights, ts = lace_inputs(N, dtype, 1.0, d, V, G)
+    args, weights, ts = lace_inputs(N, dtype, 1.0, G, d=d, V=V)
     feats, w, labels, adj_s, _, adj_k, ids_k = args
     adj, ids = (adj_s, None) if side == "server" else (adj_k, ids_k)
     return (feats, w, labels, adj, ids), weights, ts
@@ -1345,20 +1405,55 @@ def phase_lace1():
     return rows, errs
 
 
+def participants(spec):
+    """The client slots that take part in a round: the scheduler's subset
+    size, or every stacked slot without a scheduler (subset mode)."""
+    if spec.fed.participation is None:
+        return spec.slots
+    return spec.fed.make_participation(spec.slots).subset_size
+
+
+def compute_slots(spec):
+    """The client slots a local step computes: every stacked slot (subset,
+    masked), or the scheduler's gathered subset (sparse)."""
+    if spec.execution.mode == "sparse":
+        return participants(spec)
+    return spec.slots
+
+
+def participating_tokens(spec):
+    """Training tokens of the participating clients in one round: T x
+    :func:`participants` x a slot's mean eq. 3 rows x seq. The scheduler
+    draws the participants anew each round; the mean is any slot's rows
+    where every slot holds the same documents, as lm_synthetic's do."""
+    from repro_torch.core.split import client_minibatch_sizes
+
+    sc = spec.scala
+    bk = client_minibatch_sizes(np.full(spec.slots, spec.data.docs_per_client),
+                                sc.server_batch)
+    return round(sc.local_iters * participants(spec) * float(bk.mean())
+                 * spec.data.seq)
+
+
 def train_launches(spec, cfg):
+    """:func:`slot_launches` of ``spec``'s computed slots and boundary."""
+    return slot_launches(compute_slots(spec), cfg, spec.execution.boundary)
+
+
+def slot_launches(slots, cfg, boundary="fused"):
     """Kernel launches one local step makes, from the layout: every
-    client slot runs the client blocks once forward and pulls them back
-    once; the server trunk (not rematerialized) runs once forward and is
-    pulled back twice (the P_s cotangent for w_s, the P_k one for the
-    activations); the boundary's launches (:func:`boundary_launches`)."""
-    slots = spec.slots
+    computed client slot runs the client blocks once forward and pulls
+    them back once; the server trunk (not rematerialized) runs once
+    forward and is pulled back twice (the P_s cotangent for w_s, the P_k
+    one for the activations); the boundary's launches
+    (:func:`boundary_launches`)."""
     n_client = sum(cfg.block_spec(l).mixer == "attn"
                    for l in range(cfg.split_layer))
     n_server = sum(cfg.block_spec(l).mixer == "attn"
                    for l in range(cfg.split_layer, cfg.num_layers))
     return dict(flash_fwd=slots * n_client + n_server,
                 flash_bwd=slots * n_client + 2 * n_server, mlstm=0,
-                **boundary_launches(spec.execution.boundary))
+                **boundary_launches(boundary))
 
 
 def read_counts():
@@ -1399,11 +1494,15 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
     trainer = api.Trainer(spec, device=device)
     sync(device)
     say(phase, f"{cfg.name} {cfg.dtype} compute, {cfg.param_dtype} params: "
-        f"{spec.scala.num_clients} clients, {spec.slots} per round, "
-        f"{spec.scala.local_iters} local steps of "
+        f"{spec.scala.num_clients} clients, mode {spec.execution.mode} "
+        f"({spec.slots} slots, {compute_slots(spec)} computed, "
+        f"participation {spec.fed.participation or spec.scala.participation}"
+        f"), {spec.scala.local_iters} local steps of "
         f"{spec.scala.server_batch} x {spec.data.seq} tokens, boundary "
-        f"{spec.execution.boundary}; built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{spec.execution.boundary}, aggregator {spec.fed.aggregator}, "
+        f"optimizer {spec.optim.name}, server optimizer "
+        f"{spec.execution.server_optimizer and spec.execution.server_optimizer.spec}"
+        f"; built in {time.perf_counter() - t0:.1f} s")
     T = spec.scala.local_iters
     per_step = train_launches(spec, cfg)
     if torch.device(device).type == "cuda":
@@ -1433,12 +1532,13 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
     counts = read_counts()
     steady = secs[1:] or secs
     round_s = float(np.mean(steady))
-    tokens = T * spec.scala.server_batch * spec.data.seq
+    tokens = participating_tokens(spec)
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else 0)
     say(phase, f"round seconds (rounds 1..{len(secs) - 1}, round 0 has "
         f"the warm-up): {[round(x, 3) for x in steady]}, mean "
-        f"{round_s:.3f} s -> {tokens / round_s:.0f} training tokens/s; "
+        f"{round_s:.3f} s -> {tokens / round_s:.0f} training tokens/s "
+        f"({tokens} participating tokens a round); "
         f"round 0 {secs[0]:.3f} s; peak {peak / 2**20:.0f} MiB allocated; "
         f"per step: {per_step}")
     if profile_round and torch.device(device).type == "cuda":
@@ -1945,7 +2045,7 @@ def phase_baselines(device="cuda", width=ALEXNET["width"],
 
 def bits(t):
     """A tensor's bytes (a NaN equals itself bit for bit)."""
-    return t.contiguous().view(torch.uint8)
+    return t.contiguous().reshape(-1).view(torch.uint8)
 
 
 def states_equal(a, b, what):
@@ -2061,6 +2161,278 @@ def phase_resume(device="cuda", width=ALEXNET["width"], flags=TRAIN_FLAGS):
         f"K2 {n['lace_bwd']}")
 
 
+def recorded_scheduler(masks):
+    """A participation scheduler that hands out ``masks`` in order (its
+    state: the index of the next one; its subset size: the first mask's
+    count): the same masks on every device."""
+    from repro_torch import fed
+
+    def sample(state):
+        return np.array(masks[int(state)], np.float32), state + 1
+
+    return fed.ParticipationScheduler(
+        name="recorded", num_clients=len(masks[0]),
+        init=lambda seed: torch.tensor(0), sample=sample,
+        subset_size=int(masks[0].sum()))
+
+
+def recording(opt):
+    """``opt`` whose update keeps the pseudo-gradient it was given
+    (``seen["delta"]``: the server's round delta)."""
+    seen = {}
+
+    def update(grads, state, params, lr, **kw):
+        seen["delta"] = grads
+        return opt.update(grads, state, params, lr, **kw)
+
+    return dataclasses.replace(opt, update=update), seen
+
+
+def fed_round(model, params, batches, sizes, masks, dev, opt, gather,
+              server_opt=None):
+    """One round of T steps with the injected ``masks`` (bias_compensated;
+    ``server_opt`` at FED_CHECK_SERVER_LR) on ``dev`` from ``params``:
+    (state and fed-state leaves on the host, the server half's leaves
+    before its FedOpt step (w_start - delta; {} without one), metrics,
+    seconds, launches). ``server_opt`` is adamw from zero moments: fails
+    unless its state and the server half are, bit for bit,
+    :func:`adam_first_step` on this round's own delta."""
+    from repro_torch import fed
+    from repro_torch.configs import ScalaConfig
+    from repro_torch.core import engine
+    from repro_torch.tree import tree_map
+
+    C = len(masks[0])
+    part, agg = recorded_scheduler(masks), fed.bias_compensated()
+    rec, seen = (recording(server_opt) if server_opt is not None
+                 else (None, {}))
+    runner = engine.make_round_runner(
+        model, ScalaConfig(num_clients=C, lr=0.01), optimizer=opt,
+        aggregator=agg, participation=part, slot_gather=gather,
+        server_optimizer=rec, server_lr=FED_CHECK_SERVER_LR)
+    p = tree_map(lambda a: a.to(dev), params)
+    state = engine.init_train_state(p, opt)
+    fs = fed.init_fed_state(0, agg, part, server_optimizer=server_opt,
+                            server_params=p["server"], device=dev)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches.items()}
+    zero_counts()
+    t0 = time.perf_counter()
+    state, fs, m = runner(state, b, torch.from_numpy(sizes).to(dev), fs)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    n = read_counts()
+    pre = {}
+    if seen:
+        so = fs["server_opt"]
+        got = [state_leaves(t) for t in (state.params["server"], so["mu"],
+                                         so["nu"])]
+        delta = state_leaves(seen["delta"])
+        for key, w in state_leaves(p["server"]).items():
+            for name, a, b in zip(("param", "mu", "nu"),
+                                  adam_first_step(w, delta[key]),
+                                  (g[key] for g in got)):
+                check(torch.equal(bits(a), bits(b)),
+                      f"fed-check on {dev}: server {name} {key} is not "
+                      "Adam's first step on the round's own delta")
+        check(int(so["count"]) == 1,
+              f"fed-check on {dev}: server count {so['count']}")
+        pre = {k: v.cpu() for k, v in state_leaves({"state": {".params": {
+            "server": tree_map(lambda w, d: w - d, p["server"],
+                               seen["delta"])}}}).items()}
+    leaves_ = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in state_leaves({"state": state, "fed": fs}).items()}
+    return (leaves_, pre, {k: float(v) for k, v in m.items() if v.dim() == 0},
+            secs, n)
+
+
+def adam_first_step(w, d, lr=FED_CHECK_SERVER_LR, eps=FED_CHECK_SERVER_EPS):
+    """Adam from zero moments, one step on the pseudo-gradient ``d`` from
+    ``w``, written out in adamw's float32 operations: (w', mu, nu)."""
+    one = torch.ones((), device=d.device)
+    c1, c2 = 1 - ADAM_B1 ** one, 1 - ADAM_B2 ** one
+    mu, nu = (1 - ADAM_B1) * d, (1 - ADAM_B2) * d * d
+    return w - lr * ((mu / c1) / (torch.sqrt(nu / c2) + eps)), mu, nu
+
+
+def fed_round_gap(got, want, start):
+    """A round on the card (``got``, leaves or pre-FedOpt leaves of
+    :func:`fed_round`) against the same round on the CPU (``want``), both
+    from the params ``start``: {kind: (worst, leaf)}. "params": beyond 3
+    ulps (phase 7's rule), over the leaf's largest update; "moments": the
+    other float leaves over their largest entry, except the server
+    optimizer's (held on each device by :func:`fed_round`). Integer leaves
+    must be equal."""
+    ulp = torch.finfo(torch.float32).eps
+    worst = {"params": (0.0, ""), "moments": (0.0, "")}
+    for key, b in want.items():
+        a = got[key]
+        if not isinstance(b, torch.Tensor) or not b.is_floating_point():
+            check(torch.equal(a, b) if isinstance(b, torch.Tensor)
+                  else a == b, f"fed-check leaf {key}: {a} vs {b}")
+            continue
+        if key.startswith("fed/server_opt/"):
+            continue
+        p0 = start.get(key)
+        if p0 is not None:
+            kind, err = "params", (
+                ((a - b).abs() - 3 * ulp * b.abs()).clamp(min=0).max()
+                / (b - p0.expand(b.shape)).abs().max().clamp(min=1e-30))
+        else:
+            kind, err = "moments", ((a - b).abs().max()
+                                    / b.abs().max().clamp(min=1e-30))
+        worst[kind] = max(worst[kind], (err.item(), key))
+    return worst
+
+
+def fed_check_inputs(device, reduced, C, S, T):
+    """f32 qwen1.5-0.5b (full width unless ``reduced``), its split model,
+    params on ``device``, one round's numpy batches of C slots x S tokens
+    and T steps (an eq. 3 padding tail on the last slot), data sizes and a
+    uniform:0.5 mask."""
+    from repro_torch import fed
+
+    cfg, model, params, _ = f32_qwen_step_inputs(device, reduced, C, S,
+                                                 seed=4)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (T, C, 1, S + 1))
+    weights = np.ones((T, C, 1, S), np.float32)
+    weights[:, -1, 0, -S // 8:] = 0.0
+    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+               "weights": weights}
+    sizes = np.array([3.0, 1.0, 2.0, 4.0][:C], np.float32)
+    part = fed.uniform(C, 0.5)
+    return cfg, model, params, batches, sizes, [part.sample(part.init(4))[0]]
+
+
+def fed_check_masked(device="cuda", reduced=False, C=4, S=64, T=2):
+    """float32, TF32 off: one masked round (bias_compensated, momentum,
+    server adamw) on ``device`` (K1, K2, K3) against the same round on
+    the CPU (the plain versions)."""
+    from repro_torch.optim import optimizers
+
+    cfg, model, params, batches, sizes, masks = fed_check_inputs(
+        device, reduced, C, S, T)
+    say("fed-check", f"{cfg.name} float32, {C} slots x {S} tokens, {T} "
+        f"steps, mask {masks[0].tolist()}")
+    res = {}
+    for dev in (device, "cpu"):
+        res[dev] = fed_round(model, params, batches, sizes, masks, dev,
+                             optimizers.momentum(0.9), False,
+                             optimizers.adamw(eps=FED_CHECK_SERVER_EPS))
+        say("fed-check", f"masked round on {dev}: {res[dev][3]:.2f} s, "
+            f"launches K3 fwd {res[dev][4]['flash_fwd']} bwd "
+            f"{res[dev][4]['flash_bwd']}, K1 {res[dev][4]['lace_fwd']}, K2 "
+            f"{res[dev][4]['lace_bwd']}; the server step is Adam's first "
+            "step on this device's own delta, bit for bit")
+    if torch.device(device).type == "cuda":
+        want = {k: T * n for k, n in slot_launches(C, cfg).items()}
+        got = {k: res[device][4][k] for k in want}
+        check(got == want, f"fed-check masked launches {got} != {want}")
+    (got, got_pre, m_dev), (want, want_pre, m_cpu) = (res[device][:3],
+                                                      res["cpu"][:3])
+    for k in ("loss_server", "loss_client"):
+        check(abs(m_dev[k] - m_cpu[k]) <= LOSS_RTOL * abs(m_cpu[k]),
+              f"fed-check {k} {m_dev[k]} vs cpu {m_cpu[k]}")
+    start = {k: v.cpu() for k, v in
+             state_leaves({"state": {".params": params}}).items()}
+    worst = fed_round_gap(got, want, start)
+    pre = fed_round_gap(got_pre, want_pre, start)["params"]
+    check(max(w for w, _ in (*worst.values(), pre)) <= LEAF_RTOL,
+          f"fed-check leaves {worst}, before FedOpt {pre} > {LEAF_RTOL}")
+    say("fed-check", f"masked round, {device} vs cpu: loss_s "
+        f"{m_dev['loss_server']:.6f} vs {m_cpu['loss_server']:.6f}, loss_c "
+        f"{m_dev['loss_client']:.6f} vs {m_cpu['loss_client']:.6f} (rtol "
+        f"{LOSS_RTOL}); {len(want)} leaves of the state and fed state: "
+        f"params worst {worst['params'][0]:.3g} of the leaf's largest "
+        f"update beyond 3 ulps ({worst['params'][1]}), the server half "
+        f"before FedOpt {pre[0]:.3g} ({pre[1]}), moments worst "
+        f"{worst['moments'][0]:.3g} of the largest entry "
+        f"({worst['moments'][1]}) (tol {LEAF_RTOL})")
+
+
+def fed_check_sparse(device="cuda", reduced=False, C=4, S=64, T=2):
+    """float32, TF32 off: the same round sparse against masked on
+    ``device`` with SGD."""
+    from repro_torch.optim import optimizers
+
+    cfg, model, params, batches, sizes, masks = fed_check_inputs(
+        device, reduced, C, S, T)
+    out = {}
+    for gather in (False, True):
+        out[gather] = fed_round(model, params, batches, sizes, masks, device,
+                                optimizers.sgd(), gather)
+    (ms, mm) = out[True][2], out[False][2]
+    for k in ("loss_server", "loss_client"):
+        check(abs(ms[k] - mm[k]) <= DUAL_LOSS_RTOL * abs(mm[k]),
+              f"fed-check sparse {k} {ms[k]} vs masked {mm[k]}")
+    worst = max(rel_err(out[True][0][k], b) for k, b in out[False][0].items()
+                if "/.params/" in k)
+    check(worst <= DUAL_LEAF_RTOL, f"fed-check sparse vs masked params "
+          f"{worst} > {DUAL_LEAF_RTOL}")
+    n = out[True][4]
+    say("fed-check", f"sparse vs masked on {device} (SGD, same mask): loss_s "
+        f"{ms['loss_server']:.7f} vs {mm['loss_server']:.7f}, loss_c "
+        f"{ms['loss_client']:.7f} vs {mm['loss_client']:.7f} (rtol "
+        f"{DUAL_LOSS_RTOL}); params worst {worst:.3g} of the leaf's largest "
+        f"entry (tol {DUAL_LEAF_RTOL}); sparse launches K3 fwd "
+        f"{n['flash_fwd']} bwd {n['flash_bwd']}, K1 {n['lace_fwd']}; "
+        f"{out[True][3]:.2f} s vs masked {out[False][3]:.2f} s")
+
+
+def phase_fed_check(device="cuda", reduced=False):
+    """(c): :func:`fed_check_masked`, then :func:`fed_check_sparse`, at
+    full width unless ``reduced``."""
+    fed_check_masked(device, reduced)
+    fed_check_sparse(device, reduced)
+
+
+def phase_fed_resume(device="cuda", width=ALEXNET["width"],
+                     flags=FED_SPARSE_FLAGS):
+    """Trainer.save -> resume, bit for bit, with federation state: (b)'s
+    sparse qwen run (the scheduler's state, the ages, server adamw's
+    moments; 1 round, save, 1 more against 2), then masked AlexNet at
+    ``width`` with staleness_weighted (2, save, 1 against 3; cuDNN
+    deterministic)."""
+    from repro_torch import api
+    from repro_torch.launch import train
+
+    spec = train.spec_from_args(train.build_parser().parse_args(flags))
+    zero_counts()
+    resume_check(f"{spec.arch} {'reduced' if spec.reduced else 'full'} "
+                 f"width, {spec.execution.mode}, {spec.fed.aggregator}, "
+                 f"server {spec.execution.server_optimizer.spec}",
+                 lambda: api.Trainer(spec, device=device), 1, 1, device)
+    n = read_counts()
+    if torch.device(device).type == "cuda":
+        check(all(n[k] > 0 for k in ("flash_fwd", "flash_bwd", "lace_fwd",
+                                     "lace_bwd")),
+              f"fed-resume: the qwen rounds launched {n}")
+    a = alexnet_spec("fused", 3, width)
+    a = dataclasses.replace(
+        a, fed=api.FedSpec(participation=f"uniform:{ALEXNET['participation']}",
+                           aggregator="staleness_weighted"),
+        execution=dataclasses.replace(a.execution, mode="masked")).validate()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        resume_check(f"alexnet-cifar width {width} masked "
+                     f"{a.fed.participation} staleness_weighted",
+                     lambda: api.Trainer(a, device=device), 2, 1, device)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def phase_fed(device="cuda"):
+    """(a) masked, (b) sparse, through :func:`phase_train`; (c)
+    fed-check; (d) resume with federation state. Returns the launch
+    counts of (a) and (b) together."""
+    masked = phase_train(device, FED_MASKED_FLAGS, phase="fed-masked")
+    sparse = phase_train(device, FED_SPARSE_FLAGS, phase="fed-sparse")
+    phase_fed_check(device)
+    phase_fed_resume(device)
+    return {k: masked[k] + sparse[k] for k in masked}
+
+
 def run_phase(label, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, then its wall seconds on a line of its own
     (what each phase adds to the run's time limit)."""
@@ -2097,6 +2469,9 @@ def main() -> int:
         run_phase("baselines", phase_baselines)
         run_phase("resume", phase_resume)
         return 0
+    if sys.argv[1:] == ["fed"]:
+        run_phase("fed", phase_fed)
+        return 0
     if sys.argv[1:] == ["mlstm"]:
         run_phase("kernels K6", phase_mlstm)
         run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
@@ -2126,6 +2501,7 @@ def main() -> int:
     run_phase("alexnet", phase_alexnet)
     run_phase("baselines", phase_baselines)
     run_phase("resume", phase_resume)
+    fed = run_phase("fed", phase_fed)
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
     # forward launches: the serve path's plus both training paths'; its
@@ -2133,7 +2509,8 @@ def main() -> int:
     fwd_row = kernel_row("flash_attn_fwd", csrc + "flash_attn.cu",
                          "src/repro/kernels/flash_attn/kernel.py:23",
                          serve["flash_fwd"] + train["flash_fwd"]
-                         + dual["flash_fwd"], max_err, rows[REPORT_CASE])
+                         + dual["flash_fwd"] + fed["flash_fwd"], max_err,
+                         rows[REPORT_CASE])
     fwd_row.update({f"{key}_train": rows[TRAIN_CASE][key] for key in
                     ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
                      "library_device_ms")})
@@ -2142,13 +2519,14 @@ def main() -> int:
         # the backward of K3 (the JAX package trains through autodiff)
         kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
                    "src/repro/kernels/flash_attn/kernel.py:23",
-                   train["flash_bwd"] + dual["flash_bwd"], bwd_err,
+                   train["flash_bwd"] + dual["flash_bwd"]
+                   + fed["flash_bwd"], bwd_err,
                    bwd_rows[FLASH_BWD_REPORT]),
         kernel_row("lace2_fwd", csrc + "lace.cu", lace_src + "219",
-                   train["lace_fwd"], lace_err["fwd"],
+                   train["lace_fwd"] + fed["lace_fwd"], lace_err["fwd"],
                    lace_rows[(LACE_REPORT, "fwd")]),
         kernel_row("lace2_bwd", csrc + "lace.cu", lace_src + "261",
-                   train["lace_bwd"], lace_err["bwd"],
+                   train["lace_bwd"] + fed["lace_bwd"], lace_err["bwd"],
                    lace_rows[(LACE_REPORT, "bwd")]),
         kernel_row("lace_fwd", csrc + "lace1.cu", lace_src + "41",
                    dual["lace1_fwd"], lace1_err["fwd"],

@@ -1,13 +1,17 @@
 """``build(spec)`` -- an :class:`ExperimentSpec` into a round program.
 
 The port runs the synchronous SCALA round of ``repro.api.build.
-_build_scala`` in ``subset`` mode, for a text arch (the transformer) or
-the CNN family (AlexNet at ``spec.width``, split at ``spec.split``), and
-the FL / SFL baselines of ``_build_fl`` / ``_build_sfl`` on AlexNet:
-``init()`` builds the program state, ``step(state, batches, sizes)`` runs
-one round (T local steps and the FL phase) and ``predict(state, batch)``
-the current global model (SCALA and SFL: slot 0's client half and the
-server half; FL: the full model).
+_build_scala`` in the ``subset``, ``masked`` and ``sparse`` modes, for a
+text arch (the transformer) or the CNN family (AlexNet at
+``spec.width``, split at ``spec.split``), and the FL / SFL baselines of
+``_build_fl`` / ``_build_sfl`` on AlexNet: ``init()`` builds the program
+state, ``step(state, batches, sizes)`` runs one round (T local steps and
+the FL phase) and ``predict(state, batch)`` the current global model
+(SCALA and SFL: slot 0's client half and the server half; FL: the full
+model). A round that threads federation state (a participation
+scheduler, a stateful aggregator, a server optimizer) keeps it in
+``ProgramState.fed`` (:func:`repro_torch.fed.init_fed_state`, seeded by
+:func:`fed_seed`).
 
 Params are the port's own init, drawn from ``torch.Generator(device)``
 seeded with ``spec.seed`` -- the JAX init's numbers cannot be drawn here
@@ -18,8 +22,9 @@ method the merged AlexNet tree, for an SFL method ``{'wc', 'ws'}`` (and
 ``'aux'`` for sfl_localloss) -- see
 :func:`repro_torch.convert.baseline_state_from_reference`.
 
-As in the reference, the baselines get no optimizer (plain SGD whatever
-``spec.optim`` says, at ``spec.optim.resolve_lr(spec.scala.lr)``), the
+As in the reference, the baselines get no local optimizer (plain SGD
+whatever ``spec.optim`` says, at ``spec.optim.resolve_lr(spec.scala.lr)``;
+an FL method takes ``execution.server_optimizer``, FedAvgM / FedAdam), the
 ``weighted`` aggregator is the data-size FedAvg, and their rounds take
 client-major (C, T, ...) batches: the step transposes the Trainer's
 (T, C, ...) ones.
@@ -39,8 +44,8 @@ from repro_torch.tree import leaves, tree_map
 
 @dataclass(frozen=True)
 class ProgramState:
-    """``inner``: the engine :class:`TrainState`; ``fed``: the federation
-    carry (empty: the ported aggregators are stateless)."""
+    """``inner``: the engine :class:`TrainState` (a baseline's state);
+    ``fed``: the federation carry (``()`` when the round threads none)."""
 
     inner: Any
     fed: Any = ()
@@ -123,9 +128,25 @@ def _check_params(params, spec: ExperimentSpec, slots: int, device):
     return tree_map(lambda a: a.to(device), params)
 
 
+def fed_seed(spec: ExperimentSpec) -> int:
+    """The participation scheduler's stream seed. The reference keys its
+    scheduler with ``fold_in(PRNGKey(seed), 11)`` for ``image_synthetic``
+    and ``PRNGKey(seed + 1)`` for ``lm_synthetic`` (``api/build.py:
+    _fed_key``), apart from the streams of the data and the init; the
+    port keeps the two tags and hashes them with ``spec.seed``:
+    ``SeedSequence([seed, 11 or 1]).generate_state(1)[0]``, so its draws
+    (``default_rng([fed_seed, round])``) share no seed with the host's
+    data streams (``seed``, ``seed + 1``, ``seed + 7``)."""
+    import numpy as np
+
+    tag = 11 if spec.data.kind == "image_synthetic" else 1
+    return int(np.random.SeedSequence([spec.seed, tag]).generate_state(1)[0])
+
+
 def build(spec: ExperimentSpec, *, device="cuda",
           params=None) -> RoundProgram:
     """Validate ``spec`` and build its program on ``device``."""
+    from repro_torch import fed
     from repro_torch.core import engine
     from repro_torch.core.baselines import FL_METHODS, SFL_METHODS
 
@@ -141,6 +162,9 @@ def build(spec: ExperimentSpec, *, device="cuda",
     sched = spec.optim.make_schedule(spec.rounds * sc.local_iters,
                                      default_lr=sc.lr)
     agg = fd.make_aggregator()
+    scheduler = (fd.make_participation(slots)
+                 if ex.mode in ("masked", "sparse") else None)
+    server_opt, server_lr = _server_optimizer(spec)
     if params is None:
         init = (_cnn_split_init if spec.model_config().family == "cnn"
                 else text_split_init)
@@ -150,13 +174,26 @@ def build(spec: ExperimentSpec, *, device="cuda",
         params = _check_params(params, spec, slots, device)
     round_fn = engine.make_round_runner(
         model, sc, backend=ex.backend, boundary=ex.boundary, optimizer=opt,
-        schedule=sched, aggregator=agg, opt_state_policy=fd.opt_state_policy,
-        precision=ex.precision)
+        schedule=sched, aggregator=agg, participation=scheduler,
+        opt_state_policy=fd.opt_state_policy,
+        slot_gather=ex.mode == "sparse", server_optimizer=server_opt,
+        server_lr=server_lr, precision=ex.precision)
+    thread_fed = (scheduler is not None or agg.stateful
+                  or server_opt is not None)
 
     def init() -> ProgramState:
-        return ProgramState(inner=engine.init_train_state(params, opt))
+        fed_state = (fed.init_fed_state(
+            fed_seed(spec), agg, scheduler, num_clients=slots,
+            server_optimizer=server_opt, server_params=params["server"],
+            device=device) if thread_fed else ())
+        return ProgramState(inner=engine.init_train_state(params, opt),
+                            fed=fed_state)
 
     def step(state: ProgramState, batches, sizes):
+        if thread_fed:
+            inner, fed_state, metrics = round_fn(state.inner, batches, sizes,
+                                                 state.fed)
+            return ProgramState(inner=inner, fed=fed_state), metrics
         inner, metrics = round_fn(state.inner, batches, sizes)
         return ProgramState(inner=inner, fed=state.fed), metrics
 
@@ -172,7 +209,13 @@ def build(spec: ExperimentSpec, *, device="cuda",
         metadata=dict(method=spec.method, mode=ex.mode, slots=slots,
                       backend=ex.backend, boundary=ex.boundary,
                       precision=ex.precision, rounds_per_call=1,
-                      device=str(device)))
+                      thread_fed=thread_fed, device=str(device)))
+
+
+def _server_optimizer(spec: ExperimentSpec):
+    """(the server optimizer or None, its lr)."""
+    so = spec.execution.server_optimizer
+    return (None, 1.0) if so is None else (so.make(), so.lr)
 
 
 def _merged_conv(tree) -> bool:
@@ -243,12 +286,14 @@ def _build_baseline(spec: ExperimentSpec, device, params) -> RoundProgram:
         model = B.FedModel(forward=lambda p, x: A.forward(p, x, spec.split),
                            num_classes=spec.data.num_classes,
                            features=A.features)
+        server_opt, server_lr = _server_optimizer(spec)
         round_fn = B.make_fl_round(spec.method, model, lr=lr, aggregator=agg,
-                                   precision=precision)
+                                   server_optimizer=server_opt,
+                                   server_lr=server_lr, precision=precision)
 
         def init() -> ProgramState:
             return ProgramState(inner=state0, fed=B.init_fl_state(
-                spec.method, state0, slots))
+                spec.method, state0, slots, server_optimizer=server_opt))
 
         def round_step(state: ProgramState, batches, sizes):
             w, fl_state = round_fn(state.inner, batches, sizes, state.fed)

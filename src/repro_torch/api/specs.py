@@ -10,15 +10,17 @@ CLI's ``--dump-config`` output runs verbatim here.
 
 :meth:`ExperimentSpec.validate` accepts what the port runs -- SCALA on a
 text arch (``lm_synthetic``, backends ``lace`` or ``logits``) or on the
-CNN family (``image_synthetic``, backend ``logits``), the host-side
-``subset`` mode, both boundaries (``fused``, ``dual``), f32 policy, one
-round per call, the ``fedavg`` / ``weighted`` aggregators, and the FL /
-SFL baselines on the CNN family in ``subset`` mode -- and raises
-``NotImplementedError`` naming the missing piece for the rest (masked /
-sparse / async, ``lace_dp``, faults and guards, server-side FedOpt,
-``precision="bf16"``, ``rounds_per_call > 1`` and training the xLSTM
-family), and ``ValueError`` for combinations the reference rejects too. ``unroll`` and ``donate`` are accepted and have
-nothing to act on in an eager program.
+CNN family (``image_synthetic``, backend ``logits``) in the synchronous
+modes ``subset`` (host-side sampling), ``masked`` and ``sparse`` (an
+in-program participation scheduler over all K slots), both boundaries,
+f32 policy, one round per call, every aggregator, server-side FedOpt,
+and the FL / SFL baselines on the CNN family in ``subset`` mode -- and
+raises ``NotImplementedError`` naming the missing piece for the rest
+(``async``, ``lace_dp``, faults and guards, ``precision="bf16"``,
+``rounds_per_call > 1`` and training the xLSTM family), and
+``ValueError`` for combinations the reference rejects too. ``unroll``
+and ``donate`` are accepted and have nothing to act on in an eager
+program.
 """
 from __future__ import annotations
 
@@ -36,8 +38,6 @@ from repro_torch.core.engine import (BACKENDS, BOUNDARIES,
 EXECUTION_MODES = ("subset", "masked", "sparse", "async")
 OPTIMIZERS = ("sgd", "momentum", "adamw")
 OPTIMIZER_ALIASES = {"fedavgm": "momentum", "fedadam": "adamw"}
-AGGREGATORS = ("fedavg", "weighted", "bias_compensated",
-               "staleness_weighted", "staleness", "hierarchical")
 SNAPSHOT_MODES = ("dense", "delta")
 LR_SCALES = ("none", "cohort")
 ARRIVALS = ("sort", "topk", "topk:sharded")
@@ -71,6 +71,44 @@ class OptimSpec:
     def __post_init__(self):
         _one_of("optimizer", self.name, OPTIMIZERS)
         _one_of("schedule", self.schedule, ("constant", "cosine"))
+
+    @classmethod
+    def parse(cls, spec: str, *, default_lr: Optional[float] = None,
+              **overrides) -> "OptimSpec":
+        """``"sgd[:LR]"`` | ``"momentum[:LR[:BETA]]"`` |
+        ``"adamw[:LR[:WD]]"``, plus the FedOpt aliases ``fedavgm`` /
+        ``fedadam`` (momentum / adamw); ``default_lr`` when no LR."""
+        usage = "NAME[:LR[:ARG]] with NAME in " + repr(
+            OPTIMIZERS + tuple(sorted(OPTIMIZER_ALIASES)))
+        bad = ValueError(f"bad optimizer spec {spec!r}; usage: {usage}")
+        parts = spec.split(":")
+        name = OPTIMIZER_ALIASES.get(parts[0], parts[0])
+        if name not in OPTIMIZERS or len(parts) > 3 or (
+                len(parts) == 3 and name == "sgd"):
+            raise bad
+        kw: Dict[str, Any] = dict(name=name, lr=default_lr)
+        try:
+            if len(parts) >= 2:
+                kw["lr"] = float(parts[1])
+            if len(parts) == 3:
+                kw["momentum" if name == "momentum" else "weight_decay"] = \
+                    float(parts[2])
+        except ValueError:
+            raise bad from None
+        kw.update(overrides)
+        return cls(**kw)
+
+    @property
+    def spec(self) -> str:
+        """The canonical compact string (the schedule fields left out; an
+        unset lr renders as the bare name)."""
+        if self.lr is None:
+            return self.name
+        if self.name == "momentum":
+            return f"momentum:{self.lr}:{self.momentum}"
+        if self.name == "adamw":
+            return f"adamw:{self.lr}:{self.weight_decay}"
+        return f"sgd:{self.lr}"
 
     def resolve_lr(self, default_lr: float) -> float:
         """The effective base lr (``scala.lr`` unless overridden here)."""
@@ -108,7 +146,9 @@ class FedSpec:
     guards: Optional[str] = None
 
     def __post_init__(self):
-        _one_of("aggregator", self.aggregator.split(":")[0], AGGREGATORS)
+        self.make_aggregator()                       # structural validation
+        if self.participation is not None:
+            self.make_participation(2)               # structural validation
         _one_of("opt_state_policy", self.opt_state_policy,
                 OPT_STATE_POLICIES)
 
@@ -116,6 +156,14 @@ class FedSpec:
         from repro_torch.fed import make_aggregator
 
         return make_aggregator(self.aggregator)
+
+    def make_participation(self, num_clients: int):
+        """The scheduler over ``num_clients`` slots, or None."""
+        from repro_torch.fed import make_participation
+
+        if self.participation is None:
+            return None
+        return make_participation(self.participation, num_clients)
 
 
 @dataclass(frozen=True)
@@ -216,12 +264,56 @@ class ExperimentSpec:
         return self.scala.clients_per_round
 
     def validate(self) -> "ExperimentSpec":
-        """Reject what the port does not run (NotImplementedError, naming
-        it) and what the reference rejects too (ValueError). Returns
+        """Reject what the reference rejects too (ValueError), then what
+        the port does not run (NotImplementedError, naming it). Returns
         self."""
         ex, fd = self.execution, self.fed
         cfg = self.model_config()
         _one_of("method", self.method, METHODS)
+        agg = fd.make_aggregator()
+        if ex.backend != "logits" and cfg.family == "cnn":
+            raise ValueError(
+                f"backend {ex.backend!r} needs a trunk/head split; the CNN "
+                "(AlexNet) family only supports backend 'logits'")
+        # --- participation / mode coherence ---
+        if ex.mode == "sparse" and fd.participation is None:
+            raise ValueError(
+                "mode 'sparse' needs a participation spec (the static "
+                "K_active comes from the scheduler's subset_size); set "
+                "fed.participation to 'uniform:FRAC' or "
+                "'dirichlet:FRAC[:ALPHA]'")
+        if ex.mode == "async" and fd.participation is not None:
+            raise ValueError(
+                "mode 'async' replaces participation scheduling (the "
+                "arrival cohort IS the participating subset); drop "
+                "fed.participation")
+        if ex.mode == "subset" and fd.participation is not None:
+            raise ValueError(
+                "mode 'subset' samples clients host-side; a participation "
+                "spec needs an in-program mode ('masked' or 'sparse')")
+        # --- stateful aggregators need stable client identities ---
+        if agg.stateful:
+            if ex.mode == "async":
+                raise ValueError(
+                    f"aggregator {agg.name!r} double-decays under mode "
+                    "'async' (the runtime applies staleness_decay itself); "
+                    "use a stateless aggregator")
+            if ex.mode == "subset" or fd.participation is None:
+                raise ValueError(
+                    f"aggregator {agg.name!r} is stateful and needs stable "
+                    "client identities: use mode 'masked'/'sparse' with a "
+                    "participation spec (host-side subset re-stacking has "
+                    "no slot -> client correspondence)")
+        for name, value, default in (
+                ("snapshots", ex.snapshots, "dense"),
+                ("lr_scale", ex.lr_scale, "none"),
+                ("arrival", ex.arrival, "sort"),
+                ("opt_paging", ex.opt_paging, "none"),
+                ("deadline", ex.deadline, None)):
+            if value != default and ex.mode != "async":
+                raise ValueError(f"{name}={value!r} applies to mode 'async' "
+                                 "only")
+        # --- baselines ---
         if self.method not in SCALA_METHODS:
             if ex.mode != "subset":
                 raise ValueError(
@@ -236,44 +328,10 @@ class ExperimentSpec:
                 raise ValueError(
                     "server_optimizer (FedOpt) is not supported by the SFL "
                     "baselines; use an FL method or SCALA")
-        if ex.mode != "subset":
-            raise _not_ported(f"execution mode {ex.mode!r}",
-                              "the federation slice (masked) or the "
-                              "sparse/async slice")
-        if fd.participation is not None:
+        if ex.server_optimizer is not None and ex.server_optimizer.lr is None:
             raise ValueError(
-                "mode 'subset' samples clients host-side; a participation "
-                "spec needs an in-program mode ('masked' or 'sparse')")
-        if ex.backend == "lace_dp":
-            raise _not_ported("backend 'lace_dp'", "the multi-device slice")
-        if ex.backend != "logits" and cfg.family == "cnn":
-            raise ValueError(
-                f"backend {ex.backend!r} needs a trunk/head split; the CNN "
-                "(AlexNet) family only supports backend 'logits'")
-        if any(spec.mixer in ("mlstm", "slstm") for spec in cfg.block_specs):
-            raise _not_ported(f"training arch {self.arch!r} (mLSTM/sLSTM "
-                              "blocks)", "the xLSTM training slice (the "
-                              "chunkwise mLSTM kernel's backward)")
-        if ex.precision == "bf16":
-            raise _not_ported("precision 'bf16'", "the dispatch-knob slice")
-        if ex.rounds_per_call > 1:
-            raise _not_ported("rounds_per_call > 1",
-                              "the dispatch-knob slice")
-        if ex.server_optimizer is not None:
-            raise _not_ported("execution.server_optimizer (FedOpt)",
-                              "the federation slice")
-        if fd.faults is not None or fd.guards is not None:
-            raise _not_ported("faults/guards", "the fault-tolerance slice")
-        fd.make_aggregator()     # NotImplementedError for unported ones
-        for name, value, default in (
-                ("snapshots", ex.snapshots, "dense"),
-                ("lr_scale", ex.lr_scale, "none"),
-                ("arrival", ex.arrival, "sort"),
-                ("opt_paging", ex.opt_paging, "none"),
-                ("deadline", ex.deadline, None)):
-            if value != default:
-                raise ValueError(f"{name}={value!r} applies to mode 'async' "
-                                 "only")
+                "execution.server_optimizer needs its lr (the server lr: "
+                "OptimSpec.parse(spec, default_lr=...))")
         # --- data / model coherence (the reference's rules) ---
         if self.data.kind == "image_synthetic" and cfg.family != "cnn":
             raise ValueError(
@@ -289,6 +347,24 @@ class ExperimentSpec:
                 and self.data.alpha is not None and self.data.beta is not None:
             raise ValueError("set at most one of data.alpha (quantity skew) "
                              "and data.beta (Dirichlet skew)")
+        # --- what the port does not run yet ---
+        if ex.mode == "async":
+            raise _not_ported("execution mode 'async'",
+                              "the async slice (fed/runtime.py, "
+                              "fed/delays.py)")
+        if ex.backend == "lace_dp":
+            raise _not_ported("backend 'lace_dp'", "the multi-device slice")
+        if any(spec.mixer in ("mlstm", "slstm") for spec in cfg.block_specs):
+            raise _not_ported(f"training arch {self.arch!r} (mLSTM/sLSTM "
+                              "blocks)", "the xLSTM training slice (the "
+                              "chunkwise mLSTM kernel's backward)")
+        if ex.precision == "bf16":
+            raise _not_ported("precision 'bf16'", "the dispatch-knob slice")
+        if ex.rounds_per_call > 1:
+            raise _not_ported("rounds_per_call > 1",
+                              "the dispatch-knob slice")
+        if fd.faults is not None or fd.guards is not None:
+            raise _not_ported("faults/guards", "the fault-tolerance slice")
         return self
 
     def to_dict(self) -> Dict[str, Any]:

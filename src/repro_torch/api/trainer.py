@@ -1,7 +1,9 @@
 """``Trainer`` -- runs a built experiment from the host, round by round.
 
 It synthesizes the dataset from the spec's :class:`DataSpec`, assembles
-each round's batches (eq. 3 sizing, :mod:`repro_torch.data.loader`),
+each round's batches (eq. 3 sizing, :mod:`repro_torch.data.loader`; in
+the ``masked`` and ``sparse`` modes over all K slots, the image budget
+``round(server_batch / participation)``),
 moves them to the program's device and threads the program state
 through :class:`RoundProgram.step`. The host numpy streams are the
 reference's (``api/trainer.py``), so both trainers see the same batches:
@@ -20,7 +22,10 @@ state and the host side (round, history, the numpy bit generator).
 ``resume`` also reads a directory that the reference ``Trainer.save``
 wrote, for the subset-mode SCALA and baseline states, through
 :mod:`repro_torch.convert`; its host streams are the reference's, so the
-port continues the reference's own batches.
+port continues the reference's own batches. A reference masked or sparse
+directory holds the JAX scheduler's ``jax.random`` key, which the port
+cannot continue: ``resume`` refuses it (its params still start a run,
+``--init-params``).
 """
 from __future__ import annotations
 
@@ -100,12 +105,23 @@ class Trainer:
         from repro_torch.data.loader import (lm_round_batches, round_batches,
                                              sample_clients)
 
-        sc = self.spec.scala
-        selected = sample_clients(sc.num_clients, sc.clients_per_round,
-                                  self._rng)
-        batches = round_batches if self._images else lm_round_batches
-        rb = batches(self._data, selected, sc.server_batch, sc.local_iters,
-                     self._rng)
+        spec, sc = self.spec, self.spec.scala
+        if spec.execution.in_program:
+            selected = np.arange(sc.num_clients)  # the subset is in-program
+        else:
+            selected = sample_clients(sc.num_clients, sc.clients_per_round,
+                                      self._rng)
+        if self._images:
+            # masked / sparse: the participants' share of a K-slot round
+            # stays the subset mode's server batch
+            budget = (round(sc.server_batch / sc.participation)
+                      if spec.execution.mode in ("masked", "sparse")
+                      else sc.server_batch)
+            rb = round_batches(self._data, selected, budget, sc.local_iters,
+                               self._rng)
+        else:
+            rb = lm_round_batches(self._data, selected, sc.server_batch,
+                                  sc.local_iters, self._rng)
         sizes = torch.from_numpy(rb.pop("sizes")).to(self.device)
         return ({k: torch.from_numpy(v).to(self.device)
                  for k, v in rb.items()}, sizes)
@@ -165,8 +181,9 @@ class Trainer:
 
         if C.PORT_KEY in arrays:
             return C.restore_arrays(arrays, self.state)
-        inner, fed = convert.program_state_from_reference(
+        inner, parts = convert.program_state_from_reference(
             arrays, self.spec, self.device)
+        fed = dict(self.state.fed, **parts) if parts else self.state.fed
         return ProgramState(inner=inner, fed=fed)
 
     def resume(self, directory: str, step: Optional[int] = None) -> int:
@@ -189,9 +206,8 @@ class Trainer:
                 with open(os.path.join(directory,
                                        f"meta_{s:08d}.json")) as f:
                     meta = json.load(f)
-                state = self._restored_state(
-                    C.load_arrays(C.checkpoint_path(directory, s)))
-            except C.CORRUPT_ERRORS + (AssertionError,):
+                arrays = C.load_arrays(C.checkpoint_path(directory, s))
+            except C.CORRUPT_ERRORS:
                 if step is not None:
                     raise
                 continue
@@ -199,7 +215,8 @@ class Trainer:
         else:
             raise FileNotFoundError(
                 f"no complete (npz + meta) checkpoint in {directory}")
-        self.state = state
+        # a readable file whose state this run cannot take raises
+        self.state = self._restored_state(arrays)
         self.round = int(meta["round"])
         self.history = list(meta["history"])
         self._rng.bit_generator.state = meta["rng_state"]

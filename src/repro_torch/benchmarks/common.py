@@ -50,18 +50,34 @@ def experiment_spec(method: str, *, alpha: Optional[int] = None,
                     num_classes: int = 10, n_train: int = 2000,
                     split: str = "s2", seed: int = 0,
                     aggregator: Optional[str] = None,
-                    opt_state_policy: str = "carry") -> api.ExperimentSpec:
-    """The paper-table keywords -> an ExperimentSpec (host-side subset
-    sampling, the one mode the port runs; the reference's execution,
-    server-optimizer and dispatch keywords wait for their slices)."""
+                    opt_state_policy: str = "carry",
+                    execution: str = "subset",
+                    server_optimizer: Optional[str] = None,
+                    server_lr: float = 1.0) -> api.ExperimentSpec:
+    """The paper-table keywords -> an ExperimentSpec, as the reference's.
+
+    ``execution`` (SCALA methods): ``"subset"`` samples r K clients on
+    the host; ``"masked"`` / ``"sparse"`` keep all K slots and pick the
+    ``uniform:r`` subset in the program (all K slots computed, or the
+    subset gathered), the participants' batch held to ``server_batch``
+    (the Trainer splits ``server_batch / r`` over the K slots).
+    ``server_optimizer``: an optimizer spec (``OptimSpec.parse``; e.g.
+    ``"momentum"``: FedAvgM) for FedOpt on the server side at
+    ``server_lr``. The reference's dispatch keywords wait for their
+    slice."""
+    in_program = execution in ("masked", "sparse")
+    server_opt = (api.OptimSpec.parse(server_optimizer, default_lr=server_lr)
+                  if server_optimizer else None)
     return api.ExperimentSpec(
         arch="alexnet-cifar", split=split, width=width,
         method=method, rounds=rounds, seed=seed,
         scala=ScalaConfig(num_clients=K, participation=r, local_iters=T,
                           server_batch=server_batch, lr=lr),
         fed=api.FedSpec(aggregator=aggregator or "weighted",
+                        participation=f"uniform:{r}" if in_program else None,
                         opt_state_policy=opt_state_policy),
-        execution=api.ExecutionSpec(mode="subset", backend="logits"),
+        execution=api.ExecutionSpec(mode=execution, backend="logits",
+                                    server_optimizer=server_opt),
         data=api.DataSpec(kind="image_synthetic", n_train=n_train,
                           num_classes=num_classes, alpha=alpha, beta=beta))
 

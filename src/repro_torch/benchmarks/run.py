@@ -13,11 +13,20 @@ over r, K, T and the split point), recorded here, not enforced.
     PYTHONPATH=src python -m repro_torch.benchmarks.run --table t1 --quick
     PYTHONPATH=src python -m repro_torch.benchmarks.run --device cpu \
         --table t1 --quick [--width 0.125] [--out t1.json]
+    PYTHONPATH=src python -m repro_torch.benchmarks.run --smoke
+    PYTHONPATH=src python -m repro_torch.benchmarks.run --table \
+        participation [--quick] [--out part.json]
 
-The reference's harness legs (round_loop, participation, async,
-dispatch, boundary, scale, roofline, serve, faults) measure parts the
-port has not ported yet: they are listed, and asking for one exits
-naming its slice.
+``--smoke`` runs the reference's SMOKE rows of the synchronous modes:
+SCALA through ``exec=subset``, ``masked`` and ``sparse``, and FedAvgM
+(fedavg with a momentum server optimizer at 0.9), K = 4, r = 0.5, 2
+rounds (the reference's bf16 / fused row and its guards wait for their
+slices). ``--table participation`` is the participation leg
+(:mod:`repro_torch.benchmarks.participation`: rounds/s masked, sparse
+and re-stacked subset), its JSON stamped with the device. The
+reference's other harness legs (round_loop, async, dispatch, boundary,
+scale, roofline, serve, faults) measure parts the port has not ported
+yet: they are listed, and asking for one exits naming its slice.
 """
 from __future__ import annotations
 
@@ -33,7 +42,6 @@ HEADER = "table,setting,method,acc,balanced_acc,seconds"
 # the reference's harness legs and the slice each waits for
 NOT_PORTED = {
     "round_loop": "the dispatch-knob slice (rounds per call)",
-    "participation": "the federation slice (masked mode)",
     "async": "the sparse/async slice",
     "dispatch": "the dispatch-knob slice",
     "boundary": "the tooling slice (its LACE timing harness)",
@@ -135,13 +143,27 @@ TABLES = {
 }
 
 
-def main(argv=None) -> list:
+def smoke(run, rows) -> None:
+    """The reference's SMOKE rows of the synchronous execution modes and
+    FedAvgM."""
+    kw = dict(alpha=2, K=4, r=0.5, T=2, rounds=2, n_train=300)
+    for execution in ("subset", "masked", "sparse"):
+        _emit(rows, "SMOKE", f"exec={execution}", "scala",
+              run("scala", execution=execution, **kw))
+    _emit(rows, "SMOKE", "fedavgm", "fedavg",
+          run("fedavg", server_optimizer="momentum", server_lr=0.9, **kw))
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--table", default=None,
-                    choices=sorted(TABLES) + sorted(NOT_PORTED))
+                    choices=sorted(TABLES) + ["participation"]
+                    + sorted(NOT_PORTED))
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="paper-protocol settings (slow)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the SMOKE rows: each sync mode, FedAvgM")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda unless given)")
     ap.add_argument("--width", type=float, default=0.125,
@@ -153,16 +175,31 @@ def main(argv=None) -> list:
         raise SystemExit(f"benchmark {args.table!r} is not ported yet; it "
                          f"comes with {NOT_PORTED[args.table]}")
     quick = args.quick and not args.full
+    if args.table == "participation":
+        from repro_torch.benchmarks.participation import bench_participation
+
+        res = dict(bench_participation(rounds=3 if quick else 10,
+                                       width=args.width, device=args.device),
+                   device=device_info(args.device))
+        print(json.dumps(res), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=2)
+        return res
     names = [args.table] if args.table else list(TABLES)
-    if not args.table:
-        print(f"not ported yet, skipped: {', '.join(NOT_PORTED)}",
+    if not args.table and not args.smoke:
+        print(f"not ported yet, skipped: participation (run it with "
+              f"--table participation), {', '.join(NOT_PORTED)}",
               file=sys.stderr)
     print(HEADER, flush=True)
     rows = []
     run = functools.partial(run_experiment, device=args.device,
                             width=args.width)
-    for name in names:
-        TABLES[name](quick, run, rows)
+    if args.smoke:
+        smoke(run, rows)
+    else:
+        for name in names:
+            TABLES[name](quick, run, rows)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": device_info(args.device), "rows": rows}, f,

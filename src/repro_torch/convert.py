@@ -212,16 +212,24 @@ def train_params_from_npz(path: str, cfg: ModelConfig, device="cpu"):
 
 def baseline_state_from_reference(tree, method: str, device="cpu"):
     """A reference baseline state (numpy leaves; leading slot axes kept)
-    -> the port's. For an FL method: the AlexNet weights, or FedDyn's
-    ``{'h': slot-stacked weights}``; for an SFL method ``{'wc', 'ws'}``
-    and sfl_localloss's ``'aux'`` head (its (feat_dim, N) weight applies
-    unchanged: the port flattens in the reference's NHWC order)."""
+    -> the port's. For an FL method: the AlexNet weights, or its round
+    state ``{'h': slot-stacked weights (FedDyn), 'server_opt': FedOpt's
+    state}``; for an SFL method ``{'wc', 'ws'}`` and sfl_localloss's
+    ``'aux'`` head (its (feat_dim, N) weight applies unchanged: the port
+    flattens in the reference's NHWC order)."""
     from repro_torch.core.baselines import FL_METHODS, SFL_METHODS
 
     conv = lambda sub: alexnet_params_from_reference(sub, device)
     if method in FL_METHODS:
-        if set(tree) == {"h"}:
-            return {"h": conv(tree["h"])}
+        if tree and set(tree) <= {"h", "server_opt"}:
+            out = {}
+            if "h" in tree:
+                out["h"] = conv(tree["h"])
+            if "server_opt" in tree:
+                out["server_opt"] = _opt_half(
+                    tree["server_opt"], lambda t, cfg, dev: conv(t), None,
+                    device)
+            return out
         return conv(tree)
     if method not in SFL_METHODS:
         raise ValueError(f"{method!r} is not an FL/SFL baseline")
@@ -244,28 +252,41 @@ def _listify(tree):
 
 def program_state_from_reference(flat: Dict[str, np.ndarray], spec,
                                  device="cpu"):
-    """The ``(inner, fed)`` of the port's program state from a reference
+    """``(inner, fed)`` of the port's program state from a reference
     ``Trainer.save`` checkpoint's arrays (``.inner/...``, ``.fed/...``
-    keys): the subset-mode SCALA state (params, optimizer state, step)
-    or a baseline's."""
+    keys): the SCALA state (params, optimizer state, step) or a
+    baseline's, and a dict of the federation entries the file holds
+    (FedDyn's ``h``, a server optimizer's ``server_opt``; a state with
+    no leaves, such as SGD's, is absent), which the caller lays over its
+    own initial ``fed``. A federation state that holds the JAX
+    scheduler's key (masked / sparse with a participation spec) raises
+    ValueError: the port's scheduler cannot continue it."""
     from types import SimpleNamespace
 
     from repro_torch.core.baselines import FL_METHODS, SFL_METHODS
 
     tree = _listify(_nest(flat))
-    inner, fed = tree[".inner"], tree.get(".fed")
+    inner, fed = tree[".inner"], tree.get(".fed") or {}
     if spec.method in FL_METHODS + SFL_METHODS:
-        fed_state = {} if spec.method in FL_METHODS else ()
-        if fed:
-            fed_state = baseline_state_from_reference(fed, spec.method,
-                                                      device)
         return (baseline_state_from_reference(inner, spec.method, device),
-                fed_state)
-    if fed:
-        raise ValueError("a reference federation state (masked / sparse / "
-                         "async modes) is not ported yet")
+                baseline_state_from_reference(fed, spec.method, device)
+                if fed else {})
+    if "sched" in fed:
+        raise ValueError(
+            "this reference checkpoint's federation state holds the JAX "
+            "participation scheduler's jax.random key, which the port "
+            "cannot continue (it draws its masks from numpy): resume "
+            "refuses it; start from its params instead (--init-params)")
+    if set(fed) - {"server_opt"}:
+        raise ValueError("a reference federation state of the async "
+                         "runtime is not ported yet")
+    cfg = spec.model_config()
     state = SimpleNamespace(
         params=inner[".params"],
         opt_state=inner.get(".opt_state", {"client": (), "server": ()}),
         step=inner[".step"])
-    return train_state_from_reference(state, spec.model_config(), device), ()
+    parts = {}
+    if fed:      # server FedOpt's state, over the server half
+        parts["server_opt"] = _opt_half(fed["server_opt"], _halves(cfg)[1],
+                                        cfg, device)
+    return train_state_from_reference(state, cfg, device), parts

@@ -18,8 +18,10 @@ that require grad. As in the reference, the local objectives ignore the
 batches' ``weights``: the zero-weight padding rows of
 :func:`repro_torch.data.loader.round_batches` are trained on and fedla's
 class counts count them. FedDyn's ``h`` and splitfed_v3's client halves
-live by slot, not by client id. Updates are plain SGD, as the
-reference's API passes no optimizer.
+live by slot, not by client id. Local updates are plain SGD, as the
+reference's API passes no optimizer; an FL round may add a server
+optimizer on its aggregated delta (FedAvgM, FedAdam). A prior-aware
+aggregator gets the round's label priors, the padding rows left out.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from repro_torch.core.engine import SplitModel
 from repro_torch.core.label_stats import histogram, prior
 from repro_torch.core.split import (fedavg, stack_client_params,
                                     weighted_mean)
-from repro_torch.fed import AggContext
+from repro_torch.fed import AggContext, aggregation_priors
 from repro_torch.optim import optimizers
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -103,16 +105,10 @@ def _steps(batches):
 # ---------------------------------------------------------------------------
 
 
-def _at_least_f32(a):
-    """The reference's casts to float32 (of bfloat16 compute), keeping a
-    float64 run in float64."""
-    return a.to(torch.promote_types(a.dtype, torch.float32))
-
-
 def _decorr_loss(feats):
     """FedDecorr: squared off-diagonal correlation of normalized features
     (the population std, as ``jnp.std``)."""
-    f = _at_least_f32(feats.reshape(feats.shape[0], -1))
+    f = engine.at_least_f32(feats.reshape(feats.shape[0], -1))
     f = (f - f.mean(0)) / (f.std(0, correction=0) + 1e-5)
     n = f.shape[0]
     corr = (f.T @ f) / n
@@ -176,7 +172,7 @@ def make_local_loss(method: str, model: FedModel):
     if method == "fedla":
         # FedLC (Zhang et al. 2022): margin calibration by count^{-1/4}
         def loss(params, batch, ctx):
-            logits = _at_least_f32(model.forward(params, batch["x"]))
+            logits = engine.at_least_f32(model.forward(params, batch["x"]))
             margin = TAU * (ctx["counts_k"] + 1e-8) ** -0.25
             return losses.softmax_xent(logits - margin, batch["labels"])
         return loss
@@ -199,22 +195,54 @@ def fl_local_round(loss_fn, w_global, batches, ctx, lr: float):
     return w
 
 
-def _aggregate_clients(aggregator, stacked, data_sizes):
+def _aggregate_clients(aggregator, stacked, data_sizes, p_k=None,
+                       p_global=None):
     """The FL phase: the :mod:`repro_torch.fed` aggregator's weights when
-    one is given (the ported ones are stateless), else the data-size
-    FedAvg."""
+    one is given (stateless only: a baseline round threads no aggregator
+    state), else the data-size FedAvg."""
     if aggregator is None:
         return fedavg(stacked, data_sizes)
+    if aggregator.stateful:
+        raise ValueError("baseline rounds support stateless aggregators "
+                         f"only; {aggregator.name!r} keeps state")
     first = leaves(stacked)[0]
-    w, _ = aggregator.client_weights(
-        AggContext(num_clients=first.shape[0], data_sizes=data_sizes), ())
+    ctx = AggContext(num_clients=first.shape[0], data_sizes=data_sizes,
+                     p_k=p_k, p_global=p_global)
+    w, _ = aggregator.client_weights(ctx, ())
     return weighted_mean(stacked, w.to(first.device))
 
 
+def _aggregation_priors(num_classes: int, round_batches):
+    """(P_k, P_global) over the round's labels for a prior-aware
+    aggregator, the zero-weight padding rows left out (client-major
+    batches)."""
+    return aggregation_priors(num_classes, round_batches["labels"],
+                              round_batches.get("weights"), client_axis=0)
+
+
+def _aggregate_round(aggregator, stacked, data_sizes, num_classes,
+                     round_batches):
+    """:func:`_aggregate_clients` with the round's priors when the
+    aggregator needs them."""
+    p_k = p_global = None
+    if aggregator is not None and aggregator.needs_priors:
+        p_k, p_global = _aggregation_priors(num_classes, round_batches)
+    return _aggregate_clients(aggregator, stacked, data_sizes, p_k=p_k,
+                              p_global=p_global)
+
+
 def make_fl_round(method: str, model: FedModel, lr: float,
-                  aggregator=None, precision: str = "f32"):
+                  aggregator=None, server_optimizer=None,
+                  server_lr: float = 1.0, precision: str = "f32"):
     """``round(w_global, round_batches, data_sizes, state) -> (w_global',
-    state')``; round_batches leaves (C, T, Bk, ...)."""
+    state')``; round_batches leaves (C, T, Bk, ...).
+
+    ``server_optimizer``: FedOpt (Reddi et al.): the round delta
+    ``w_global - avg(w_k)`` is a pseudo-gradient the server optimizer
+    steps ``w_global`` against at ``server_lr`` (momentum: FedAvgM, adamw:
+    FedAdam); its state lives in ``state['server_opt']``
+    (:func:`init_fl_state`). Plain SGD at 1.0 is the round without it.
+    """
     model = cast_fed_model(model, precision)
     loss_fn = make_local_loss(method, model)
 
@@ -235,18 +263,35 @@ def make_fl_round(method: str, model: FedModel, lr: float,
             state = dict(state, h=tree_map(
                 lambda hk, wk, wg: hk - ALPHA * (wk - wg[None]),
                 state["h"], w_k, w_global))
-        return _aggregate_clients(aggregator, w_k, data_sizes), state
+        w_avg = _aggregate_round(aggregator, w_k, data_sizes,
+                                 model.num_classes, round_batches)
+        if server_optimizer is not None:
+            if "server_opt" not in state:
+                raise ValueError("server_optimizer needs state['server_opt']"
+                                 " -- init with init_fl_state(..., "
+                                 "server_optimizer=)")
+            delta = tree_map(
+                lambda a, b: engine.at_least_f32(a) - engine.at_least_f32(b),
+                w_global, w_avg)
+            w_avg, so = server_optimizer.update(delta, state["server_opt"],
+                                                w_global, server_lr)
+            state = dict(state, server_opt=so)
+        return w_avg, state
 
     return round_fn
 
 
-def init_fl_state(method: str, w_global, num_clients: int):
-    """FedDyn's ``h``, zeros by slot; ``{}`` for the other methods."""
+def init_fl_state(method: str, w_global, num_clients: int,
+                  server_optimizer=None):
+    """FedDyn's ``h``, zeros by slot, and the server optimizer's state
+    over ``w_global``; ``{}`` when neither applies."""
     state = {}
     if method == "feddyn":
         state["h"] = tree_map(lambda a: torch.zeros(
             (num_clients,) + a.shape, dtype=a.dtype, device=a.device),
             w_global)
+    if server_optimizer is not None:
+        state["server_opt"] = server_optimizer.init(w_global)
     return state
 
 
@@ -269,8 +314,9 @@ def make_sfl_round(method: str, model: SplitModel, lr: float,
     _check_precision(precision)
     opt = optimizers.sgd()
 
-    def _agg(stacked, data_sizes):
-        return _aggregate_clients(aggregator, stacked, data_sizes)
+    def _agg(stacked, data_sizes, round_batches):
+        return _aggregate_round(aggregator, stacked, data_sizes,
+                                model.num_classes, round_batches)
 
     def ce_grads(wc, ws, batch):
         return _grads(lambda a, b: engine.split_ce(model, a, b, batch),
@@ -291,10 +337,10 @@ def make_sfl_round(method: str, model: SplitModel, lr: float,
                                                 state["ws"],
                                                 _slot(round_batches, c))
                                for c in range(C)))
-            new_ws = _agg(_stack(ws_k), data_sizes)
+            new_ws = _agg(_stack(ws_k), data_sizes, round_batches)
             if method == "splitfed_v1":
-                new_wc = stack_client_params(_agg(_stack(wc_k), data_sizes),
-                                             C)
+                new_wc = stack_client_params(
+                    _agg(_stack(wc_k), data_sizes, round_batches), C)
             else:  # v3: personalized client halves
                 new_wc = _stack(wc_k)
             return {"wc": new_wc, "ws": new_ws}
@@ -315,7 +361,8 @@ def make_sfl_round(method: str, model: SplitModel, lr: float,
                     ws, st_s = opt.update(gs, st_s, ws, lr)
                     gcs.append(gc)
                 wc_stack, st_c = opt.update(_stack(gcs), st_c, wc_stack, lr)
-            return {"wc": stack_client_params(_agg(wc_stack, data_sizes), C),
+            return {"wc": stack_client_params(
+                        _agg(wc_stack, data_sizes, round_batches), C),
                     "ws": ws}
         return round_fn
 
@@ -351,9 +398,11 @@ def make_sfl_round(method: str, model: SplitModel, lr: float,
                 one_client(_slot(state["wc"], c), _slot(state["aux"], c),
                            state["ws"], _slot(round_batches, c))
                 for c in range(C))))
-            return {"wc": stack_client_params(_agg(wc_k, data_sizes), C),
-                    "ws": _agg(ws_k, data_sizes),
-                    "aux": stack_client_params(_agg(aux_k, data_sizes), C)}
+            return {"wc": stack_client_params(
+                        _agg(wc_k, data_sizes, round_batches), C),
+                    "ws": _agg(ws_k, data_sizes, round_batches),
+                    "aux": stack_client_params(
+                        _agg(aux_k, data_sizes, round_batches), C)}
         return round_fn
 
     raise ValueError(f"unknown SFL method {method!r}")

@@ -39,9 +39,11 @@ them to it).
 
 Ported: backends ``logits`` and ``lace``, both boundaries, ``precision=
 "f32"`` (the model's own compute dtype), an optional participation
-``mask``, and the synchronous round with an aggregator and the
-``opt_state_policy`` carry / reset / average. ``lace_dp``, the bf16
-policy, sparse slots, faults, guards and server-side FedOpt raise
+``mask``, and the synchronous round with the federation layer: a
+participation scheduler (masked, or gathered into a dense subset axis:
+sparse), any aggregator of :mod:`repro_torch.fed`, the
+``opt_state_policy`` carry / reset / average and server-side FedOpt.
+``lace_dp``, the bf16 policy, faults and guards raise
 ``NotImplementedError`` naming the slice that brings them.
 
 Memory: the client half's graph from stage 2 is kept and pulled back
@@ -56,6 +58,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ScalaConfig
@@ -122,6 +125,12 @@ def _check(backend, boundary, precision, model):
     if backend != "logits" and model.server_trunk is None:
         raise ValueError(f"backend {backend!r} needs model.server_trunk/"
                          "head_weight (fused LACE path)")
+
+
+def at_least_f32(a):
+    """``a`` in float32, as the reference casts, or in float64 when it
+    already is (a float64 check run keeps its precision)."""
+    return a.to(torch.promote_types(a.dtype, torch.float32))
 
 
 def _grad_leaves(tree):
@@ -270,16 +279,23 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
         d_ws = model.head_grad_merge(d_ws, gW_s)
 
     # stage 4b (eq. 9): each client pulls its own G_k back
-    d_wc, start = [], 0
+    # into the stacked (C, ...) grads slot by slot, each client's freed
+    # at once (16 slots of qwen's embedding grad are 10 GB)
+    d_wc = [torch.empty(p.shape, dtype=p.dtype, device=p.device)
+            for p in leaves(params["client"])]
+    start = 0
     for c in range(C):
         n = x_c[c].shape[0]
         g = torch.autograd.grad(x_c[c], client_trees[c],
                                 g_x[start:start + n], allow_unused=True)
-        d_wc.append([torch.zeros_like(p) if gi is None else gi
-                     for p, gi in zip(client_trees[c], g)])
+        for out, gi in zip(d_wc, g):
+            if gi is None:
+                out[c].zero_()
+            else:
+                out[c].copy_(gi)
         start += n
-    d_wc = unflatten(params["client"], [torch.stack(gs)
-                                        for gs in zip(*d_wc)])
+        del g
+    d_wc = unflatten(params["client"], d_wc)
     metrics = {"loss_server": loss_s, "loss_client": loss_k,
                "aux": aux.detach(), **metrics}
     return {"client": d_wc, "server": d_ws}, metrics
@@ -320,11 +336,11 @@ def init_train_state(params, optimizer: optimizers.Optimizer) -> TrainState:
 
 
 def _apply_updates(opt: optimizers.Optimizer, state: TrainState, grads,
-                   lr) -> TrainState:
+                   lr, donate: bool = False) -> TrainState:
     new_s, st_s = opt.update(grads["server"], state.opt_state["server"],
-                             state.params["server"], lr)
+                             state.params["server"], lr, donate=donate)
     new_c, st_c = opt.update(grads["client"], state.opt_state["client"],
-                             state.params["client"], lr)
+                             state.params["client"], lr, donate=donate)
     return TrainState(params={"client": new_c, "server": new_s},
                       opt_state={"client": st_c, "server": st_s},
                       step=state.step + 1)
@@ -335,19 +351,22 @@ def make_split_step(model: SplitModel, scala: ScalaConfig, *,
                     optimizer: Optional[optimizers.Optimizer] = None,
                     schedule: Optional[Callable] = None,
                     ce_chunk: Optional[int] = None, precision: str = "f32"):
-    """The stateful step: (TrainState, batch[, mask]) -> (TrainState,
-    metrics). ``optimizer`` defaults to plain SGD (eqs. 7/9) and
-    ``schedule`` to a constant ``scala.lr``, driven by ``state.step``."""
+    """The stateful step: (TrainState, batch[, mask[, donate]]) ->
+    (TrainState, metrics). ``optimizer`` defaults to plain SGD (eqs. 7/9)
+    and ``schedule`` to a constant ``scala.lr``, driven by ``state.step``.
+    ``donate=True``: the caller never reads ``state`` again, so the
+    update may overwrite it (:class:`repro_torch.optim.Optimizer`)."""
     _check(backend, boundary, precision, model)
     opt = optimizer if optimizer is not None else optimizers.sgd()
     sched = schedule if schedule is not None else schedules.constant(scala.lr)
 
-    def step(state: TrainState, batch, mask=None):
+    def step(state: TrainState, batch, mask=None, donate=False):
         grads, metrics = split_step_grads(model, state.params, batch, scala,
                                           backend=backend, boundary=boundary,
                                           ce_chunk=ce_chunk, mask=mask,
                                           precision=precision)
-        return _apply_updates(opt, state, grads, sched(state.step)), metrics
+        return _apply_updates(opt, state, grads, sched(state.step),
+                              donate), metrics
 
     return step
 
@@ -371,6 +390,54 @@ def _round_boundary_opt_state(opt: optimizers.Optimizer, opt_state,
             "server": opt_state["server"]}
 
 
+def slot_gather_indices(mask, k_active: int):
+    """Participating slot ids, ascending, from a host (C,) 0/1 mask with a
+    static subset size ``k_active`` (the sparse round): the participants
+    first, then, if there are fewer than ``k_active``, the lowest absent
+    slots (they compute with zero aggregation weight), sorted. An int64
+    numpy array."""
+    on = np.asarray(mask) > 0
+    idx = np.concatenate([np.flatnonzero(on), np.flatnonzero(~on)])
+    return np.sort(idx[:k_active])
+
+
+def gather_rows(tree, idx):
+    """Rows ``idx`` (a tensor) of every (C, ...) leaf, packed into a dense
+    leading axis."""
+    return tree_map(lambda a: a.index_select(0, idx), tree)
+
+
+def scatter_rows(full_tree, sub_tree, idx):
+    """The full leaves with rows ``idx`` replaced by the dense results."""
+    return tree_map(lambda f, s: f.index_copy(0, idx, s.to(f.dtype)),
+                    full_tree, sub_tree)
+
+
+def _gather_clients(state: TrainState, idx) -> TrainState:
+    """The participating client slots packed into a dense axis (the
+    server half shared)."""
+    return TrainState(
+        params={"client": gather_rows(state.params["client"], idx),
+                "server": state.params["server"]},
+        opt_state={"client": gather_rows(state.opt_state["client"], idx),
+                   "server": state.opt_state["server"]},
+        step=state.step)
+
+
+def _scatter_clients(state: TrainState, sub: TrainState, idx) -> TrainState:
+    """The dense results written back into the static slots. Absent slots
+    keep their params and their optimizer state untouched (the masked
+    round instead ticks absent slots' moments with zero gradients)."""
+    return TrainState(
+        params={"client": scatter_rows(state.params["client"],
+                                       sub.params["client"], idx),
+                "server": sub.params["server"]},
+        opt_state={"client": scatter_rows(state.opt_state["client"],
+                                          sub.opt_state["client"], idx),
+                   "server": sub.opt_state["server"]},
+        step=sub.step)
+
+
 def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                       backend: str = "lace", boundary: str = "fused",
                       optimizer: Optional[optimizers.Optimizer] = None,
@@ -379,47 +446,126 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                       aggregator=None, participation=None,
                       opt_state_policy: str = "carry",
                       slot_gather: bool = False, server_optimizer=None,
-                      precision: str = "f32", faults=None, guards=None):
+                      server_lr: float = 1.0, precision: str = "f32",
+                      faults=None, guards=None):
     """One synchronous round: T local steps over ``round_batches``
     (leaves (T, C, B_k, ...)), then the FL phase -- the aggregator's
     weights average the client halves, which go back to every slot, and
     ``opt_state_policy`` (carry | reset | average) fixes the client
-    optimizer state.
+    optimizer state; the server half's always carries.
 
-    Returns ``round_fn(state, round_batches, data_sizes=None) ->
-    (TrainState, metrics)``, the metrics of the last step.
+    ``participation``: a :class:`repro_torch.fed.ParticipationScheduler`
+    whose (C,) mask over the static slots is folded into every step, so
+    the priors and logit adjustments are those of the participating
+    subset, and into the aggregation. ``slot_gather=True`` (sparse)
+    gathers the scheduler's ``subset_size`` participating slots into a
+    dense axis before the local steps and scatters them back after, so
+    the round computes only them; it matches the masked round but for
+    the absent slots' optimizer moments, which the masked round ticks
+    with zero gradients and the sparse one leaves untouched.
+
+    ``server_optimizer``: FedOpt on the server half, the round's delta
+    ``w_s_start - w_s_end`` a pseudo-gradient stepped from ``w_s_start``
+    at ``server_lr`` (plain SGD at 1.0 is the round without it).
+
+    Returns ``round_fn(state, round_batches, data_sizes=None,
+    fed_state=None)``: ``(TrainState, metrics)`` without ``fed_state``
+    (a stateless aggregator and scheduler, no server optimizer), else
+    ``(TrainState, fed_state', metrics)`` with the dict of
+    :func:`repro_torch.fed.init_fed_state`; the metrics are the last
+    step's. The mask and the gather indices are drawn on the host at the
+    round's start, so the round adds no device-to-host copy.
     """
     from repro_torch import fed as _fed
 
     if opt_state_policy not in OPT_STATE_POLICIES:
         raise ValueError(f"unknown opt_state_policy {opt_state_policy!r}; "
                          f"expected {OPT_STATE_POLICIES}")
-    for name, value, slice_ in (
-            ("participation", participation, "the federation slice"),
-            ("slot_gather", slot_gather or None, "the sparse/async slice"),
-            ("server_optimizer", server_optimizer, "the federation slice"),
-            ("faults", faults, "the fault-tolerance slice"),
-            ("guards", guards, "the fault-tolerance slice")):
+    if slot_gather:
+        if participation is None:
+            raise ValueError("slot_gather needs a participation scheduler "
+                             "(the static K_active comes from its "
+                             "subset_size)")
+        if participation.subset_size is None:
+            raise ValueError(
+                f"slot_gather needs a scheduler with a static subset_size; "
+                f"{participation.name!r} has none -- without it the gather "
+                "would silently degrade to full-K masked compute")
+    for name, value in (("faults", faults), ("guards", guards)):
         if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet; it comes "
-                                      f"with {slice_}")
+            raise NotImplementedError(f"{name} are not ported yet; they come "
+                                      "with the fault-tolerance slice")
     opt = optimizer if optimizer is not None else optimizers.sgd()
     agg = aggregator if aggregator is not None else _fed.weighted()
+    stateful = _fed.is_stateful(agg, participation)
+    k_active = (participation.subset_size if participation is not None
+                else None)
+    do_gather = slot_gather and k_active < participation.num_clients
     step = make_split_step(model, scala, backend=backend, boundary=boundary,
                            optimizer=opt, schedule=schedule,
                            ce_chunk=ce_chunk, precision=precision)
 
-    def round_fn(state: TrainState, round_batches, data_sizes=None):
+    def round_fn(state: TrainState, round_batches, data_sizes=None,
+                 fed_state=None):
+        if fed_state is None:
+            if stateful:
+                raise ValueError(
+                    f"aggregator {agg.name!r} / participation scheduler are "
+                    "stateful; pass fed_state (repro_torch.fed."
+                    "init_fed_state)")
+            if server_optimizer is not None:
+                raise ValueError(
+                    "server_optimizer needs fed_state -- build it with "
+                    "repro_torch.fed.init_fed_state(..., server_optimizer=, "
+                    "server_params=)")
+            sched_state, agg_state, so_state = (), (), ()
+        else:
+            sched_state, agg_state = fed_state["sched"], fed_state["agg"]
+            so_state = fed_state.get("server_opt", ())
+            if server_optimizer is not None and "server_opt" not in fed_state:
+                raise ValueError(
+                    "server_optimizer needs fed_state['server_opt'] -- build "
+                    "fed_state with repro_torch.fed.init_fed_state(..., "
+                    "server_optimizer=, server_params=)")
+        device = leaves(state.params["client"])[0].device
+        ws_start = state.params["server"]
         T = leaves(round_batches)[0].shape[0]
+        mask = None
+        if participation is not None:
+            mask_np, sched_state = participation.sample(sched_state)
+            mask = torch.tensor(mask_np, dtype=torch.float32, device=device)
+
         metrics = None
-        for t in range(T):
-            state, metrics = step(state, {k: v[t] for k, v in
-                                          round_batches.items()})
+        if do_gather:
+            idx = torch.from_numpy(slot_gather_indices(
+                mask_np, k_active)).to(device)
+            # every gathered slot participates: no mask inside the steps
+            sub = _gather_clients(state, idx)
+            for t in range(T):
+                sub, metrics = step(sub, {k: v[t].index_select(0, idx)
+                                          for k, v in round_batches.items()},
+                                    donate=t > 0)
+            state = _scatter_clients(state, sub, idx)
+        else:
+            # from the second step on the state is the round's own: its
+            # update may overwrite it
+            for t in range(T):
+                state, metrics = step(state, {k: v[t] for k, v in
+                                              round_batches.items()}, mask,
+                                      donate=t > 0)
+
         if aggregate:
             C = leaves(state.params["client"])[0].shape[0]
-            ctx = _fed.AggContext(num_clients=C, data_sizes=data_sizes)
-            w, _ = agg.client_weights(ctx, ())
-            w = w.to(leaves(state.params["client"])[0].device)
+            p_k = p_global = None
+            if agg.needs_priors:
+                p_k, p_global = _fed.aggregation_priors(
+                    model.num_classes, round_batches["labels"],
+                    round_batches.get("weights"), client_axis=1)
+            ctx = _fed.AggContext(num_clients=C, mask=mask,
+                                  data_sizes=data_sizes, p_k=p_k,
+                                  p_global=p_global)
+            w, agg_state = agg.client_weights(ctx, agg_state)
+            w = w.to(device)
             params = {"client": stack_client_params(
                 weighted_mean(state.params["client"], w), C),
                 "server": state.params["server"]}
@@ -427,7 +573,23 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                 opt, state.opt_state, params, w, opt_state_policy)
             state = TrainState(params=params, opt_state=opt_state,
                                step=state.step)
-        return state, metrics
+
+        if server_optimizer is not None:
+            # FedOpt on the server half: the round delta a pseudo-gradient
+            delta = tree_map(lambda a, b: at_least_f32(a) - at_least_f32(b),
+                             ws_start, state.params["server"])
+            new_ws, so_state = server_optimizer.update(delta, so_state,
+                                                       ws_start, server_lr)
+            state = TrainState(params={"client": state.params["client"],
+                                       "server": new_ws},
+                               opt_state=state.opt_state, step=state.step)
+
+        if fed_state is None:
+            return state, metrics
+        out_fed = {"sched": sched_state, "agg": agg_state}
+        if "server_opt" in fed_state:
+            out_fed["server_opt"] = so_state
+        return state, out_fed, metrics
 
     return round_fn
 

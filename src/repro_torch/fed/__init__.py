@@ -1,13 +1,74 @@
-"""The federation layer: client-model aggregation
-(:mod:`repro_torch.fed.aggregators`), composed by
-:func:`repro_torch.core.engine.make_round_runner`. Participation
-schedulers, delays, the async runtime, faults and guards wait for the
-federation slice."""
+"""The federation layer of the synchronous round: client-model aggregation
+(:mod:`repro_torch.fed.aggregators`) and participation scheduling
+(:mod:`repro_torch.fed.participation`), composed by
+:func:`repro_torch.core.engine.make_round_runner`.
+
+The round-level state the runner threads (scheduler state, aggregator
+ages, server-optimizer state) is a plain dict ``{"sched": ..., "agg":
+...[, "server_opt": ...]}`` built by :func:`init_fed_state`. Delays and
+the asynchronous runtime come with the async slice, faults and guards
+with the fault-tolerance slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
 from repro_torch.fed.aggregators import (  # noqa: F401
     AGGREGATORS,
     AggContext,
     Aggregator,
+    aggregation_priors,
+    bias_compensated,
     fedavg,
+    hierarchical,
     make_aggregator,
+    staleness_weighted,
     weighted,
 )
+from repro_torch.fed.participation import (  # noqa: F401
+    SCHEDULERS,
+    ParticipationScheduler,
+    dirichlet,
+    full,
+    make_participation,
+    uniform,
+)
+
+
+def is_stateful(aggregator: Optional[Aggregator],
+                participation: Optional[ParticipationScheduler]) -> bool:
+    """True iff the runner must thread a fed state across rounds."""
+    return ((aggregator is not None and aggregator.stateful)
+            or (participation is not None and participation.stateful))
+
+
+def init_fed_state(seed: int, aggregator: Optional[Aggregator] = None,
+                   participation: Optional[ParticipationScheduler] = None,
+                   num_clients: Optional[int] = None,
+                   server_optimizer=None, server_params=None,
+                   faults=None, guards=None, device="cpu") -> dict:
+    """The federation state threaded through sync rounds: the scheduler's
+    state from ``seed`` (a CPU tensor: masks are drawn on the host), the
+    aggregator's on ``device`` and, with ``server_optimizer``, its state
+    over ``server_params`` (the server half) under ``"server_opt"``."""
+    for name, value in (("faults", faults), ("guards", guards)):
+        if value is not None:
+            raise NotImplementedError(f"{name} are not ported yet; they come "
+                                      "with the fault-tolerance slice")
+    if num_clients is None:
+        if participation is not None:
+            num_clients = participation.num_clients
+        elif aggregator is not None:
+            raise ValueError("init_fed_state needs num_clients when no "
+                             "participation scheduler is given")
+    sched: Any = participation.init(seed) if participation is not None \
+        else ()
+    agg: Any = (aggregator.init(num_clients, device)
+                if aggregator is not None else ())
+    state = {"sched": sched, "agg": agg}
+    if server_optimizer is not None:
+        if server_params is None:
+            raise ValueError("init_fed_state needs server_params when a "
+                             "server_optimizer is given")
+        state["server_opt"] = server_optimizer.init(server_params)
+    return state

@@ -4,19 +4,33 @@
         --clients 16 --participation 0.25 --local-iters 2 --seq 512 \
         --server-batch 16 --docs-per-client 8 --rounds 3
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --clients 16 --participation uniform:0.25 --aggregator \
+        bias_compensated --optimizer momentum --server-batch 16 \
+        [--slot-gather] [--server-optimizer fedadam --server-lr 0.01]
+
 The flags are those of ``repro.launch.train``; argparse fills a
 :class:`repro_torch.api.ExperimentSpec` (the same JSON schema) and
 :class:`repro_torch.api.Trainer` runs it, printing one loss line per
 round in the reference's format. ``--config PATH`` runs a spec JSON --
 ``repro.launch.train --dump-config`` output runs verbatim -- and
-``--dump-config [PATH]`` writes the resolved spec and exits. A bare
-``--participation`` fraction is host-side subset sampling, the one mode
-ported; the flags of unported features (scheduler specs, ``--async``,
-``--slot-gather``, faults, guards, ``--server-optimizer``,
-``--precision bf16``, ``--rounds-per-call`` > 1) fail with the spec's
-NotImplementedError. The port always runs a round as a Python loop of
-steps, so ``--no-scan`` changes nothing and ``--unroll`` / ``--no-donate``
-have nothing to act on.
+``--dump-config [PATH]`` writes the resolved spec and exits.
+
+Participation as in the reference: a bare ``--participation`` fraction
+is host-side subset sampling (``subset``); a scheduler spec (``full`` |
+``uniform:FRAC[:SHARDS]`` | ``dirichlet:FRAC[:ALPHA]``) keeps all K
+client slots and masks the round's subset in the program (``masked``),
+or with ``--slot-gather`` gathers it into a dense axis first
+(``sparse``). eq. 3 then splits ``--server-batch`` over all K slots.
+``--aggregator`` (fedavg | weighted | bias_compensated[:GAMMA] |
+staleness_weighted[:DECAY] | hierarchical:EDGES[:EDGE[:TOP]]),
+``--opt-state-policy`` and ``--server-optimizer`` / ``--server-lr``
+(FedOpt on the server half) act as there. The flags of unported
+features (``--async``, faults, guards, ``--precision bf16``,
+``--rounds-per-call`` > 1) fail with the spec's NotImplementedError.
+The port always runs a round as a Python loop of steps, so ``--no-scan``
+changes nothing and ``--unroll`` / ``--no-donate`` have nothing to act
+on.
 
 Added here: ``--device`` (``cuda`` unless given; no CPU fallback) and
 ``--init-params PATH``, a ``repro.checkpoint`` params file (client half
@@ -114,16 +128,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--clients", type=int, default=16)
     ap.add_argument("--participation", default="0.25",
-                    help="bare fraction (host-side subset sampling) or a "
-                         "scheduler spec (not ported yet)")
+                    help="bare fraction (host-side subset sampling) or "
+                         "scheduler spec: full | uniform:FRAC[:SHARDS] | "
+                         "dirichlet:FRAC[:ALPHA] (in-program masking)")
     ap.add_argument("--aggregator", default="weighted",
-                    help="FL-phase weighting: fedavg | weighted")
+                    help="FL-phase weighting: fedavg | weighted | "
+                         "bias_compensated[:GAMMA] | "
+                         "staleness_weighted[:DECAY] | "
+                         "hierarchical:EDGES[:EDGE[:TOP]]")
     ap.add_argument("--opt-state-policy", default="carry",
-                    choices=engine.OPT_STATE_POLICIES)
-    ap.add_argument("--slot-gather", action="store_true")
+                    choices=engine.OPT_STATE_POLICIES,
+                    help="client optimizer state at the round boundary")
+    ap.add_argument("--slot-gather", action="store_true",
+                    help="sparse slots: gather the scheduler's subset into "
+                         "a dense axis before the local steps (needs a "
+                         "scheduler spec --participation)")
     ap.add_argument("--server-optimizer", default="none",
                     choices=("none", "sgd", "momentum", "adamw", "fedavgm",
-                             "fedadam"))
+                             "fedadam"),
+                    help="FedOpt on the server half's round delta")
     ap.add_argument("--server-lr", type=float, default=1.0)
     ap.add_argument("--async", dest="async_mode", action="store_true")
     ap.add_argument("--delay-spec", default="lognormal:1:1")
@@ -216,10 +239,11 @@ def main(argv=None):
                    for a in leaves(trainer.state.inner.params["server"]))
     print(f"server params: {n_params/1e6:.1f}M, "
           f"mode: {meta['mode']} (slots: {meta['slots']}), "
-          f"participation: {spec.scala.participation}, "
+          f"participation: "
+          f"{spec.fed.participation or spec.scala.participation}, "
           f"aggregator: {spec.fed.aggregator}, "
           f"opt-state: {spec.fed.opt_state_policy}, "
-          f"optimizer: {spec.optim.name}, schedule: {spec.optim.schedule}, "
+          f"optimizer: {spec.optim.spec}, schedule: {spec.optim.schedule}, "
           f"device: {meta['device']}")
 
     start = 0

@@ -17,13 +17,20 @@ from typing import Any, Callable, Tuple
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 @dataclass(frozen=True)
 class Optimizer:
+    """``update(grads, state, params, lr, donate=False) -> (new_params,
+    new_state)``. ``donate=True``: the caller gives up ``params`` and
+    ``state`` (it never reads them again), so SGD and momentum write the
+    new values into their dense tensors, in every bit what they would
+    return otherwise; a stacked client half of qwen1.5-0.5b over 16 slots
+    is ~11.7 GB a copy, and a functional update holds two copies more."""
+
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, float], Tuple[Any, Any]]
+    update: Callable[..., Tuple[Any, Any]]
 
 
 def _zeros(p):
@@ -36,16 +43,41 @@ def _math(a):
     return a.to(torch.promote_types(a.dtype, torch.float32))
 
 
+def _slices(a, n: int = 1 << 26):
+    """``a`` split along its first axis into views of at most ~n entries."""
+    if a.dim() == 0 or a.numel() <= n:
+        return (a,)
+    return a.split(max(1, n // max(1, a[0].numel())))
+
+
+def _owned(a, donate: bool) -> bool:
+    """Whether ``a`` may be overwritten: donated and dense (a broadcast
+    client half, stride 0 over its slots, is shared by every slot)."""
+    return donate and a.is_contiguous()
+
+
+def _descend(p, d, lr, donate=False):
+    """``p - lr * d`` in ``d``'s dtype, cast back to p's, as ``(-lr) * d +
+    p``: the same in every bit (IEEE negation is exact) with no temporary
+    the size of p. A donated dense p of d's dtype takes the result in
+    place, slice by slice."""
+    if _owned(p, donate) and p.dtype == d.dtype:
+        for ps, ds in zip(_slices(p), _slices(d)):
+            ps.add_(torch.mul(ds, -lr))
+        return p
+    return torch.mul(d, -lr).add_(_math(p)).to(p.dtype)
+
+
 def sgd(weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         return ()
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, donate=False):
         def step(p, g):
             g = _math(g)
             if weight_decay:
                 g = g + weight_decay * _math(p)
-            return (_math(p) - lr * g).to(p.dtype)
+            return _descend(p, g, lr, donate)
         return tree_map(step, params, grads), state
 
     return Optimizer(init, update)
@@ -56,26 +88,23 @@ def momentum(beta: float = 0.9, weight_decay: float = 0.0,
     def init(params):
         return tree_map(_zeros, params)
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, donate=False):
         def step(p, g, m):
             g = g.float()
             if weight_decay:
                 g = g + weight_decay * p.float()
-            m_new = beta * m + g
+            # beta * m + g
+            m_new = (m.mul_(beta) if _owned(m, donate)
+                     else torch.mul(m, beta)).add_(g)
             d = g + beta * m_new if nesterov else m_new
-            return (p.float() - lr * d).to(p.dtype), m_new
+            return _descend(p, d, lr, donate), m_new
 
-        both = tree_map(step, params, grads, state)
-        return _split(both, 0), _split(both, 1)
+        both = [step(p, g, m) for p, g, m in zip(
+            leaves(params), leaves(grads), leaves(state))]
+        return (unflatten(params, [b[0] for b in both]),
+                unflatten(state, [b[1] for b in both]))
 
     return Optimizer(init, update)
-
-
-def _split(tree, i):
-    """Component ``i`` of a tree whose leaves are (param, state) pairs."""
-    if isinstance(tree, dict):
-        return {k: _split(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -85,7 +114,8 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return {"mu": tree_map(_zeros, params), "nu": tree_map(_zeros, params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, donate=False):
+        # out of place whatever ``donate`` says
         count = state["count"] + 1
         c1 = 1 - b1 ** count.float()
         c2 = 1 - b2 ** count.float()

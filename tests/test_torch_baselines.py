@@ -247,11 +247,10 @@ def test_validate_rejects_incoherent_baselines():
                         mode="subset",
                         server_optimizer=api.OptimSpec(
                             name="adamw", lr=0.01))).validate()
-    # FedOpt over an FL baseline is the federation slice's, not refused
-    with pytest.raises(NotImplementedError, match="federation slice"):
-        _image_spec(method="fedavg", execution=api.ExecutionSpec(
-            mode="subset", server_optimizer=api.OptimSpec(
-                name="momentum", lr=0.9))).validate()
+    # FedOpt over an FL baseline (FedAvgM) validates, as in the reference
+    assert _image_spec(method="fedavg", execution=api.ExecutionSpec(
+        mode="subset", server_optimizer=api.OptimSpec(
+            name="momentum", lr=0.9))).validate().method == "fedavg"
     for m in B.FL_METHODS + B.SFL_METHODS:
         assert _image_spec(method=m).validate().method == m
 

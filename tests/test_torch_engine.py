@@ -247,10 +247,16 @@ def test_split_helpers_and_aggregators(sizes, mask):
 
 
 def test_unported_aggregators_raise():
-    with pytest.raises(NotImplementedError, match="bias_compensated"):
-        tfed.make_aggregator("bias_compensated:2")
+    # every aggregator of the reference is ported now; an unknown or
+    # malformed spec raises as there
+    for spec in ("bias_compensated:2", "staleness_weighted:0.3",
+                 "hierarchical:2:fedavg"):
+        assert tfed.make_aggregator(spec).name == jfed.make_aggregator(
+            spec).name
     with pytest.raises(ValueError, match="unknown aggregator"):
         tfed.make_aggregator("nope")
+    with pytest.raises(ValueError, match="hierarchical spec"):
+        tfed.make_aggregator("hierarchical")
 
 
 @pytest.mark.parametrize("name", ["sgd", "momentum", "adamw"])

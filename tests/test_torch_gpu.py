@@ -6,6 +6,9 @@ without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -859,6 +862,79 @@ def test_resume_on_card_is_bitwise(method, tmp_path):
     assert got.keys() == want.keys()
     assert all(bool(torch.isfinite(a).all()) for a in want.values()
                if isinstance(a, torch.Tensor) and a.is_floating_point())
+    for key, a in want.items():
+        if isinstance(a, torch.Tensor):
+            assert got[key].device == a.device and torch.equal(got[key], a), \
+                key
+        else:
+            assert got[key] == a, key
+    assert resumed.history == straight.history
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo's root as a module: its federation
+    checks, run here at a reduced size, in the smoke run at full width."""
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_masked_round_on_card_matches_cpu():
+    """chip_smoke's fed-check (c), masked, on reduced qwen1.5-0.5b: one
+    masked round (injected mask, bias_compensated, momentum, server adamw
+    at eps 1e-3) on the card (K1, K2, K3, their launches checked) and on
+    the CPU; losses within 1e-4 relative, every param (the server half
+    also before its FedOpt step) within 3 ulps plus 1e-3 of its leaf's
+    largest update, every other float leaf within 1e-3 of its largest
+    entry, and on each device the server optimizer's state and server
+    half bit for bit Adam's first step on that device's own delta."""
+    _needs_card()
+    _chip_smoke().fed_check_masked("cuda", reduced=True, S=32)
+
+
+@pytest.mark.gpu
+def test_sparse_round_on_card_matches_masked():
+    """chip_smoke's fed-check (c), sparse, on reduced qwen1.5-0.5b: sparse
+    == masked on the card (SGD, the same mask), losses within 1e-5
+    relative, params within 1e-4 of the leaf's largest entry."""
+    _needs_card()
+    _chip_smoke().fed_check_sparse("cuda", reduced=True, S=32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["masked", "sparse"])
+def test_fed_resume_on_card_is_bitwise(mode, tmp_path):
+    """Trainer.save -> resume on the card with federation state (the
+    scheduler's, staleness ages, server adamw moments): 2 rounds, save, 1
+    more == 3 rounds, every leaf and the history."""
+    _needs_card()
+    from repro_torch import api
+    from repro_torch.configs import ScalaConfig
+
+    spec = api.ExperimentSpec(
+        arch="qwen1.5-0.5b", reduced=True, rounds=3, seed=1,
+        scala=ScalaConfig(num_clients=8, local_iters=2, server_batch=8,
+                          lr=0.05),
+        optim=api.OptimSpec(name="momentum"),
+        fed=api.FedSpec(participation="uniform:0.25",
+                        aggregator="staleness_weighted"),
+        execution=api.ExecutionSpec(mode=mode, backend="lace",
+                                    server_optimizer=api.OptimSpec.parse(
+                                        "fedadam:0.001")),
+        data=api.DataSpec(kind="lm_synthetic", seq=64, docs_per_client=4))
+    straight = api.Trainer(spec, device="cuda")
+    straight.run(3)
+    first = api.Trainer(spec, device="cuda")
+    first.run(2)
+    first.save(str(tmp_path))
+    resumed = api.Trainer(spec, device="cuda")
+    assert resumed.resume(str(tmp_path)) == 2
+    resumed.run(1)
+    got, want = _flat(resumed.state), _flat(straight.state)
+    assert got.keys() == want.keys()
     for key, a in want.items():
         if isinstance(a, torch.Tensor):
             assert got[key].device == a.device and torch.equal(got[key], a), \

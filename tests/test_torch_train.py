@@ -169,10 +169,13 @@ ALEXNET = dict(arch="alexnet-cifar", reduced=False,
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(execution=dict(mode="masked")), NotImplementedError,
-     "execution mode 'masked'"),
-    (dict(execution=dict(mode="sparse")), NotImplementedError,
-     "execution mode 'sparse'"),
+    # the in-program modes are ported (the ids are kept from before, when
+    # they refused): masked runs all K slots, sparse needs a scheduler
+    pytest.param(dict(execution=dict(mode="masked")), None, None,
+                 id="change0-NotImplementedError-execution mode 'masked'"),
+    pytest.param(dict(execution=dict(mode="sparse")), ValueError,
+                 "needs a participation spec",
+                 id="change1-NotImplementedError-execution mode 'sparse'"),
     (dict(execution=dict(mode="async")), NotImplementedError,
      "execution mode 'async'"),
     (dict(execution=dict(backend="lace_dp")), NotImplementedError, "lace_dp"),
@@ -188,13 +191,18 @@ ALEXNET = dict(arch="alexnet-cifar", reduced=False,
      "precision 'bf16'"),
     (dict(execution=dict(rounds_per_call=2)), NotImplementedError,
      "rounds_per_call"),
-    (dict(execution=dict(server_optimizer=api.OptimSpec(name="sgd"))),
-     NotImplementedError, "server_optimizer"),
+    # server FedOpt is ported; it needs its lr, as the reference's round
+    # (the id kept from before, when it refused)
+    pytest.param(dict(execution=dict(server_optimizer=api.OptimSpec(
+        name="sgd"))), ValueError, "server_optimizer needs its lr",
+        id="change8-NotImplementedError-server_optimizer"),
     (dict(fed=dict(faults="drop:0.1")), NotImplementedError, "faults/guards"),
     (dict(fed=dict(guards="nonfinite")), NotImplementedError,
      "faults/guards"),
-    (dict(fed=dict(aggregator="bias_compensated")), NotImplementedError,
-     "bias_compensated"),
+    # bias_compensated is ported and validates (the id kept from before,
+    # when it refused)
+    pytest.param(dict(fed=dict(aggregator="bias_compensated")), None, None,
+                 id="change11-NotImplementedError-bias_compensated"),
     # ... and the reference refuses them on a text arch
     pytest.param(dict(top=dict(method="fedavg")), ValueError,
                  "needs the CNN", id="change12-NotImplementedError-baseline"),
