@@ -96,7 +96,25 @@ Phases, one or more lines each:
    momentum, server adamw) on the card against the CPU, then sparse
    against masked on the card (SGD); (d) resume with federation state,
    bitwise: (b)'s run, and masked AlexNet width 1.0 with
-   staleness_weighted.
+   staleness_weighted;
+14. async: the asynchronous event runtime on full-width qwen1.5-0.5b
+   through the training CLI's spec and Trainer -- (a) async-dense, the
+   reference driver's async example (16 clients, ``--async --cohort 4
+   --delay-spec lognormal:1:1.5 --staleness-decay 0.5``) with momentum
+   carried per slot and a deadline of 2.0, the 4 arrivals' 4 documents
+   each a step, 4 events; (b) async-delta, the same with delta snapshots
+   in a ring of 8, the moments paged to the host, the top-k pop and the
+   lr scaled by cohort / K, no deadline -- each with phase 6's launch
+   check against the cohort's slots, finite losses, event seconds,
+   arrival tokens/s, staleness, deadline misses, peak memory, the state's
+   resident bytes (and the pager's host bytes and page seconds; its
+   ``save`` must refuse) and a profiled event; (c) async-check: f32 full
+   width, 4 slots, cohort 2 -- three events with recorded delays and a
+   deadline, card against CPU under fed-check's rule, the host schedule
+   equal; zero delays with cohort = K against the sync round on the card
+   (atol = rtol = 1e-6); delta against dense snapshots on the card over
+   six events, bitwise; (d) resume: (a)'s run saved after event 2 and
+   resumed, events 3-4 bitwise against the uninterrupted run.
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -108,7 +126,8 @@ attention kernels of phase 3 (K3 forward and backward), then stops;
 K4, K5); ``python3 chip_smoke.py mlstm`` the same for K6, then
 check-xlstm (5c).
 ``python3 chip_smoke.py baselines`` runs phases 1, 2, 11 and 12;
-``python3 chip_smoke.py fed`` phases 1, 2 and 13.
+``python3 chip_smoke.py fed`` phases 1, 2 and 13; ``python3
+chip_smoke.py async`` phases 1, 2 and 14.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -1407,7 +1426,10 @@ def phase_lace1():
 
 def participants(spec):
     """The client slots that take part in a round: the scheduler's subset
-    size, or every stacked slot without a scheduler (subset mode)."""
+    size, an async event's cohort, or every stacked slot without a
+    scheduler (subset mode)."""
+    if spec.execution.mode == "async":
+        return spec.execution.resolve_cohort(spec.slots)
     if spec.fed.participation is None:
         return spec.slots
     return spec.fed.make_participation(spec.slots).subset_size
@@ -1415,8 +1437,9 @@ def participants(spec):
 
 def compute_slots(spec):
     """The client slots a local step computes: every stacked slot (subset,
-    masked), or the scheduler's gathered subset (sparse)."""
-    if spec.execution.mode == "sparse":
+    masked), or the gathered subset (sparse) or arrival cohort (async;
+    a deadline masks late arrivals out but still computes them)."""
+    if spec.execution.mode in ("sparse", "async"):
         return participants(spec)
     return spec.slots
 
@@ -1477,13 +1500,14 @@ def zero_counts():
 
 
 def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
-                phase="train"):
+                phase="train", on_done=None):
     """Full-width training through the CLI's spec and the Trainer: the
-    kernels' launches per round against :func:`train_launches`, finite
-    losses, round seconds (rounds 2 on; round 1 includes warm-up),
-    tokens/s, peak memory, and a profiled extra round. Every launch count
-    is set to 0 at the start; returns the counts of the measured rounds
-    (the profiled round not included)."""
+    kernels' launches per round (an async event) against
+    :func:`train_launches`, finite losses, round seconds (rounds 2 on;
+    round 1 includes warm-up), tokens/s, peak memory, and a profiled extra
+    round. Every launch count is set to 0 at the start; returns the
+    counts of the measured rounds (the profiled round not included).
+    ``on_done(trainer)`` runs after the measured rounds."""
     from repro_torch import api
     from repro_torch.launch import train
 
@@ -1524,8 +1548,16 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
             want = {k: T * n for k, n in per_step.items()}
             check(got == want, f"round {r} launches {got} != {want} "
                   f"({T} steps x {per_step})")
+        extra = ""
+        if "t_event" in m:
+            extra = (f" t={m['t_event']:.3f} staleness_mean="
+                     f"{m['staleness_mean']:.3f} server_version="
+                     f"{m['server_version']:.0f}" + (
+                         f" deadline_missed={m['deadline_missed']:.0f}"
+                         if "deadline_missed" in m else ""))
         say(phase, f"round {r} loss_s={m['loss_server']:.4f} "
-            f"loss_c={m['loss_client']:.4f} in {secs[-1]:.3f} s; launches "
+            f"loss_c={m['loss_client']:.4f}{extra} in {secs[-1]:.3f} s; "
+            f"launches "
             f"K3 fwd {got['flash_fwd']} bwd {got['flash_bwd']}, K1 "
             f"{got['lace_fwd']}, K2 {got['lace_bwd']}, K4 "
             f"{got['lace1_fwd']}, K5 {got['lace1_bwd']}")
@@ -1541,6 +1573,8 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
         f"({tokens} participating tokens a round); "
         f"round 0 {secs[0]:.3f} s; peak {peak / 2**20:.0f} MiB allocated; "
         f"per step: {per_step}")
+    if on_done is not None:
+        on_done(trainer)
     if profile_round and torch.device(device).type == "cuda":
         profile(f"training round ({spec.execution.boundary} boundary)",
                 trainer.step, 8, watch=[
@@ -2058,6 +2092,10 @@ def states_equal(a, b, what):
             check(x.dtype == y.dtype and x.shape == y.shape
                   and torch.equal(bits(x), bits(y.to(x.device))),
                   f"{what}: leaf {key} differs")
+        elif isinstance(x, (np.ndarray, np.generic)):
+            # the async runtime's host schedule
+            check(type(x) is type(y) and x.dtype == y.dtype
+                  and np.array_equal(x, y), f"{what}: leaf {key} differs")
         else:
             check(x == y, f"{what}: leaf {key} {x} != {y}")
     return len(a)
@@ -2268,7 +2306,8 @@ def fed_round_gap(got, want, start):
         a = got[key]
         if not isinstance(b, torch.Tensor) or not b.is_floating_point():
             check(torch.equal(a, b) if isinstance(b, torch.Tensor)
-                  else a == b, f"fed-check leaf {key}: {a} vs {b}")
+                  else np.array_equal(a, b),
+                  f"fed-check leaf {key}: {a} vs {b}")
             continue
         if key.startswith("fed/server_opt/"):
             continue
@@ -2433,6 +2472,281 @@ def phase_fed(device="cuda"):
     return {k: masked[k] + sparse[k] for k in masked}
 
 
+def async_report(phase):
+    """``on_done`` of an async cell: its events' staleness and deadline
+    misses from the history, the state's resident bytes, and the host
+    pager's bytes and page-in / page-out seconds (a paged run's
+    ``Trainer.save`` must refuse)."""
+    def report(trainer):
+        import tempfile
+
+        from repro_torch import fed
+
+        h = trainer.history
+        stale = [m["staleness_mean"] for m in h]
+        missed = sum(m.get("deadline_missed", 0.0) for m in h)
+        b = fed.async_state_bytes(trainer.state.fed)
+        say(phase, f"{len(h)} events: staleness_mean per event {stale}, "
+            f"deadline misses {missed:.0f}, clock {h[-1]['t_event']:.3f}; "
+            f"async_state_bytes: snapshots {b['snapshot_bytes']} "
+            f"({b['snapshot_bytes'] / 2**30:.3f} GiB), per-client scalars "
+            f"{b['per_client_scalar_bytes']}, other {b['other_bytes']}")
+        pager = trainer.program.metadata.get("pager")
+        if pager is not None:
+            n = len(h)
+            say(phase, f"host pager: {pager.nbytes()} bytes "
+                f"({pager.nbytes() / 2**30:.3f} GiB) on the host; page-in "
+                f"{pager.seconds['page_in']:.3f} s, page-out "
+                f"{pager.seconds['page_out']:.3f} s over {n} events "
+                f"({pager.seconds['page_in'] / n:.3f} / "
+                f"{pager.seconds['page_out'] / n:.3f} s an event)")
+            try:
+                trainer.save(os.path.join(tempfile.gettempdir(),
+                                          "paged-save"))
+            except ValueError as e:
+                say(phase, f"save refused, as it must: {e}")
+            else:
+                check(False, f"{phase}: save of a host-paged run did not "
+                      "raise")
+    return report
+
+
+def async_events(model, params, batches, sizes, dev, events, opt, delays,
+                 cohort, every=False, **kw):
+    """``events`` async events on ``dev`` from ``params`` (each event's
+    batches the same): (the final state and async state's leaves on the
+    host, the metrics of each event, seconds, launches; with ``every``
+    also the leaves after each event)."""
+    from repro_torch import fed
+    from repro_torch.configs import ScalaConfig
+    from repro_torch.core import engine
+    from repro_torch.tree import leaves, tree_map
+
+    C = len(sizes)
+    delta = kw.get("snapshots") == "delta"
+    event = fed.make_async_runner(model, ScalaConfig(num_clients=C,
+                                                     lr=0.01),
+                                  backend="lace", optimizer=opt,
+                                  delays=delays, cohort=cohort,
+                                  num_clients=C, **kw)
+    p = tree_map(lambda a: a.to(dev), params)
+    if delta:
+        p = dict(p, client=tree_map(lambda a: a[:1], p["client"]))
+    state = engine.init_train_state(p, opt)
+    afed = fed.init_async_state(7, p["client"], delays, num_clients=C,
+                                snapshots=kw.get("snapshots", "dense"),
+                                ring_size=kw.get("ring_size", 64))
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches.items()}
+    sz = torch.from_numpy(sizes).to(dev)
+
+    def host():
+        return {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                for k, v in state_leaves({"state": state,
+                                          "fed": afed}).items()}
+
+    zero_counts()
+    t0 = time.perf_counter()
+    mets, per_event = [], []
+    for _ in range(events):
+        state, afed, m = event(state, afed, b, sz)
+        mets.append({k: (float(v) if np.ndim(v) == 0 else v)
+                     for k, v in m.items()})
+        if every:
+            per_event.append((tree_map(lambda a: a[0].cpu(),
+                                       state.params["client"]),
+                              [a.cpu() for a in
+                               leaves(state.params["server"])]))
+    sync(dev)
+    secs = time.perf_counter() - t0
+    return host(), mets, secs, read_counts(), per_event
+
+
+# (c) async-check: f32 full width, 4 slots, cohort 2, T = 2, S = 64.
+# Recorded delays with a deadline of 1.0: the first event's second arrival
+# (finish 2.5) misses its cut (0.5 + 1.0), backs off (retries 1, its delay
+# x 2) and keeps its snapshot; draw v is the event that makes version v.
+ASYNC_CHECK_DELAYS = ([0.5, 2.5, 3.0, 4.0], [1.0, 1.0], [0.5, 2.0],
+                      [1.0, 1.0])
+ASYNC_CHECK_DEADLINE = 1.0
+
+
+def phase_async_check(device="cuda", reduced=False, C=4, S=64, T=2,
+                      cohort=2):
+    """(c): three events with recorded delays and a deadline on
+    ``device`` (K1, K2, K3) against the CPU (the plain versions) under
+    fed-check's rule; zero delays with cohort = K against the sync round
+    on ``device`` (the reference's tolerance, atol = rtol = 1e-6); delta
+    against dense snapshots on ``device`` over six events, bitwise."""
+    from repro_torch import fed
+    from repro_torch.configs import ScalaConfig
+    from repro_torch.core import engine
+    from repro_torch.optim import optimizers
+    from repro_torch.tree import leaves, tree_map
+
+    cfg, model, params, batches, sizes, _ = fed_check_inputs(
+        device, reduced, C, S, T)
+    say("async-check", f"{cfg.name} float32, {C} slots, cohort {cohort}, "
+        f"{T} steps of 1 x {S} tokens a slot")
+    rec = fed.delays.recorded(ASYNC_CHECK_DELAYS)
+    res = {}
+    for dev in (device, "cpu"):
+        res[dev] = async_events(model, params, batches, sizes, dev, 3,
+                                optimizers.momentum(0.9), rec, cohort,
+                                deadline=ASYNC_CHECK_DEADLINE, mix_rate=0.8)
+        n = res[dev][3]
+        say("async-check", f"3 events on {dev}: {res[dev][2]:.2f} s, "
+            f"launches K3 fwd {n['flash_fwd']} bwd {n['flash_bwd']}, K1 "
+            f"{n['lace_fwd']}, K2 {n['lace_bwd']}; deadline misses "
+            f"{[m['deadline_missed'] for m in res[dev][1]]}, clock "
+            f"{[round(m['t_event'], 3) for m in res[dev][1]]}")
+    if torch.device(device).type == "cuda":
+        want = {k: 3 * T * v for k, v in slot_launches(cohort, cfg).items()}
+        got = {k: res[device][3][k] for k in want}
+        check(got == want, f"async-check launches {got} != {want}")
+    (got, m_dev), (want, m_cpu) = res[device][:2], res["cpu"][:2]
+    check(sum(m["deadline_missed"] for m in m_cpu) > 0,
+          "async-check: the recorded delays made no deadline miss")
+    for e, (a, b) in enumerate(zip(m_dev, m_cpu)):
+        for k in ("loss_server", "loss_client"):
+            check(abs(a[k] - b[k]) <= LOSS_RTOL * abs(b[k]),
+                  f"async-check event {e} {k} {a[k]} vs cpu {b[k]}")
+    start = {k: v.cpu() for k, v in
+             state_leaves({"state": {".params": params}}).items()}
+    worst = fed_round_gap(got, want, start)
+    check(max(w for w, _ in worst.values()) <= LEAF_RTOL,
+          f"async-check leaves {worst} > {LEAF_RTOL}")
+    say("async-check", f"3 events, {device} vs cpu: losses within "
+        f"{LOSS_RTOL} relative; the host schedule (versions, finish times, "
+        f"retries, clock) equal; {len(want)} leaves: params worst "
+        f"{worst['params'][0]:.3g} of the leaf's largest update beyond 3 "
+        f"ulps ({worst['params'][1]}), snapshots and moments worst "
+        f"{worst['moments'][0]:.3g} of the largest entry "
+        f"({worst['moments'][1]}) (tol {LEAF_RTOL})")
+    del res, got, want
+
+    # zero delays, cohort = K: every slot arrives at every event, at
+    # staleness 0 -- the synchronous round
+    opt = optimizers.momentum(0.9)
+    p = tree_map(lambda a: a.to(device), params)
+    b = {k: torch.from_numpy(v).to(device) for k, v in batches.items()}
+    sz = torch.from_numpy(sizes).to(device)
+    sync_fn = engine.make_round_runner(model, ScalaConfig(num_clients=C,
+                                                          lr=0.01),
+                                       optimizer=opt)
+    s_sync = engine.init_train_state(p, opt)
+    zero = fed.delays.constant(0.0)
+    event = fed.make_async_runner(model, ScalaConfig(num_clients=C,
+                                                     lr=0.01),
+                                  backend="lace", optimizer=opt,
+                                  delays=zero, cohort=C)
+    s_async = engine.init_train_state(p, opt)
+    afed = fed.init_async_state(0, p["client"], zero)
+    gap, lgap = 0.0, 0.0
+    for _ in range(2):
+        s_sync, m_sync = sync_fn(s_sync, b, sz)
+        s_async, afed, m_async = event(s_async, afed, b, sz)
+        for k in ("loss_server", "loss_client"):
+            x, y = float(m_async[k]), float(m_sync[k])
+            lgap = max(lgap, abs(x - y) / abs(y))
+            check(abs(x - y) <= 1e-6 * abs(y), f"async-check zero delay "
+                  f"{k} {x} vs sync {y}")
+    for tree in ("params", "opt_state"):
+        for x, y in zip(leaves(getattr(s_async, tree)),
+                        leaves(getattr(s_sync, tree))):
+            ok = bool(((x - y).abs() <= 1e-6 + 1e-6 * y.abs()).all())
+            gap = max(gap, (x - y).abs().max().item())
+            check(ok, f"async-check zero delay {tree} beyond atol = rtol "
+                  "= 1e-6 of the sync round")
+    check(bool((afed.version == 2).all()) and afed.server_version == 2,
+          f"async-check zero delay versions {afed.version}")
+    say("async-check", f"zero delays, cohort {C} = K, 2 events == 2 sync "
+        f"rounds on {device} (momentum): params and moments within atol = "
+        f"rtol = 1e-6 (largest difference {gap:.3g}), losses {lgap:.3g} "
+        "relative")
+    del s_sync, s_async, afed, p
+
+    # delta snapshots against dense, staleness below the ring: bitwise
+    dm = fed.make_delays("lognormal:1:1")
+    runs = {}
+    for snaps in ("dense", "delta"):
+        runs[snaps] = async_events(model, params, batches, sizes, device, 6,
+                                   optimizers.sgd(), dm, cohort, every=True,
+                                   snapshots=snaps, ring_size=8)
+    stale = max(max(m["staleness"]) for m in runs["dense"][1])
+    check(stale < 8, f"async-check delta: staleness {stale} reached the "
+          "ring")
+    for e, ((ca, sa), (cb, sb)) in enumerate(zip(runs["dense"][4],
+                                                 runs["delta"][4])):
+        for x, y in zip(leaves(ca) + sa, leaves(cb) + sb):
+            check(torch.equal(bits(x), bits(y)),
+                  f"async-check delta != dense after event {e}")
+    for key in ("loss_server", "loss_client", "t_event"):
+        check([m[key] for m in runs["dense"][1]]
+              == [m[key] for m in runs["delta"][1]],
+              f"async-check delta != dense {key}")
+    for key in ("fed/.version", "fed/.finish_time"):
+        check(np.array_equal(runs["dense"][0][key], runs["delta"][0][key]),
+              f"async-check delta != dense {key}")
+    say("async-check", f"delta (ring 8) == dense snapshots on {device} "
+        f"over 6 events (SGD, lognormal:1:1, largest staleness {stale:.0f}):"
+        " the global client half and the server half after every event, "
+        "losses, versions and finish times bitwise")
+
+
+# (a) async-dense: the reference driver's async example
+# (repro/launch/train.py:66-68) at full width -- 16 clients, cohort 4,
+# lognormal:1:1.5 delays, staleness decay 0.5 -- with momentum carried per
+# slot and a deadline of 2.0; the 4 arrivals' 4 documents each a step
+# (16 x 512 tokens at the boundary, phase 6's shape), 4 events. (b)
+# async-delta: the same with delta snapshots in a ring of 8, the moments
+# paged to the host, the top-k pop and the lr scaled by cohort / K, no
+# deadline (the reference refuses one with paging).
+ASYNC_DENSE_FLAGS = ["--arch", ARCH, "--clients", "16", "--async",
+                     "--cohort", "4", "--delay-spec", "lognormal:1:1.5",
+                     "--staleness-decay", "0.5", "--optimizer", "momentum",
+                     "--local-iters", "2", "--seq", "512", "--server-batch",
+                     "64", "--docs-per-client", "8", "--rounds", "4",
+                     "--seed", "0"]
+ASYNC_DELTA_FLAGS = ASYNC_DENSE_FLAGS + [
+    "--snapshots", "delta", "--ring-size", "8", "--opt-paging", "host",
+    "--arrival", "topk", "--lr-scale", "cohort"]
+ASYNC_DENSE_FLAGS = ASYNC_DENSE_FLAGS + ["--deadline", "2.0"]
+
+
+def phase_async_resume(device="cuda", flags=ASYNC_DENSE_FLAGS):
+    """(d): (a)'s run saved after event 2, resumed, and events 3-4 held
+    bitwise against the uninterrupted run: every leaf (the snapshots, the
+    moment stack, the host schedule) and the history."""
+    from repro_torch import api
+    from repro_torch.launch import train
+
+    spec = train.spec_from_args(train.build_parser().parse_args(flags))
+    zero_counts()
+    resume_check(f"{spec.arch} {'reduced' if spec.reduced else 'full'} "
+                 f"width, async {spec.execution.snapshots}, cohort "
+                 f"{spec.execution.cohort}/{spec.slots}, deadline "
+                 f"{spec.execution.deadline}",
+                 lambda: api.Trainer(spec, device=device), 2, 2, device)
+    n = read_counts()
+    if torch.device(device).type == "cuda":
+        check(all(n[k] > 0 for k in ("flash_fwd", "flash_bwd", "lace_fwd",
+                                     "lace_bwd")),
+              f"async-resume: the events launched {n}")
+
+
+def phase_async(device="cuda"):
+    """(a) async-dense, (b) async-delta through :func:`phase_train`; (c)
+    async-check; (d) resume. Returns the launch counts of (a) and (b)
+    together."""
+    dense = phase_train(device, ASYNC_DENSE_FLAGS, phase="async-dense",
+                        on_done=async_report("async-dense"))
+    delta = phase_train(device, ASYNC_DELTA_FLAGS, phase="async-delta",
+                        on_done=async_report("async-delta"))
+    phase_async_check(device)
+    phase_async_resume(device)
+    return {k: dense[k] + delta[k] for k in dense}
+
+
 def run_phase(label, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, then its wall seconds on a line of its own
     (what each phase adds to the run's time limit)."""
@@ -2472,6 +2786,9 @@ def main() -> int:
     if sys.argv[1:] == ["fed"]:
         run_phase("fed", phase_fed)
         return 0
+    if sys.argv[1:] == ["async"]:
+        run_phase("async", phase_async)
+        return 0
     if sys.argv[1:] == ["mlstm"]:
         run_phase("kernels K6", phase_mlstm)
         run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
@@ -2502,6 +2819,10 @@ def main() -> int:
     run_phase("baselines", phase_baselines)
     run_phase("resume", phase_resume)
     fed = run_phase("fed", phase_fed)
+    events = run_phase("async", phase_async)
+    # the federation layer's launches: phase 13's rounds and phase 14's
+    # events
+    fed = {k: fed[k] + events[k] for k in fed}
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
     # forward launches: the serve path's plus both training paths'; its

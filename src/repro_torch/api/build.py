@@ -1,17 +1,22 @@
 """``build(spec)`` -- an :class:`ExperimentSpec` into a round program.
 
-The port runs the synchronous SCALA round of ``repro.api.build.
-_build_scala`` in the ``subset``, ``masked`` and ``sparse`` modes, for a
-text arch (the transformer) or the CNN family (AlexNet at
+The port runs the SCALA program of ``repro.api.build._build_scala`` in
+the ``subset``, ``masked`` and ``sparse`` modes and the ``async`` event
+runtime, for a text arch (the transformer) or the CNN family (AlexNet at
 ``spec.width``, split at ``spec.split``), and the FL / SFL baselines of
 ``_build_fl`` / ``_build_sfl`` on AlexNet: ``init()`` builds the program
 state, ``step(state, batches, sizes)`` runs one round (T local steps and
-the FL phase) and ``predict(state, batch)`` the current global model
-(SCALA and SFL: slot 0's client half and the server half; FL: the full
-model). A round that threads federation state (a participation
-scheduler, a stateful aggregator, a server optimizer) keeps it in
-``ProgramState.fed`` (:func:`repro_torch.fed.init_fed_state`, seeded by
-:func:`fed_seed`).
+the FL phase) or one async event, and ``predict(state, batch)`` the
+current global model (SCALA and SFL: slot 0's client half and the server
+half; FL: the full model). A round that threads federation state (a
+participation scheduler, a stateful aggregator, a server optimizer)
+keeps it in ``ProgramState.fed`` (:func:`repro_torch.fed.init_fed_state`,
+seeded by :func:`fed_seed`); an async program keeps its
+:class:`repro_torch.fed.AsyncFedState` there (its delay stream seeded by
+:func:`fed_seed`). Under ``snapshots="delta"`` the client half is held
+over one slot; with ``opt_paging="host"`` the step is two-phase on the
+host: page the arrivals' moments in (:class:`repro_torch.fed.
+HostOptPager`), run the event, page them out.
 
 Params are the port's own init, drawn from ``torch.Generator(device)``
 seeded with ``spec.seed`` -- the JAX init's numbers cannot be drawn here
@@ -106,7 +111,8 @@ def _split_model(spec: ExperimentSpec):
 
 def _check_params(params, spec: ExperimentSpec, slots: int, device):
     """Given params on ``device``, their client half stacked over
-    ``slots`` (a merged client half is repeated)."""
+    ``slots`` (a merged client half is repeated, a half stacked over one
+    slot too; a delta async program asks one slot)."""
     from repro_torch.core.split import stack_client_params
 
     cfg = spec.model_config()
@@ -120,8 +126,11 @@ def _check_params(params, spec: ExperimentSpec, slots: int, device):
     if merged:
         params = dict(params, client=stack_client_params(params["client"],
                                                          slots))
-    elif probe.shape[0] != slots or (shape is not None
-                                     and tuple(probe.shape[1:]) != shape):
+    elif probe.shape[0] == 1 and slots != 1:
+        params = dict(params, client=stack_client_params(tree_map(
+            lambda a: a[0], params["client"]), slots))
+    elif probe.shape[0] not in (slots, 1) or (
+            shape is not None and tuple(probe.shape[1:]) != shape):
         raise ValueError(f"client half's first leaf has shape "
                          f"{tuple(probe.shape)}; expected it merged or "
                          f"stacked over {slots} slots of {cfg.name}")
@@ -158,6 +167,10 @@ def build(spec: ExperimentSpec, *, device="cuda",
     if spec.method == "scala_noadj":
         sc = dataclasses.replace(sc, adjust_server=False, adjust_client=False)
     slots = spec.slots
+    # delta snapshots hold the global client half over ONE param slot (the
+    # ring replaces the per-client stack); the client count stays slots
+    delta = ex.mode == "async" and ex.snapshots == "delta"
+    param_slots = 1 if delta else slots
     opt = spec.optim.make()
     sched = spec.optim.make_schedule(spec.rounds * sc.local_iters,
                                      default_lr=sc.lr)
@@ -168,10 +181,13 @@ def build(spec: ExperimentSpec, *, device="cuda",
     if params is None:
         init = (_cnn_split_init if spec.model_config().family == "cnn"
                 else text_split_init)
-        model, params = init(spec, slots, device)
+        model, params = init(spec, param_slots, device)
     else:
         model = _split_model(spec)
-        params = _check_params(params, spec, slots, device)
+        params = _check_params(params, spec, param_slots, device)
+    if ex.mode == "async":
+        return _build_async(spec, sc, device, model, params, opt, sched,
+                            agg, server_opt, server_lr)
     round_fn = engine.make_round_runner(
         model, sc, backend=ex.backend, boundary=ex.boundary, optimizer=opt,
         schedule=sched, aggregator=agg, participation=scheduler,
@@ -197,6 +213,18 @@ def build(spec: ExperimentSpec, *, device="cuda",
         inner, metrics = round_fn(state.inner, batches, sizes)
         return ProgramState(inner=inner, fed=state.fed), metrics
 
+    return RoundProgram(
+        spec=spec, model=model, init=init, step=step,
+        predict=_scala_predict(model),
+        metadata=dict(method=spec.method, mode=ex.mode, slots=slots,
+                      backend=ex.backend, boundary=ex.boundary,
+                      precision=ex.precision, rounds_per_call=1,
+                      thread_fed=thread_fed, device=str(device)))
+
+
+def _scala_predict(model):
+    """The global model: slot 0's client half and the server half."""
+
     @torch.no_grad()
     def predict(state: ProgramState, batch):
         wc0 = tree_map(lambda a: a[0], state.inner.params["client"])
@@ -204,12 +232,68 @@ def build(spec: ExperimentSpec, *, device="cuda",
         logits, _ = model.server_fwd(state.inner.params["server"], acts)
         return logits
 
+    return predict
+
+
+def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
+                 sched, agg, server_opt, server_lr) -> RoundProgram:
+    """The async branch of ``repro.api.build._build_scala``: one event per
+    ``step``."""
+    from repro_torch import fed
+    from repro_torch.core import engine
+
+    ex, slots = spec.execution, spec.slots
+    delays = ex.make_delays()
+    cohort = ex.resolve_cohort(slots)
+    paged = ex.opt_paging == "host"
+    event = fed.make_async_runner(
+        model, sc, backend=ex.backend, boundary=ex.boundary, optimizer=opt,
+        schedule=sched, delays=delays, cohort=cohort,
+        staleness_decay=ex.staleness_decay, mix_rate=ex.mix_rate,
+        aggregator=agg, server_optimizer=server_opt, server_lr=server_lr,
+        opt_state_policy=spec.fed.opt_state_policy, precision=ex.precision,
+        snapshots=ex.snapshots, ring_size=ex.ring_size,
+        lr_scale=ex.lr_scale, num_clients=slots, arrival=ex.arrival,
+        paged_opt=paged, deadline=ex.deadline, backoff=ex.backoff,
+        donate=ex.donate)
+    pager = (fed.HostOptPager(opt, tree_map(lambda a: a[0],
+                                            params["client"]), slots)
+             if paged else None)
+    pop = fed.make_arrival_pop(cohort, ex.arrival)
+
+    def init() -> ProgramState:
+        afed = fed.init_async_state(
+            fed_seed(spec), params["client"], delays, aggregator=agg,
+            server_optimizer=server_opt, server_params=params["server"],
+            snapshots=ex.snapshots, ring_size=ex.ring_size,
+            num_clients=slots)
+        if pager is not None:
+            pager.reset()
+        return ProgramState(inner=engine.init_train_state(params, opt),
+                            fed=afed)
+
+    def step(state: ProgramState, batches, sizes):
+        if pager is None:
+            inner, afed, metrics = event(state.inner, state.fed, batches,
+                                         sizes)
+            return ProgramState(inner=inner, fed=afed), metrics
+        # the pop is a host function of the host schedule: the rows paged
+        # are the event's own arrivals
+        idx = pop(state.fed.finish_time, state.fed.version)[0]
+        inner, afed, metrics, new_co = event(
+            state.inner, state.fed, batches, sizes,
+            pager.gather(idx, device))
+        pager.scatter(idx, new_co)
+        return ProgramState(inner=inner, fed=afed), metrics
+
     return RoundProgram(
-        spec=spec, model=model, init=init, step=step, predict=predict,
-        metadata=dict(method=spec.method, mode=ex.mode, slots=slots,
+        spec=spec, model=model, init=init, step=step,
+        predict=_scala_predict(model),
+        metadata=dict(method=spec.method, mode="async", slots=slots,
                       backend=ex.backend, boundary=ex.boundary,
                       precision=ex.precision, rounds_per_call=1,
-                      thread_fed=thread_fed, device=str(device)))
+                      thread_fed=True, device=str(device), cohort=cohort,
+                      host_paged=paged, pager=pager))
 
 
 def _server_optimizer(spec: ExperimentSpec):

@@ -12,15 +12,17 @@ CLI's ``--dump-config`` output runs verbatim here.
 text arch (``lm_synthetic``, backends ``lace`` or ``logits``) or on the
 CNN family (``image_synthetic``, backend ``logits``) in the synchronous
 modes ``subset`` (host-side sampling), ``masked`` and ``sparse`` (an
-in-program participation scheduler over all K slots), both boundaries,
-f32 policy, one round per call, every aggregator, server-side FedOpt,
-and the FL / SFL baselines on the CNN family in ``subset`` mode -- and
-raises ``NotImplementedError`` naming the missing piece for the rest
-(``async``, ``lace_dp``, faults and guards, ``precision="bf16"``,
-``rounds_per_call > 1`` and training the xLSTM family), and
-``ValueError`` for combinations the reference rejects too. ``unroll``
-and ``donate`` are accepted and have nothing to act on in an eager
-program.
+in-program participation scheduler over all K slots) and the ``async``
+event runtime (delays, arrival cohorts, dense or delta snapshots,
+host-paged moments, deadlines), both boundaries, f32 policy, one round
+per call, every aggregator, server-side FedOpt, and the FL / SFL
+baselines on the CNN family in ``subset`` mode -- and raises
+``NotImplementedError`` naming the missing piece for the rest
+(``lace_dp`` and ``arrival="topk:sharded"``, faults and guards,
+``precision="bf16"``, ``rounds_per_call > 1`` and training the xLSTM
+family), and ``ValueError`` for combinations the reference rejects too.
+``unroll`` has nothing to act on in an eager program; ``donate`` lets the
+async event write its cohort's rows into its own state in place.
 """
 from __future__ import annotations
 
@@ -34,13 +36,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.baselines import FL_METHODS, SFL_METHODS
 from repro_torch.core.engine import (BACKENDS, BOUNDARIES,
                                      OPT_STATE_POLICIES, PRECISIONS)
+from repro_torch.fed.runtime import ARRIVALS, LR_SCALES, SNAPSHOT_MODES
 
 EXECUTION_MODES = ("subset", "masked", "sparse", "async")
 OPTIMIZERS = ("sgd", "momentum", "adamw")
 OPTIMIZER_ALIASES = {"fedavgm": "momentum", "fedadam": "adamw"}
-SNAPSHOT_MODES = ("dense", "delta")
-LR_SCALES = ("none", "cohort")
-ARRIVALS = ("sort", "topk", "topk:sharded")
 
 SCALA_METHODS = ("scala", "scala_noadj")
 METHODS = SCALA_METHODS + FL_METHODS + SFL_METHODS
@@ -203,10 +203,29 @@ class ExecutionSpec:
         if self.rounds_per_call < 1:
             raise ValueError(f"rounds_per_call must be >= 1, got "
                              f"{self.rounds_per_call}")
+        self.make_delays()                           # structural validation
+        if self.cohort < 0:
+            raise ValueError(f"cohort must be >= 0, got {self.cohort}")
+        if self.ring_size < 1:
+            raise ValueError(f"ring_size must be >= 1, got {self.ring_size}")
+        if self.deadline is not None and self.deadline <= 0:
+            raise ValueError(f"deadline must be > 0, got {self.deadline}")
+        if self.backoff < 1.0:
+            raise ValueError(f"backoff must be >= 1, got {self.backoff}")
 
     @property
     def in_program(self) -> bool:
         return self.mode in ("masked", "sparse", "async")
+
+    def make_delays(self):
+        from repro_torch.fed.delays import make_delays
+
+        return make_delays(self.delay)
+
+    def resolve_cohort(self, num_clients: int) -> int:
+        """The arrivals per event: ``cohort``, or a quarter of the
+        clients (at least 1) when it is 0."""
+        return self.cohort if self.cohort > 0 else max(1, num_clients // 4)
 
 
 @dataclass(frozen=True)
@@ -304,15 +323,79 @@ class ExperimentSpec:
                     "client identities: use mode 'masked'/'sparse' with a "
                     "participation spec (host-side subset re-stacking has "
                     "no slot -> client correspondence)")
-        for name, value, default in (
-                ("snapshots", ex.snapshots, "dense"),
-                ("lr_scale", ex.lr_scale, "none"),
-                ("arrival", ex.arrival, "sort"),
-                ("opt_paging", ex.opt_paging, "none"),
-                ("deadline", ex.deadline, None)):
-            if value != default and ex.mode != "async":
-                raise ValueError(f"{name}={value!r} applies to mode 'async' "
-                                 "only")
+        # --- the async knobs ---
+        if ex.mode == "async" and ex.cohort > self.scala.num_clients:
+            raise ValueError(f"cohort {ex.cohort} exceeds the "
+                             f"{self.scala.num_clients} client slots")
+        if ex.snapshots == "delta":
+            if ex.mode != "async":
+                raise ValueError(
+                    "snapshots='delta' is an async-runtime storage layout; "
+                    f"mode {ex.mode!r} has no per-client snapshots")
+            if fd.opt_state_policy == "average":
+                raise ValueError(
+                    "snapshots='delta' stores no per-client optimizer "
+                    "state to average; use opt_state_policy 'reset' (or "
+                    "'carry' with a stateless optimizer)")
+            if fd.opt_state_policy == "carry" and self.optim.name != "sgd" \
+                    and ex.opt_paging != "host":
+                raise ValueError(
+                    f"snapshots='delta' cannot carry {self.optim.name!r} "
+                    "per-client moments (no per-client state is stored); "
+                    "use optim 'sgd', fed.opt_state_policy='reset', or "
+                    "execution.opt_paging='host' (host-paged moment store)")
+        if ex.lr_scale != "none" and ex.mode != "async":
+            raise ValueError("lr_scale applies to mode 'async' only (the "
+                             "cohort/K factor is an event-schedule knob)")
+        if ex.arrival != "sort" and ex.mode != "async":
+            raise ValueError(
+                f"arrival {ex.arrival!r} applies to mode 'async' only (the "
+                "cohort pop is an event-schedule op); mode "
+                f"{ex.mode!r} has no arrival schedule")
+        if ex.arrival == "topk:sharded" and ex.backend == "lace_dp":
+            raise ValueError(
+                "arrival 'topk:sharded' is redundant under backend "
+                "'lace_dp': the shard_map event already pops per client "
+                "shard; use arrival 'topk' (applied per shard)")
+        if ex.opt_paging == "host":
+            if ex.mode != "async":
+                raise ValueError(
+                    "opt_paging='host' pages the async runtime's per-client "
+                    f"moments; mode {ex.mode!r} has none")
+            if ex.snapshots != "delta" or fd.opt_state_policy != "carry":
+                raise ValueError(
+                    "opt_paging='host' exists to carry per-client moments "
+                    "outside the delta snapshot state; it requires "
+                    "snapshots='delta' and fed.opt_state_policy='carry' "
+                    f"(got snapshots={ex.snapshots!r}, "
+                    f"opt_state_policy={fd.opt_state_policy!r})")
+            if ex.rounds_per_call != 1:
+                raise ValueError(
+                    "opt_paging='host' steps one event per host "
+                    "pop/gather/scatter round-trip; rounds_per_call must "
+                    f"be 1, got {ex.rounds_per_call}")
+            if ex.backend == "lace_dp":
+                raise ValueError(
+                    "opt_paging='host' predicts the arrival pop outside the "
+                    "compiled event; backend 'lace_dp' pops per shard "
+                    "inside its shard_map and is not supported")
+        robust = fd.faults is not None or fd.guards is not None
+        if ex.deadline is not None and ex.mode != "async":
+            raise ValueError(
+                "deadline bounds the async cohort barrier; mode "
+                f"{ex.mode!r} has no arrival schedule")
+        if robust or ex.deadline is not None:
+            if ex.backend == "lace_dp" and ex.mode in ("sparse", "async"):
+                raise ValueError(
+                    "faults/guards/deadline are not supported on the "
+                    "in-shard lace_dp sparse/async programs (their FL "
+                    "phase runs inside shard_map); use backend "
+                    "'logits'/'lace', or lace_dp with mode 'masked'")
+            if ex.opt_paging == "host":
+                raise ValueError(
+                    "faults/guards/deadline are not supported with "
+                    "opt_paging='host' (the pager's arrival prediction "
+                    "does not model partial cohorts)")
         # --- baselines ---
         if self.method not in SCALA_METHODS:
             if ex.mode != "subset":
@@ -348,10 +431,9 @@ class ExperimentSpec:
             raise ValueError("set at most one of data.alpha (quantity skew) "
                              "and data.beta (Dirichlet skew)")
         # --- what the port does not run yet ---
-        if ex.mode == "async":
-            raise _not_ported("execution mode 'async'",
-                              "the async slice (fed/runtime.py, "
-                              "fed/delays.py)")
+        if ex.arrival == "topk:sharded":
+            raise _not_ported("arrival 'topk:sharded' (the mesh-sharded "
+                              "pop)", "the multi-device slice")
         if ex.backend == "lace_dp":
             raise _not_ported("backend 'lace_dp'", "the multi-device slice")
         if any(spec.mixer in ("mlstm", "slstm") for spec in cfg.block_specs):

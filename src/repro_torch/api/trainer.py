@@ -14,8 +14,11 @@ label-skew partition from ``spec.seed``, client sampling and batch rows
 from ``default_rng(seed + 7)``.
 
     trainer = Trainer(spec, device="cuda")
-    history = trainer.run()            # spec.rounds rounds
+    history = trainer.run()            # spec.rounds rounds (or events)
     trainer.save("state/")             # resume("state/") continues it
+
+In the ``async`` mode one ``step`` is one event: the batches cover all K
+slots, of which the event computes its arrivals'.
 
 ``save`` / ``resume`` checkpoint the whole run, bit for bit: the program
 state and the host side (round, history, the numpy bit generator).
@@ -127,14 +130,17 @@ class Trainer:
                  for k, v in rb.items()}, sizes)
 
     def step(self) -> Dict[str, float]:
-        """One round; returns its (last local step's) scalar metrics. A
-        baseline round has none, so it waits for the device itself, as
-        the metrics' host copy does for SCALA."""
+        """One round (or async event); returns its (last local step's)
+        scalar metrics, with an event's ``staleness_mean``, ``t_event``,
+        ``server_version`` (and ``deadline_missed``). A baseline round has
+        none, so it waits for the device itself, as the metrics' host copy
+        does for SCALA."""
         batches, sizes = self._next_round_batches()
         self.state, metrics = self.program.step(self.state, batches, sizes)
         if not metrics and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        scalars = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+        scalars = {k: float(v) for k, v in metrics.items()
+                   if np.ndim(v) == 0}
         self.history.append(scalars)
         self.round += 1
         return scalars
@@ -166,6 +172,12 @@ class Trainer:
         and the numpy bit generator's state. Both writes are atomic;
         :meth:`resume` from the pair is bit-identical to never having
         stopped."""
+        if self.program.metadata.get("host_paged"):
+            raise ValueError(
+                "save/resume with opt_paging='host' is unsupported: the "
+                "paged optimizer moments live in the host pager, outside "
+                "ProgramState; keep optimizer state on device to "
+                "checkpoint")
         from repro_torch import checkpoint as C
 
         path = C.save(directory, self.round, self.state)

@@ -16,6 +16,10 @@ over r, K, T and the split point), recorded here, not enforced.
     PYTHONPATH=src python -m repro_torch.benchmarks.run --smoke
     PYTHONPATH=src python -m repro_torch.benchmarks.run --table \
         participation [--quick] [--out part.json]
+    PYTHONPATH=src python -m repro_torch.benchmarks.run --table async \
+        [--quick] [--out async.json]
+    PYTHONPATH=src python -m repro_torch.benchmarks.run --table scale \
+        [--quick] [--out scale.json]
 
 ``--smoke`` runs the reference's SMOKE rows of the synchronous modes:
 SCALA through ``exec=subset``, ``masked`` and ``sparse``, and FedAvgM
@@ -23,9 +27,15 @@ SCALA through ``exec=subset``, ``masked`` and ``sparse``, and FedAvgM
 rounds (the reference's bf16 / fused row and its guards wait for their
 slices). ``--table participation`` is the participation leg
 (:mod:`repro_torch.benchmarks.participation`: rounds/s masked, sparse
-and re-stacked subset), its JSON stamped with the device. The
-reference's other harness legs (round_loop, async, dispatch, boundary,
-scale, roofline, serve, faults) measure parts the port has not ported
+and re-stacked subset), ``--table async`` the async leg
+(:mod:`repro_torch.benchmarks.async_rounds`: sparse against masked, and
+events/s and staleness per delay distribution) and ``--table scale`` the
+scale leg (:mod:`repro_torch.benchmarks.scale`: delta against dense
+events/s and state bytes over K, the sort and topk pops; its
+``topk:sharded`` row waits for the multi-device slice), each printing CSV
+rows as the reference's runner does and its JSON stamped with the
+device. The reference's other harness legs (round_loop, dispatch,
+boundary, roofline, serve, faults) measure parts the port has not ported
 yet: they are listed, and asking for one exits naming its slice.
 """
 from __future__ import annotations
@@ -42,10 +52,8 @@ HEADER = "table,setting,method,acc,balanced_acc,seconds"
 # the reference's harness legs and the slice each waits for
 NOT_PORTED = {
     "round_loop": "the dispatch-knob slice (rounds per call)",
-    "async": "the sparse/async slice",
     "dispatch": "the dispatch-knob slice",
     "boundary": "the tooling slice (its LACE timing harness)",
-    "scale": "the sparse/async slice",
     "roofline": "the tooling slice (H100 roofline constants)",
     "serve": "the tooling slice (device-stamped serving benchmarks)",
     "faults": "the fault-tolerance slice",
@@ -154,11 +162,64 @@ def smoke(run, rows) -> None:
           run("fedavg", server_optimizer="momentum", server_lr=0.9, **kw))
 
 
+def leg_async(quick: bool, device, width: float) -> dict:
+    """The async leg, its CSV rows as ``benchmarks/run.py:bench_async``
+    prints them."""
+    from repro_torch.benchmarks.async_rounds import bench_async
+
+    res = bench_async(rounds=3 if quick else 10, width=width, device=device)
+    for frac, entry in res["sparse_vs_masked"].items():
+        for variant in ("masked", "sparse"):
+            print(f"async,{frac},{variant},"
+                  f"{entry[variant]['rounds_per_sec']},,"
+                  f"{entry[variant]['seconds']}", flush=True)
+    for spec, entry in res["async_events"].items():
+        print(f"async,delay={spec},events,{entry['events_per_sec']},"
+              f"{entry['mean_cohort_staleness']},{entry['seconds']}",
+              flush=True)
+    return res
+
+
+def leg_scale(quick: bool, device, width: float) -> dict:
+    """The scale leg, its CSV rows as ``benchmarks/run.py:bench_scale``
+    prints them (``width`` is the leg's own micro AlexNet's, unchanged)."""
+    from repro_torch.benchmarks.scale import SHARDED, bench_arrival, \
+        bench_scale
+
+    res = bench_scale(ks=(100, 10_000) if quick else (100, 10_000,
+                                                      1_000_000),
+                      events=8 if quick else 16, device=device)
+    for K, entry in res["K"].items():
+        for leg in ("dense", "delta"):
+            row = entry.get(leg, {})
+            if "rounds_per_sec" in row:
+                print(f"scale,K={K},{leg},{row['rounds_per_sec']},"
+                      f"{row['state_bytes']['snapshot_bytes']},"
+                      f"{row['seconds']}", flush=True)
+    for K, flat in res["delta_flatness"].items():
+        print(f"scale,K={K},delta_flatness,{flat},,", flush=True)
+    res["arrival"] = bench_arrival(
+        ks=(10_000,) if quick else (10_000, 1_000_000),
+        events=8 if quick else 16, device=device)
+    for K, entry in res["arrival"]["K"].items():
+        for leg in ("sort", "topk"):
+            print(f"scale,K={K},arrival={leg},"
+                  f"{entry[leg]['rounds_per_sec']},,"
+                  f"{entry[leg]['seconds']}", flush=True)
+        print(f"scale,K={K},arrival=topk:sharded: {SHARDED}", flush=True)
+        print(f"scale,K={K},topk_speedup_vs_sort,"
+              f"{entry['topk_speedup_vs_sort']},,", flush=True)
+    return res
+
+
+LEGS = {"async": leg_async, "scale": leg_scale}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--table", default=None,
                     choices=sorted(TABLES) + ["participation"]
-                    + sorted(NOT_PORTED))
+                    + sorted(LEGS) + sorted(NOT_PORTED))
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="paper-protocol settings (slow)")
@@ -186,10 +247,17 @@ def main(argv=None):
             with open(args.out, "w") as f:
                 json.dump(res, f, indent=2)
         return res
+    if args.table in LEGS:
+        res = dict(LEGS[args.table](quick, args.device, args.width),
+                   device=device_info(args.device))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=2)
+        return res
     names = [args.table] if args.table else list(TABLES)
     if not args.table and not args.smoke:
-        print(f"not ported yet, skipped: participation (run it with "
-              f"--table participation), {', '.join(NOT_PORTED)}",
+        print(f"skipped: participation, async, scale (run each with "
+              f"--table NAME); not ported yet: {', '.join(NOT_PORTED)}",
               file=sys.stderr)
     print(HEADER, flush=True)
     rows = []

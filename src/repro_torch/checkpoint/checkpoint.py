@@ -15,7 +15,15 @@ tuple index, ``.name`` for a dataclass field, so a whole
   its slot count under ``key + SLOTS_SUFFIX``, and restored as the same
   broadcast view, so a restored state is the saved one in values and
   in layout;
-* a bfloat16 leaf (numpy has none) is stored as its int16 bits.
+* a dense leaf whose rows (along the first axis, each of at least 64
+  KiB) repeat bit for bit is stored as its distinct rows, each row's
+  index into them under ``key + ROWS_SUFFIX``, and restored dense: an
+  async state's snapshots are copies of a few global versions and its
+  never-arrived clients' moment rows are all zero (16 snapshots and
+  moments of qwen1.5-0.5b are 23 GB);
+* a bfloat16 leaf (numpy has none) is stored as its int16 bits;
+* a numpy leaf (the async runtime's host schedule: finish times,
+  versions, retries, the clock) is restored as numpy of its own dtype.
 
 Crash safety as in the reference: every file goes to a temp path in the
 same directory, is fsync'd and atomically renamed over the target
@@ -43,6 +51,9 @@ CORRUPT_ERRORS = (zipfile.BadZipFile, OSError, KeyError, ValueError,
                   EOFError)
 PORT_KEY = "repro_torch_format"
 SLOTS_SUFFIX = "@slots"
+ROWS_SUFFIX = "@rows"
+_MIN_ROW_BYTES = 1 << 16
+_WORDS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def _children(tree):
@@ -84,17 +95,46 @@ def _rebuild(tree, values, prefix: str = ""):
         f.name: v for f, v in zip(dataclasses.fields(tree), new)})
 
 
+def _repeated_rows(t):
+    """(the distinct rows, each row's index into them) of a dense (K, ...)
+    tensor whose rows of >= 64 KiB repeat bit for bit, or None. A row's
+    word sum picks the candidates, ``torch.equal`` on the words decides."""
+    if (t.dim() < 2 or t.shape[0] < 2 or t.element_size() not in _WORDS
+            or t[0].numel() * t.element_size() < _MIN_ROW_BYTES):
+        return None
+    rows = t.reshape(t.shape[0], -1).view(_WORDS[t.element_size()])
+    kept, index, by_sum = [], [], {}
+    for i, row in enumerate(rows):
+        key = int(row.sum(dtype=torch.int64))
+        for j in by_sum.get(key, ()):
+            if torch.equal(row, rows[kept[j]]):
+                index.append(j)
+                break
+        else:
+            by_sum.setdefault(key, []).append(len(kept))
+            index.append(len(kept))
+            kept.append(i)
+    if len(kept) == len(index):
+        return None
+    return t[kept], np.asarray(index, np.int64)
+
+
 def _host(leaf):
-    """(array, slot count or None) for one leaf."""
+    """(array, {suffix: value}) for one leaf: the slot count of a
+    broadcast leaf, the row index of one with repeated rows."""
     if not isinstance(leaf, torch.Tensor):
-        return np.asarray(leaf), None
+        return np.asarray(leaf), {}
     t = leaf.detach()
-    slots = None
+    extra = {}
     if t.dim() >= 1 and t.shape[0] > 1 and t.stride(0) == 0:
-        slots, t = t.shape[0], t[0]
+        extra[SLOTS_SUFFIX], t = np.int64(t.shape[0]), t[0]
+    else:
+        repeated = _repeated_rows(t)
+        if repeated is not None:
+            t, extra[ROWS_SUFFIX] = repeated
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
-    return t.cpu().numpy(), slots
+    return t.cpu().numpy(), extra
 
 
 def _atomic_replace(tmp: str, path: str) -> None:
@@ -126,20 +166,32 @@ def checkpoint_path(directory: str, step: int) -> str:
 
 def save(directory: str, step: int, tree: Any) -> str:
     """Write ``tree`` (tensors on any device, ints, arrays) as step
-    ``step``; returns the file's path."""
+    ``step``; returns the file's path. The ``.npz`` is ``np.savez``'s
+    (uncompressed, zip64 members), written a leaf at a time, so the host
+    holds one leaf's copy, not the whole tree's (a full-width async state
+    is ~27 GB)."""
     os.makedirs(directory, exist_ok=True)
-    arrays = {PORT_KEY: np.int32(1)}
-    for key, leaf in flatten_with_paths(tree).items():
-        arrays[key], slots = _host(leaf)
-        if slots is not None:
-            arrays[key + SLOTS_SUFFIX] = np.int64(slots)
     path = checkpoint_path(directory, step)
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **arrays)
+    names = []
+    with zipfile.ZipFile(tmp, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        def put(key, a):
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(a),
+                                          allow_pickle=False)
+            names.append(key)
+
+        put(PORT_KEY, np.int32(1))
+        for key, leaf in flatten_with_paths(tree).items():
+            a, extra = _host(leaf)
+            put(key, a)
+            del a
+            for suffix, value in extra.items():
+                put(key + suffix, value)
     _atomic_replace(tmp, path)
     write_json_atomic(os.path.join(directory, "treedef.json"),
-                      {"treedef": sorted(k for k in arrays
-                                         if k != PORT_KEY),
+                      {"treedef": sorted(k for k in names if k != PORT_KEY),
                        "step": step})
     return path
 
@@ -161,23 +213,56 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+_READ_CHUNK = 1 << 26
+
+
+def _read_member(zf: zipfile.ZipFile, name: str) -> np.ndarray:
+    """One ``.npy`` member of an ``.npz``, read in 64 MiB chunks (the zip
+    member's CRC still checked): ``np.load`` reads a zip member 256 KiB
+    at a time, which on a network file system costs a round trip each."""
+    with zf.open(name) as f:
+        major, _ = np.lib.format.read_magic(f)
+        read_header = (np.lib.format.read_array_header_1_0 if major == 1
+                       else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read_header(f)
+        if dtype.hasobject:
+            raise ValueError(f"{name}: object arrays are not read")
+        a = np.empty(shape, dtype, order="F" if fortran else "C")
+        buf = memoryview(a.reshape(-1, order="A")).cast("B")
+        done = 0
+        while done < len(buf):
+            n = f.readinto(buf[done:done + _READ_CHUNK])
+            if not n:
+                raise EOFError(f"{name}: {len(buf) - done} bytes missing")
+            done += n
+        if f.read(1):
+            raise ValueError(f"{name}: trailing bytes")
+    return a
+
+
 def load_arrays(path: str) -> Dict[str, np.ndarray]:
     """Every array of one file, read in full (a torn file raises one of
     :data:`CORRUPT_ERRORS` here)."""
-    with np.load(path) as data:
-        return dict(data)
+    with zipfile.ZipFile(path) as zf:
+        return {name[:-len(".npy")]: _read_member(zf, name)
+                for name in zf.namelist() if name.endswith(".npy")}
 
 
 def expanded_arrays(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """A port file's arrays as plain leaves: each once-stored slot leaf
-    broadcast back over its slots (no copy), the format keys dropped."""
+    broadcast back over its slots (no copy), a leaf stored as its
+    distinct rows expanded, the format keys dropped."""
     out = {}
     for key, a in arrays.items():
-        if key == PORT_KEY or key.endswith(SLOTS_SUFFIX):
+        if key == PORT_KEY or key.endswith((SLOTS_SUFFIX, ROWS_SUFFIX)):
             continue
         slots = arrays.get(key + SLOTS_SUFFIX)
-        out[key] = (a if slots is None
-                    else np.broadcast_to(a, (int(slots),) + a.shape))
+        rows = arrays.get(key + ROWS_SUFFIX)
+        if slots is not None:
+            a = np.broadcast_to(a, (int(slots),) + a.shape)
+        elif rows is not None:
+            a = a[rows]
+        out[key] = a
     return out
 
 
@@ -196,6 +281,12 @@ def restore_arrays(arrays: Dict[str, np.ndarray], template: Any,
     for key, like in flatten_with_paths(template).items():
         full = key_prefix + key
         a = arrays[full]
+        if isinstance(like, (np.ndarray, np.generic)):
+            # a host array (the async schedule) keeps its numpy type
+            values[key] = (np.array(a, like.dtype)
+                           if isinstance(like, np.ndarray)
+                           else like.dtype.type(a))
+            continue
         if not isinstance(like, torch.Tensor):
             values[key] = type(like)(a) if isinstance(like, (int, float)) \
                 else a
@@ -208,8 +299,12 @@ def restore_arrays(arrays: Dict[str, np.ndarray], template: Any,
         # them, which would break a bitwise resume
         t = t.to(device=like.device, dtype=like.dtype, copy=True)
         slots = arrays.get(full + SLOTS_SUFFIX)
+        rows = arrays.get(full + ROWS_SUFFIX)
         if slots is not None:
             t = t[None].expand((int(slots),) + tuple(t.shape))
+        elif rows is not None:
+            t = t.index_select(0, torch.from_numpy(np.asarray(rows)).to(
+                t.device))
         assert tuple(t.shape) == tuple(like.shape), (key, tuple(t.shape),
                                                      tuple(like.shape))
         values[key] = t

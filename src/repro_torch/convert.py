@@ -16,9 +16,10 @@ AlexNet (the CNN family) keeps the reference's tree -- ``convs``, ``fcs``
 HWIO to the OIHW of ``F.conv2d``. The FC weights keep theirs, because
 :mod:`repro_torch.models.alexnet` flattens in the reference's NHWC order.
 The FL / SFL baselines' states convert the same way
-(:func:`baseline_state_from_reference`), and a whole reference
+(:func:`baseline_state_from_reference`), a whole reference
 ``Trainer.save`` checkpoint converts to the port's program state
-(:func:`program_state_from_reference`).
+(:func:`program_state_from_reference`), and the async runtime's
+``AsyncFedState`` to the port's (:func:`async_state_from_reference`).
 """
 from __future__ import annotations
 
@@ -278,8 +279,12 @@ def program_state_from_reference(flat: Dict[str, np.ndarray], spec,
             "cannot continue (it draws its masks from numpy): resume "
             "refuses it; start from its params instead (--init-params)")
     if set(fed) - {"server_opt"}:
-        raise ValueError("a reference federation state of the async "
-                         "runtime is not ported yet")
+        raise ValueError(
+            "this reference checkpoint holds the async runtime's state, "
+            "whose jax.random key drives its delays; the port draws them "
+            "from numpy and cannot continue it: resume refuses it (its "
+            "schedule converts with async_state_from_reference, its params "
+            "start a run with --init-params)")
     cfg = spec.model_config()
     state = SimpleNamespace(
         params=inner[".params"],
@@ -290,3 +295,38 @@ def program_state_from_reference(flat: Dict[str, np.ndarray], spec,
         parts["server_opt"] = _opt_half(fed["server_opt"], _halves(cfg)[1],
                                         cfg, device)
     return train_state_from_reference(state, cfg, device), parts
+
+
+def async_state_from_reference(afed, cfg: ModelConfig, seed: int,
+                               device="cpu"):
+    """A reference ``repro.fed.AsyncFedState`` (numpy leaves, or any
+    object with its fields) -> the port's :class:`repro_torch.fed.
+    AsyncFedState`: the schedule (``version``, ``finish_time``,
+    ``server_version``, ``now``, ``retries``, ``ring_versions``) as host
+    numpy in the reference's dtypes, the dense snapshots or the delta
+    ring in the port's client layout, the server optimizer's state.
+    ``key`` is dropped: the port's delays come from the numpy stream
+    ``seed`` (or a recorded model), so both packages can start from one
+    state with the same delays injected."""
+    from repro_torch.fed.runtime import AsyncFedState
+
+    client, server = _halves(cfg)
+    empty = lambda t: isinstance(t, (tuple, list)) and len(t) == 0  # noqa
+    half = lambda t: () if empty(t) else client(t, cfg, device)     # noqa
+    retries = afed.retries
+    K = np.shape(afed.version)[0]
+    return AsyncFedState(
+        client_params=half(afed.client_params),
+        version=np.array(afed.version, np.int32),
+        server_version=int(np.asarray(afed.server_version)),
+        finish_time=np.array(afed.finish_time, np.float32),
+        now=np.float32(np.asarray(afed.now)),
+        seed=int(seed),
+        agg_state=() if empty(afed.agg_state) else _map(
+            lambda a: to_tensor(a, device), afed.agg_state),
+        server_opt=_opt_half(afed.server_opt, server, cfg, device),
+        ring=half(afed.ring),
+        ring_versions=(() if empty(afed.ring_versions)
+                       else np.array(afed.ring_versions, np.int32)),
+        retries=(np.zeros((K,), np.int32) if empty(retries)
+                 else np.array(retries, np.int32)))

@@ -1,13 +1,16 @@
-"""The federation layer of the synchronous round: client-model aggregation
-(:mod:`repro_torch.fed.aggregators`) and participation scheduling
+"""The federation layer: client-model aggregation
+(:mod:`repro_torch.fed.aggregators`), participation scheduling
 (:mod:`repro_torch.fed.participation`), composed by
-:func:`repro_torch.core.engine.make_round_runner`.
+:func:`repro_torch.core.engine.make_round_runner`, and the asynchronous
+event runtime (:mod:`repro_torch.fed.runtime`, :func:`make_async_runner`)
+with its completion-delay models (:mod:`repro_torch.fed.delays`).
 
-The round-level state the runner threads (scheduler state, aggregator
-ages, server-optimizer state) is a plain dict ``{"sched": ..., "agg":
-...[, "server_opt": ...]}`` built by :func:`init_fed_state`. Delays and
-the asynchronous runtime come with the async slice, faults and guards
-with the fault-tolerance slice.
+The round-level state the sync runner threads (scheduler state,
+aggregator ages, server-optimizer state) is a plain dict ``{"sched": ...,
+"agg": ...[, "server_opt": ...]}`` built by :func:`init_fed_state`; the
+async runner threads an :class:`AsyncFedState` built by
+:func:`init_async_state`. Faults and guards come with the
+fault-tolerance slice.
 """
 from __future__ import annotations
 
@@ -25,6 +28,12 @@ from repro_torch.fed.aggregators import (  # noqa: F401
     staleness_weighted,
     weighted,
 )
+from repro_torch.fed import delays  # noqa: F401
+from repro_torch.fed.delays import (  # noqa: F401
+    DELAY_MODELS,
+    DelayModel,
+    make_delays,
+)
 from repro_torch.fed.participation import (  # noqa: F401
     SCHEDULERS,
     ParticipationScheduler,
@@ -32,6 +41,19 @@ from repro_torch.fed.participation import (  # noqa: F401
     full,
     make_participation,
     uniform,
+)
+from repro_torch.fed.runtime import (  # noqa: F401
+    ARRIVALS,
+    LR_SCALES,
+    SNAPSHOT_MODES,
+    AsyncFedState,
+    HostOptPager,
+    arrival_cohort,
+    async_state_bytes,
+    init_async_state,
+    make_arrival_pop,
+    make_async_runner,
+    ring_lookup,
 )
 
 

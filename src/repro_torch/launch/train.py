@@ -25,12 +25,23 @@ or with ``--slot-gather`` gathers it into a dense axis first
 ``--aggregator`` (fedavg | weighted | bias_compensated[:GAMMA] |
 staleness_weighted[:DECAY] | hierarchical:EDGES[:EDGE[:TOP]]),
 ``--opt-state-policy`` and ``--server-optimizer`` / ``--server-lr``
-(FedOpt on the server half) act as there. The flags of unported
-features (``--async``, faults, guards, ``--precision bf16``,
-``--rounds-per-call`` > 1) fail with the spec's NotImplementedError.
-The port always runs a round as a Python loop of steps, so ``--no-scan``
-changes nothing and ``--unroll`` / ``--no-donate`` have nothing to act
-on.
+(FedOpt on the server half) act as there. ``--async`` runs the
+asynchronous event runtime (one event a "round": ``--cohort`` arrivals
+popped by finish time, ``--delay-spec``, ``--staleness-decay``,
+``--mix-rate``, ``--snapshots dense|delta`` with ``--ring-size``,
+``--arrival sort|topk``, ``--lr-scale``, ``--opt-paging host``,
+``--deadline`` / ``--backoff``), printing ``event N loss_s=... loss_c=...
+t=... stale=...`` as the reference's driver does:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --clients 16 --async --cohort 4 --delay-spec lognormal:1:1.5 \
+        --staleness-decay 0.5 --rounds 4
+
+The flags of unported features (faults, guards, ``--arrival
+topk:sharded``, ``--precision bf16``, ``--rounds-per-call`` > 1) fail with
+the spec's NotImplementedError. The port always runs a round as a Python
+loop of steps, so ``--no-scan`` changes nothing and ``--unroll`` has
+nothing to act on; ``--no-donate`` keeps the async event functional.
 
 Added here: ``--device`` (``cuda`` unless given; no CPU fallback) and
 ``--init-params PATH``, a ``repro.checkpoint`` params file (client half
@@ -245,15 +256,30 @@ def main(argv=None):
           f"opt-state: {spec.fed.opt_state_policy}, "
           f"optimizer: {spec.optim.spec}, schedule: {spec.optim.schedule}, "
           f"device: {meta['device']}")
+    if meta["mode"] == "async":
+        ex = spec.execution
+        extra = (f" deadline={ex.deadline} backoff={ex.backoff}"
+                 if ex.deadline else "")
+        print(f"async: delay={ex.delay} cohort={meta['cohort']}/"
+              f"{meta['slots']} staleness_decay={ex.staleness_decay} "
+              f"mix_rate={ex.mix_rate} snapshots={ex.snapshots} "
+              f"arrival={ex.arrival} opt_paging={ex.opt_paging}{extra}")
 
     start = 0
     if args.resume:
         start = trainer.resume(args.state_dir)
         print(f"resumed at round {start} from {args.state_dir}")
 
+    label = "event" if meta["mode"] == "async" else "round"
+
     def on_round(rnd, metrics, dt):
-        print(f"round {rnd:3d} loss_s={metrics['loss_server']:.4f} "
-              f"loss_c={metrics['loss_client']:.4f} ({dt:.1f}s)", flush=True)
+        extra = ""
+        if "t_event" in metrics:
+            extra = (f" t={metrics['t_event']:.2f}"
+                     f" stale={metrics['staleness_mean']:.2f}")
+        print(f"{label} {rnd:3d} loss_s={metrics['loss_server']:.4f} "
+              f"loss_c={metrics['loss_client']:.4f}{extra} ({dt:.1f}s)",
+              flush=True)
         if args.checkpoint_dir:
             checkpoint.save(args.checkpoint_dir, rnd,
                             trainer.state.inner.params)

@@ -88,6 +88,38 @@ def test_checkpoint_keeps_slots_and_bf16(tmp_path):
         C.restore(str(tmp_path), dict(tree, own=torch.zeros(3, 3)))
 
 
+def test_checkpoint_stores_repeated_rows_once(tmp_path):
+    """A dense leaf whose rows repeat bit for bit (an async state's
+    snapshots and zero moment rows) is stored as its distinct rows and
+    restored dense; rows equal only as numbers (-0.0 against 0.0) are
+    kept apart, and small rows are stored as they are."""
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(128, 256, generator=g), torch.randn(128, 256,
+                                                           generator=g)
+    signed = torch.zeros(128, 256)
+    signed[0, 0] = -0.0
+    snaps = torch.stack([a, b, a.clone(), b.clone(), a.clone()])
+    tree = {"snaps": snaps, "zeros": torch.stack([torch.zeros(128, 256),
+                                                  signed]),
+            "half": snaps.to(torch.bfloat16),
+            "small": torch.zeros(5, 3)}
+    path = C.save(str(tmp_path), 0, tree)
+    with np.load(path) as data:
+        assert data["snaps"].shape == (2, 128, 256)
+        np.testing.assert_array_equal(data["snaps@rows"], [0, 1, 0, 1, 0])
+        assert data["half"].shape == (2, 128, 256)
+        assert data["zeros"].shape == (2, 128, 256)     # -0.0 is not 0.0
+        assert data["small"].shape == (5, 3) and "small@rows" not in data
+        assert "zeros@rows" not in data
+    got = C.restore(str(tmp_path), tree)
+    _equal_trees(got, tree, "restored")
+    assert got["snaps"].is_contiguous()
+    assert torch.equal(got["zeros"][1].view(torch.int32),
+                       signed.view(torch.int32))
+    flat = C.expanded_arrays(C.load_arrays(path))
+    np.testing.assert_array_equal(flat["snaps"], snaps.numpy())
+
+
 def test_checkpoint_atomic_and_corrupt_fallback(tmp_path):
     tree = {"a": torch.arange(6.0).reshape(2, 3), "b": {"c": torch.ones(4)}}
     d = str(tmp_path)
@@ -211,8 +243,9 @@ def test_resume_from_reference_checkpoint(method, tmp_path):
 
 def test_reference_and_port_keys_agree(tmp_path):
     """The port's paths are the reference's: a Trainer.save of the same
-    experiment holds the same keys (the port adds its format key and a
-    slot count per once-stored client leaf)."""
+    experiment holds the same keys (the port adds its format key, a slot
+    count per once-stored client leaf and a row index per leaf stored as
+    its distinct rows)."""
     for method in ("feddyn", "sfl_localloss", "scala"):
         tspec = _image_spec(method)
         jspec = _jax_spec(tspec)
@@ -222,7 +255,7 @@ def test_reference_and_port_keys_agree(tmp_path):
                                 "ckpt_00000000.npz")).files)
                 for side in ("j", "t")]
         port = {k for k in keys[1] if k != C.PORT_KEY
-                and not k.endswith("@slots")}
+                and not k.endswith(("@slots", "@rows"))}
         assert keys[0] == port, (method, keys[0] ^ port)
 
 

@@ -238,7 +238,9 @@ def test_validate_applies_the_reference_rules(kw, match):
 
 def test_validate_names_the_slices_still_to_come():
     for kw, match in (
-            (dict(execution=api.ExecutionSpec(mode="async")), "async slice"),
+            (dict(execution=api.ExecutionSpec(mode="async",
+                                              arrival="topk:sharded")),
+             "multi-device slice"),
             (dict(fed=api.FedSpec(participation="uniform:0.5",
                                   faults="drop:0.1"),
                   execution=api.ExecutionSpec(mode="masked")),
@@ -511,4 +513,4 @@ def test_participation_leg(tmp_path):
         assert all(e["rounds_per_sec"] > 0 for e in entry.values())
     assert res["subset_restacked_frac=0.5"]["seconds"] > 0
     with pytest.raises(SystemExit, match="not ported yet"):
-        table_run.main(["--table", "async"])
+        table_run.main(["--table", "faults"])

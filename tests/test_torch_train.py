@@ -169,49 +169,57 @@ ALEXNET = dict(arch="alexnet-cifar", reduced=False,
 
 
 @pytest.mark.parametrize("change,error,match", [
-    # the in-program modes are ported (the ids are kept from before, when
-    # they refused): masked runs all K slots, sparse needs a scheduler
+    # the in-program modes are ported: masked runs all K slots, sparse
+    # needs a scheduler
     pytest.param(dict(execution=dict(mode="masked")), None, None,
-                 id="change0-NotImplementedError-execution mode 'masked'"),
+                 id="masked-validates"),
     pytest.param(dict(execution=dict(mode="sparse")), ValueError,
                  "needs a participation spec",
-                 id="change1-NotImplementedError-execution mode 'sparse'"),
-    (dict(execution=dict(mode="async")), NotImplementedError,
-     "execution mode 'async'"),
-    (dict(execution=dict(backend="lace_dp")), NotImplementedError, "lace_dp"),
+                 id="sparse-ValueError-needs a participation spec"),
+    # the async event runtime is ported; its sharded pop is not
+    pytest.param(dict(execution=dict(mode="async")), None, None,
+                 id="async-validates"),
+    pytest.param(dict(execution=dict(mode="async", arrival="topk:sharded")),
+                 NotImplementedError, "multi-device slice",
+                 id="async-topk-sharded-NotImplementedError"),
+    pytest.param(dict(execution=dict(backend="lace_dp")),
+                 NotImplementedError, "lace_dp",
+                 id="lace_dp-NotImplementedError"),
     # AlexNet has no trunk/head split: the reference's rule
-    (dict(top=ALEXNET, execution=dict(backend="lace")), ValueError,
-     "only supports backend 'logits'"),
-    # the FL baselines run on the CNN family in subset mode (the ids are
-    # kept from before the baselines were ported, when both cases refused)
+    pytest.param(dict(top=ALEXNET, execution=dict(backend="lace")),
+                 ValueError, "only supports backend 'logits'",
+                 id="alexnet-lace-ValueError"),
+    # the FL baselines run on the CNN family in subset mode
     pytest.param(dict(top=dict(ALEXNET, method="fedavg"),
                       execution=dict(backend="logits")), None, None,
-                 id="change5-NotImplementedError-baseline"),
-    (dict(execution=dict(precision="bf16")), NotImplementedError,
-     "precision 'bf16'"),
-    (dict(execution=dict(rounds_per_call=2)), NotImplementedError,
-     "rounds_per_call"),
+                 id="alexnet-fedavg-validates"),
+    pytest.param(dict(execution=dict(precision="bf16")),
+                 NotImplementedError, "precision 'bf16'",
+                 id="bf16-NotImplementedError"),
+    pytest.param(dict(execution=dict(rounds_per_call=2)),
+                 NotImplementedError, "rounds_per_call",
+                 id="rounds_per_call-NotImplementedError"),
     # server FedOpt is ported; it needs its lr, as the reference's round
-    # (the id kept from before, when it refused)
     pytest.param(dict(execution=dict(server_optimizer=api.OptimSpec(
         name="sgd"))), ValueError, "server_optimizer needs its lr",
-        id="change8-NotImplementedError-server_optimizer"),
-    (dict(fed=dict(faults="drop:0.1")), NotImplementedError, "faults/guards"),
-    (dict(fed=dict(guards="nonfinite")), NotImplementedError,
-     "faults/guards"),
-    # bias_compensated is ported and validates (the id kept from before,
-    # when it refused)
+        id="server_optimizer-ValueError-needs its lr"),
+    pytest.param(dict(fed=dict(faults="drop:0.1")), NotImplementedError,
+                 "faults/guards", id="faults-NotImplementedError"),
+    pytest.param(dict(fed=dict(guards="nonfinite")), NotImplementedError,
+                 "faults/guards", id="guards-NotImplementedError"),
+    # bias_compensated is ported and validates
     pytest.param(dict(fed=dict(aggregator="bias_compensated")), None, None,
-                 id="change11-NotImplementedError-bias_compensated"),
-    # ... and the reference refuses them on a text arch
+                 id="bias_compensated-validates"),
+    # ... and the reference refuses the baselines on a text arch
     pytest.param(dict(top=dict(method="fedavg")), ValueError,
-                 "needs the CNN", id="change12-NotImplementedError-baseline"),
+                 "needs the CNN", id="text-fedavg-ValueError-needs the CNN"),
     # xLSTM serves; its training needs K6's backward
-    (dict(top=dict(arch="xlstm-1.3b")), NotImplementedError,
-     "xLSTM training slice"),
+    pytest.param(dict(top=dict(arch="xlstm-1.3b")), NotImplementedError,
+                 "xLSTM training slice", id="xlstm-NotImplementedError"),
     # the paper's setup validates: AlexNet, logits, the dual boundary
-    (dict(top=ALEXNET, execution=dict(backend="logits", boundary="dual")),
-     None, None),
+    pytest.param(dict(top=ALEXNET, execution=dict(backend="logits",
+                                                  boundary="dual")),
+                 None, None, id="alexnet-dual-validates"),
 ])
 def test_validate_names_what_is_not_ported(change, error, match):
     if error is None:
@@ -222,4 +230,4 @@ def test_validate_names_what_is_not_ported(change, error, match):
             _spec(**change).validate()
     _spec().validate()
     with pytest.raises(SystemExit, match="not ported"):
-        train.main(FLAGS + ["--device", "cpu", "--async"])
+        train.main(FLAGS + ["--device", "cpu", "--faults", "drop:0.1"])
