@@ -114,7 +114,23 @@ Phases, one or more lines each:
    equal; zero delays with cohort = K against the sync round on the card
    (atol = rtol = 1e-6); delta against dense snapshots on the card over
    six events, bitwise; (d) resume: (a)'s run saved after event 2 and
-   resumed, events 3-4 bitwise against the uninterrupted run.
+   resumed, events 3-4 bitwise against the uninterrupted run;
+15. faults: fault injection and guarded aggregation on full-width
+   qwen1.5-0.5b through the training CLI's spec and Trainer -- (a)
+   fault-masked, phase 13(a)'s cell with ``--faults
+   drop:0.1,corrupt:0.5:nan --guards nonfinite,clip:10``, 3 rounds, and
+   (b) fault-async, phase 14(a)'s cell with ``--faults
+   drop:0.1,corrupt:0.25:nan,stall:0.1 --guards nonfinite``, 4 events --
+   each with phase 6's launch check per local pass (a round that
+   rejected someone runs its local phase twice), the rejections per
+   round, at least one, every leaf finite, and for (b) the schedule
+   advanced; (c) fault-check: f32 full width, 4 slots -- guards at zero
+   faults == no guards bitwise (masked, sparse, async dense; the
+   screen's cost), and a recorded NaN corruption of one participant:
+   the guarded round == the clean round whose mask is the survivors,
+   bitwise; (d) at reduced width, a faulted guarded masked round and a
+   faulted async event, card against CPU under fed-check's rule, the
+   accept vectors equal.
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -127,7 +143,8 @@ K4, K5); ``python3 chip_smoke.py mlstm`` the same for K6, then
 check-xlstm (5c).
 ``python3 chip_smoke.py baselines`` runs phases 1, 2, 11 and 12;
 ``python3 chip_smoke.py fed`` phases 1, 2 and 13; ``python3
-chip_smoke.py async`` phases 1, 2 and 14.
+chip_smoke.py async`` phases 1, 2 and 14; ``python3 chip_smoke.py
+faults`` phases 1, 2 and 15.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -562,6 +579,23 @@ def serve_run(spec, reqs, warm_len: int):
     return engine, results, dt, launches, peak, engine.state_bytes()
 
 
+def device_events(prof):
+    """{name: [seconds, count]} of the device events a torch.profiler run
+    recorded: the sums ``key_averages()`` gives for them, read from the
+    raw events without the tree of host events that ``key_averages()``
+    builds first (more than a minute for a serving run's host ops)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != cuda or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        acc = per.setdefault(e.name(), [0.0, 0])
+        acc[0] += e.duration_ns() / 1e9
+        acc[1] += 1
+    return per
+
+
 def profile(what: str, fn, top: int, watch=()) -> None:
     """Run ``fn`` once more under torch.profiler: the wall time, the
     device's busy time (the sum of kernel times), the ``top`` kernels
@@ -577,9 +611,8 @@ def profile(what: str, fn, top: int, watch=()) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    kernels = device_events(prof)
+    busy = sum(t for t, _ in kernels.values())
     if busy == 0:
         say("profile", "device time not measured (the profiler saw no "
             "kernels)")
@@ -587,16 +620,17 @@ def profile(what: str, fn, top: int, watch=()) -> None:
     say("profile", f"profiled {what}: wall {wall:.3f} s, device busy "
         f"{busy:.3f} s ({100 * busy / wall:.1f}%), {len(kernels)} kernel "
         "names")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        t = e.self_device_time_total / 1e6
+    for name, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]
+                               )[:top]:
         say("profile", f"  {t:.4f} s ({100 * t / busy:.1f}% of busy) "
-            f"x{e.count}: {e.key[:90]}")
+            f"x{n}: {name[:90]}")
     for label, parts in watch:
         parts = (parts,) if isinstance(parts, str) else parts
-        hits = [e for e in kernels if any(p in e.key for p in parts)]
-        t = sum(e.self_device_time_total for e in hits) / 1e6
+        hits = [v for name, v in kernels.items()
+                if any(p in name for p in parts)]
+        t = sum(v[0] for v in hits)
         say("profile", f"  {label}: {t:.4f} s ({100 * t / busy:.1f}% of "
-            f"busy) x{sum(e.count for e in hits)}, kernels named "
+            f"busy) x{sum(v[1] for v in hits)}, kernels named "
             f"{' or '.join(f'*{p}*' for p in parts)}")
 
 
@@ -1544,10 +1578,12 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
         before = now
         check(all(np.isfinite(m[k]) for k in ("loss_server", "loss_client")),
               f"finite losses in round {r}: {m}")
+        # a guarded round that rejected someone runs its local phase twice
+        passes = 2 if m.get("guard_rejected", 0.0) > 0 else 1
         if torch.device(device).type == "cuda":
-            want = {k: T * n for k, n in per_step.items()}
+            want = {k: passes * T * n for k, n in per_step.items()}
             check(got == want, f"round {r} launches {got} != {want} "
-                  f"({T} steps x {per_step})")
+                  f"({passes} pass(es) x {T} steps x {per_step})")
         extra = ""
         if "t_event" in m:
             extra = (f" t={m['t_event']:.3f} staleness_mean="
@@ -1555,6 +1591,9 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
                      f"{m['server_version']:.0f}" + (
                          f" deadline_missed={m['deadline_missed']:.0f}"
                          if "deadline_missed" in m else ""))
+        if "guard_rejected" in m:
+            extra += (f" guard_rejected={m['guard_rejected']:.0f}"
+                      f" passes={passes}")
         say(phase, f"round {r} loss_s={m['loss_server']:.4f} "
             f"loss_c={m['loss_client']:.4f}{extra} in {secs[-1]:.3f} s; "
             f"launches "
@@ -2747,6 +2786,285 @@ def phase_async(device="cuda"):
     return {k: dense[k] + delta[k] for k in dense}
 
 
+# phase 15 (faults): (a) fault-masked, phase 13(a)'s cell with drops and
+# NaN corruption under non-finite rejection and median clipping, 3 rounds;
+# (b) fault-async, phase 14(a)'s cell (deadline 2.0) with drops, NaN
+# corruption and stalls under non-finite rejection, 4 events. The masks
+# are host numpy draws from the spec's seed, the same on every device.
+FAULT_MASKED_FLAGS = FED_MASKED_FLAGS + [
+    "--faults", "drop:0.1,corrupt:0.5:nan", "--guards", "nonfinite,clip:10"]
+FAULT_ASYNC_FLAGS = ASYNC_DENSE_FLAGS + [
+    "--faults", "drop:0.1,corrupt:0.25:nan,stall:0.1", "--guards",
+    "nonfinite"]
+# (c) fault-check: guards at zero faults (clip far above any update: it
+# never triggers) against no guards, bitwise, on the card
+FAULT_CHECK_GUARDS = "nonfinite,clip:1e6"
+
+
+def fault_report(phase, time_screen=False):
+    """``on_done`` of a faulted cell: the rejections and re-runs per round
+    from the history (at least one round must reject someone), and every
+    float leaf of the final state finite. ``time_screen``: also the
+    screen's seconds alone over a dense copy of the client stack against
+    the state's own (a round's read: the trained stack and its start)."""
+    def report(trainer):
+        from repro_torch.tree import leaves
+
+        h = trainer.history
+        rej = [m["guard_rejected"] for m in h]
+        check(sum(rej) >= 1, f"{phase}: no round rejected anyone: {rej}")
+        bad = [a for a in leaves((trainer.state.inner.params,
+                                  trainer.state.inner.opt_state))
+               if isinstance(a, torch.Tensor) and a.is_floating_point()
+               and not bool(torch.isfinite(a).all())]
+        check(not bad, f"{phase}: {len(bad)} leaves hold inf or NaN")
+        extra = ""
+        if "t_event" in h[-1]:
+            check(trainer.state.fed.server_version == len(h)
+                  and np.isfinite(h[-1]["t_event"]),
+                  f"{phase}: the schedule stalled at version "
+                  f"{trainer.state.fed.server_version}")
+            extra = (f"; deadline misses "
+                     f"{sum(m.get('deadline_missed', 0.0) for m in h):.0f}, "
+                     f"server_version {trainer.state.fed.server_version}, "
+                     f"clock {h[-1]['t_event']:.3f}")
+        say(phase, f"{len(h)} rounds: guard_rejected per round {rej}, "
+            f"re-run rounds {[i for i, x in enumerate(rej) if x > 0]}; "
+            f"every param and moment finite{extra}")
+        if time_screen:
+            screen_seconds(phase, trainer)
+    return report
+
+
+def screen_seconds(phase, trainer, reps=3):
+    """The guards' screen alone at the cell's size: a dense copy of the
+    client stack screened against the state's own, ``nonfinite,clip``,
+    with its host copy; the best of ``reps``, and the bytes it reads."""
+    from repro_torch.fed import guards as G
+    from repro_torch.tree import leaves, tree_map
+
+    start = trainer.state.inner.params["client"]
+    dev = leaves(start)[0].device
+    trained = tree_map(
+        lambda a: a.clone(memory_format=torch.contiguous_format), start)
+    C = leaves(start)[0].shape[0]
+    policy, state = G.make_guards("nonfinite,clip:10"), G.init_state(dev)
+    mask = torch.ones(C, device=dev)
+    best = float("inf")
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        acc, fac, _, _ = G.screen(policy, trained, start, mask, state)
+        torch.stack([acc, fac]).cpu()
+        best = min(best, time.perf_counter() - t0)
+    nbytes = sum(a.numel() * a.element_size() for a in leaves(trained))
+    del trained
+    say(phase, f"the screen alone over {C} slots ({nbytes / 2**30:.2f} GiB "
+        f"dense, against the round's start): {best * 1e3:.2f} ms, best of "
+        f"{reps}, with its host copy")
+
+
+def fault_runs(model, params, batches, sizes, dev, mode, rounds, opt,
+               sched_masks, faults=None, guards=None, **kw):
+    """``rounds`` rounds (or async events) on ``dev`` from ``params`` with
+    the scheduler's recorded ``sched_masks`` (masked, sparse) or the
+    lognormal:1:1 delays of seed 7 (async, cohort 2, or ``delays=``):
+    (the state's and fed state's leaves on the host, the metrics of each
+    round, each round's seconds)."""
+    from repro_torch import fed
+    from repro_torch.configs import ScalaConfig
+    from repro_torch.core import engine
+    from repro_torch.tree import tree_map
+
+    C = len(sizes)
+    sc = ScalaConfig(num_clients=C, lr=0.01)
+    p = tree_map(lambda a: a.to(dev), params)
+    state = engine.init_train_state(p, opt)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches.items()}
+    sz = torch.from_numpy(sizes).to(dev)
+    if mode == "async":
+        delays = kw.pop("delays", fed.make_delays("lognormal:1:1"))
+        run = fed.make_async_runner(model, sc, backend="lace", optimizer=opt,
+                                    delays=delays, cohort=2, num_clients=C,
+                                    faults=faults, guards=guards, **kw)
+        fs = fed.init_async_state(7, p["client"], delays, guards=guards)
+        step = lambda st, f: run(st, f, b, sz)             # noqa: E731
+    else:
+        part = recorded_scheduler(sched_masks)
+        run = engine.make_round_runner(
+            model, sc, optimizer=opt, aggregator=fed.weighted(),
+            participation=part, slot_gather=mode == "sparse",
+            faults=faults, guards=guards)
+        fs = fed.init_fed_state(0, fed.weighted(), part, faults=faults,
+                                guards=guards, device=dev)
+        step = lambda st, f: run(st, b, sz, f)             # noqa: E731
+    mets, secs = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        state, fs, m = step(state, fs)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                     for k, v in m.items()})
+    host = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in state_leaves({"state": state, "fed": fs}).items()}
+    return host, mets, secs
+
+
+def leaves_bitwise(a, b, what):
+    """Every leaf of the :func:`fault_runs` result ``a`` bit for bit in
+    ``b``, which may hold the guards' state besides."""
+    extra = set(b) - set(a)
+    check(set(a) <= set(b) and all("guard/" in k for k in extra),
+          f"{what}: different leaves {sorted(set(a) ^ set(b))}")
+    for key, x in a.items():
+        y = b[key]
+        same = (torch.equal(bits(x), bits(y)) if isinstance(x, torch.Tensor)
+                else np.array_equal(x, y))
+        check(same, f"{what}: {key} differs")
+
+
+def phase_fault_check(device="cuda", reduced=False, C=4, S=64, T=2):
+    """(c): (1) guards at zero faults == no guards, bitwise (params,
+    moments, fed state, the plain metrics), masked, sparse and async
+    dense, 3 rounds or events each, with the screen's cost; (2) a recorded
+    NaN corruption on one participant: the guarded masked round == the
+    clean round whose recorded scheduler mask is the survivors, bitwise in
+    params and loss_server."""
+    from repro_torch.fed import faults as F
+    from repro_torch.optim import optimizers
+
+    cfg, model, params, batches, sizes, masks = fed_check_inputs(
+        device, reduced, C, S, T)
+    say("fault-check", f"{cfg.name} float32, {C} slots x {S} tokens, {T} "
+        f"steps, mask {masks[0].tolist()}")
+    opt = optimizers.momentum(0.9)
+    for mode in ("masked", "sparse", "async"):
+        guards = "nonfinite" if mode == "async" else FAULT_CHECK_GUARDS
+        plain = fault_runs(model, params, batches, sizes, device, mode, 3,
+                           opt, masks * 3)
+        guarded = fault_runs(model, params, batches, sizes, device, mode, 3,
+                             opt, masks * 3, guards=guards)
+        leaves_bitwise(plain[0], guarded[0], f"fault-check {mode} zero "
+                       "faults, guarded vs unguarded")
+        for mp, mg in zip(plain[1], guarded[1]):
+            check(mg["guard_rejected"] == 0.0,
+                  f"fault-check {mode}: a zero-fault round rejected")
+            for k, v in mp.items():
+                same = (torch.equal(v, mg[k]) if isinstance(v, torch.Tensor)
+                        else np.array_equal(v, mg[k]))
+                check(same, f"fault-check {mode} zero faults: metric {k}")
+        tg, tp = min(guarded[2][1:]), min(plain[2][1:])
+        say("fault-check", f"{mode}: guards {guards!r} at zero faults == "
+            f"no guards over 3 {'events' if mode == 'async' else 'rounds'},"
+            f" every leaf and metric bitwise; seconds (the best of the "
+            f"last two) guarded {tg:.4f} vs unguarded {tp:.4f} "
+            f"({tg / tp:.3f}x)")
+        del plain, guarded
+    fault_survivor_check(device, model, params, batches, sizes, masks)
+
+
+def fault_survivor_check(device, model, params, batches, sizes, masks):
+    """(c)(2): a recorded NaN corruption of the first participant of
+    ``masks[0]``: the guarded masked round == the clean round whose
+    recorded scheduler mask is the survivors, bitwise in params and
+    loss_server."""
+    from repro_torch.fed import faults as F
+    from repro_torch.optim import optimizers
+
+    C, opt = len(sizes), optimizers.momentum(0.9)
+    first = int(np.flatnonzero(masks[0])[0])
+    corrupt = np.zeros(C, np.float32)
+    corrupt[first] = 1.0
+    rec = F.recorded([{"corrupt": corrupt}])
+    got = fault_runs(model, params, batches, sizes, device, "masked", 1, opt,
+                     masks, faults=rec, guards="nonfinite")
+    accept = got[1][0]["guard_accept"].numpy()
+    survivors = masks[0] * accept
+    check(got[1][0]["guard_rejected"] == 1.0 and accept[first] == 0.0,
+          f"fault-check: the corrupted slot {first} was not rejected "
+          f"({accept})")
+    clean = fault_runs(model, params, batches, sizes, device, "masked", 1,
+                       opt, [survivors])
+    for key, b in clean[0].items():
+        if "/.params/" in key:
+            check(torch.equal(bits(got[0][key]), bits(b)),
+                  f"fault-check survivor round: {key} differs")
+    check(torch.equal(got[1][0]["loss_server"], clean[1][0]["loss_server"]),
+          "fault-check survivor round: loss_server differs")
+    say("fault-check", f"NaN corruption of slot {first} (mask "
+        f"{masks[0].tolist()}): rejected, the round re-ran over the "
+        f"survivors {survivors.tolist()} and equals the clean round with "
+        "that mask bit for bit (params, loss_server); guarded "
+        f"{got[2][0]:.3f} s vs clean {clean[2][0]:.3f} s "
+        f"({got[2][0] / clean[2][0]:.2f}x: the re-run)")
+
+
+def phase_fault_cpu_check(device="cuda", C=4, S=64, T=2):
+    """(d): at reduced width, one faulted guarded masked round (a slot
+    dropped, one corrupted: the survivors re-run) and one faulted async
+    event (an arrival corrupted, recorded delays) on ``device`` against
+    the CPU under fed-check's rule; the rejections equal."""
+    from repro_torch import fed
+    from repro_torch.fed import faults as F
+    from repro_torch.optim import optimizers
+
+    cfg, model, params, batches, sizes, _ = fed_check_inputs(
+        device, True, C, S, T)
+    cases = (
+        ("masked", dict(sched_masks=[np.ones(C, np.float32)],
+                        faults=F.recorded([{"drop": [0, 0, 1, 0],
+                                            "corrupt": [0, 1, 0, 0]}]),
+                        guards="nonfinite,clip:10")),
+        ("async", dict(sched_masks=None,
+                       faults=F.recorded([{"corrupt": [0, 1]}]),
+                       guards="nonfinite",
+                       delays=fed.delays.recorded(ASYNC_CHECK_DELAYS))))
+    start = {k: v.cpu() for k, v in
+             state_leaves({"state": {".params": params}}).items()}
+    for mode, kw in cases:
+        res = {dev: fault_runs(model, params, batches, sizes, dev, mode, 1,
+                               optimizers.momentum(0.9), **kw)
+               for dev in (device, "cpu")}
+        (got, m_dev, _), (want, m_cpu, _) = res[device], res["cpu"]
+        m_dev, m_cpu = m_dev[0], m_cpu[0]
+        check(m_cpu["guard_rejected"] == 1.0
+              and m_dev["guard_rejected"] == m_cpu["guard_rejected"]
+              and torch.equal(m_dev["guard_accept"], m_cpu["guard_accept"]),
+              f"fault-cpu {mode}: accept {m_dev['guard_accept']} vs cpu "
+              f"{m_cpu['guard_accept']}")
+        for k in ("loss_server", "loss_client"):
+            check(abs(float(m_dev[k]) - float(m_cpu[k]))
+                  <= LOSS_RTOL * abs(float(m_cpu[k])),
+                  f"fault-cpu {mode} {k} {m_dev[k]} vs cpu {m_cpu[k]}")
+        worst = fed_round_gap(got, want, start)
+        check(max(w for w, _ in worst.values()) <= LEAF_RTOL,
+              f"fault-cpu {mode} leaves {worst} > {LEAF_RTOL}")
+        say("fault-cpu", f"{cfg.name} float32 {mode}, a rejection and its "
+            f"re-run, {device} vs cpu: accept {m_cpu['guard_accept'].tolist()}"
+            f" equal; loss_s {float(m_dev['loss_server']):.6f} vs "
+            f"{float(m_cpu['loss_server']):.6f}; params worst "
+            f"{worst['params'][0]:.3g} of the leaf's largest update beyond 3 "
+            f"ulps, moments worst {worst['moments'][0]:.3g} (tol "
+            f"{LEAF_RTOL})")
+
+
+def phase_faults(device="cuda"):
+    """(a) fault-masked, (b) fault-async through :func:`phase_train`; (c)
+    fault-check; (d) the card against the CPU at reduced width. Returns
+    the launch counts of (a) and (b) together."""
+    masked = phase_train(device, FAULT_MASKED_FLAGS, profile_round=False,
+                         phase="fault-masked",
+                         on_done=fault_report("fault-masked",
+                                              time_screen=True))
+    events = phase_train(device, FAULT_ASYNC_FLAGS, profile_round=False,
+                         phase="fault-async",
+                         on_done=fault_report("fault-async"))
+    phase_fault_check(device)
+    phase_fault_cpu_check(device)
+    return {k: masked[k] + events[k] for k in masked}
+
+
 def run_phase(label, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, then its wall seconds on a line of its own
     (what each phase adds to the run's time limit)."""
@@ -2789,6 +3107,9 @@ def main() -> int:
     if sys.argv[1:] == ["async"]:
         run_phase("async", phase_async)
         return 0
+    if sys.argv[1:] == ["faults"]:
+        run_phase("faults", phase_faults)
+        return 0
     if sys.argv[1:] == ["mlstm"]:
         run_phase("kernels K6", phase_mlstm)
         run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
@@ -2820,9 +3141,10 @@ def main() -> int:
     run_phase("resume", phase_resume)
     fed = run_phase("fed", phase_fed)
     events = run_phase("async", phase_async)
-    # the federation layer's launches: phase 13's rounds and phase 14's
-    # events
-    fed = {k: fed[k] + events[k] for k in fed}
+    faults = run_phase("faults", phase_faults)
+    # the federation layer's launches: phase 13's rounds, phase 14's
+    # events and phase 15's faulted rounds and events
+    fed = {k: fed[k] + events[k] + faults[k] for k in fed}
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
     # forward launches: the serve path's plus both training paths'; its

@@ -9,9 +9,10 @@ state, ``step(state, batches, sizes)`` runs one round (T local steps and
 the FL phase) or one async event, and ``predict(state, batch)`` the
 current global model (SCALA and SFL: slot 0's client half and the server
 half; FL: the full model). A round that threads federation state (a
-participation scheduler, a stateful aggregator, a server optimizer)
-keeps it in ``ProgramState.fed`` (:func:`repro_torch.fed.init_fed_state`,
-seeded by :func:`fed_seed`); an async program keeps its
+participation scheduler, a stateful aggregator, a server optimizer, a
+fault model, a clipping guard) keeps it in ``ProgramState.fed``
+(:func:`repro_torch.fed.init_fed_state`, seeded by :func:`fed_seed`: the
+fault stream shares the seed under its own tag); an async program keeps its
 :class:`repro_torch.fed.AsyncFedState` there (its delay stream seeded by
 :func:`fed_seed`). Under ``snapshots="delta"`` the client half is held
 over one slot; with ``opt_paging="host"`` the step is two-phase on the
@@ -178,6 +179,7 @@ def build(spec: ExperimentSpec, *, device="cuda",
     scheduler = (fd.make_participation(slots)
                  if ex.mode in ("masked", "sparse") else None)
     server_opt, server_lr = _server_optimizer(spec)
+    faults, guards = fd.make_faults(), fd.make_guards()
     if params is None:
         init = (_cnn_split_init if spec.model_config().family == "cnn"
                 else text_split_init)
@@ -187,21 +189,24 @@ def build(spec: ExperimentSpec, *, device="cuda",
         params = _check_params(params, spec, param_slots, device)
     if ex.mode == "async":
         return _build_async(spec, sc, device, model, params, opt, sched,
-                            agg, server_opt, server_lr)
+                            agg, server_opt, server_lr, faults, guards)
     round_fn = engine.make_round_runner(
         model, sc, backend=ex.backend, boundary=ex.boundary, optimizer=opt,
         schedule=sched, aggregator=agg, participation=scheduler,
         opt_state_policy=fd.opt_state_policy,
         slot_gather=ex.mode == "sparse", server_optimizer=server_opt,
-        server_lr=server_lr, precision=ex.precision)
+        server_lr=server_lr, precision=ex.precision, faults=faults,
+        guards=guards)
     thread_fed = (scheduler is not None or agg.stateful
-                  or server_opt is not None)
+                  or server_opt is not None or faults is not None
+                  or (guards is not None and guards.stateful))
 
     def init() -> ProgramState:
         fed_state = (fed.init_fed_state(
             fed_seed(spec), agg, scheduler, num_clients=slots,
             server_optimizer=server_opt, server_params=params["server"],
-            device=device) if thread_fed else ())
+            faults=faults, guards=guards, device=device)
+            if thread_fed else ())
         return ProgramState(inner=engine.init_train_state(params, opt),
                             fed=fed_state)
 
@@ -236,7 +241,8 @@ def _scala_predict(model):
 
 
 def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
-                 sched, agg, server_opt, server_lr) -> RoundProgram:
+                 sched, agg, server_opt, server_lr, faults,
+                 guards) -> RoundProgram:
     """The async branch of ``repro.api.build._build_scala``: one event per
     ``step``."""
     from repro_torch import fed
@@ -255,7 +261,7 @@ def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
         snapshots=ex.snapshots, ring_size=ex.ring_size,
         lr_scale=ex.lr_scale, num_clients=slots, arrival=ex.arrival,
         paged_opt=paged, deadline=ex.deadline, backoff=ex.backoff,
-        donate=ex.donate)
+        donate=ex.donate, faults=faults, guards=guards)
     pager = (fed.HostOptPager(opt, tree_map(lambda a: a[0],
                                             params["client"]), slots)
              if paged else None)
@@ -266,7 +272,7 @@ def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
             fed_seed(spec), params["client"], delays, aggregator=agg,
             server_optimizer=server_opt, server_params=params["server"],
             snapshots=ex.snapshots, ring_size=ex.ring_size,
-            num_clients=slots)
+            num_clients=slots, guards=guards)
         if pager is not None:
             pager.reset()
         return ProgramState(inner=engine.init_train_state(params, opt),

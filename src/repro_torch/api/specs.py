@@ -14,13 +14,14 @@ CNN family (``image_synthetic``, backend ``logits``) in the synchronous
 modes ``subset`` (host-side sampling), ``masked`` and ``sparse`` (an
 in-program participation scheduler over all K slots) and the ``async``
 event runtime (delays, arrival cohorts, dense or delta snapshots,
-host-paged moments, deadlines), both boundaries, f32 policy, one round
-per call, every aggregator, server-side FedOpt, and the FL / SFL
-baselines on the CNN family in ``subset`` mode -- and raises
+host-paged moments, deadlines), fault injection and guarded aggregation
+in the ``masked``, ``sparse`` and ``async`` modes, both boundaries, f32
+policy, one round per call, every aggregator, server-side FedOpt, and
+the FL / SFL baselines on the CNN family in ``subset`` mode -- and raises
 ``NotImplementedError`` naming the missing piece for the rest
-(``lace_dp`` and ``arrival="topk:sharded"``, faults and guards,
-``precision="bf16"``, ``rounds_per_call > 1`` and training the xLSTM
-family), and ``ValueError`` for combinations the reference rejects too.
+(``lace_dp`` and ``arrival="topk:sharded"``, ``precision="bf16"``,
+``rounds_per_call > 1`` and training the xLSTM family), and
+``ValueError`` for combinations the reference rejects too.
 ``unroll`` has nothing to act on in an eager program; ``donate`` lets the
 async event write its cohort's rows into its own state in place.
 """
@@ -151,6 +152,8 @@ class FedSpec:
             self.make_participation(2)               # structural validation
         _one_of("opt_state_policy", self.opt_state_policy,
                 OPT_STATE_POLICIES)
+        self.make_faults()                           # structural validation
+        self.make_guards()                           # structural validation
 
     def make_aggregator(self):
         from repro_torch.fed import make_aggregator
@@ -164,6 +167,22 @@ class FedSpec:
         if self.participation is None:
             return None
         return make_participation(self.participation, num_clients)
+
+    def make_faults(self):
+        """The :class:`repro_torch.fed.FaultModel`, or None."""
+        from repro_torch.fed import make_faults
+
+        if self.faults is None:
+            return None
+        return make_faults(self.faults)
+
+    def make_guards(self):
+        """The :class:`repro_torch.fed.GuardPolicy`, or None."""
+        from repro_torch.fed import make_guards
+
+        if self.guards is None:
+            return None
+        return make_guards(self.guards)
 
 
 @dataclass(frozen=True)
@@ -384,6 +403,11 @@ class ExperimentSpec:
             raise ValueError(
                 "deadline bounds the async cohort barrier; mode "
                 f"{ex.mode!r} has no arrival schedule")
+        if robust and ex.mode == "subset":
+            raise ValueError(
+                "faults/guards are in-program federation features; mode "
+                "'subset' re-stacks clients host-side — use 'masked', "
+                "'sparse', or 'async'")
         if robust or ex.deadline is not None:
             if ex.backend == "lace_dp" and ex.mode in ("sparse", "async"):
                 raise ValueError(
@@ -445,8 +469,6 @@ class ExperimentSpec:
         if ex.rounds_per_call > 1:
             raise _not_ported("rounds_per_call > 1",
                               "the dispatch-knob slice")
-        if fd.faults is not None or fd.guards is not None:
-            raise _not_ported("faults/guards", "the fault-tolerance slice")
         return self
 
     def to_dict(self) -> Dict[str, Any]:

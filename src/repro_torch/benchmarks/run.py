@@ -20,6 +20,8 @@ over r, K, T and the split point), recorded here, not enforced.
         [--quick] [--out async.json]
     PYTHONPATH=src python -m repro_torch.benchmarks.run --table scale \
         [--quick] [--out scale.json]
+    PYTHONPATH=src python -m repro_torch.benchmarks.run --table faults \
+        [--quick] [--out faults.json]
 
 ``--smoke`` runs the reference's SMOKE rows of the synchronous modes:
 SCALA through ``exec=subset``, ``masked`` and ``sparse``, and FedAvgM
@@ -32,11 +34,14 @@ and re-stacked subset), ``--table async`` the async leg
 events/s and staleness per delay distribution) and ``--table scale`` the
 scale leg (:mod:`repro_torch.benchmarks.scale`: delta against dense
 events/s and state bytes over K, the sort and topk pops; its
-``topk:sharded`` row waits for the multi-device slice), each printing CSV
-rows as the reference's runner does and its JSON stamped with the
-device. The reference's other harness legs (round_loop, dispatch,
-boundary, roofline, serve, faults) measure parts the port has not ported
-yet: they are listed, and asking for one exits naming its slice.
+``topk:sharded`` row waits for the multi-device slice) and ``--table
+faults`` the faults leg (:mod:`repro_torch.benchmarks.faults`: guarded
+over unguarded seconds a round at zero faults, masked and async, and a
+chaos run's rejections and final loss), each printing CSV rows as the
+reference's runner does and its JSON stamped with the device. The
+reference's other harness legs (round_loop, dispatch, boundary,
+roofline, serve) measure parts the port has not ported yet: they are
+listed, and asking for one exits naming its slice.
 """
 from __future__ import annotations
 
@@ -56,7 +61,6 @@ NOT_PORTED = {
     "boundary": "the tooling slice (its LACE timing harness)",
     "roofline": "the tooling slice (H100 roofline constants)",
     "serve": "the tooling slice (device-stamped serving benchmarks)",
-    "faults": "the fault-tolerance slice",
 }
 
 
@@ -212,7 +216,18 @@ def leg_scale(quick: bool, device, width: float) -> dict:
     return res
 
 
-LEGS = {"async": leg_async, "scale": leg_scale}
+def leg_faults(quick: bool, device, width: float) -> dict:
+    """The faults leg, its CSV rows as ``benchmarks/run.py:bench_faults``
+    prints them."""
+    from repro_torch.benchmarks.faults import bench_faults, print_rows
+
+    res = bench_faults(K=4 if quick else 8, rounds=2 if quick else 4,
+                       reps=2 if quick else 3, device=device, width=width)
+    print_rows(res)
+    return res
+
+
+LEGS = {"async": leg_async, "scale": leg_scale, "faults": leg_faults}
 
 
 def main(argv=None):
@@ -256,8 +271,9 @@ def main(argv=None):
         return res
     names = [args.table] if args.table else list(TABLES)
     if not args.table and not args.smoke:
-        print(f"skipped: participation, async, scale (run each with "
-              f"--table NAME); not ported yet: {', '.join(NOT_PORTED)}",
+        print(f"skipped: participation, async, scale, faults (run each "
+              f"with --table NAME); not ported yet: "
+              f"{', '.join(NOT_PORTED)}",
               file=sys.stderr)
     print(HEADER, flush=True)
     rows = []

@@ -304,7 +304,8 @@ def async_state_from_reference(afed, cfg: ModelConfig, seed: int,
     AsyncFedState`: the schedule (``version``, ``finish_time``,
     ``server_version``, ``now``, ``retries``, ``ring_versions``) as host
     numpy in the reference's dtypes, the dense snapshots or the delta
-    ring in the port's client layout, the server optimizer's state.
+    ring in the port's client layout, the server optimizer's state and
+    the guards' running median.
     ``key`` is dropped: the port's delays come from the numpy stream
     ``seed`` (or a recorded model), so both packages can start from one
     state with the same delays injected."""
@@ -329,4 +330,6 @@ def async_state_from_reference(afed, cfg: ModelConfig, seed: int,
         ring_versions=(() if empty(afed.ring_versions)
                        else np.array(afed.ring_versions, np.int32)),
         retries=(np.zeros((K,), np.int32) if empty(retries)
-                 else np.array(retries, np.int32)))
+                 else np.array(retries, np.int32)),
+        guard=() if empty(getattr(afed, "guard", ())) else _map(
+            lambda a: to_tensor(a, device), afed.guard))

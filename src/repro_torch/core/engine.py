@@ -42,9 +42,10 @@ Ported: backends ``logits`` and ``lace``, both boundaries, ``precision=
 ``mask``, and the synchronous round with the federation layer: a
 participation scheduler (masked, or gathered into a dense subset axis:
 sparse), any aggregator of :mod:`repro_torch.fed`, the
-``opt_state_policy`` carry / reset / average and server-side FedOpt.
-``lace_dp``, the bf16 policy, faults and guards raise
-``NotImplementedError`` naming the slice that brings them.
+``opt_state_policy`` carry / reset / average, server-side FedOpt, fault
+injection and guarded aggregation (the survivor re-run). ``lace_dp`` and
+the bf16 policy raise ``NotImplementedError`` naming the slice that
+brings them.
 
 Memory: the client half's graph from stage 2 is kept and pulled back
 once (the reference re-runs the client forward inside its vjp); the
@@ -475,6 +476,20 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
     :func:`repro_torch.fed.init_fed_state`; the metrics are the last
     step's. The mask and the gather indices are drawn on the host at the
     round's start, so the round adds no device-to-host copy.
+
+    ``faults`` (:mod:`repro_torch.fed.faults`): each round draws drop /
+    corrupt / stall masks on the host from the stream in
+    ``fed_state["faults"]``; dropped and stalled slots leave the mask
+    before the steps, corrupted ones are rewritten after them. A sparse
+    round with faults passes the gathered slots' mask into every step
+    (a fill slot must not count in the priors). ``guards``
+    (:mod:`repro_torch.fed.guards`): the trained client halves are
+    screened against the round's start (one host copy of the accept and
+    clip vectors); if any participant is rejected the local phase runs
+    again from the start over the survivors, then the clipped, rejected-
+    zeroed halves are averaged over the survivors. The metrics add
+    ``guard_accept``, ``guard_norm`` and ``guard_rejected`` (a float).
+    Guards with no fault firing leave the round bitwise unchanged.
     """
     from repro_torch import fed as _fed
 
@@ -491,13 +506,17 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                 f"slot_gather needs a scheduler with a static subset_size; "
                 f"{participation.name!r} has none -- without it the gather "
                 "would silently degrade to full-K masked compute")
-    for name, value in (("faults", faults), ("guards", guards)):
-        if value is not None:
-            raise NotImplementedError(f"{name} are not ported yet; they come "
-                                      "with the fault-tolerance slice")
+    from repro_torch.fed import faults as _faults
+    from repro_torch.fed import guards as _guards
+
+    faults = _faults.make_faults(faults)
+    guards = _guards.make_guards(guards)
     opt = optimizer if optimizer is not None else optimizers.sgd()
     agg = aggregator if aggregator is not None else _fed.weighted()
     stateful = _fed.is_stateful(agg, participation)
+    if (faults is not None or guards is not None) and not aggregate:
+        raise ValueError("faults/guards screen and aggregate the round's "
+                         "client updates; they need aggregate=True")
     k_active = (participation.subset_size if participation is not None
                 else None)
     do_gather = slot_gather and k_active < participation.num_clients
@@ -518,7 +537,18 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                     "server_optimizer needs fed_state -- build it with "
                     "repro_torch.fed.init_fed_state(..., server_optimizer=, "
                     "server_params=)")
+            if faults is not None:
+                raise ValueError(
+                    "faults need fed_state['faults'] (the fault stream's "
+                    "state) -- build fed_state with repro_torch.fed."
+                    "init_fed_state(..., faults=...)")
+            if guards is not None and guards.clip > 0:
+                raise ValueError(
+                    "guard norm clipping is stateful (running median) -- "
+                    "build fed_state with repro_torch.fed.init_fed_state("
+                    "..., guards=...)")
             sched_state, agg_state, so_state = (), (), ()
+            fault_state, guard_state = None, ()
         else:
             sched_state, agg_state = fed_state["sched"], fed_state["agg"]
             so_state = fed_state.get("server_opt", ())
@@ -527,32 +557,92 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                     "server_optimizer needs fed_state['server_opt'] -- build "
                     "fed_state with repro_torch.fed.init_fed_state(..., "
                     "server_optimizer=, server_params=)")
+            fault_state = fed_state.get("faults")
+            if faults is not None and fault_state is None:
+                raise ValueError(
+                    "faults need fed_state['faults'] -- build fed_state with "
+                    "repro_torch.fed.init_fed_state(..., faults=...)")
+            guard_state = fed_state.get("guard", ())
+            if guards is not None and guards.clip > 0 and guard_state == ():
+                raise ValueError(
+                    "guard norm clipping needs fed_state['guard'] -- build "
+                    "fed_state with repro_torch.fed.init_fed_state(..., "
+                    "guards=...)")
         device = leaves(state.params["client"])[0].device
         ws_start = state.params["server"]
+        start = state  # the round-start state: the re-run's and the screen's
         T = leaves(round_batches)[0].shape[0]
-        mask = None
+        C_all = leaves(state.params["client"])[0].shape[0]
+        mask_np = None
         if participation is not None:
             mask_np, sched_state = participation.sample(sched_state)
-            mask = torch.tensor(mask_np, dtype=torch.float32, device=device)
 
-        metrics = None
-        if do_gather:
-            idx = torch.from_numpy(slot_gather_indices(
-                mask_np, k_active)).to(device)
-            # every gathered slot participates: no mask inside the steps
-            sub = _gather_clients(state, idx)
-            for t in range(T):
-                sub, metrics = step(sub, {k: v[t].index_select(0, idx)
-                                          for k, v in round_batches.items()},
-                                    donate=t > 0)
-            state = _scatter_clients(state, sub, idx)
+        new_fault_state = fault_state
+        corrupt_np = None
+        if faults is not None:
+            f_seed, f_count = (int(x) for x in fault_state.tolist())
+            fmasks = faults.draw(f_seed, f_count, C_all)
+            new_fault_state = torch.tensor([f_seed, f_count + 1],
+                                           dtype=torch.int64)
+            # dropped and stalled clients never deliver this round: they
+            # leave the subset before the steps, so the eq. 14/15 priors
+            # are the survivors'
+            alive = (1.0 - fmasks["drop"]) * (1.0 - fmasks["stall"])
+            mask_np = alive if mask_np is None else mask_np * alive
+            corrupt_np = fmasks["corrupt"] * mask_np
+
+        def local_phase(m_np, again=False):
+            """The T local steps from ``start`` under the (C,) host mask
+            ``m_np`` (None: no mask; ``again``: the guards' survivor
+            re-run), then the corruption in transit: (state, metrics,
+            the gathered slots or None)."""
+            st, metrics, idx = start, None, None
+            if do_gather:
+                idx = slot_gather_indices(m_np, k_active)
+                idx_t = torch.from_numpy(idx).to(device)
+                # without faults or a re-run every gathered slot
+                # participates: no mask in the steps; with them a fill
+                # slot must not count in the priors, so the gathered
+                # slots' mask goes in
+                sub_mask = (torch.from_numpy(m_np[idx]).to(device)
+                            if again or faults is not None else None)
+                sub = _gather_clients(start, idx_t)
+                for t in range(T):
+                    sub, metrics = step(
+                        sub, {k: v[t].index_select(0, idx_t)
+                              for k, v in round_batches.items()}, sub_mask,
+                        donate=t > 0)
+                st = _scatter_clients(start, sub, idx_t)
+                del sub
+            else:
+                mask = (None if m_np is None else
+                        torch.tensor(m_np, dtype=torch.float32,
+                                     device=device))
+                # from the second step on the state is the round's own:
+                # its update may overwrite it
+                for t in range(T):
+                    st, metrics = step(st, {k: v[t] for k, v in
+                                            round_batches.items()}, mask,
+                                       donate=t > 0)
+            if corrupt_np is not None:
+                # the update is corrupted in transit, after training (in
+                # place: these rows are the round's own)
+                _faults.corrupt_update(faults, f_seed, f_count,
+                                       st.params["client"], corrupt_np)
+            return st, metrics, idx
+
+        agg_mask_np = mask_np
+        screened = None
+        new_guard_state = guard_state
+        if guards is not None:
+            # a sparse round's slots outside the gather are exactly
+            # unchanged: the screen reads only the gathered rows
+            state, metrics, idx, screened = _guards.guarded(
+                guards, guard_state, start.params["client"], mask_np, C_all,
+                local_phase)
+            agg_mask_np, new_guard_state = screened.survivors, screened.state
         else:
-            # from the second step on the state is the round's own: its
-            # update may overwrite it
-            for t in range(T):
-                state, metrics = step(state, {k: v[t] for k, v in
-                                              round_batches.items()}, mask,
-                                      donate=t > 0)
+            state, metrics, idx = local_phase(mask_np)
 
         if aggregate:
             C = leaves(state.params["client"])[0].shape[0]
@@ -561,18 +651,26 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                 p_k, p_global = _fed.aggregation_priors(
                     model.num_classes, round_batches["labels"],
                     round_batches.get("weights"), client_axis=1)
-            ctx = _fed.AggContext(num_clients=C, mask=mask,
+            agg_mask = (None if agg_mask_np is None else
+                        torch.tensor(agg_mask_np, dtype=torch.float32,
+                                     device=device))
+            ctx = _fed.AggContext(num_clients=C, mask=agg_mask,
                                   data_sizes=data_sizes, p_k=p_k,
                                   p_global=p_global)
             w, agg_state = agg.client_weights(ctx, agg_state)
             w = w.to(device)
-            params = {"client": stack_client_params(
-                weighted_mean(state.params["client"], w), C),
-                "server": state.params["server"]}
+            pc = state.params["client"]
+            if screened is not None:
+                screened.apply_(start.params["client"], pc)
+            params = {"client": stack_client_params(weighted_mean(pc, w), C),
+                      "server": state.params["server"]}
             opt_state = _round_boundary_opt_state(
                 opt, state.opt_state, params, w, opt_state_policy)
             state = TrainState(params=params, opt_state=opt_state,
                                step=state.step)
+
+        if screened is not None:
+            metrics = dict(metrics, **screened.metrics)
 
         if server_optimizer is not None:
             # FedOpt on the server half: the round delta a pseudo-gradient
@@ -589,6 +687,12 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
         out_fed = {"sched": sched_state, "agg": agg_state}
         if "server_opt" in fed_state:
             out_fed["server_opt"] = so_state
+        if "faults" in fed_state:
+            out_fed["faults"] = (new_fault_state if faults is not None
+                                 else fed_state["faults"])
+        if "guard" in fed_state:
+            out_fed["guard"] = (new_guard_state if guards is not None
+                                else fed_state["guard"])
         return state, out_fed, metrics
 
     return round_fn

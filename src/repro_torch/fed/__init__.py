@@ -3,14 +3,16 @@
 (:mod:`repro_torch.fed.participation`), composed by
 :func:`repro_torch.core.engine.make_round_runner`, and the asynchronous
 event runtime (:mod:`repro_torch.fed.runtime`, :func:`make_async_runner`)
-with its completion-delay models (:mod:`repro_torch.fed.delays`).
+with its completion-delay models (:mod:`repro_torch.fed.delays`); both
+runners take the fault model (:mod:`repro_torch.fed.faults`) and the
+guarded aggregation (:mod:`repro_torch.fed.guards`).
 
 The round-level state the sync runner threads (scheduler state,
-aggregator ages, server-optimizer state) is a plain dict ``{"sched": ...,
-"agg": ...[, "server_opt": ...]}`` built by :func:`init_fed_state`; the
-async runner threads an :class:`AsyncFedState` built by
-:func:`init_async_state`. Faults and guards come with the
-fault-tolerance slice.
+aggregator ages, server-optimizer state, the fault stream's state, the
+guards' running median) is a plain dict ``{"sched": ..., "agg": ...[,
+"server_opt": ...][, "faults": ...][, "guard": ...]}`` built by
+:func:`init_fed_state`; the async runner threads an
+:class:`AsyncFedState` built by :func:`init_async_state`.
 """
 from __future__ import annotations
 
@@ -33,6 +35,15 @@ from repro_torch.fed.delays import (  # noqa: F401
     DELAY_MODELS,
     DelayModel,
     make_delays,
+)
+from repro_torch.fed.faults import (  # noqa: F401
+    CORRUPT_MODES,
+    FaultModel,
+    make_faults,
+)
+from repro_torch.fed.guards import (  # noqa: F401
+    GuardPolicy,
+    make_guards,
 )
 from repro_torch.fed.participation import (  # noqa: F401
     SCHEDULERS,
@@ -72,11 +83,17 @@ def init_fed_state(seed: int, aggregator: Optional[Aggregator] = None,
     """The federation state threaded through sync rounds: the scheduler's
     state from ``seed`` (a CPU tensor: masks are drawn on the host), the
     aggregator's on ``device`` and, with ``server_optimizer``, its state
-    over ``server_params`` (the server half) under ``"server_opt"``."""
-    for name, value in (("faults", faults), ("guards", guards)):
-        if value is not None:
-            raise NotImplementedError(f"{name} are not ported yet; they come "
-                                      "with the fault-tolerance slice")
+    over ``server_params`` (the server half) under ``"server_opt"``.
+
+    ``faults`` (a :class:`FaultModel` or spec string): the fault stream's
+    state ``[seed, 0]`` under ``"faults"`` (round ``c`` draws from
+    ``default_rng([seed, 0x5FA17, c])``, apart from the scheduler's
+    ``[seed, c]``). ``guards`` (a :class:`GuardPolicy` or spec string):
+    the running-median clip state on ``device`` under ``"guard"`` when
+    the policy clips, else ``()``."""
+    from repro_torch.fed import faults as _faults
+    from repro_torch.fed import guards as _guards
+
     if num_clients is None:
         if participation is not None:
             num_clients = participation.num_clients
@@ -93,4 +110,10 @@ def init_fed_state(seed: int, aggregator: Optional[Aggregator] = None,
             raise ValueError("init_fed_state needs server_params when a "
                              "server_optimizer is given")
         state["server_opt"] = server_optimizer.init(server_params)
+    if faults is not None:
+        _faults.make_faults(faults)                  # validate the spec
+        state["faults"] = _faults.init_state(seed)
+    if guards is not None:
+        gp = _guards.make_guards(guards)
+        state["guard"] = _guards.init_state(device) if gp.stateful else ()
     return state

@@ -52,9 +52,18 @@ stack or ring and into ``state``'s client moment stack in place: the
 caller gives both states up. ``donate=False`` keeps the event
 functional (each write copies the whole stack).
 
-Not ported here: ``faults`` / ``guards`` (the fault-tolerance slice),
-``backend="lace_dp"``, ``arrival="topk:sharded"`` and the sharded pop
-(the multi-device slice).
+**Faults and guards** (:mod:`repro_torch.fed.faults`,
+:mod:`repro_torch.fed.guards`): the event that starts at server version
+``v`` draws its arrivals' drop / corrupt / stall masks from
+``default_rng([seed, 0x5FA17, v])`` (the delays keep ``[seed, v + 1]``).
+A dropped arrival leaves the contribution mask before the steps, a
+corrupted one's update is rewritten after them, a stalled one's next
+delay is multiplied by ``stall_factor`` before the deadline's backoff.
+The guards screen the cohort's updates against the gathered snapshots;
+a rejection re-runs the cohort's steps from them over the survivors.
+
+Not ported here: ``backend="lace_dp"``, ``arrival="topk:sharded"`` and
+the sharded pop (the multi-device slice).
 """
 from __future__ import annotations
 
@@ -89,7 +98,6 @@ LR_SCALES = ("none", "cohort")
 NO_VERSION = -(2 ** 30)
 
 _MULTI_DEVICE = "the multi-device slice"
-_FAULT_TOLERANCE = "the fault-tolerance slice"
 
 
 @dataclass(frozen=True)
@@ -107,7 +115,8 @@ class AsyncFedState:
     server_opt: server-side FedOpt state (or ``()``);
     ring: (ring_size, ...) recent global client halves (delta only);
     ring_versions: (ring_size,) int32 numpy version tag per ring slot;
-    retries: (K,) int32 numpy consecutive deadline misses per client.
+    retries: (K,) int32 numpy consecutive deadline misses per client;
+    guard: the guards' running-median clip state (or ``()``).
     """
 
     client_params: Any
@@ -121,6 +130,7 @@ class AsyncFedState:
     ring: Any = ()
     ring_versions: Any = ()
     retries: Any = ()
+    guard: Any = ()
 
 
 def _own(tree):
@@ -135,7 +145,8 @@ def init_async_state(seed: int, client_params, delays: DelayModel, *,
                      aggregator=None, server_optimizer=None,
                      server_params=None, snapshots: str = "dense",
                      ring_size: int = 64,
-                     num_clients: Optional[int] = None) -> AsyncFedState:
+                     num_clients: Optional[int] = None,
+                     guards=None) -> AsyncFedState:
     """Dispatch all K clients at version 0, each with its first delay
     (draw 0 of the stream ``seed``).
 
@@ -143,9 +154,13 @@ def init_async_state(seed: int, client_params, delays: DelayModel, *,
     init); the dense snapshots are a copy of it. With ``snapshots=
     "delta"`` pass it stacked over one slot (row 0 is taken) and
     ``num_clients=K``: the state holds a ``ring_size``-deep ring of the
-    global client half instead. Pass the runner's ``aggregator`` and
-    ``server_optimizer`` so their state matches.
+    global client half instead. Pass the runner's ``aggregator``,
+    ``server_optimizer`` and ``guards`` so their state matches (a
+    clipping policy's running median under ``guard``).
     """
+    from repro_torch.fed import guards as _guards
+
+    gp = _guards.make_guards(guards)
     if snapshots not in SNAPSHOT_MODES:
         raise ValueError(f"unknown snapshots mode {snapshots!r}; expected "
                          f"{SNAPSHOT_MODES}")
@@ -182,7 +197,9 @@ def init_async_state(seed: int, client_params, delays: DelayModel, *,
                     if server_optimizer is not None else ()),
         ring=ring,
         ring_versions=ring_versions,
-        retries=np.zeros((K,), np.int32))
+        retries=np.zeros((K,), np.int32),
+        guard=(_guards.init_state(device) if gp is not None and gp.stateful
+               else ()))
 
 
 def _pop_topk(finish_time, version, cohort: int):
@@ -444,11 +461,17 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
       + delay * backoff ** retries``. Their rows are still computed.
     * ``donate``: write the cohort's rows into ``afed``'s and ``state``'s
       stacks in place (module docstring).
+    * ``faults`` / ``guards``: per-arrival drop / corrupt / stall, and the
+      screen with the survivor re-run (module docstring); a clipping
+      guard keeps its median in ``afed.guard`` (``init_async_state(...,
+      guards=)``). Not with ``paged_opt``, as the reference.
 
     ``state.params["client"]`` holds the current global client half
     broadcast over the K slots (one slot under delta). Metrics: the last
     step's, plus ``staleness_mean`` over the cohort, ``t_event``,
-    ``server_version`` and, with a deadline, ``deadline_missed``.
+    ``server_version``, with a deadline ``deadline_missed`` and with
+    guards ``guard_accept``, ``guard_norm`` (over the cohort) and
+    ``guard_rejected``.
     """
     if opt_state_policy not in engine.OPT_STATE_POLICIES:
         raise ValueError(f"unknown opt_state_policy {opt_state_policy!r}; "
@@ -471,15 +494,23 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
             "opt_state_policy='carry' (dense snapshots already store them "
             f"on device); got snapshots={snapshots!r}, "
             f"opt_state_policy={opt_state_policy!r}")
-    for name, value in (("faults", faults), ("guards", guards)):
-        if value is not None:
-            raise NotImplementedError(f"{name} are not ported yet; they come "
-                                      f"with {_FAULT_TOLERANCE}")
+    from repro_torch.fed import faults as _faults
+    from repro_torch.fed import guards as _guards
+
+    faults = _faults.make_faults(faults)
+    guards = _guards.make_guards(guards)
     if deadline is not None and deadline <= 0:
         raise ValueError(f"deadline must be > 0, got {deadline}")
     if backoff < 1.0:
         raise ValueError(f"backoff must be >= 1, got {backoff}")
-    if deadline is not None and paged_opt:
+    robust = (deadline is not None) or (faults is not None) \
+        or (guards is not None)
+    if robust and backend == "lace_dp":
+        raise ValueError(
+            "deadline/faults/guards are not supported on the lace_dp event "
+            "(its pop and FL phase run inside shard_map); use a single-host "
+            "backend")
+    if robust and paged_opt:
         raise ValueError(
             "deadline/faults/guards are not supported with host-paged "
             "optimizer moments (the pager's arrival prediction does not "
@@ -518,6 +549,10 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
                 "(plain sgd), opt_state_policy='reset', or the host-paged "
                 "moment store (paged_opt=True + HostOptPager)")
         device = leaves(state.params["server"])[0].device
+        if guards is not None and guards.clip > 0 and afed.guard == ():
+            raise ValueError(
+                "guard norm clipping needs afed.guard (running median) -- "
+                "build the state with init_async_state(..., guards=...)")
 
         # --- the pop, on the host: who arrives, and when ---
         idx, arrival_mask, t_event = pop(afed.finish_time, afed.version)
@@ -534,6 +569,16 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
                      - afed.version).astype(np.float32)
         idx_t = torch.from_numpy(idx).to(device)
 
+        # --- fault injection: per-arrival drop / corrupt / stall ---
+        contrib = present
+        corrupt_sub = stall_sub = None
+        if faults is not None:
+            fmasks = faults.draw(afed.seed, afed.server_version, cohort)
+            alive = 1.0 - fmasks["drop"]
+            contrib = alive if contrib is None else contrib * alive
+            corrupt_sub = fmasks["corrupt"] * contrib
+            stall_sub = fmasks["stall"]
+
         # --- the cohort's state: gathered from the dense snapshots, or
         # rebuilt from the ring (delta) ---
         if delta:
@@ -544,7 +589,9 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
         else:
             snap_c = engine.gather_rows(afed.client_params, idx_t)
             opt_sub = engine.gather_rows(state.opt_state["client"], idx_t)
-        sub = engine.TrainState(
+        # the pre-step cohort state: the screen's reference and the
+        # re-run's start (the first step never overwrites it)
+        sub0 = engine.TrainState(
             params={"client": snap_c, "server": state.params["server"]},
             opt_state={"client": opt_sub,
                        "server": state.opt_state["server"]},
@@ -563,22 +610,48 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
             raise ValueError(
                 f"round_batches client axis is {b_lead}; expected the {K} "
                 f"static slots or the {cohort}-sized arrival cohort")
-
-        # --- the local steps: priors and logit adjustments over the
-        # arrival cohort (masked down to the present ones) ---
-        mask_t = (None if present is None
-                  else torch.from_numpy(present).to(device))
         T = leaves(round_batches)[0].shape[0]
-        metrics = {}
-        for t in range(T):
-            # from the second step on the cohort's state is the event's
-            # own: its update may overwrite it
-            sub, metrics = step(sub, {k: pick(v[t]) for k, v in
-                                      round_batches.items()}, mask_t,
-                                donate=t > 0)
+
+        def run_local(m_np, again=False):
+            """The cohort's T steps from ``sub0``, the priors and logit
+            adjustments over the arrivals (masked down to ``m_np``, a
+            (cohort,) host mask, when given), then the corruption in
+            transit: (state, metrics, None), as
+            :func:`repro_torch.fed.guards.guarded` calls it (the mask is
+            always passed, so a re-run, ``again``, is no different)."""
+            mask_t = None if m_np is None else torch.from_numpy(
+                np.asarray(m_np, np.float32)).to(device)
+            sub, metrics = sub0, {}
+            for t in range(T):
+                # from the second step on the cohort's state is the
+                # event's own: its update may overwrite it
+                sub, metrics = step(sub, {k: pick(v[t]) for k, v in
+                                          round_batches.items()}, mask_t,
+                                    donate=t > 0)
+            if corrupt_sub is not None:
+                _faults.corrupt_update(faults, afed.seed,
+                                       afed.server_version,
+                                       sub.params["client"], corrupt_sub)
+            return sub, metrics, None
+
+        # --- guarded aggregation: screen the arriving updates, re-run
+        # the cohort's steps over the survivors after a rejection ---
+        screened = None
+        new_guard = afed.guard
+        if guards is not None:
+            sub, metrics, _, screened = _guards.guarded(
+                guards, afed.guard, snap_c, contrib, cohort, run_local)
+            contrib, new_guard = screened.survivors, screened.state
+        else:
+            sub, metrics, _ = run_local(contrib)
+
+        mask_eff_np = arrival_mask
+        if contrib is not None:
+            mask_eff_np = np.zeros((K,), np.float32)
+            mask_eff_np[idx] = contrib
 
         # --- staleness-weighted delayed aggregation ---
-        mask_eff = torch.from_numpy(arrival_mask).to(device)
+        mask_eff = torch.from_numpy(mask_eff_np).to(device)
         p_k = p_global = None
         if agg.needs_priors:
             p_k, p_global = _agg.aggregation_priors(
@@ -590,8 +663,11 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
         w_base, agg_state = agg.client_weights(ctx, afed.agg_state)
         decay = torch.from_numpy(np.power(decay_base, staleness)).to(device)
         r_hat = normalize_client_weights(w_base * decay, mask_eff)
-        cohort_avg = weighted_mean(sub.params["client"],
-                                   r_hat.index_select(0, idx_t))
+        pc_sub = sub.params["client"]
+        if screened is not None:
+            # in place: the cohort's trained rows are the event's own
+            screened.apply_(snap_c, pc_sub)
+        cohort_avg = weighted_mean(pc_sub, r_hat.index_select(0, idx_t))
         new_global = tree_map(
             lambda g, c: ((1.0 - mu) * engine.at_least_f32(g[0])
                           + mu * engine.at_least_f32(c)).to(g.dtype),
@@ -609,7 +685,8 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
                 server_lr)
 
         # --- the rows the event writes: every arrival, or only the
-        # present ones (a missed arrival never delivered) ---
+        # present ones (a missed arrival never delivered; a dropped or
+        # rejected one that was present restarts from the new version) ---
         if present is None:
             rows, rows_t, pos_t = idx, idx_t, None
         else:
@@ -646,13 +723,18 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
         new_version = afed.server_version + 1
         new_delays = delays.draw(afed.seed, new_version, (cohort,))
         eff_delays = new_delays
+        if stall_sub is not None:
+            # a stalled arrival straggles for stall_factor x its delay;
+            # the deadline's backoff later rescues the schedule
+            eff_delays = np.where(stall_sub > 0, eff_delays * np.float32(
+                faults.stall_factor), eff_delays).astype(np.float32)
         version = afed.version.copy()
         retries = afed.retries.copy()
         if present is not None:
             retries_sub = afed.retries[idx]
             boff = np.power(np.float32(backoff),
                             retries_sub.astype(np.float32))
-            eff_delays = np.where(present > 0, new_delays, new_delays * boff)
+            eff_delays = np.where(present > 0, eff_delays, new_delays * boff)
             retries[idx] = np.where(present > 0, 0, retries_sub + 1)
         version[rows] = new_version
         finish_time = afed.finish_time.copy()
@@ -675,7 +757,7 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
             server_version=new_version, finish_time=finish_time,
             now=np.float32(t_event), seed=afed.seed, agg_state=agg_state,
             server_opt=server_opt_state, ring=ring,
-            ring_versions=ring_versions, retries=retries)
+            ring_versions=ring_versions, retries=retries, guard=new_guard)
         new_state = engine.TrainState(
             params={"client": new_client, "server": new_ws},
             opt_state={"client": opt_c, "server": sub.opt_state["server"]},
@@ -691,6 +773,8 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
             metrics.update(staleness_mean=np.float32(staleness[idx].mean()))
         metrics.update(t_event=np.float32(t_event),
                        server_version=new_version)
+        if screened is not None:
+            metrics.update(screened.metrics)
         if present is not None:
             metrics.update(deadline_missed=np.float32(cohort)
                            - present.sum())

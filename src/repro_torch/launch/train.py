@@ -37,9 +37,20 @@ t=... stale=...`` as the reference's driver does:
         --clients 16 --async --cohort 4 --delay-spec lognormal:1:1.5 \
         --staleness-decay 0.5 --rounds 4
 
-The flags of unported features (faults, guards, ``--arrival
-topk:sharded``, ``--precision bf16``, ``--rounds-per-call`` > 1) fail with
-the spec's NotImplementedError. The port always runs a round as a Python
+``--faults`` (``drop:P``, ``corrupt:P[:nan|inf|noise[:SCALE]]``,
+``stall:P[:FACTOR]``) injects failures and ``--guards`` (``nonfinite``,
+``clip:TAU[:BETA]``) screens the updates, a rejection re-running the
+round's local phase over the survivors, in the masked, sparse and async
+modes (the header names both; ``Trainer.history`` records
+``guard_rejected`` per round):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --clients 16 --participation uniform:0.25 --rounds 3 \
+        --faults drop:0.1,corrupt:0.5:nan --guards nonfinite,clip:10
+
+The flags of unported features (``--arrival topk:sharded``,
+``--precision bf16``, ``--rounds-per-call`` > 1) fail with the spec's
+NotImplementedError. The port always runs a round as a Python
 loop of steps, so ``--no-scan`` changes nothing and ``--unroll`` has
 nothing to act on; ``--no-donate`` keeps the async event functional.
 
@@ -264,6 +275,8 @@ def main(argv=None):
               f"{meta['slots']} staleness_decay={ex.staleness_decay} "
               f"mix_rate={ex.mix_rate} snapshots={ex.snapshots} "
               f"arrival={ex.arrival} opt_paging={ex.opt_paging}{extra}")
+    if spec.fed.faults or spec.fed.guards:
+        print(f"faults: {spec.fed.faults} guards: {spec.fed.guards}")
 
     start = 0
     if args.resume:

@@ -490,10 +490,18 @@ def test_runner_and_state_validation():
     with pytest.raises(NotImplementedError, match="multi-device slice"):
         fed.make_async_runner(model, sc, delays=dm, cohort=2,
                               backend="lace_dp")
-    for name in ("faults", "guards"):
-        with pytest.raises(NotImplementedError, match="fault-tolerance"):
+    # faults and guards are ported; their specs are parsed as the
+    # reference's, and a clipping guard needs its median in the state
+    for name, spec in (("faults", "explode:0.1"), ("guards", "median")):
+        with pytest.raises(ValueError, match="unknown"):
             fed.make_async_runner(model, sc, delays=dm, cohort=2,
-                                  **{name: "drop:0.1"})
+                                  **{name: spec})
+    event = fed.make_async_runner(model, sc, delays=dm, cohort=2,
+                                  guards="clip:2")
+    with pytest.raises(ValueError, match="afed.guard"):
+        event(engine.init_train_state(params, optimizers.sgd()),
+              fed.init_async_state(0, params["client"], dm),
+              _linear_batches(0, 1, 4), None)
     with pytest.raises(ValueError, match="deadline must be > 0"):
         fed.make_async_runner(model, sc, delays=dm, cohort=2, deadline=0.0)
     with pytest.raises(ValueError, match="backoff"):
@@ -876,9 +884,10 @@ def test_async_still_refuses_what_later_slices_bring():
             (dict(mode="async", backend="lace_dp"), None, "multi-device"),
             (dict(mode="async", arrival="topk:sharded"), None,
              "multi-device"),
-            (dict(mode="async"), dict(faults="drop:0.1"), "fault-tolerance"),
-            (dict(mode="async"), dict(guards="nonfinite"),
-             "fault-tolerance")):
+            (dict(mode="async", precision="bf16"), dict(faults="drop:0.1"),
+             "dispatch-knob"),
+            (dict(mode="async", rounds_per_call=2),
+             dict(guards="nonfinite"), "dispatch-knob")):
         d = _lm_spec(ex, fd)
         with pytest.raises(NotImplementedError, match=match):
             api.ExperimentSpec.from_dict(d).validate()

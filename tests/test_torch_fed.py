@@ -376,9 +376,12 @@ def test_init_fed_state():
         fed.init_fed_state(0, server_optimizer=so)
     with pytest.raises(ValueError, match="num_clients"):
         fed.init_fed_state(0, agg)
-    for kw in (dict(faults="drop:0.1"), dict(guards="nonfinite")):
-        with pytest.raises(NotImplementedError, match="fault-tolerance"):
-            fed.init_fed_state(0, **kw)
+    # the fault stream's [seed, count] and, for a clipping policy, the
+    # guards' running median
+    fs = fed.init_fed_state(5, faults="drop:0.1", guards="clip:2")
+    assert fs["faults"].tolist() == [5, 0] and set(fs["guard"]) == {"med",
+                                                                   "n"}
+    assert fed.init_fed_state(0, guards="nonfinite")["guard"] == ()
 
 
 # --------------------------------------------------------------------------
@@ -605,9 +608,12 @@ def test_stateful_runner_requires_fed_state():
             runner(state, rb, None)
     with pytest.raises(ValueError, match="opt_state_policy"):
         engine.make_round_runner(model, sc, opt_state_policy="nope")
-    for kw in (dict(faults="drop:0.1"), dict(guards="nonfinite")):
-        with pytest.raises(NotImplementedError, match="fault-tolerance"):
-            engine.make_round_runner(model, sc, **kw)
+    # faults need their stream's state, clipping its median
+    for kw, match in ((dict(faults="drop:0.1"), "fault stream"),
+                      (dict(guards="clip:2"), "stateful")):
+        runner = engine.make_round_runner(model, sc, backend="logits", **kw)
+        with pytest.raises(ValueError, match=match):
+            runner(state, rb, None)
 
 
 # --------------------------------------------------------------------------

@@ -243,8 +243,9 @@ def test_validate_names_the_slices_still_to_come():
              "multi-device slice"),
             (dict(fed=api.FedSpec(participation="uniform:0.5",
                                   faults="drop:0.1"),
-                  execution=api.ExecutionSpec(mode="masked")),
-             "fault-tolerance"),
+                  execution=api.ExecutionSpec(mode="masked",
+                                              precision="bf16")),
+             "dispatch-knob"),
             (dict(fed=api.FedSpec(participation="uniform:0.5"),
                   execution=api.ExecutionSpec(mode="masked",
                                               rounds_per_call=2)),
@@ -513,4 +514,4 @@ def test_participation_leg(tmp_path):
         assert all(e["rounds_per_sec"] > 0 for e in entry.values())
     assert res["subset_restacked_frac=0.5"]["seconds"] > 0
     with pytest.raises(SystemExit, match="not ported yet"):
-        table_run.main(["--table", "faults"])
+        table_run.main(["--table", "round_loop"])

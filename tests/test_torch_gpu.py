@@ -942,3 +942,17 @@ def test_fed_resume_on_card_is_bitwise(mode, tmp_path):
         else:
             assert got[key] == a, key
     assert resumed.history == straight.history
+
+
+@pytest.mark.gpu
+def test_guarded_round_on_card_equals_survivor_round():
+    """chip_smoke's fault-check (c)(2) on reduced qwen1.5-0.5b: a recorded
+    NaN corruption of one participant on the card (K1, K2, K3) is
+    rejected, the round re-runs over the survivors and equals, bit for
+    bit in params and loss_server, the clean round whose recorded
+    scheduler mask is the survivors."""
+    _needs_card()
+    cs = _chip_smoke()
+    _, model, params, batches, sizes, masks = cs.fed_check_inputs(
+        "cuda", True, 4, 32, 2)
+    cs.fault_survivor_check("cuda", model, params, batches, sizes, masks)

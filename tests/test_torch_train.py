@@ -203,10 +203,21 @@ ALEXNET = dict(arch="alexnet-cifar", reduced=False,
     pytest.param(dict(execution=dict(server_optimizer=api.OptimSpec(
         name="sgd"))), ValueError, "server_optimizer needs its lr",
         id="server_optimizer-ValueError-needs its lr"),
-    pytest.param(dict(fed=dict(faults="drop:0.1")), NotImplementedError,
-                 "faults/guards", id="faults-NotImplementedError"),
-    pytest.param(dict(fed=dict(guards="nonfinite")), NotImplementedError,
-                 "faults/guards", id="guards-NotImplementedError"),
+    # faults and guards are ported in the in-program modes; with a
+    # feature still to come they are refused for that feature
+    pytest.param(dict(fed=dict(faults="drop:0.1"),
+                      execution=dict(mode="masked", precision="bf16")),
+                 NotImplementedError, "precision 'bf16'",
+                 id="faults-NotImplementedError"),
+    pytest.param(dict(fed=dict(guards="nonfinite"),
+                      execution=dict(mode="masked", rounds_per_call=2)),
+                 NotImplementedError, "rounds_per_call",
+                 id="guards-NotImplementedError"),
+    pytest.param(dict(fed=dict(faults="drop:0.1", guards="nonfinite"),
+                      execution=dict(mode="masked")), None, None,
+                 id="faults-guards-masked-validates"),
+    pytest.param(dict(fed=dict(faults="drop:0.1")), ValueError,
+                 "mode 'subset' re-stacks", id="faults-subset-ValueError"),
     # bias_compensated is ported and validates
     pytest.param(dict(fed=dict(aggregator="bias_compensated")), None, None,
                  id="bias_compensated-validates"),
@@ -230,4 +241,6 @@ def test_validate_names_what_is_not_ported(change, error, match):
             _spec(**change).validate()
     _spec().validate()
     with pytest.raises(SystemExit, match="not ported"):
-        train.main(FLAGS + ["--device", "cpu", "--faults", "drop:0.1"])
+        train.main(FLAGS + ["--device", "cpu", "--participation",
+                            "uniform:0.5", "--faults", "drop:0.1",
+                            "--precision", "bf16"])
