@@ -23,9 +23,11 @@ Phases, one or more lines each:
    runs bitwise equal), the fused LACE boundary (K1, K2; also at the
    masked round's 16 client prior rows, 12 of them absent) and the
    single-prior LACE kernels of the dual boundary (K4, K5; server side
-   with dW, client side without) at the training shapes (each with its
-   bound, the split-TF32 route's cost and the f32 CUDA cores' beside it,
-   and a bitwise repeat at the main path's case), and the chunkwise
+   with dW, client side without) at the training shapes, each also with
+   a bf16 head as the bf16 compute policy hands it (each with its bound,
+   every pass at TF32's rate, the split-TF32 route's cost and the f32
+   CUDA cores' beside it, and a bitwise repeat at the main path's cases,
+   float32 and bf16 head), and the chunkwise
    mLSTM (K6) at the served xlstm-1.3b's prefill shapes, every prompt
    length of the serving mix, q, k, v in float32 and in bfloat16 (h and
    the final C, n, m against the plain version, a bitwise repeat, the
@@ -130,7 +132,26 @@ Phases, one or more lines each:
    the guarded round == the clean round whose mask is the survivors,
    bitwise; (d) at reduced width, a faulted guarded masked round and a
    faulted async event, card against CPU under fed-check's rule, the
-   accept vectors equal.
+   accept vectors equal;
+16. dispatch: the dispatch knobs on full-width qwen1.5-0.5b through the
+   training CLI's spec and Trainer -- (b) chunks: phase 6's cell at 3
+   rounds a call over 5 rounds (3 + 2) against 1 a call from the same
+   seed, history and every state leaf bitwise, seconds a round, and the
+   synchronizing CUDA calls of one call of each (``torch.cuda.
+   set_sync_debug_mode("warn")``, recorded, no bar); (a) bf16: phase 6's
+   cell with ``--precision bf16``, 3 rounds, through phase 6's launch
+   check (K1, K2 on their bf16-head build), master params and moments
+   float32 and finite, each round's loss_server within 0.1 of (b)'s
+   float32 run (the reference's bar), a profiled round; then one round
+   of it with ``--boundary dual`` (K4, K5 on their bf16-head build);
+   (c) dispatch-check: full width in the float32 policy, 4 slots -- 2
+   rounds a call over 3 rounds against 1 a call in the subset, masked
+   (bias_compensated, server FedAdam), sparse and async dense modes,
+   bitwise; a guarded masked round with a recorded NaN corruption,
+   donate on against off, bitwise; the masked round's peak memory at
+   phase 13(a)'s cell with and without donation; (d) AlexNet at width
+   1.0 in bf16, one round of scala, fedavg and splitfed_v1, every leaf
+   float32 and finite.
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -144,7 +165,8 @@ check-xlstm (5c).
 ``python3 chip_smoke.py baselines`` runs phases 1, 2, 11 and 12;
 ``python3 chip_smoke.py fed`` phases 1, 2 and 13; ``python3
 chip_smoke.py async`` phases 1, 2 and 14; ``python3 chip_smoke.py
-faults`` phases 1, 2 and 15.
+faults`` phases 1, 2 and 15; ``python3 chip_smoke.py dispatch`` phases
+1, 2 and 16.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -220,34 +242,42 @@ FLASH_BWD_CASES = [(16, 512, 16, 16, None, torch.bfloat16),
                    (2, 1024, 16, 16, 256, torch.bfloat16)]         # window
 FLASH_BWD_REPORT = FLASH_BWD_CASES[0]
 # the fused LACE boundary (K1, K2), (N tokens, feats dtype, tau, G client
-# prior rows, absent clients) at the training width (d 1024, V 151936, G
-# per-client prior rows, one concatenated row, the last eighth of each
-# client's tokens weight 0): the main path's 8192 tokens first, then 2048,
-# a ragged N and tau = 0, then the masked round's shape: 16 prior rows, 12
-# of them absent clients (every token weight 0, a uniform prior row).
+# prior rows, absent clients, head dtype) at the training width (d 1024, V
+# 151936, G per-client prior rows, one concatenated row, the last eighth of
+# each client's tokens weight 0): the main path's 8192 tokens first, then
+# 2048, a ragged N and tau = 0, then the masked round's shape: 16 prior
+# rows, 12 of them absent clients (every token weight 0, a uniform prior
+# row), then the main path under the bf16 compute policy: a bf16 head
+# (held against the plain version on its float32 copy).
 # Tolerance against the plain version (f32 products, TF32 off; the
 # kernels' split-TF32 products keep f32 accuracy): nll and lse within 1e-4
 # of their largest entry, df and dW within 1e-5 of theirs; df of the first
 # 256 tokens also within 1e-5 of the float64 value. At the main path's
-# case two runs of K1, K2 (and of K4, K5 per side) are bitwise equal.
+# cases (f32 and bf16 head) two runs of K1, K2 (and of K4, K5 per side)
+# are bitwise equal.
 LACE_CLIENTS = 4
-LACE_CASES = [(8192, torch.bfloat16, 1.0, LACE_CLIENTS, 0),
-              (8192, torch.float32, 1.0, LACE_CLIENTS, 0),
-              (2048, torch.bfloat16, 1.0, LACE_CLIENTS, 0),
-              (2048, torch.float32, 0.0, LACE_CLIENTS, 0),
-              (2047, torch.bfloat16, 1.0, LACE_CLIENTS, 0),
-              (8192, torch.bfloat16, 1.0, 16, 12)]
+F32, BF16 = torch.float32, torch.bfloat16
+LACE_CASES = [(8192, BF16, 1.0, LACE_CLIENTS, 0, F32),
+              (8192, F32, 1.0, LACE_CLIENTS, 0, F32),
+              (2048, BF16, 1.0, LACE_CLIENTS, 0, F32),
+              (2048, F32, 0.0, LACE_CLIENTS, 0, F32),
+              (2047, BF16, 1.0, LACE_CLIENTS, 0, F32),
+              (8192, BF16, 1.0, 16, 12, F32),
+              (8192, BF16, 1.0, LACE_CLIENTS, 0, BF16)]
 LACE_REPORT = LACE_CASES[0]
+LACE_BF16_HEAD = LACE_CASES[-1]          # the bf16 policy's main path
 # the single-prior LACE kernels (K4, K5) of the dual boundary, (N tokens,
-# feats dtype, side) at the training width: the server side (one
-# concatenated prior row, dW) and the client side (4 per-client rows
-# picked per token, no dW), at the main path's 8192 tokens and at 2048.
-# Tolerance against the plain version: nll and lse within 1e-4 of their
-# largest entry, df and dW within 1e-5 of theirs.
-LACE1_CASES = [(N, dt, side) for N in (8192, 2048)
-               for dt in (torch.bfloat16, torch.float32)
-               for side in ("server", "client")]
+# feats dtype, side, head dtype) at the training width: the server side
+# (one concatenated prior row, dW) and the client side (4 per-client rows
+# picked per token, no dW), at the main path's 8192 tokens and at 2048,
+# then the main path's sides with a bf16 head (the bf16 policy). Tolerance
+# against the plain version: nll and lse within 1e-4 of their largest
+# entry, df and dW within 1e-5 of theirs.
+LACE1_CASES = [(N, dt, side, F32) for N in (8192, 2048)
+               for dt in (BF16, F32) for side in ("server", "client")]
+LACE1_CASES += [(8192, BF16, side, BF16) for side in ("server", "client")]
 LACE1_REPORT = {"server": LACE1_CASES[0], "client": LACE1_CASES[1]}
+LACE1_BF16_HEAD = {"server": LACE1_CASES[-2], "client": LACE1_CASES[-1]}
 # the training phase: the reference LM training CLI's defaults (SCALA, subset
 # sampling, fused LACE boundary, weighted FedAvg, SGD) at full width
 TRAIN_FLAGS = ["--arch", ARCH, "--clients", "16", "--participation", "0.25",
@@ -1179,18 +1209,21 @@ def phase_flash_bwd():
     return rows, max_err
 
 
-def lace_inputs(N, dtype, tau, G=LACE_CLIENTS, absent=0, d=1024, V=151936):
+def lace_inputs(N, dtype, tau, G=LACE_CLIENTS, absent=0, w_dtype=F32,
+                d=1024, V=151936):
     """Boundary inputs at the training width, from a seeded generator:
-    feats (N, d), w_head (d, V) f32, labels, the two sides' prior tables
-    and per-token client ids, and the per-token scale weight / sum. The
-    last ``absent`` of the G clients are masked out, as a masked round
-    gives them: every token weight 0 and the uniform prior row."""
+    feats (N, d), w_head (d, V) in ``w_dtype`` (bf16: the same draws
+    rounded), labels, the two sides' prior tables and per-token client
+    ids, and the per-token scale weight / sum. The last ``absent`` of the
+    G clients are masked out, as a masked round gives them: every token
+    weight 0 and the uniform prior row."""
     from repro_torch.kernels.lace import ops
 
     gen = torch.Generator("cuda")
     gen.manual_seed(N)
     feats = torch.randn((N, d), generator=gen, device="cuda").to(dtype)
-    w = torch.randn((d, V), generator=gen, device="cuda") * d ** -0.5
+    w = (torch.randn((d, V), generator=gen, device="cuda")
+         * d ** -0.5).to(w_dtype)
     labels = torch.randint(0, V, (N,), generator=gen, device="cuda",
                            dtype=torch.int32)
     cid = (torch.arange(N, device="cuda") * G // N)
@@ -1255,37 +1288,43 @@ def lace_bounds(N, d, V, passes, nbytes):
     """The bound of a LACE kernel whose function is ``passes``, one
     (a dtype, b dtype) pair per 2 N d V product (z = feats W, df = g W^T
     per side, dW = feats^T g; g is f32): ``bound_ms``, each pass once at
-    the fastest tensor-core rate for its operands, or the bytes at HBM's
-    rate, the larger. For the text only (not bounds of the function):
-    ``route_ms``, the split-TF32 products the kernels run at TF32's rate,
-    and ``f32_ms``, the passes at the CUDA cores' f32 rate."""
+    the fastest tensor-core rate for its operands (a bf16 x bf16 pass at
+    the bf16 rate), or the bytes at HBM's rate, the larger. For the text
+    only (not bounds of the function): ``tf32_ms``, every pass once at
+    TF32's rate (the bound of a kernel that keeps all its products on the
+    TF32 tensor cores); ``route_ms``, the split-TF32 products the kernels
+    run at TF32's rate; and ``f32_ms``, the passes at the CUDA cores' f32
+    rate."""
     flops = 2 * N * d * V
     t_ops = sum(flops / tc_rate(a, b) for a, b in passes)
     t_bytes = nbytes / PEAK_BYTES
     products = sum(split_products(a, b) for a, b in passes)
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                tf32_ms=len(passes) * flops / PEAK_FLOPS["tf32"] * 1e3,
                 route_products=products,
                 route_ms=products * flops / PEAK_FLOPS["tf32"] * 1e3,
                 f32_ms=len(passes) * flops / PEAK_FLOPS[torch.float32] * 1e3)
 
 
 def bounds_text(r):
-    return (f"bound {r['bound_ms']:.2f} ({r['bound_by']}); route "
-            f"{r['route_products']} split-TF32 products {r['route_ms']:.2f}; "
-            f"f32 CUDA cores {r['f32_ms']:.2f}")
+    return (f"bound {r['bound_ms']:.2f} ({r['bound_by']}); all passes at "
+            f"TF32 {r['tf32_ms']:.2f}; route {r['route_products']} "
+            f"split-TF32 products {r['route_ms']:.2f}; f32 CUDA cores "
+            f"{r['f32_ms']:.2f}")
 
 
 def phase_lace():
     """K1 and K2 against their plain versions (same arguments, chunked
-    logits); ``library_ms`` is the one cuBLAS product feats @ W, a
-    yardstick only (no PyTorch call computes the fused boundary)."""
+    logits); ``library_ms`` is the one cuBLAS product feats @ W in
+    float32, a yardstick only (no PyTorch call computes the fused
+    boundary)."""
     from repro_torch.kernels.lace import kernel, ref
 
     rows, errs = {}, {"fwd": 0.0, "bwd": 0.0}
     for case in LACE_CASES:
-        N, dtype, tau, G, absent = case
-        args, weights, ts = lace_inputs(N, dtype, tau, G, absent)
+        N, dtype, tau, G, absent, w_dtype = case
+        args, weights, ts = lace_inputs(N, dtype, tau, G, absent, w_dtype)
         feats, w = args[0], args[1]
         d, V = w.shape
         got = kernel.lace2_fwd_cuda(*args)
@@ -1317,16 +1356,17 @@ def phase_lace():
             (a - b).abs().max().item() for a, b in zip(got, exp)))
         errs["bwd"] = max(errs["bwd"], max(
             (a - b).abs().max().item() for a, b in zip(gb, eb)))
-        f32 = feats.float()
+        f32, w32 = feats.float(), w.float()
         times = {name: time_ms(fn, iters=3, warmup=1) for name, fn in (
             ("fwd", lambda: kernel.lace2_fwd_cuda(*args)),
             ("fwd_plain", lambda: ref.lace2_fwd_plain(*args)),
             ("bwd", lambda: kernel.lace2_bwd_cuda(*bargs)),
             ("bwd_plain", lambda: ref.lace2_bwd_plain(*bargs)),
-            ("library", lambda: f32 @ w))}
+            ("library", lambda: f32 @ w32))}
         G = args[5].shape[0]
         el = feats.element_size()
-        in_bytes = el * N * d + 4 * d * V + 4 * N * 2 + 4 * (1 + G) * V
+        in_bytes = (el * N * d + w.element_size() * d * V + 4 * N * 2
+                    + 4 * (1 + G) * V)
         z, df, dw = lace_passes(feats.dtype, w.dtype)
         for kind, passes, nbytes in (
                 ("fwd", [z], in_bytes + 4 * 4 * N),
@@ -1337,7 +1377,8 @@ def phase_lace():
                 library_ms=times["library"],
                 **lace_bounds(N, d, V, passes, nbytes))
         say("kernels", f"lace2 N={N} d={d} V={V} feats {str(dtype)[6:]} "
-            f"tau={tau}, {G} client prior rows ({absent} absent): rel err "
+            f"head {str(w_dtype)[6:]} tau={tau}, {G} client prior rows "
+            f"({absent} absent): rel err "
             f"nll_s/nll_k/lse_s/lse_k "
             f"{'/'.join(f'{e:.3g}' for e in e_fwds)} (tol 1e-4), df_s/df_k/dW_s "
             f"{'/'.join(f'{e:.3g}' for e in e_bwds)} (tol 1e-5); df_s/df_k "
@@ -1349,13 +1390,14 @@ def phase_lace():
             f"K2 {times['bwd']:.2f} ms (plain {times['bwd_plain']:.2f}, "
             f"{bounds_text(rows[(case, 'bwd')])}); cuBLAS feats@W "
             f"{times['library']:.2f} ms")
-        if case == LACE_REPORT:
+        if case in (LACE_REPORT, LACE_BF16_HEAD):
             same = [torch.equal(a, b) for a, b in zip(
                 got + gb, kernel.lace2_fwd_cuda(*args)
                 + kernel.lace2_bwd_cuda(*bargs))]
             check(all(same), f"K1/K2 repeat bitwise {case}: nll_s, nll_k, "
                   f"lse_s, lse_k, df_s, df_k, dW_s equal {same}")
-            say("kernels", f"K1, K2 repeat at N={N}: bitwise equal")
+            say("kernels", f"K1, K2 repeat at N={N}, head "
+                f"{str(w_dtype)[6:]}: bitwise equal")
     return rows, errs
 
 
@@ -1367,12 +1409,15 @@ def boundary_launches(boundary):
                 lace1_fwd=0 if fused else 2, lace1_bwd=0 if fused else 2)
 
 
-def lace1_inputs(N, dtype, side, d=1024, V=151936, G=LACE_CLIENTS):
+def lace1_inputs(N, dtype, side, w_dtype=F32, d=1024, V=151936,
+                 G=LACE_CLIENTS):
     """One side of the dual boundary at the training width, from a seeded
-    generator: feats (N, d), w_head (d, V) f32, int32 labels, the side's
-    prior table and per-token client ids (server: one concatenated row,
-    no ids; client: G rows), and the per-token scale weight / sum."""
-    args, weights, ts = lace_inputs(N, dtype, 1.0, G, d=d, V=V)
+    generator: feats (N, d), w_head (d, V) in ``w_dtype``, int32 labels,
+    the side's prior table and per-token client ids (server: one
+    concatenated row, no ids; client: G rows), and the per-token scale
+    weight / sum."""
+    args, weights, ts = lace_inputs(N, dtype, 1.0, G, w_dtype=w_dtype, d=d,
+                                    V=V)
     feats, w, labels, adj_s, _, adj_k, ids_k = args
     adj, ids = (adj_s, None) if side == "server" else (adj_k, ids_k)
     return (feats, w, labels, adj, ids), weights, ts
@@ -1389,8 +1434,8 @@ def phase_lace1():
 
     rows, errs = {}, {"fwd": 0.0, "bwd": 0.0}
     for case in LACE1_CASES:
-        N, dtype, side = case
-        args, weights, ts = lace1_inputs(N, dtype, side)
+        N, dtype, side, w_dtype = case
+        args, weights, ts = lace1_inputs(N, dtype, side, w_dtype)
         feats, w, _, adj, ids = args
         d, V = w.shape
         want_dw = side == "server"
@@ -1416,16 +1461,16 @@ def phase_lace1():
             (a - b).abs().max().item() for a, b in zip(got, exp)))
         errs["bwd"] = max(errs["bwd"], max(
             (a - b).abs().max().item() for a, b in pairs))
-        f32 = feats.float()
+        f32, w32 = feats.float(), w.float()
         times = {name: time_ms(fn, iters=3, warmup=1) for name, fn in (
             ("fwd", lambda: kernel.lace_fwd_cuda(*args)),
             ("fwd_plain", lambda: ref.lace_fwd_plain(*args)),
             ("bwd", lambda: kernel.lace_bwd_cuda(*bargs)),
             ("bwd_plain", lambda: ref.lace_bwd_plain(*bargs)),
-            ("library", lambda: f32 @ w))}
+            ("library", lambda: f32 @ w32))}
         el = feats.element_size()
-        in_bytes = (el * N * d + 4 * d * V + 4 * N + 4 * adj.numel()
-                    + (0 if ids is None else 4 * N))
+        in_bytes = (el * N * d + w.element_size() * d * V + 4 * N
+                    + 4 * adj.numel() + (0 if ids is None else 4 * N))
         z, df, dw = lace_passes(feats.dtype, w.dtype)
         for kind, passes, nbytes in (
                 ("fwd", [z], in_bytes + 2 * 4 * N),
@@ -1437,7 +1482,8 @@ def phase_lace1():
                 library_ms=times["library"],
                 **lace_bounds(N, d, V, passes, nbytes))
         say("kernels", f"lace {side} side N={N} d={d} V={V} rows="
-            f"{adj.shape[0]} feats {str(dtype)[6:]}: rel err nll/lse "
+            f"{adj.shape[0]} feats {str(dtype)[6:]} head "
+            f"{str(w_dtype)[6:]}: rel err nll/lse "
             f"{'/'.join(f'{e:.3g}' for e in e_fwds)} (tol 1e-4), df"
             f"{'/dW' if want_dw else ''} "
             f"{'/'.join(f'{e:.3g}' for e in e_bwds)} (tol 1e-5); K4 "
@@ -1446,15 +1492,15 @@ def phase_lace1():
             f"(plain {times['bwd_plain']:.2f}, "
             f"{bounds_text(rows[(case, 'bwd')])}); cuBLAS feats@W "
             f"{times['library']:.2f} ms")
-        if case in LACE1_REPORT.values():
+        if case in (*LACE1_REPORT.values(), *LACE1_BF16_HEAD.values()):
             again = (kernel.lace_fwd_cuda(*args)
                      + kernel.lace_bwd_cuda(*bargs))
             same = [torch.equal(a, b) for a, b in zip(got + gb, again)
                     if b is not None]
             check(all(same), f"K4/K5 repeat bitwise {case}: nll, lse, df"
                   f"{', dW' if want_dw else ''} equal {same}")
-            say("kernels", f"K4, K5 {side} side repeat at N={N}: bitwise "
-                "equal")
+            say("kernels", f"K4, K5 {side} side repeat at N={N}, head "
+                f"{str(w_dtype)[6:]}: bitwise equal")
     return rows, errs
 
 
@@ -2015,6 +2061,10 @@ def phase_baselines(device="cuda", width=ALEXNET["width"],
                 program = api.build(spec, device=dev, params=tree_map(
                     lambda a: a.to(dtype), p0))
                 state = program.init()
+                # the step may overwrite the state it is given (donation):
+                # the round's start is read before it
+                old = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                       for k, v in state_leaves(state).items()}
                 b = {k: v.to(dev, dtype if k == "x" else v.dtype)
                      for k, v in batches.items()}
                 prev = torch.backends.cudnn.enabled
@@ -2025,8 +2075,7 @@ def phase_baselines(device="cuda", width=ALEXNET["width"],
                 finally:
                     torch.backends.cudnn.enabled = prev
                 sync(dev)
-                return (state_leaves(state), state_leaves(new),
-                        time.perf_counter() - t0)
+                return old, state_leaves(new), time.perf_counter() - t0
 
             old_c, new_c, sec_c = round_on("cpu", torch.float64, True)
             cpu_s += sec_c
@@ -2865,13 +2914,15 @@ def screen_seconds(phase, trainer, reps=3):
 
 
 def fault_runs(model, params, batches, sizes, dev, mode, rounds, opt,
-               sched_masks, faults=None, guards=None, **kw):
+               sched_masks, faults=None, guards=None, donate=False, **kw):
     """``rounds`` rounds (or async events) on ``dev`` from ``params`` with
     the scheduler's recorded ``sched_masks`` (masked, sparse) or the
     lognormal:1:1 delays of seed 7 (async, cohort 2, or ``delays=``):
     (the state's and fed state's leaves on the host, the metrics of each
-    round, each round's seconds)."""
+    round, each round's seconds). ``donate``: the sync rounds may
+    overwrite their state from the first step on (a copy of ``params``)."""
     from repro_torch import fed
+    from repro_torch.api.build import fresh
     from repro_torch.configs import ScalaConfig
     from repro_torch.core import engine
     from repro_torch.tree import tree_map
@@ -2879,6 +2930,8 @@ def fault_runs(model, params, batches, sizes, dev, mode, rounds, opt,
     C = len(sizes)
     sc = ScalaConfig(num_clients=C, lr=0.01)
     p = tree_map(lambda a: a.to(dev), params)
+    if donate:
+        p = fresh(p)
     state = engine.init_train_state(p, opt)
     b = {k: torch.from_numpy(v).to(dev) for k, v in batches.items()}
     sz = torch.from_numpy(sizes).to(dev)
@@ -2894,7 +2947,7 @@ def fault_runs(model, params, batches, sizes, dev, mode, rounds, opt,
         run = engine.make_round_runner(
             model, sc, optimizer=opt, aggregator=fed.weighted(),
             participation=part, slot_gather=mode == "sparse",
-            faults=faults, guards=guards)
+            faults=faults, guards=guards, donate=donate)
         fs = fed.init_fed_state(0, fed.weighted(), part, faults=faults,
                                 guards=guards, device=dev)
         step = lambda st, f: run(st, b, sz, f)             # noqa: E731
@@ -3065,6 +3118,271 @@ def phase_faults(device="cuda"):
     return {k: masked[k] + events[k] for k in masked}
 
 
+# the dispatch phase: (a) phase 6's cell under the bf16 compute policy,
+# 3 rounds; (b) phase 6's cell at 3 rounds a call over 5 rounds (chunks
+# 3 + 2) against 1 a call; (c) dispatch-check at full width in the f32
+# policy, 4 slots, 64 tokens a document: R = 2 over 3 rounds (2 + 1)
+# against R = 1 in the subset, masked (bias_compensated, server FedAdam),
+# sparse and async dense modes, bitwise; a guarded masked round with a
+# recorded NaN corruption, donate on against off, bitwise; the masked
+# round's peak memory with and without donation at phase 13(a)'s cell;
+# (d) AlexNet at width 1.0 in bf16, one round of scala, fedavg and
+# splitfed_v1. (a) holds each round's loss_server within 0.1 of phase 6's
+# float32 run from the same seed, the reference's own bar
+# (tests/test_dispatch.py): (b)'s unchunked run is that run (the same
+# flags, seed and constant schedule; two rounds more).
+DISPATCH_BF16_FLAGS = TRAIN_FLAGS + ["--precision", "bf16"]
+DISPATCH_CHUNK_FLAGS = TRAIN_FLAGS + ["--rounds", "5"]
+DISPATCH_CHUNK, DISPATCH_LOSS_ATOL = 3, 0.1
+DISPATCH_CHECK_FLAGS = {
+    "subset": ["--clients", "8", "--participation", "0.5"],
+    "masked": ["--clients", "4", "--participation", "uniform:0.5",
+               "--aggregator", "bias_compensated", "--server-optimizer",
+               "fedadam", "--server-lr", "1e-3"],
+    "sparse": ["--clients", "4", "--participation", "uniform:0.5",
+               "--slot-gather"],
+    "async": ["--clients", "4", "--async", "--cohort", "2", "--delay-spec",
+              "lognormal:1:1.5"]}
+DISPATCH_CHECK_COMMON = ["--arch", ARCH, "--local-iters", "2", "--seq", "64",
+                         "--server-batch", "4", "--docs-per-client", "2",
+                         "--optimizer", "momentum", "--rounds", "3",
+                         "--seed", "0"]
+DISPATCH_METHODS = ("scala", "fedavg", "splitfed_v1")
+
+
+def trainer_from_flags(flags, device="cuda"):
+    from repro_torch import api
+    from repro_torch.launch import train
+
+    spec = train.spec_from_args(train.build_parser().parse_args(
+        flags + ["--device", str(device)]))
+    return api.Trainer(spec.validate(), device=device)
+
+
+def kept_leaves(state):
+    """A program state's leaves, copied where they lie (a state of a
+    dozen GB compares on the card in a fraction of its trip to the
+    host)."""
+    return {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in state_leaves(state).items()}
+
+
+def float_leaves_report(state):
+    """(every float leaf is float32 (or bf16 nowhere), count of leaves
+    holding inf or NaN) over a program state's tensors."""
+    vals = [v for v in state_leaves(state).values()
+            if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    return (all(v.dtype == torch.float32 for v in vals),
+            sum(not bool(torch.isfinite(v).all()) for v in vals))
+
+
+def count_syncs(fn):
+    """(``fn()``, the synchronizing CUDA calls it made): the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``, recorded."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def dispatch_chunks(device="cuda", extra=()):
+    """(b): the cell at 1 and at DISPATCH_CHUNK rounds a call, 5 rounds
+    each from the same seed: history and final state bitwise; seconds a
+    round; then one call more of each under the sync debug mode: the
+    synchronizing calls a round against a chunk. Returns the unchunked
+    run's history (phase 6's float32 run)."""
+    runs = {}
+    for rpc in (1, DISPATCH_CHUNK):
+        t = trainer_from_flags(DISPATCH_CHUNK_FLAGS + [
+            "--rounds-per-call", str(rpc)] + list(extra), device)
+        zero_counts()
+        secs = []
+        t.run(on_round=lambda i, m, dt: secs.append(dt))
+        counts = read_counts()
+        state = kept_leaves(t.state)
+        syncs = (count_syncs(t.step)[1]
+                 if torch.device(device).type == "cuda" else None)
+        runs[rpc] = dict(history=list(t.history[:5]), state=state,
+                         secs=secs, syncs=syncs, counts=counts)
+        del t
+    one, chunked = runs[1], runs[DISPATCH_CHUNK]
+    check(one["history"] == chunked["history"],
+          f"dispatch-chunks: history at {DISPATCH_CHUNK} a call differs")
+    n = states_equal(one["state"], chunked["state"],
+                     "dispatch-chunks: 1 vs 3 rounds a call")
+    check(one["counts"] == chunked["counts"],
+          f"dispatch-chunks: launches {one['counts']} vs "
+          f"{chunked['counts']}")
+    say("dispatch-chunks", f"5 rounds at {DISPATCH_CHUNK} a call (chunks 3 "
+        f"+ 2) == 1 a call: history and all {n} state leaves bitwise; "
+        f"launches equal {chunked['counts']}")
+    for rpc, r in runs.items():
+        say("dispatch-chunks", f"{rpc} a call: seconds a round "
+            f"{[round(x, 3) for x in r['secs']]} (rounds 1-4 mean "
+            f"{np.mean(r['secs'][1:]):.3f} s); synchronizing CUDA calls in "
+            f"one call of {rpc} round(s): {r['syncs']}")
+    return one["history"]
+
+
+def dispatch_bf16(f32_history, device="cuda", extra=()):
+    """(a): phase 6's cell in bf16 through :func:`phase_train` (the launch
+    check per round: K1, K2, K3 as in phase 6), master params and
+    optimizer state float32 and finite, loss_server within
+    DISPATCH_LOSS_ATOL of the float32 run's each round, a profiled
+    round; then one round of it with the dual boundary (K4, K5 on their
+    bf16-head build, twice a step). Returns the launches of both."""
+    hist = {}
+
+    def report(trainer):
+        f32, bad = float_leaves_report(trainer.state)
+        check(f32 and bad == 0, f"dispatch-bf16: master state float32 "
+              f"{f32}, {bad} leaves hold inf or NaN")
+        hist["h"] = list(trainer.history)
+        if torch.device(device).type != "cuda":
+            return
+        profile("bf16 training round (fused boundary, bf16 head)",
+                trainer.step, 8, watch=[
+                    ("LACE forward, bf16 head (K1)",
+                     "lace_fwd_kernel<__nv_bfloat16, __nv_bfloat16"),
+                    ("LACE backward, bf16 head (K2)",
+                     ("lace_grad_kernel<__nv_bfloat16, __nv_bfloat16",
+                      "lace_gemm_kernel")),
+                    ("K3 backward", "flash_bwd"), ("K3 forward",
+                                                   "flash_fwd")])
+
+    counts = phase_train(device, DISPATCH_BF16_FLAGS + list(extra),
+                         profile_round=False, phase="dispatch-bf16",
+                         on_done=report)
+    gaps = [abs(b["loss_server"] - a["loss_server"])
+            for a, b in zip(f32_history, hist["h"])]
+    check(len(gaps) == 3 and max(gaps) <= DISPATCH_LOSS_ATOL,
+          f"dispatch-bf16: loss_server gaps {gaps} > {DISPATCH_LOSS_ATOL}")
+    say("dispatch-bf16", f"loss_server bf16 "
+        f"{[round(m['loss_server'], 4) for m in hist['h']]} vs float32 "
+        f"{[round(m['loss_server'], 4) for m in f32_history[:3]]}: gaps "
+        f"{[f'{g:.4f}' for g in gaps]} (bar {DISPATCH_LOSS_ATOL}); master "
+        "params and moments float32, every leaf finite")
+    dual = phase_train(device, DISPATCH_BF16_FLAGS + [
+        "--boundary", "dual", "--rounds", "1"] + list(extra),
+        profile_round=False, phase="dispatch-bf16-dual")
+    return {k: counts[k] + dual[k] for k in counts}
+
+
+def dispatch_check(device="cuda", extra=()):
+    """(c): R = 2 against R = 1 over 3 rounds (events) per mode, bitwise;
+    the guarded masked round with a recorded NaN corruption, donate on ==
+    off; the masked round's peak memory with and without donation."""
+    from repro_torch.fed import faults as F
+    from repro_torch.optim import optimizers
+
+    for mode, flags in DISPATCH_CHECK_FLAGS.items():
+        out = {}
+        for rpc in (1, 2):
+            t = trainer_from_flags(DISPATCH_CHECK_COMMON + flags + [
+                "--rounds-per-call", str(rpc)] + list(extra), device)
+            t0 = time.perf_counter()
+            t.run()
+            sync(device)
+            out[rpc] = (list(t.history), state_leaves(t.state),
+                        time.perf_counter() - t0)
+            del t
+        check(out[1][0] == out[2][0], f"dispatch-check {mode}: history")
+        n = states_equal(out[1][1], out[2][1], f"dispatch-check {mode}")
+        unit = "events" if mode == "async" else "rounds"
+        say("dispatch-check", f"{mode}: 3 {unit} "
+            f"at 2 a call (2 + 1) == 1 a call, history and {n} leaves "
+            f"bitwise ({out[1][2]:.2f} s vs {out[2][2]:.2f} s)")
+        del out        # both runs' states, kept on the card
+    cfg, model, params, batches, sizes, masks = fed_check_inputs(
+        device, bool(extra), 4, 64, 2)
+    first = int(np.flatnonzero(masks[0])[0])
+    corrupt = np.zeros(4, np.float32)
+    corrupt[first] = 1.0
+    res = {}
+    for donate in (True, False):
+        res[donate] = fault_runs(
+            model, params, batches, sizes, device, "masked", 2,
+            optimizers.momentum(0.9), masks * 2,
+            faults=F.recorded([{"corrupt": corrupt}] * 2),
+            guards="nonfinite,clip:10", donate=donate)
+    check(all(m["guard_rejected"] == 1.0 for m in res[True][1]),
+          "dispatch-check: the corrupted slot was not rejected")
+    leaves_bitwise(res[False][0], res[True][0], "dispatch-check guarded "
+                   "masked, donate on vs off")
+    for a, b in zip(res[False][1], res[True][1]):
+        check(torch.equal(a["loss_server"], b["loss_server"]),
+              "dispatch-check guarded: loss_server differs")
+    say("dispatch-check", f"guarded masked (nonfinite,clip:10), NaN "
+        f"corruption of slot {first} in 2 rounds, each rejected and re-run:"
+        f" donate on == off, every leaf bitwise")
+    del res, params
+    if torch.device(device).type != "cuda":
+        return
+    for donate in (True, False):
+        t = trainer_from_flags(FED_MASKED_FLAGS + ["--rounds", "1"] + (
+            [] if donate else ["--no-donate"]) + list(extra), device)
+        sync(device)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m = t.step()
+        sync(device)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(np.isfinite(m["loss_server"]), "dispatch-memory: loss")
+        say("dispatch-memory", f"masked round (phase 13(a)'s cell, 16 "
+            f"slots, momentum), donate {'on' if donate else 'off'}: peak "
+            f"{peak / 2**20:.0f} MiB allocated ({base / 2**20:.0f} MiB "
+            f"before the round), {dt:.3f} s (the first round, warm-up in it)")
+        del t
+
+
+def dispatch_alexnet(device="cuda", width=ALEXNET["width"]):
+    """(d): one round of each of DISPATCH_METHODS at ``width`` in bf16:
+    every float leaf finite and float32."""
+    from repro_torch import api
+
+    for method in DISPATCH_METHODS:
+        spec = alexnet_method_spec(method, rounds=1, width=width)
+        spec = dataclasses.replace(spec, execution=dataclasses.replace(
+            spec.execution, precision="bf16")).validate()
+        t = api.Trainer(spec, device=device)
+        t0 = time.perf_counter()
+        t.run()
+        sync(device)
+        dt = time.perf_counter() - t0
+        f32, bad = float_leaves_report(t.state)
+        check(f32 and bad == 0, f"dispatch-alexnet {method}: float32 "
+              f"{f32}, {bad} leaves hold inf or NaN")
+        acc = t.evaluate()
+        say("dispatch-alexnet", f"{method} width {width} bf16, one round "
+            f"{dt:.3f} s (the first, warm-up in it): every leaf float32 and "
+            f"finite; acc {acc['acc']:.4f}, balanced "
+            f"{acc['balanced_acc']:.4f}")
+        del t
+
+
+def phase_dispatch(device="cuda", extra=(), width=ALEXNET["width"]):
+    """Phase 16: (b) chunks, then (a) bf16 against (b)'s float32 run, (c)
+    dispatch-check, (d) AlexNet in bf16, each part's seconds on a line.
+    Returns (a)'s launch counts. ``extra`` flags go to every qwen run (a
+    CPU rehearsal: ``["--reduced", "--seq", "16", "--docs-per-client",
+    "3"]``, with a small ``width``)."""
+    f32_history = run_phase("dispatch (b)", dispatch_chunks, device, extra)
+    counts = run_phase("dispatch (a)", dispatch_bf16, f32_history, device,
+                       extra)
+    run_phase("dispatch (c)", dispatch_check, device, extra)
+    run_phase("dispatch (d)", dispatch_alexnet, device, width)
+    return counts
+
+
 def run_phase(label, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, then its wall seconds on a line of its own
     (what each phase adds to the run's time limit)."""
@@ -3110,6 +3428,9 @@ def main() -> int:
     if sys.argv[1:] == ["faults"]:
         run_phase("faults", phase_faults)
         return 0
+    if sys.argv[1:] == ["dispatch"]:
+        run_phase("dispatch", phase_dispatch)
+        return 0
     if sys.argv[1:] == ["mlstm"]:
         run_phase("kernels K6", phase_mlstm)
         run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
@@ -3142,9 +3463,11 @@ def main() -> int:
     fed = run_phase("fed", phase_fed)
     events = run_phase("async", phase_async)
     faults = run_phase("faults", phase_faults)
+    dispatch = run_phase("dispatch", phase_dispatch)
     # the federation layer's launches: phase 13's rounds, phase 14's
-    # events and phase 15's faulted rounds and events
-    fed = {k: fed[k] + events[k] + faults[k] for k in fed}
+    # events and phase 15's faulted rounds and events; and phase 16(a)'s
+    # bf16 rounds (K1, K2 on their bf16-head build)
+    fed = {k: fed[k] + events[k] + faults[k] + dispatch[k] for k in fed}
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
     # forward launches: the serve path's plus both training paths'; its
@@ -3157,6 +3480,40 @@ def main() -> int:
     fwd_row.update({f"{key}_train": rows[TRAIN_CASE][key] for key in
                     ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
                      "library_device_ms")})
+    lace_row = {
+        kname: kernel_row(kname, csrc + src, lace_src + line, launches, err,
+                          rows_[(case, kind)])
+        for kname, src, line, launches, err, rows_, case, kind in (
+            ("lace2_fwd", "lace.cu", "219",
+             train["lace_fwd"] + fed["lace_fwd"], lace_err["fwd"],
+             lace_rows, LACE_REPORT, "fwd"),
+            ("lace2_bwd", "lace.cu", "261",
+             train["lace_bwd"] + fed["lace_bwd"], lace_err["bwd"],
+             lace_rows, LACE_REPORT, "bwd"),
+            ("lace_fwd", "lace1.cu", "41",
+             dual["lace1_fwd"] + fed["lace1_fwd"], lace1_err["fwd"],
+             lace1_rows, LACE1_REPORT["server"], "fwd"),
+            # the server side's K5 (with dW), the costlier of the two
+            ("lace_bwd", "lace1.cu", "74",
+             dual["lace1_bwd"] + fed["lace1_bwd"], lace1_err["bwd"],
+             lace1_rows, LACE1_REPORT["server"], "bwd"))}
+    # the bf16-head build (the bf16 policy's main path) beside each: its
+    # times, its bound and the all-TF32 one, and phase 16(a)'s launches
+    # (also in ``launches``, every launch on the main paths)
+    for kname, rows_, case, kind, launches, f32_case in (
+            ("lace2_fwd", lace_rows, LACE_BF16_HEAD, "fwd",
+             dispatch["lace_fwd"], LACE_REPORT),
+            ("lace2_bwd", lace_rows, LACE_BF16_HEAD, "bwd",
+             dispatch["lace_bwd"], LACE_REPORT),
+            ("lace_fwd", lace1_rows, LACE1_BF16_HEAD["server"], "fwd",
+             dispatch["lace1_fwd"], LACE1_REPORT["server"]),
+            ("lace_bwd", lace1_rows, LACE1_BF16_HEAD["server"], "bwd",
+             dispatch["lace1_bwd"], LACE1_REPORT["server"])):
+        r = rows_[(case, kind)]
+        lace_row[kname].update({f"{key}_bf16_head": r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "tf32_ms", "route_ms")},
+            launches_bf16_head=launches,
+            tf32_ms=rows_[(f32_case, kind)]["tf32_ms"])
     print(json.dumps({"kernels": [
         fwd_row,
         # the backward of K3 (the JAX package trains through autodiff)
@@ -3165,19 +3522,8 @@ def main() -> int:
                    train["flash_bwd"] + dual["flash_bwd"]
                    + fed["flash_bwd"], bwd_err,
                    bwd_rows[FLASH_BWD_REPORT]),
-        kernel_row("lace2_fwd", csrc + "lace.cu", lace_src + "219",
-                   train["lace_fwd"] + fed["lace_fwd"], lace_err["fwd"],
-                   lace_rows[(LACE_REPORT, "fwd")]),
-        kernel_row("lace2_bwd", csrc + "lace.cu", lace_src + "261",
-                   train["lace_bwd"] + fed["lace_bwd"], lace_err["bwd"],
-                   lace_rows[(LACE_REPORT, "bwd")]),
-        kernel_row("lace_fwd", csrc + "lace1.cu", lace_src + "41",
-                   dual["lace1_fwd"], lace1_err["fwd"],
-                   lace1_rows[(LACE1_REPORT["server"], "fwd")]),
-        # the server side's K5 (with dW), the costlier of the two
-        kernel_row("lace_bwd", csrc + "lace1.cu", lace_src + "74",
-                   dual["lace1_bwd"], lace1_err["bwd"],
-                   lace1_rows[(LACE1_REPORT["server"], "bwd")]),
+        lace_row["lace2_fwd"], lace_row["lace2_bwd"],
+        lace_row["lace_fwd"], lace_row["lace_bwd"],
         kernel_row("mlstm_chunk", csrc + "mlstm.cu",
                    "src/repro/kernels/mlstm/kernel.py:25", serve_x["mlstm"],
                    mlstm_err, mlstm_rows[MLSTM_REPORT])]}))

@@ -8,7 +8,31 @@ runtime, for a text arch (the transformer) or the CNN family (AlexNet at
 state, ``step(state, batches, sizes)`` runs one round (T local steps and
 the FL phase) or one async event, and ``predict(state, batch)`` the
 current global model (SCALA and SFL: slot 0's client half and the server
-half; FL: the full model). A round that threads federation state (a
+half; FL: the full model). The dispatch knobs of
+:class:`~repro_torch.api.specs.ExecutionSpec` act as the reference's:
+
+* ``rounds_per_call = R > 1``: ``step(state, batches, sizes)`` runs R
+  whole rounds (or async events) in one call (:func:`fuse_rounds`):
+  ``batches`` / ``sizes`` leaves gain a leading (R,) axis, R is read
+  from the shapes (the remainder chunk is the same code), and the
+  metrics come back stacked (R, ...) where they were made, the device's
+  on the device. The rounds are the unfused step, one after the other,
+  so a chunk equals R calls of it bit for bit.
+* ``donate`` (the default): the ``state`` passed to ``step`` is dead
+  after the call -- keep only the one it returns. The synchronous round
+  then overwrites its input from its first local step on (the server
+  half and the dense optimizer moments in place,
+  :func:`repro_torch.core.engine.make_round_runner`), and the async
+  event writes its cohort's rows into its own stacks; every ``init()``
+  hands out storage of its own (:func:`fresh`), so two states of one
+  program share none. ``donate=False`` leaves the passed state bitwise
+  intact.
+* ``precision``: the compute policy
+  (:func:`repro_torch.core.engine.cast_to_compute`,
+  :func:`repro_torch.core.baselines.cast_fed_model`); ``predict`` always
+  runs the float32 master params.
+
+A round that threads federation state (a
 participation scheduler, a stateful aggregator, a server optimizer, a
 fault model, a clipping guard) keeps it in ``ProgramState.fed``
 (:func:`repro_torch.fed.init_fed_state`, seeded by :func:`fed_seed`: the
@@ -33,7 +57,7 @@ whatever ``spec.optim`` says, at ``spec.optim.resolve_lr(spec.scala.lr)``;
 an FL method takes ``execution.server_optimizer``, FedAvgM / FedAdam), the
 ``weighted`` aggregator is the data-size FedAvg, and their rounds take
 client-major (C, T, ...) batches: the step transposes the Trainer's
-(T, C, ...) ones.
+(T, C, ...) ones (axes 1 and 2 of a fused chunk's).
 """
 from __future__ import annotations
 
@@ -41,6 +65,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.api.specs import ExperimentSpec
@@ -65,6 +90,68 @@ class RoundProgram:
     step: Callable[..., Any]
     predict: Callable[..., Any]
     metadata: Dict[str, Any]
+
+
+def fresh(tree):
+    """Every tensor leaf of ``tree`` copied into storage of its own; a
+    client half broadcast over its slots (stride 0 on the slot axis) stays
+    a broadcast of one copied slot, not C materialized ones."""
+
+    def copy(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        if a.dim() > 0 and a.shape[0] > 1 and a.stride(0) == 0:
+            return a[0].clone()[None].expand(a.shape)
+        return a.clone()
+
+    return tree_map(copy, tree)
+
+
+def fuse_rounds(step):
+    """The reference's ``_fuse_rounds`` on the port: ``fused(state,
+    batches, sizes)`` runs ``step`` once per entry of the leading (R,)
+    axis of ``batches`` (and of ``sizes``), threading the state, and
+    returns the last state and the R rounds' metrics, each stacked on a
+    leading (R,) axis where it was made: device tensors on their device,
+    host values (the async schedule's numpy, a guard's float) with
+    ``np.stack``. An eager program has no trace to unroll or scan: the
+    chunk is the unfused rounds one after another, bit for bit."""
+
+    def fused(state, batches, sizes):
+        R = leaves(batches)[0].shape[0]
+        per_round = []
+        for r in range(R):
+            state, m = step(state, {k: v[r] for k, v in batches.items()},
+                            None if sizes is None else sizes[r])
+            per_round.append(m)
+        return state, {k: (torch.stack([m[k] for m in per_round])
+                           if isinstance(v, torch.Tensor) else
+                           np.stack([np.asarray(m[k]) for m in per_round]))
+                       for k, v in per_round[0].items()}
+
+    return fused
+
+
+def _dispatch(program: "RoundProgram") -> "RoundProgram":
+    """The dispatch knobs on a built program: R rounds a call, the
+    baselines' transpose, and the metadata the reference's ``build`` adds
+    (each builder's ``init()`` copies its params under ``donate``)."""
+    ex = program.spec.execution
+    step = program.step
+    if ex.rounds_per_call > 1:
+        step = fuse_rounds(step)
+    if program.metadata.get("client_major"):
+        # the baselines' rounds take client-major (C, T, ...) batches: one
+        # transpose per call, of the whole chunk's (R, T, C, ...) ones
+        inner = step
+        a0, a1 = (1, 2) if ex.rounds_per_call > 1 else (0, 1)
+
+        def step(state, batches, sizes):
+            return inner(state, {k: v.transpose(a0, a1)
+                                 for k, v in batches.items()}, sizes)
+    metadata = dict(program.metadata, precision=ex.precision,
+                    rounds_per_call=ex.rounds_per_call, donate=ex.donate)
+    return dataclasses.replace(program, step=step, metadata=metadata)
 
 
 def text_split_init(spec: ExperimentSpec, slots: int, device):
@@ -196,18 +283,19 @@ def build(spec: ExperimentSpec, *, device="cuda",
         opt_state_policy=fd.opt_state_policy,
         slot_gather=ex.mode == "sparse", server_optimizer=server_opt,
         server_lr=server_lr, precision=ex.precision, faults=faults,
-        guards=guards)
+        guards=guards, donate=ex.donate)
     thread_fed = (scheduler is not None or agg.stateful
                   or server_opt is not None or faults is not None
                   or (guards is not None and guards.stateful))
 
     def init() -> ProgramState:
+        p = fresh(params) if ex.donate else params
         fed_state = (fed.init_fed_state(
             fed_seed(spec), agg, scheduler, num_clients=slots,
-            server_optimizer=server_opt, server_params=params["server"],
+            server_optimizer=server_opt, server_params=p["server"],
             faults=faults, guards=guards, device=device)
             if thread_fed else ())
-        return ProgramState(inner=engine.init_train_state(params, opt),
+        return ProgramState(inner=engine.init_train_state(p, opt),
                             fed=fed_state)
 
     def step(state: ProgramState, batches, sizes):
@@ -218,13 +306,12 @@ def build(spec: ExperimentSpec, *, device="cuda",
         inner, metrics = round_fn(state.inner, batches, sizes)
         return ProgramState(inner=inner, fed=state.fed), metrics
 
-    return RoundProgram(
+    return _dispatch(RoundProgram(
         spec=spec, model=model, init=init, step=step,
         predict=_scala_predict(model),
         metadata=dict(method=spec.method, mode=ex.mode, slots=slots,
                       backend=ex.backend, boundary=ex.boundary,
-                      precision=ex.precision, rounds_per_call=1,
-                      thread_fed=thread_fed, device=str(device)))
+                      thread_fed=thread_fed, device=str(device))))
 
 
 def _scala_predict(model):
@@ -268,14 +355,16 @@ def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
     pop = fed.make_arrival_pop(cohort, ex.arrival)
 
     def init() -> ProgramState:
+        # the snapshots and the ring are copies of their own already
+        p = fresh(params) if ex.donate else params
         afed = fed.init_async_state(
-            fed_seed(spec), params["client"], delays, aggregator=agg,
-            server_optimizer=server_opt, server_params=params["server"],
+            fed_seed(spec), p["client"], delays, aggregator=agg,
+            server_optimizer=server_opt, server_params=p["server"],
             snapshots=ex.snapshots, ring_size=ex.ring_size,
             num_clients=slots, guards=guards)
         if pager is not None:
             pager.reset()
-        return ProgramState(inner=engine.init_train_state(params, opt),
+        return ProgramState(inner=engine.init_train_state(p, opt),
                             fed=afed)
 
     def step(state: ProgramState, batches, sizes):
@@ -292,14 +381,13 @@ def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
         pager.scatter(idx, new_co)
         return ProgramState(inner=inner, fed=afed), metrics
 
-    return RoundProgram(
+    return _dispatch(RoundProgram(
         spec=spec, model=model, init=init, step=step,
         predict=_scala_predict(model),
         metadata=dict(method=spec.method, mode="async", slots=slots,
                       backend=ex.backend, boundary=ex.boundary,
-                      precision=ex.precision, rounds_per_call=1,
                       thread_fed=True, device=str(device), cohort=cohort,
-                      host_paged=paged, pager=pager))
+                      host_paged=paged, pager=pager)))
 
 
 def _server_optimizer(spec: ExperimentSpec):
@@ -370,7 +458,7 @@ def _build_baseline(spec: ExperimentSpec, device, params) -> RoundProgram:
     fd = spec.fed
     agg = fd.make_aggregator() if fd.aggregator != "weighted" else None
     lr = spec.optim.resolve_lr(spec.scala.lr)
-    precision = spec.execution.precision
+    precision, donate = spec.execution.precision, spec.execution.donate
     state0 = _baseline_params(spec, device, params)
     if spec.method in B.FL_METHODS:
         model = B.FedModel(forward=lambda p, x: A.forward(p, x, spec.split),
@@ -382,8 +470,9 @@ def _build_baseline(spec: ExperimentSpec, device, params) -> RoundProgram:
                                    server_lr=server_lr, precision=precision)
 
         def init() -> ProgramState:
-            return ProgramState(inner=state0, fed=B.init_fl_state(
-                spec.method, state0, slots, server_optimizer=server_opt))
+            w = fresh(state0) if donate else state0
+            return ProgramState(inner=w, fed=B.init_fl_state(
+                spec.method, w, slots, server_optimizer=server_opt))
 
         def round_step(state: ProgramState, batches, sizes):
             w, fl_state = round_fn(state.inner, batches, sizes, state.fed)
@@ -397,16 +486,18 @@ def _build_baseline(spec: ExperimentSpec, device, params) -> RoundProgram:
 
         def aux_head_fwd(p, feats):
             # the reference's NHWC flatten, so its (feat_dim, N) aux head
-            # applies unchanged
-            return feats.permute(0, 2, 3, 1).reshape(feats.shape[0],
-                                                     -1) @ p["w"]
+            # applies unchanged; bf16 features meet the float32 head in
+            # float32, as jnp's type promotion has it
+            x = feats.permute(0, 2, 3, 1).reshape(feats.shape[0], -1)
+            dt = torch.promote_types(x.dtype, p["w"].dtype)
+            return x.to(dt) @ p["w"].to(dt)
 
         round_fn = B.make_sfl_round(spec.method, model, lr=lr,
                                     aux_head_fwd=aux_head_fwd,
                                     aggregator=agg, precision=precision)
 
         def init() -> ProgramState:
-            return ProgramState(inner=state0)
+            return ProgramState(inner=fresh(state0) if donate else state0)
 
         def round_step(state: ProgramState, batches, sizes):
             return ProgramState(inner=round_fn(state.inner, batches, sizes),
@@ -418,18 +509,14 @@ def _build_baseline(spec: ExperimentSpec, device, params) -> RoundProgram:
                                          model.client_fwd(wc0, {"x": x}))
             return logits
 
-    def step(state: ProgramState, batches, sizes):
-        # client-major: the baselines' rounds take (C, T, ...) batches
-        return round_step(state, {k: v.transpose(0, 1)
-                                  for k, v in batches.items()}, sizes)
-
     @torch.no_grad()
     def predict(state: ProgramState, batch):
         return forward(state, batch["x"])
 
-    return RoundProgram(
-        spec=spec, model=model, init=init, step=step, predict=predict,
+    # client-major: the rounds take (C, T, ...) batches; the transpose is
+    # the dispatch's (:func:`_dispatch`)
+    return _dispatch(RoundProgram(
+        spec=spec, model=model, init=init, step=round_step, predict=predict,
         metadata=dict(method=spec.method, mode="subset", slots=slots,
                       backend="logits", boundary=spec.execution.boundary,
-                      precision=precision, rounds_per_call=1,
-                      device=str(device), client_major=True))
+                      device=str(device), client_major=True)))

@@ -15,15 +15,20 @@ modes ``subset`` (host-side sampling), ``masked`` and ``sparse`` (an
 in-program participation scheduler over all K slots) and the ``async``
 event runtime (delays, arrival cohorts, dense or delta snapshots,
 host-paged moments, deadlines), fault injection and guarded aggregation
-in the ``masked``, ``sparse`` and ``async`` modes, both boundaries, f32
-policy, one round per call, every aggregator, server-side FedOpt, and
-the FL / SFL baselines on the CNN family in ``subset`` mode -- and raises
+in the ``masked``, ``sparse`` and ``async`` modes, both boundaries, both
+compute policies (``precision`` f32 or bf16), any ``rounds_per_call``,
+donation, every aggregator, server-side FedOpt, and the FL / SFL
+baselines on the CNN family in ``subset`` mode -- and raises
 ``NotImplementedError`` naming the missing piece for the rest
-(``lace_dp`` and ``arrival="topk:sharded"``, ``precision="bf16"``,
-``rounds_per_call > 1`` and training the xLSTM family), and
-``ValueError`` for combinations the reference rejects too.
-``unroll`` has nothing to act on in an eager program; ``donate`` lets the
-async event write its cohort's rows into its own state in place.
+(``lace_dp`` and ``arrival="topk:sharded"``, and training the xLSTM
+family), and ``ValueError`` for combinations the reference rejects too
+(an unknown precision, ``rounds_per_call < 1``, host paging with
+``rounds_per_call > 1``). ``unroll`` has nothing to act on in an eager
+program: a fused chunk is its rounds one after another, whatever it
+says. ``donate`` gives up the state passed to ``step``: the synchronous
+round overwrites it from its first local step on, and the async event
+writes its cohort's rows into its own stacks
+(:mod:`repro_torch.api.build`).
 """
 from __future__ import annotations
 
@@ -464,11 +469,6 @@ class ExperimentSpec:
             raise _not_ported(f"training arch {self.arch!r} (mLSTM/sLSTM "
                               "blocks)", "the xLSTM training slice (the "
                               "chunkwise mLSTM kernel's backward)")
-        if ex.precision == "bf16":
-            raise _not_ported("precision 'bf16'", "the dispatch-knob slice")
-        if ex.rounds_per_call > 1:
-            raise _not_ported("rounds_per_call > 1",
-                              "the dispatch-knob slice")
         return self
 
     def to_dict(self) -> Dict[str, Any]:

@@ -20,6 +20,13 @@ from ``default_rng(seed + 7)``.
 In the ``async`` mode one ``step`` is one event: the batches cover all K
 slots, of which the event computes its arrivals'.
 
+With ``execution.rounds_per_call = R > 1`` one ``step`` runs ``min(R,
+rounds)`` rounds in one program call: their batches are drawn on the
+host in the order the unfused rounds draw them, stacked on a leading
+axis and uploaded once; the metrics come back stacked on the device and
+reach the host in one copy a chunk, one history entry a round. A chunk
+equals its rounds run one by one, bit for bit.
+
 ``save`` / ``resume`` checkpoint the whole run, bit for bit: the program
 state and the host side (round, history, the numpy bit generator).
 ``resume`` also reads a directory that the reference ``Trainer.save``
@@ -93,6 +100,7 @@ class Trainer:
         self.state = self.program.init()
         self.history: List[Dict[str, float]] = []
         self.round = 0
+        self._rpc = self.program.metadata.get("rounds_per_call", 1)
         self._cfg = spec.model_config()
         self._images = spec.data.kind == "image_synthetic"
         if self._images:
@@ -105,6 +113,17 @@ class Trainer:
             self._rng = np.random.default_rng(spec.seed)
 
     def _next_round_batches(self):
+        """One round's batches and data sizes, on the program's device."""
+        rb, sizes = self._draw_round()
+        return self._upload(rb), torch.from_numpy(sizes).to(self.device)
+
+    def _upload(self, rb):
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in rb.items()}
+
+    def _draw_round(self):
+        """One round's host batches (numpy) and data sizes, from the host
+        streams."""
         from repro_torch.data.loader import (lm_round_batches, round_batches,
                                              sample_clients)
 
@@ -125,40 +144,80 @@ class Trainer:
         else:
             rb = lm_round_batches(self._data, selected, sc.server_batch,
                                   sc.local_iters, self._rng)
-        sizes = torch.from_numpy(rb.pop("sizes")).to(self.device)
-        return ({k: torch.from_numpy(v).to(self.device)
-                 for k, v in rb.items()}, sizes)
+        sizes = rb.pop("sizes")
+        return rb, sizes
 
-    def step(self) -> Dict[str, float]:
-        """One round (or async event); returns its (last local step's)
-        scalar metrics, with an event's ``staleness_mean``, ``t_event``,
-        ``server_version`` (and ``deadline_missed``). A baseline round has
-        none, so it waits for the device itself, as the metrics' host copy
-        does for SCALA."""
-        batches, sizes = self._next_round_batches()
-        self.state, metrics = self.program.step(self.state, batches, sizes)
-        if not metrics and self.device.type == "cuda":
+    def _host_scalars(self, metrics, ndim: int):
+        """The scalar metrics (``ndim`` 0 a round, 1 a chunk) on the host
+        as float64 numpy, in their order: every device tensor among them
+        comes over in ONE copy (its float32 values exactly); host values
+        are read as they are. No metric at all (a baseline) waits for the
+        device instead."""
+        keys = [k for k, v in metrics.items() if np.ndim(v) == ndim]
+        dev = [k for k in keys if isinstance(metrics[k], torch.Tensor)
+               and metrics[k].device.type != "cpu"]
+        host = {}
+        if dev:
+            flat = torch.stack([metrics[k].double() for k in dev]).cpu()
+            host.update(zip(dev, flat.numpy()))
+        elif not metrics and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        scalars = {k: float(v) for k, v in metrics.items()
-                   if np.ndim(v) == 0}
-        self.history.append(scalars)
-        self.round += 1
-        return scalars
+        return {k: host[k] if k in host else np.asarray(
+            metrics[k].cpu() if isinstance(metrics[k], torch.Tensor)
+            else metrics[k], np.float64) for k in keys}
+
+    def step(self, rounds: Optional[int] = None) -> Dict[str, float]:
+        """One program call: ``min(rounds_per_call, rounds)`` rounds (or
+        async events), one by default. Returns the last round's (last
+        local step's) scalar metrics, with an event's ``staleness_mean``,
+        ``t_event``, ``server_version`` (and ``deadline_missed``); one
+        history entry is appended per round. The metrics reach the host
+        in one copy a call, which waits for the device; a baseline round
+        has none, so the call waits for the device itself."""
+        n = self._rpc if rounds is None else min(rounds, self._rpc)
+        if self._rpc == 1:
+            batches, sizes = self._next_round_batches()
+            self.state, metrics = self.program.step(self.state, batches,
+                                                    sizes)
+            per_round = [{k: float(v) for k, v in
+                          self._host_scalars(metrics, 0).items()}]
+        else:
+            # the chunk's rounds drawn in the unfused rounds' order
+            drawn = [self._draw_round() for _ in range(n)]
+            batches = self._upload({k: np.stack([rb[k] for rb, _ in drawn])
+                                    for k in drawn[0][0]})
+            sizes = torch.from_numpy(np.stack(
+                [sz for _, sz in drawn])).to(self.device)
+            self.state, metrics = self.program.step(self.state, batches,
+                                                    sizes)
+            stacked = self._host_scalars(metrics, 1)
+            per_round = [{k: float(v[r]) for k, v in stacked.items()}
+                         for r in range(n)]
+        self.history.extend(per_round)
+        self.round += n
+        return per_round[-1]
 
     def run(self, rounds: Optional[int] = None, *,
             on_round: Optional[Callable[[int, Dict[str, float], float],
                                         Any]] = None):
-        """Run ``rounds`` rounds (default ``spec.rounds``); returns the
-        metric history. ``on_round(index, metrics, seconds)`` after each,
-        with the round's wall time (the metrics' host copy waits for the
-        device, so it covers the round's device work)."""
+        """Run ``rounds`` rounds (default ``spec.rounds``) in calls of
+        ``rounds_per_call`` (the last one the remainder); returns the
+        metric history. ``on_round(index, metrics, seconds)`` fires for
+        every round after its call, with the call's wall time (its
+        metrics' host copy waits for the device) divided over its
+        rounds."""
         n = self.spec.rounds if rounds is None else rounds
-        for _ in range(n):
+        done = 0
+        while done < n:
+            k = min(self._rpc, n - done)
             t0 = time.perf_counter()
-            metrics = self.step()
+            self.step(k)
             dt = time.perf_counter() - t0
+            done += k
             if on_round is not None:
-                on_round(self.round - 1, metrics, dt)
+                for j in range(k):
+                    on_round(self.round - k + j,
+                             self.history[len(self.history) - k + j], dt / k)
         return self.history
 
     # ------------------------------------------------------------------

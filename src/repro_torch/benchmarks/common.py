@@ -53,7 +53,9 @@ def experiment_spec(method: str, *, alpha: Optional[int] = None,
                     opt_state_policy: str = "carry",
                     execution: str = "subset",
                     server_optimizer: Optional[str] = None,
-                    server_lr: float = 1.0) -> api.ExperimentSpec:
+                    server_lr: float = 1.0, rounds_per_call: int = 1,
+                    precision: str = "f32",
+                    donate: bool = True) -> api.ExperimentSpec:
     """The paper-table keywords -> an ExperimentSpec, as the reference's.
 
     ``execution`` (SCALA methods): ``"subset"`` samples r K clients on
@@ -63,8 +65,9 @@ def experiment_spec(method: str, *, alpha: Optional[int] = None,
     (the Trainer splits ``server_batch / r`` over the K slots).
     ``server_optimizer``: an optimizer spec (``OptimSpec.parse``; e.g.
     ``"momentum"``: FedAvgM) for FedOpt on the server side at
-    ``server_lr``. The reference's dispatch keywords wait for their
-    slice."""
+    ``server_lr``. ``rounds_per_call`` / ``precision`` / ``donate``: the
+    dispatch knobs of :class:`repro_torch.api.ExecutionSpec`
+    (:mod:`repro_torch.benchmarks.dispatch`)."""
     in_program = execution in ("masked", "sparse")
     server_opt = (api.OptimSpec.parse(server_optimizer, default_lr=server_lr)
                   if server_optimizer else None)
@@ -77,7 +80,9 @@ def experiment_spec(method: str, *, alpha: Optional[int] = None,
                         participation=f"uniform:{r}" if in_program else None,
                         opt_state_policy=opt_state_policy),
         execution=api.ExecutionSpec(mode=execution, backend="logits",
-                                    server_optimizer=server_opt),
+                                    server_optimizer=server_opt,
+                                    rounds_per_call=rounds_per_call,
+                                    precision=precision, donate=donate),
         data=api.DataSpec(kind="image_synthetic", n_train=n_train,
                           num_classes=num_classes, alpha=alpha, beta=beta))
 

@@ -22,12 +22,18 @@ over r, K, T and the split point), recorded here, not enforced.
         [--quick] [--out scale.json]
     PYTHONPATH=src python -m repro_torch.benchmarks.run --table faults \
         [--quick] [--out faults.json]
+    PYTHONPATH=src python -m repro_torch.benchmarks.run --table dispatch \
+        [--quick] [--out dispatch.json]
+    PYTHONPATH=src python -m repro_torch.benchmarks.run --table \
+        round_loop [--quick] [--out round_loop.json]
 
 ``--smoke`` runs the reference's SMOKE rows of the synchronous modes:
-SCALA through ``exec=subset``, ``masked`` and ``sparse``, and FedAvgM
+SCALA through ``exec=subset``, ``masked`` and ``sparse``, FedAvgM
 (fedavg with a momentum server optimizer at 0.9), K = 4, r = 0.5, 2
-rounds (the reference's bf16 / fused row and its guards wait for their
-slices). ``--table participation`` is the participation leg
+rounds, and ``fused+bf16`` (masked SCALA, 3 rounds at
+``rounds_per_call=2`` in bf16); the reference's guard rows (fused over
+unfused rounds/s and the others) are not ported: each leg prints its
+numbers unchecked. ``--table participation`` is the participation leg
 (:mod:`repro_torch.benchmarks.participation`: rounds/s masked, sparse
 and re-stacked subset), ``--table async`` the async leg
 (:mod:`repro_torch.benchmarks.async_rounds`: sparse against masked, and
@@ -37,9 +43,14 @@ events/s and state bytes over K, the sort and topk pops; its
 ``topk:sharded`` row waits for the multi-device slice) and ``--table
 faults`` the faults leg (:mod:`repro_torch.benchmarks.faults`: guarded
 over unguarded seconds a round at zero faults, masked and async, and a
-chaos run's rejections and final loss), each printing CSV rows as the
-reference's runner does and its JSON stamped with the device. The
-reference's other harness legs (round_loop, dispatch, boundary,
+chaos run's rejections and final loss), ``--table dispatch`` the
+dispatch leg (:mod:`repro_torch.benchmarks.dispatch`: rounds/s over
+rounds per call x donation x precision per mode, and the baselines'
+transpose once a chunk against once a round) and ``--table round_loop``
+the round-loop leg (:mod:`repro_torch.benchmarks.round_loop`: T split
+steps and a FedAvg from Python against one round runner call), each
+printing CSV rows as the reference's runner does and its JSON stamped
+with the device. The reference's other harness legs (boundary,
 roofline, serve) measure parts the port has not ported yet: they are
 listed, and asking for one exits naming its slice.
 """
@@ -56,8 +67,6 @@ HEADER = "table,setting,method,acc,balanced_acc,seconds"
 
 # the reference's harness legs and the slice each waits for
 NOT_PORTED = {
-    "round_loop": "the dispatch-knob slice (rounds per call)",
-    "dispatch": "the dispatch-knob slice",
     "boundary": "the tooling slice (its LACE timing harness)",
     "roofline": "the tooling slice (H100 roofline constants)",
     "serve": "the tooling slice (device-stamped serving benchmarks)",
@@ -164,6 +173,9 @@ def smoke(run, rows) -> None:
               run("scala", execution=execution, **kw))
     _emit(rows, "SMOKE", "fedavgm", "fedavg",
           run("fedavg", server_optimizer="momentum", server_lr=0.9, **kw))
+    _emit(rows, "SMOKE", "fused+bf16", "scala",
+          run("scala", execution="masked", rounds_per_call=2,
+              precision="bf16", **dict(kw, rounds=3)))
 
 
 def leg_async(quick: bool, device, width: float) -> dict:
@@ -227,7 +239,34 @@ def leg_faults(quick: bool, device, width: float) -> dict:
     return res
 
 
-LEGS = {"async": leg_async, "scale": leg_scale, "faults": leg_faults}
+def leg_dispatch(quick: bool, device, width: float) -> dict:
+    """The dispatch leg, its CSV rows as ``benchmarks/run.py:
+    bench_dispatch`` prints them, then the baselines' transpose rows
+    (``width`` is the leg's own micro AlexNet's, unchanged)."""
+    from repro_torch.benchmarks.dispatch import (bench_baseline_hoist,
+                                                 bench_dispatch, print_rows)
+
+    rounds = 48 if quick else 192
+    res = bench_dispatch(rounds=rounds, device=device)
+    res["baseline_transpose_hoist"] = bench_baseline_hoist(rounds=rounds,
+                                                           device=device)
+    print_rows(res)
+    return res
+
+
+def leg_round_loop(quick: bool, device, width: float) -> dict:
+    """The round-loop leg, its CSV rows as ``benchmarks/run.py:
+    bench_round_loop`` prints them (the leg's own AlexNet width)."""
+    from repro_torch.benchmarks.round_loop import bench_round_loop, \
+        print_rows
+
+    res = bench_round_loop(rounds=5 if quick else 20, device=device)
+    print_rows(res)
+    return res
+
+
+LEGS = {"async": leg_async, "scale": leg_scale, "faults": leg_faults,
+        "dispatch": leg_dispatch, "round_loop": leg_round_loop}
 
 
 def main(argv=None):
@@ -271,8 +310,8 @@ def main(argv=None):
         return res
     names = [args.table] if args.table else list(TABLES)
     if not args.table and not args.smoke:
-        print(f"skipped: participation, async, scale, faults (run each "
-              f"with --table NAME); not ported yet: "
+        print(f"skipped: participation, {', '.join(sorted(LEGS))} (run "
+              f"each with --table NAME); not ported yet: "
               f"{', '.join(NOT_PORTED)}",
               file=sys.stderr)
     print(HEADER, flush=True)

@@ -28,6 +28,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import engine, losses
@@ -53,20 +55,32 @@ class FedModel:
     features: Optional[Callable[[Any, Any], Any]] = None
 
 
-def _check_precision(precision: str) -> None:
+def cast_fed_model(model: FedModel, precision: str) -> FedModel:
+    """The FL baselines' mirror of :func:`repro_torch.core.engine.
+    cast_to_compute`: ``"f32"`` runs the model as it is; ``"bf16"`` casts
+    the params and the inputs to bfloat16 inside the wrapped forward (and
+    FedDecorr's features), so the master params stay float32 and the
+    cast's backward brings the param grads back to float32; the losses
+    reduce in float32 (AlexNet's convolutions then run in bf16 on cuDNN:
+    no kernel of the port)."""
     if precision not in engine.PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected "
                          f"{engine.PRECISIONS}")
-    if precision == "bf16":
-        raise NotImplementedError("precision 'bf16' is not ported yet; it "
-                                  "comes with the dispatch-knob slice")
+    if precision == "f32":
+        return model
+    bf16 = torch.bfloat16
 
+    def forward(p, x):
+        return model.forward(engine.cast_floats(p, bf16),
+                             engine.cast_floats(x, bf16))
 
-def cast_fed_model(model: FedModel, precision: str) -> FedModel:
-    """The compute policy of the FL baselines: ``"f32"`` runs the model
-    as it is; ``"bf16"`` waits for the dispatch-knob slice."""
-    _check_precision(precision)
-    return model
+    features = None
+    if model.features is not None:
+        def features(p, x):
+            return model.features(engine.cast_floats(p, bf16),
+                                  engine.cast_floats(x, bf16))
+
+    return dataclasses.replace(model, forward=forward, features=features)
 
 
 def _grads(loss_fn, *trees):
@@ -235,7 +249,9 @@ def make_fl_round(method: str, model: FedModel, lr: float,
                   aggregator=None, server_optimizer=None,
                   server_lr: float = 1.0, precision: str = "f32"):
     """``round(w_global, round_batches, data_sizes, state) -> (w_global',
-    state')``; round_batches leaves (C, T, Bk, ...).
+    state')``; round_batches leaves (C, T, Bk, ...). ``precision``: the
+    compute policy (:func:`cast_fed_model`); aggregation and FedOpt stay
+    float32.
 
     ``server_optimizer``: FedOpt (Reddi et al.): the round delta
     ``w_global - avg(w_k)`` is a pseudo-gradient the server optimizer
@@ -309,9 +325,11 @@ def make_sfl_round(method: str, model: SplitModel, lr: float,
     half}``, plus ``'aux'`` (C, ...) for sfl_localloss; round_batches
     leaves (C, T, Bk, ...). The local objective is
     :func:`repro_torch.core.engine.split_ce`; ``aggregator`` as in
-    :func:`_aggregate_clients`.
+    :func:`_aggregate_clients`. ``precision``: the compute policy
+    (:func:`repro_torch.core.engine.cast_to_compute`), bf16 local compute
+    against float32 master params.
     """
-    _check_precision(precision)
+    model = engine.cast_to_compute(model, precision)
     opt = optimizers.sgd()
 
     def _agg(stacked, data_sizes, round_batches):

@@ -37,15 +37,15 @@ On the CPU the fused and dual boundaries give bit-identical float32
 gradients and losses (their plain ops share every step; the tests hold
 them to it).
 
-Ported: backends ``logits`` and ``lace``, both boundaries, ``precision=
-"f32"`` (the model's own compute dtype), an optional participation
-``mask``, and the synchronous round with the federation layer: a
-participation scheduler (masked, or gathered into a dense subset axis:
-sparse), any aggregator of :mod:`repro_torch.fed`, the
-``opt_state_policy`` carry / reset / average, server-side FedOpt, fault
-injection and guarded aggregation (the survivor re-run). ``lace_dp`` and
-the bf16 policy raise ``NotImplementedError`` naming the slice that
-brings them.
+Ported: backends ``logits`` and ``lace``, both boundaries, both compute
+policies (``precision="f32"``: the model's own compute dtype; ``"bf16"``:
+:func:`cast_to_compute`), an optional participation ``mask``, and the
+synchronous round with the federation layer: a participation scheduler
+(masked, or gathered into a dense subset axis: sparse), any aggregator of
+:mod:`repro_torch.fed`, the ``opt_state_policy`` carry / reset / average,
+server-side FedOpt, fault injection and guarded aggregation (the survivor
+re-run), and round-level donation. ``lace_dp`` raises
+``NotImplementedError`` naming the slice that brings it.
 
 Memory: the client half's graph from stage 2 is kept and pulled back
 once (the reference re-runs the client forward inside its vjp); the
@@ -56,6 +56,7 @@ pullback through it.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -74,10 +75,7 @@ BOUNDARIES = ("dual", "fused")
 PRECISIONS = ("f32", "bf16")
 OPT_STATE_POLICIES = ("carry", "reset", "average")
 
-_LATER = {
-    "lace_dp": "the multi-device slice",
-    "bf16": "the dispatch-knob slice",
-}
+_LATER = {"lace_dp": "the multi-device slice"}
 
 
 @dataclass(frozen=True)
@@ -97,6 +95,56 @@ class SplitModel:
     server_trunk: Optional[Callable[[Any, Dict[str, Any]], Any]] = None
     head_weight: Optional[Callable[[Any], Any]] = None
     head_grad_merge: Optional[Callable[[Any, Any], Any]] = None
+
+
+# ---------------------------------------------------------------------------
+# mixed precision
+# ---------------------------------------------------------------------------
+
+
+def cast_floats(tree, dtype):
+    """Every floating leaf of a tree cast to ``dtype`` (integer leaves and
+    non-tensors pass through). The cast is differentiable: autograd's
+    backward of it brings a cotangent back to the leaf's own dtype."""
+    return tree_map(lambda a: a.to(dtype) if isinstance(a, torch.Tensor)
+                    and a.is_floating_point() else a, tree)
+
+
+def cast_to_compute(model: SplitModel, precision: str) -> SplitModel:
+    """``model`` under a compute-precision policy (the reference's
+    ``cast_to_compute``). ``"f32"`` returns it unchanged. ``"bf16"`` casts
+    the param halves and the float batch inputs to bfloat16 inside each
+    wrapped forward, so activations and both backward passes run in bf16
+    while the master params stay float32; the cast sits inside the
+    differentiated function, so every param gradient comes back float32.
+    ``head_weight`` hands the LACE boundary a bf16 head: the ops read its
+    float32 copy per chunk (the kernels take the bf16 operand as one exact
+    TF32 term), so losses and logit adjustments stay float32, and they
+    return the head's gradient in the head's dtype, rounded to bf16 once
+    before ``head_grad_merge`` upcasts and adds it."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected "
+                         f"{PRECISIONS}")
+    if precision == "f32":
+        return model
+    bf16 = torch.bfloat16
+
+    def client_fwd(wc, batch):
+        return model.client_fwd(cast_floats(wc, bf16),
+                                cast_floats(batch, bf16))
+
+    def server_fwd(ws, acts):
+        return model.server_fwd(cast_floats(ws, bf16), acts)
+
+    kw = {}
+    if model.server_trunk is not None:
+        kw["server_trunk"] = (
+            lambda ws, acts: model.server_trunk(cast_floats(ws, bf16), acts))
+    if model.head_weight is not None:
+        kw["head_weight"] = (
+            lambda ws: cast_floats(model.head_weight(ws), bf16))
+    return dataclasses.replace(model, client_fwd=client_fwd,
+                               server_fwd=server_fwd, **kw)
 
 
 def default_ce_chunk(num_classes: int) -> int:
@@ -176,7 +224,10 @@ def _logits_boundary(logits, labels, weights, p_k, p_s, scala, boundary):
 def _lace_boundary(feats, w_head, labels, weights, p_k, p_s, scala,
                    boundary, ce_chunk):
     """Stage 4 of backend ``lace``: (loss_s, loss_k, gf_s, gf_k, gW_s)
-    with the feature cotangents (C, tokens, d)."""
+    with the feature cotangents (C, tokens, d) in the feats' dtype and the
+    head's gradient in ``w_head``'s: under the bf16 policy the ops round
+    their float32 dW to bf16 once, as the reference's ops return the
+    cotangent of a bf16 head (``head_grad_merge`` then upcasts it)."""
     from repro_torch.kernels.lace import ops
 
     C = labels.shape[0]
@@ -213,9 +264,13 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
     (C, B_k, ...). Returns (grads, metrics), grads mirroring params.
     ``mask`` is an optional (C,) 0/1 participation mask folded into the
     token weights: masked-out clients add nothing to the priors or the
-    losses and get zero gradient.
+    losses and get zero gradient. ``precision`` (:data:`PRECISIONS`)
+    selects the compute policy (:func:`cast_to_compute`): under
+    ``"bf16"`` stages 2-4 run in bfloat16 against the float32 master
+    params; the priors, the loss reductions and the grads stay float32.
     """
     _check(backend, boundary, precision, model)
+    model = cast_to_compute(model, precision)
     N = model.num_classes
     labels = batch["labels"]
     weights = batch.get("weights")
@@ -448,7 +503,7 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                       opt_state_policy: str = "carry",
                       slot_gather: bool = False, server_optimizer=None,
                       server_lr: float = 1.0, precision: str = "f32",
-                      faults=None, guards=None):
+                      faults=None, guards=None, donate: bool = False):
     """One synchronous round: T local steps over ``round_batches``
     (leaves (T, C, B_k, ...)), then the FL phase -- the aggregator's
     weights average the client halves, which go back to every slot, and
@@ -490,6 +545,17 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
     zeroed halves are averaged over the survivors. The metrics add
     ``guard_accept``, ``guard_norm`` and ``guard_rejected`` (a float).
     Guards with no fault firing leave the round bitwise unchanged.
+
+    ``donate=True``: the caller gives the ``state`` it passes up (the
+    reference's donated round), so the local steps may overwrite it from
+    the first step on (:class:`repro_torch.optim.Optimizer`): the server
+    half and the dense optimizer moments update in place. What the round
+    still reads of its start is kept: server FedOpt's delta reads the
+    start's server half, so it is copied first; the guards' screen, the
+    survivor re-run and the clip read the whole start state, so a guarded
+    round's first step stays functional. A sparse round trains gathered
+    copies of its slots, so the absent slots' rows are never touched.
+    ``donate=False`` leaves ``state`` bitwise as it was.
     """
     from repro_torch import fed as _fed
 
@@ -569,7 +635,13 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                     "fed_state with repro_torch.fed.init_fed_state(..., "
                     "guards=...)")
         device = leaves(state.params["client"])[0].device
+        # the steps may overwrite the round's start from step 0 on, unless
+        # guards read it after the first pass (screen, re-run, clip)
+        own = donate and guards is None
         ws_start = state.params["server"]
+        if own and server_optimizer is not None:
+            # FedOpt's delta reads the start's server half after the steps
+            ws_start = tree_map(torch.clone, ws_start)
         start = state  # the round-start state: the re-run's and the screen's
         T = leaves(round_batches)[0].shape[0]
         C_all = leaves(state.params["client"])[0].shape[0]
@@ -611,19 +683,19 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                     sub, metrics = step(
                         sub, {k: v[t].index_select(0, idx_t)
                               for k, v in round_batches.items()}, sub_mask,
-                        donate=t > 0)
+                        donate=own or t > 0)
                 st = _scatter_clients(start, sub, idx_t)
                 del sub
             else:
                 mask = (None if m_np is None else
                         torch.tensor(m_np, dtype=torch.float32,
                                      device=device))
-                # from the second step on the state is the round's own:
-                # its update may overwrite it
+                # from the second step on the state is the round's own
+                # (from the first with ``own``): its update may overwrite it
                 for t in range(T):
                     st, metrics = step(st, {k: v[t] for k, v in
                                             round_batches.items()}, mask,
-                                       donate=t > 0)
+                                       donate=own or t > 0)
             if corrupt_np is not None:
                 # the update is corrupted in transit, after training (in
                 # place: these rows are the round's own)

@@ -24,6 +24,13 @@ count K1 / K2 launches, ``LAUNCHES_FWD1`` / ``LAUNCHES_BWD1`` K4 / K5.
 Shapes: feats (G, N, d) -- G groups (SCALA clients), N tokens each;
 w_head (d, V); labels / weights (G, N); prior_rows (K, V) with prior_ids
 (G,) picking each group's row (None: row 0 for every group).
+
+Dtypes: feats and w_head each float32 or bfloat16 (the bf16 compute
+policy hands a bf16 head). The plain versions read w_head's float32
+copy, as the reference's ops upcast per chunk; the kernels take a bf16
+operand as one exact TF32 term. Values are float32, feature cotangents
+come in feats' dtype and dW in w_head's: a bf16 head's gradient is the
+float32 sum rounded to bf16 once.
 """
 from __future__ import annotations
 

@@ -48,11 +48,22 @@ modes (the header names both; ``Trainer.history`` records
         --clients 16 --participation uniform:0.25 --rounds 3 \
         --faults drop:0.1,corrupt:0.5:nan --guards nonfinite,clip:10
 
-The flags of unported features (``--arrival topk:sharded``,
-``--precision bf16``, ``--rounds-per-call`` > 1) fail with the spec's
-NotImplementedError. The port always runs a round as a Python
-loop of steps, so ``--no-scan`` changes nothing and ``--unroll`` has
-nothing to act on; ``--no-donate`` keeps the async event functional.
+The dispatch knobs act as in the reference: ``--precision bf16`` runs
+the local steps in bfloat16 against float32 master params (the LACE
+boundary gets a bf16 head), ``--rounds-per-call R`` runs R rounds in one
+program call (one host copy of the metrics a chunk; a loss line still
+prints per round, with the chunk's seconds divided over it), and
+``--no-donate`` keeps the state passed to a round intact (by default a
+round overwrites it from its first local step on):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --clients 16 --participation 0.25 --precision bf16 \
+        --rounds-per-call 2 --rounds 4
+
+The flag of an unported feature (``--arrival topk:sharded``) fails with
+the spec's NotImplementedError. The port always runs a round as a
+Python loop of steps, so ``--no-scan`` changes nothing and ``--unroll``
+has nothing to act on.
 
 Added here: ``--device`` (``cuda`` unless given; no CPU fallback) and
 ``--init-params PATH``, a ``repro.checkpoint`` params file (client half
@@ -62,7 +73,9 @@ CLIs.
 
 Checkpoints as in the reference: ``--checkpoint-dir`` saves the params
 after every round (servable by :mod:`repro_torch.launch.serve`),
-``--state-dir`` the whole run (``Trainer.save``), and ``--resume``
+``--state-dir`` the whole run (``Trainer.save``) -- both once a chunk
+under ``--rounds-per-call``, at the round the state belongs to -- and
+``--resume``
 restores the newest complete one from ``--state-dir`` and runs only the
 remaining rounds, bit for bit as if never stopped. The FL / SFL
 baselines have no split losses to print (the reference's driver cannot
@@ -293,6 +306,10 @@ def main(argv=None):
         print(f"{label} {rnd:3d} loss_s={metrics['loss_server']:.4f} "
               f"loss_c={metrics['loss_client']:.4f}{extra} ({dt:.1f}s)",
               flush=True)
+        # the state advances a chunk at a time: save once a chunk, at the
+        # round the state belongs to (the chunk's last)
+        if rnd != trainer.round - 1:
+            return
         if args.checkpoint_dir:
             checkpoint.save(args.checkpoint_dir, rnd,
                             trainer.state.inner.params)

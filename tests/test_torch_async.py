@@ -883,14 +883,17 @@ def test_async_still_refuses_what_later_slices_bring():
     for ex, fd, match in (
             (dict(mode="async", backend="lace_dp"), None, "multi-device"),
             (dict(mode="async", arrival="topk:sharded"), None,
-             "multi-device"),
-            (dict(mode="async", precision="bf16"), dict(faults="drop:0.1"),
-             "dispatch-knob"),
-            (dict(mode="async", rounds_per_call=2),
-             dict(guards="nonfinite"), "dispatch-knob")):
+             "multi-device")):
         d = _lm_spec(ex, fd)
         with pytest.raises(NotImplementedError, match=match):
             api.ExperimentSpec.from_dict(d).validate()
+    # the dispatch knobs are ported: with faults or guards they validate
+    for ex, fd in ((dict(mode="async", precision="bf16"),
+                    dict(faults="drop:0.1")),
+                   (dict(mode="async", rounds_per_call=2),
+                    dict(guards="nonfinite"))):
+        spec = api.ExperimentSpec.from_dict(_lm_spec(ex, fd))
+        assert spec.validate() is spec
 
 
 def test_build_equals_the_hand_built_event():

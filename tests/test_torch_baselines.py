@@ -186,8 +186,13 @@ def test_decorr_loss_matches_reference():
 
 def test_cast_fed_model():
     assert B.cast_fed_model(MODEL, "f32") is MODEL
-    with pytest.raises(NotImplementedError, match="dispatch-knob"):
-        B.cast_fed_model(MODEL, "bf16")
+    # bf16: the forward sees bfloat16 params and inputs
+    seen = []
+    probe = B.FedModel(forward=lambda p, x: seen.append(
+        (p["w"].dtype, x.dtype)) or x, num_classes=2)
+    B.cast_fed_model(probe, "bf16").forward({"w": torch.ones(2)},
+                                            torch.ones(2))
+    assert seen == [(torch.bfloat16, torch.bfloat16)]
     with pytest.raises(ValueError, match="unknown precision"):
         B.cast_fed_model(MODEL, "f16")
 
@@ -307,4 +312,4 @@ def test_table_runner_prints_reference_block(capsys, tmp_path):
     saved = json.loads(out_json.read_text())
     assert saved["device"]["platform"] == "cpu" and saved["rows"] == rows
     with pytest.raises(SystemExit, match="not ported yet"):
-        table_run.main(["--table", "round_loop"])
+        table_run.main(["--table", "boundary"])

@@ -240,18 +240,19 @@ def test_validate_names_the_slices_still_to_come():
     for kw, match in (
             (dict(execution=api.ExecutionSpec(mode="async",
                                               arrival="topk:sharded")),
-             "multi-device slice"),
-            (dict(fed=api.FedSpec(participation="uniform:0.5",
-                                  faults="drop:0.1"),
-                  execution=api.ExecutionSpec(mode="masked",
-                                              precision="bf16")),
-             "dispatch-knob"),
-            (dict(fed=api.FedSpec(participation="uniform:0.5"),
-                  execution=api.ExecutionSpec(mode="masked",
-                                              rounds_per_call=2)),
-             "dispatch-knob")):
+             "multi-device slice"),):
         with pytest.raises(NotImplementedError, match=match):
             _image_spec(**kw).validate()
+    # the dispatch knobs are ported: they validate, with faults too
+    for kw in (dict(fed=api.FedSpec(participation="uniform:0.5",
+                                    faults="drop:0.1"),
+                    execution=api.ExecutionSpec(mode="masked",
+                                                precision="bf16")),
+               dict(fed=api.FedSpec(participation="uniform:0.5"),
+                    execution=api.ExecutionSpec(mode="masked",
+                                                rounds_per_call=2))):
+        spec = _image_spec(**kw)
+        assert spec.validate() is spec
     with pytest.raises(NotImplementedError, match="multi-device"):
         _lm_spec(execution=api.ExecutionSpec(mode="masked",
                                              backend="lace_dp")).validate()
@@ -290,6 +291,12 @@ def test_build_matches_direct_sync_round(mode):
     sizes = torch.tensor([5.0, 4.0, 3.0, 2.0])
     state = program.init()
     assert state.fed["sched"].tolist() == [fed_seed(spec), 0]
+    # the donated step gives its input up: the hand-built round starts
+    # from a copy taken before it
+    from repro_torch.api.build import fresh
+    start = engine.TrainState(params=fresh(state.inner.params),
+                              opt_state=fresh(state.inner.opt_state),
+                              step=state.inner.step)
     out, metrics = program.step(state, batches, sizes)
 
     sched = fed.make_participation("uniform:0.5", 4)
@@ -301,8 +308,8 @@ def test_build_matches_direct_sync_round(mode):
         server_optimizer=so, server_lr=0.5)
     fs = fed.init_fed_state(fed_seed(spec), agg, sched, num_clients=4,
                             server_optimizer=so,
-                            server_params=state.inner.params["server"])
-    ref, ref_fed, ref_m = round_fn(state.inner, batches, sizes, fs)
+                            server_params=start.params["server"])
+    ref, ref_fed, ref_m = round_fn(start, batches, sizes, fs)
     _equal_trees(out.inner, ref, "state")
     _equal_trees(out.fed, ref_fed, "fed state")
     assert set(metrics) == set(ref_m)
@@ -496,11 +503,12 @@ def test_table_runner_smoke_rows(capsys):
     rows = table_run.main(["--smoke", "--device", "cpu"])
     assert [(r["setting"], r["method"]) for r in rows] == [
         ("exec=subset", "scala"), ("exec=masked", "scala"),
-        ("exec=sparse", "scala"), ("fedavgm", "fedavg")]
+        ("exec=sparse", "scala"), ("fedavgm", "fedavg"),
+        ("fused+bf16", "scala")]
     assert all(0.0 <= r["acc"] <= 1.0 and r["nonfinite_leaves"] == 0
                for r in rows)
     out = capsys.readouterr().out.splitlines()
-    assert out[0] == table_run.HEADER and len(out) == 5
+    assert out[0] == table_run.HEADER and len(out) == 6
 
 
 def test_participation_leg(tmp_path):
@@ -514,4 +522,4 @@ def test_participation_leg(tmp_path):
         assert all(e["rounds_per_sec"] > 0 for e in entry.values())
     assert res["subset_restacked_frac=0.5"]["seconds"] > 0
     with pytest.raises(SystemExit, match="not ported yet"):
-        table_run.main(["--table", "round_loop"])
+        table_run.main(["--table", "boundary"])

@@ -956,3 +956,96 @@ def test_guarded_round_on_card_equals_survivor_round():
     _, model, params, batches, sizes, masks = cs.fed_check_inputs(
         "cuda", True, 4, 32, 2)
     cs.fault_survivor_check("cuda", model, params, batches, sizes, masks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel_pair", ["K1/K2", "K4/K5 server",
+                                         "K4/K5 client"])
+def test_lace_kernels_bf16_head_match_plain(kernel_pair):
+    """The bf16-head build (bf16 feats and a bf16 W, as the bf16 compute
+    policy hands the boundary) against the plain version on the same
+    bf16 values (which reads W's float32 copy): nll and lse within 1e-4
+    of their largest entry, df and dW within 1e-5 (a bf16 operand is one
+    exact TF32 term); two runs bitwise equal."""
+    _needs_card()
+    from repro_torch.kernels.lace import ref as lace_ref
+
+    G, Nc, d, V = 4, 300, 96, 2500
+    feats, w_head, labels, weights, p_s, p_k = _lace_inputs(
+        11, G, Nc, d, V, torch.bfloat16)
+    w16 = w_head.to(torch.bfloat16)
+    N = G * Nc
+    feats = feats.reshape(N, d)
+    labels = labels.reshape(N).to(torch.int32).contiguous()
+    ts = (weights.reshape(N) / weights.sum()).contiguous()
+    adj_s = torch.log(p_s + 1e-8).contiguous()
+    adj_k = torch.log(p_k + 1e-8).contiguous()
+    ids = torch.arange(N, device="cuda", dtype=torch.int32) * G // N
+
+    def close(got, want, rtol):
+        for a, b in zip(got, want):
+            if b is None:
+                assert a is None
+                continue
+            err = (a - b).abs().max().item()
+            assert err <= rtol * b.abs().max().item(), err
+
+    if kernel_pair == "K1/K2":
+        fwd = lambda: lace_kernel.lace2_fwd_cuda(                 # noqa
+            feats, w16, labels, adj_s, None, adj_k, ids)
+        got = fwd()
+        close(got, lace_ref.lace2_fwd_plain(feats, w16, labels, adj_s, None,
+                                            adj_k, ids), 1e-4)
+        bargs = (feats, w16, labels, adj_s, None, adj_k, ids, got[2],
+                 got[3], ts, ts)
+        bwd = lambda: lace_kernel.lace2_bwd_cuda(*bargs)          # noqa
+        gb = bwd()
+        close(gb, lace_ref.lace2_bwd_plain(*bargs), 1e-5)
+    else:
+        side = kernel_pair.split()[-1]
+        adj, rows = (adj_s, None) if side == "server" else (adj_k, ids)
+        want_dw = side == "server"
+        fwd = lambda: lace_kernel.lace_fwd_cuda(feats, w16, labels, adj,
+                                                rows)            # noqa
+        got = fwd()
+        close(got, lace_ref.lace_fwd_plain(feats, w16, labels, adj, rows),
+              1e-4)
+        bargs = (feats, w16, labels, adj, rows, got[1], ts, want_dw)
+        bwd = lambda: lace_kernel.lace_bwd_cuda(*bargs)           # noqa
+        gb = bwd()
+        close(gb, lace_ref.lace_bwd_plain(*bargs), 1e-5)
+    torch.cuda.synchronize()
+    for a, b in zip(got + gb, fwd() + bwd()):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_chunked_qwen_rounds_on_card_equal_sequential():
+    """Reduced qwen1.5-0.5b (K1, K2, K3 forward and backward) in bf16 on
+    the card: 2 rounds in one call equal 2 calls of one round, bit for
+    bit in every state leaf and in the history."""
+    _needs_card()
+    from repro_torch import api
+    from repro_torch.launch import train
+
+    flags = ["--arch", "qwen1.5-0.5b", "--reduced", "--clients", "4",
+             "--participation", "0.5", "--local-iters", "2", "--seq", "32",
+             "--server-batch", "4", "--docs-per-client", "3", "--rounds", "2",
+             "--precision", "bf16"]
+    runs = []
+    for rpc in ("1", "2"):
+        spec = train.spec_from_args(train.build_parser().parse_args(
+            flags + ["--rounds-per-call", rpc]))
+        t = api.Trainer(spec, device="cuda")
+        t.run()
+        runs.append(t)
+    a, b = runs
+    assert a.history == b.history and len(a.history) == 2
+    fa, fb = _flat(a.state), _flat(b.state)
+    assert fa.keys() == fb.keys()
+    for key, x in fa.items():
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, fb[key]), key
+        else:
+            assert np.array_equal(np.asarray(x), np.asarray(fb[key])), key

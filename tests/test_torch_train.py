@@ -193,26 +193,24 @@ ALEXNET = dict(arch="alexnet-cifar", reduced=False,
     pytest.param(dict(top=dict(ALEXNET, method="fedavg"),
                       execution=dict(backend="logits")), None, None,
                  id="alexnet-fedavg-validates"),
-    pytest.param(dict(execution=dict(precision="bf16")),
-                 NotImplementedError, "precision 'bf16'",
+    # the dispatch knobs are ported (the ids name what these cases
+    # checked before they were)
+    pytest.param(dict(execution=dict(precision="bf16")), None, None,
                  id="bf16-NotImplementedError"),
-    pytest.param(dict(execution=dict(rounds_per_call=2)),
-                 NotImplementedError, "rounds_per_call",
+    pytest.param(dict(execution=dict(rounds_per_call=2)), None, None,
                  id="rounds_per_call-NotImplementedError"),
     # server FedOpt is ported; it needs its lr, as the reference's round
     pytest.param(dict(execution=dict(server_optimizer=api.OptimSpec(
         name="sgd"))), ValueError, "server_optimizer needs its lr",
         id="server_optimizer-ValueError-needs its lr"),
-    # faults and guards are ported in the in-program modes; with a
-    # feature still to come they are refused for that feature
+    # faults and guards are ported in the in-program modes, and with the
+    # dispatch knobs
     pytest.param(dict(fed=dict(faults="drop:0.1"),
                       execution=dict(mode="masked", precision="bf16")),
-                 NotImplementedError, "precision 'bf16'",
-                 id="faults-NotImplementedError"),
+                 None, None, id="faults-NotImplementedError"),
     pytest.param(dict(fed=dict(guards="nonfinite"),
                       execution=dict(mode="masked", rounds_per_call=2)),
-                 NotImplementedError, "rounds_per_call",
-                 id="guards-NotImplementedError"),
+                 None, None, id="guards-NotImplementedError"),
     pytest.param(dict(fed=dict(faults="drop:0.1", guards="nonfinite"),
                       execution=dict(mode="masked")), None, None,
                  id="faults-guards-masked-validates"),
@@ -241,6 +239,5 @@ def test_validate_names_what_is_not_ported(change, error, match):
             _spec(**change).validate()
     _spec().validate()
     with pytest.raises(SystemExit, match="not ported"):
-        train.main(FLAGS + ["--device", "cpu", "--participation",
-                            "uniform:0.5", "--faults", "drop:0.1",
-                            "--precision", "bf16"])
+        train.main(FLAGS + ["--device", "cpu", "--async", "--faults",
+                            "drop:0.1", "--arrival", "topk:sharded"])
