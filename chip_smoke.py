@@ -8,11 +8,12 @@ Phases, one or more lines each:
 1. device: the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
 2. build: every kernel source in ``src/repro_torch/kernels/csrc``
-   (flash_attn, flash_attn_bwd, lace, lace1, mlstm; the headers
-   flash_common.cuh and lace_common.cuh), one nvcc each, all at once,
-   for sm_90a; each kernel's registers and spills by name; the LACE
-   and K6 kernels' tensor-core TF32 and FFMA instruction counts from
-   ``cuobjdump -sass`` (each product body must hold TF32 products);
+   (flash_attn, flash_attn_bwd, lace, lace1, mlstm, mlstm_bwd; the
+   headers flash_common.cuh, lace_common.cuh and mlstm_gates.cuh), one
+   nvcc each, all at once, for sm_90a; each kernel's registers and
+   spills by name; the LACE and K6 kernels' tensor-core TF32 and FFMA
+   instruction counts from ``cuobjdump -sass`` (each product body must
+   hold TF32 products);
 3. kernels: each kernel against its plain PyTorch version at the shapes
    its path gives it, with the stated tolerance; then its time (CUDA
    events), the plain version's, PyTorch's own call's (``library_ms``, a
@@ -27,12 +28,17 @@ Phases, one or more lines each:
    a bf16 head as the bf16 compute policy hands it (each with its bound,
    every pass at TF32's rate, the split-TF32 route's cost and the f32
    CUDA cores' beside it, and a bitwise repeat at the main path's cases,
-   float32 and bf16 head), and the chunkwise
+   float32 and bf16 head), K1 and K2 at xlstm-1.3b's boundary (d 2048,
+   V 50304), and the chunkwise
    mLSTM (K6) at the served xlstm-1.3b's prefill shapes, every prompt
    length of the serving mix, q, k, v in float32 and in bfloat16 (h and
    the final C, n, m against the plain version, a bitwise repeat, the
    bound at the tensor cores' rate, the split products' and the q/k
-   re-reads' rates, and a profile of its four kernels);
+   re-reads' rates, and a profile of its four kernels); then K6's
+   backward at phase 17's shapes (the server's 16 x 512 tokens, a
+   client's 4 x 512, a ragged 2 x 200), q, k, v in bf16 and f32, against
+   the plain backward and autograd of the plain forward, a bitwise
+   repeat, its time, the plain backward's and the bound;
 4. serve: full-width qwen1.5-0.5b in bf16 through ServeSpec ->
    build_serve -> ServeEngine.serve, dense and paged cache; paged tokens
    must equal dense tokens, and every admitted request must have
@@ -55,8 +61,9 @@ Phases, one or more lines each:
    counts per round against the layout's formula, round seconds, tokens/s,
    peak memory and a profiled round's device-busy share;
 7. train-check: full width in float32, TF32 off -- one split step and
-   one round on the card (K1, K2, K3 forward and backward) against the
-   same on the CPU (the plain versions);
+   one round on the card (K1, K2, K3 forward and backward; the step's
+   launches against the layout) against the same on the CPU (the plain
+   versions);
 8. train-dual: the training cell of phase 6 with ``--boundary dual`` --
    the launches per round (K4 and K5 twice a step, K1 and K2 never), the
    same numbers as phase 6 and a profiled round;
@@ -72,11 +79,11 @@ Phases, one or more lines each:
    are reported beside it);
 11. baselines: the same AlexNet and settings, one round of every method
    but scala (the FL / SFL baselines and scala_noadj) from one seeded
-   state, held against the round on the CPU in float64 (every leaf's
-   update within 1e-3 of its largest entry): over one local step the
-   card's float32 round with cuDNN off, over the tables' five the card's
-   float64 round (float32 reported beside it); then the paper tables T1,
-   T5 and T8 (quick) through the port's table runner at width 1.0 -- the
+   state at width 0.5 (FedDecorr 1.0), held against the round on the CPU
+   in float64 (every leaf's update within 1e-3 of its largest entry):
+   over one local step the card's float32 round with cuDNN off, over the
+   tables' five the card's float64 round (float32 reported beside it);
+   then the paper tables T1, T5 and T8 (quick) through the port's table runner at width 1.0 -- the
    reference's CSV rows, each experiment's round seconds and peak device
    memory, and whether its final state is finite (a diverged baseline
    row is marked; a diverged SCALA row fails);
@@ -93,8 +100,8 @@ Phases, one or more lines each:
    4 participating slots gathered, 4 documents each, staleness_weighted,
    server FedAdam), each with phase 6's launch check against the
    computed slots, finite losses, round seconds, participating tokens/s,
-   peak memory and a profiled round; (c) fed-check: f32 full width, 4
-   slots, one masked round with injected masks (bias_compensated,
+   peak memory and a profiled round; (c) fed-check: f32 full width and 6
+   layers, 4 slots, one masked round with injected masks (bias_compensated,
    momentum, server adamw) on the card against the CPU, then sparse
    against masked on the card (SGD); (d) resume with federation state,
    bitwise: (b)'s run, and masked AlexNet width 1.0 with
@@ -111,9 +118,9 @@ Phases, one or more lines each:
    arrival tokens/s, staleness, deadline misses, peak memory, the state's
    resident bytes (and the pager's host bytes and page seconds; its
    ``save`` must refuse) and a profiled event; (c) async-check: f32 full
-   width, 4 slots, cohort 2 -- three events with recorded delays and a
-   deadline, card against CPU under fed-check's rule, the host schedule
-   equal; zero delays with cohort = K against the sync round on the card
+   width and 6 layers, 4 slots, cohort 2 -- three events with recorded
+   delays and a deadline, card against CPU under fed-check's rule, the
+   host schedule equal; zero delays with cohort = K against the sync round on the card
    (atol = rtol = 1e-6); delta against dense snapshots on the card over
    six events, bitwise; (d) resume: (a)'s run saved after event 2 and
    resumed, events 3-4 bitwise against the uninterrupted run;
@@ -151,7 +158,17 @@ Phases, one or more lines each:
    donate on against off, bitwise; the masked round's peak memory at
    phase 13(a)'s cell with and without donation; (d) AlexNet at width
    1.0 in bf16, one round of scala, fedavg and splitfed_v1, every leaf
-   float32 and finite.
+   float32 and finite;
+17. train-xlstm: phase 6's cell on full-width, full-depth xlstm-1.3b (48
+   layers, 42 mLSTM with K6 and its backward, 6 sLSTM, the server's 5
+   scan groups rematerialized) -- the launches per round against the
+   layout (K6 forward 118 and backward 88 a step, K1 = K2 = 1, K3 none),
+   finite losses, round seconds, tokens/s, peak memory, the sLSTM loops'
+   host seconds and a profiled round (device events only) split into K6
+   forward, K6 backward and LACE;
+17b. train-check-xlstm: phase 7 on xlstm-1.3b at full width and 8
+   layers (one period of its pattern), 2 clients x 256 tokens (4 chunks:
+   the backward's reverse walk crosses chunk boundaries).
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -166,7 +183,9 @@ check-xlstm (5c).
 ``python3 chip_smoke.py fed`` phases 1, 2 and 13; ``python3
 chip_smoke.py async`` phases 1, 2 and 14; ``python3 chip_smoke.py
 faults`` phases 1, 2 and 15; ``python3 chip_smoke.py dispatch`` phases
-1, 2 and 16.
+1, 2 and 16; ``python3 chip_smoke.py xlstm-train`` phases 1 and 2, K6's
+backward and K1 / K2 at xlstm-1.3b's width from phase 3, then 17 and
+17b.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -220,6 +239,18 @@ MLSTM_CASES = ([(1, S, 4, 1024, 1024, torch.float32)
                + [(1, S, 4, 1024, 1024, torch.bfloat16) for S in SERVE_LENS])
 MLSTM_REPORT = (1, 777, 4, 1024, 1024, torch.bfloat16)   # as served
 MLSTM_CHUNK, MLSTM_RTOL = 64, 1e-4
+# K6's backward, (B, S, H, dk, dv, q/k/v dtype): the server's call in
+# phase 17 (16 sequences of 512 tokens), a client's (4 of them), and a
+# ragged last chunk, each with q, k, v in bf16 (as the bf16 policy passes
+# them) and in f32. Against the plain backward and autograd of the plain
+# forward on the f32 copies: every gradient within 1e-4 of its largest
+# entry (sums in another order), bf16 dq, dk, dv within 1e-4 + 2^-8
+# (rounded once to bf16: half an ulp, 2^-8 of the entry at most). Two
+# runs of each case are bitwise equal.
+MLSTM_BWD_CASES = [(B, S, 4, 1024, 1024, dt)
+                   for dt in (torch.bfloat16, torch.float32)
+                   for B, S in ((16, 512), (4, 512), (2, 200))]
+MLSTM_BWD_REPORT = MLSTM_BWD_CASES[0]
 # the prefill against its token-by-token decode, float32: every layer's
 # final state within 1e-3 of its largest entry. xlstm-1.3b is checked at
 # full width on one period of its 7:1 layer pattern (8 layers: 7 mLSTM, 1
@@ -265,6 +296,9 @@ LACE_CASES = [(8192, BF16, 1.0, LACE_CLIENTS, 0, F32),
               (8192, BF16, 1.0, 16, 12, F32),
               (8192, BF16, 1.0, LACE_CLIENTS, 0, BF16)]
 LACE_REPORT = LACE_CASES[0]
+# the boundary of xlstm-1.3b's training (phase 17): d 2048 (the first width
+# above the kernels' KSEG = 1024 on a card), V 50304, bf16 feats
+LACE_XLSTM = (8192, BF16, 1.0, LACE_CLIENTS, 0, F32, 2048, 50304)
 LACE_BF16_HEAD = LACE_CASES[-1]          # the bf16 policy's main path
 # the single-prior LACE kernels (K4, K5) of the dual boundary, (N tokens,
 # feats dtype, side, head dtype) at the training width: the server side
@@ -336,6 +370,7 @@ FED_SPARSE_FLAGS = ["--arch", ARCH, "--clients", "16", "--participation",
 # (:func:`adam_first_step`); the delta itself against the reference's
 # round is the CPU parity tests' (tests/test_torch_fed.py).
 FED_CHECK_SERVER_EPS, FED_CHECK_SERVER_LR = 1e-3, 1e-3
+FED_CHECK_LAYERS = 6        # of 24: the CPU's masked round is the cost
 ADAM_B1, ADAM_B2 = 0.9, 0.95          # repro_torch.optim.adamw's defaults
 
 
@@ -473,7 +508,7 @@ def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(["flash_attn", "flash_attn_bwd", "lace", "lace1",
-                        "mlstm"])
+                        "mlstm", "mlstm_bwd"])
     for name, log in logs.items():
         kern, spill = None, ""
         for line in log.splitlines():
@@ -487,7 +522,7 @@ def phase_build():
             elif "built in" in line:
                 say("build", f"{name}: {line.strip()}")
     say("build", f"all kernels ready in {time.perf_counter() - t0:.1f} s")
-    for name in ("lace", "lace1", "mlstm"):
+    for name in ("lace", "lace1", "mlstm", "mlstm_bwd"):
         sass_mix(build.library_path(name), name)
 
 
@@ -626,22 +661,26 @@ def device_events(prof):
     return per
 
 
-def profile(what: str, fn, top: int, watch=()) -> None:
+def profile(what: str, fn, top: int, watch=(), host=True) -> None:
     """Run ``fn`` once more under torch.profiler: the wall time, the
     device's busy time (the sum of kernel times), the ``top`` kernels
     that take the most of it and, for each (label, name part) in
     ``watch``, the share of the kernels whose name holds that part.
     Profiling slows the host, so only the device numbers are read from
-    this run."""
+    this run. ``host=False`` records no host ops (the device numbers need
+    none): a run of a million launches then costs far less to collect."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    t_start = time.perf_counter()
+    with torch_profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host else [])) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = device_events(prof)
+    say("profile", f"collecting the trace took "
+        f"{time.perf_counter() - t_start - wall:.1f} s")
     busy = sum(t for t, _ in kernels.values())
     if busy == 0:
         say("profile", "device time not measured (the profiler saw no "
@@ -672,7 +711,7 @@ def serve_launches(cfg, n_admits):
          for m in ("attn", "mlstm")}
     return dict(flash_fwd=n_admits * n["attn"], flash_bwd=0, lace_fwd=0,
                 lace_bwd=0, lace1_fwd=0, lace1_bwd=0,
-                mlstm=n_admits * n["mlstm"])
+                mlstm=n_admits * n["mlstm"], mlstm_bwd=0)
 
 
 def phase_serve(device="cuda", reduced=False, arch=ARCH, phase="serve",
@@ -1113,6 +1152,120 @@ def phase_mlstm():
     return rows, max_err
 
 
+def mlstm_bwd_bound(B, S, H, dk, dv, dtype, chunk=MLSTM_CHUNK):
+    """(ms, 'operations' | 'bytes', f32 ms, flops): the least time for
+    K6's backward over these inputs from the zero state, counting what it
+    must recompute: per chunk of L tokens and head, the forward's state
+    rerun (2 L dk dv + 2 L dk, not after the last chunk), C0 g (2 L dk
+    dv, not in the first chunk, whose state is zero), dC v and dC^T k (4
+    L dk dv, not in the last chunk, whose dC is zero), the dC and dn
+    update (2 L dk dv + 2 L dk, not in the first chunk), the causal
+    pairs' q.k, dP k, dP^T q (dk each) and g.v, (S / den)^T g (dv each),
+    and q.n0, q.(C0 g), k.(dC v + dn) (2 L dk each) -- once at TF32's
+    tensor-core rate; or one read of q, k, v (in ``dtype``), the gates
+    and dh and one write of dq, dk, dv and the gates' gradients, the
+    larger. The third, for the text only: the operations at the f32 CUDA
+    cores' rate, which this first version runs on."""
+    nc = -(-S // chunk)
+    flops = 0
+    for c in range(nc):
+        L = min(chunk, S - c * chunk)
+        state = 2 * L * dk * dv
+        flops += ((c + 1 < nc) * (3 * state + 2 * L * dk)
+                  + (c > 0) * (2 * state + 2 * L * dk)
+                  + L * (L + 1) // 2 * 2 * (3 * dk + 2 * dv) + 6 * L * dk)
+    flops *= B * H
+    el = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * el * B * S * H * (2 * dk + dv)
+              + 4 * B * S * H * (dv + 4))
+    t_ops = flops / PEAK_FLOPS["tf32"]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            flops / PEAK_FLOPS[torch.float32] * 1e3, flops)
+
+
+def phase_mlstm_bwd():
+    """K6's backward against the plain backward (the same algorithm) and
+    against autograd of the plain forward, both on the f32 copies of the
+    inputs, at the training shapes (MLSTM_BWD_CASES); a bitwise repeat;
+    the kernel's time (events, and the card's alone), the plain
+    backward's and the bound. No PyTorch call computes this function."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.mlstm import kernel, ref
+
+    gen = torch.Generator("cuda")
+    gen.manual_seed(1)
+    rows, max_err = {}, 0.0
+    for case in MLSTM_BWD_CASES:
+        B, S, H, dk, dv, dtype = case
+
+        def n(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        q, k, v = (x.to(dtype) for x in (n(B, S, H, dk, scale=dk ** -0.5),
+                                         n(B, S, H, dk), n(B, S, H, dv)))
+        i_raw, f_log = n(B, S, H), F.logsigmoid(n(B, S, H) + 2.0)
+        dh = n(B, S, H, dv)
+        x32 = [q.float(), k.float(), v.float(), i_raw, f_log]
+
+        def run_kernel():
+            return kernel.mlstm_chunk_bwd_cuda(q, k, v, i_raw, f_log, dh,
+                                               chunk=MLSTM_CHUNK)
+
+        def run_plain():
+            return ref.mlstm_chunk_bwd_plain(*x32, dh, chunk=MLSTM_CHUNK)
+
+        got = run_kernel()
+        sync("cuda")
+        want = run_plain()[:5]
+        xs = [x.clone().requires_grad_() for x in x32]
+        h, _ = ref.mlstm_chunk_plain(*xs, chunk=MLSTM_CHUNK)
+        auto = torch.autograd.grad((h * dh).sum(), xs)
+        del h, xs
+        names = ("dq", "dk", "dv", "di", "df")
+        # bf16 dq, dk, dv: the f32 sums rounded once to bf16 (half an ulp,
+        # 2^-8 of the entry at most, beside the sums' order)
+        tols = [MLSTM_RTOL + (2 ** -8 if dtype == BF16 and i < 3 else 0.0)
+                for i in range(5)]
+        errs = {nm: (rel_err(g, w), rel_err(g, a))
+                for nm, g, w, a in zip(names, got, want, auto)}
+        max_err = max(max_err, max((g.float() - w).abs().max().item()
+                                   for g, w in zip(got, want)))
+        check(all(max(errs[nm]) <= t for nm, t in zip(names, tols)),
+              f"K6 backward vs plain / autograd {case}: {errs} > {tols}")
+        check(all(g.dtype == (dtype if i < 3 else F32)
+                  for i, g in enumerate(got)), f"K6 backward dtypes {case}")
+        again = run_kernel()
+        sync("cuda")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K6 backward repeat bitwise {case}")
+        del got, want, auto, again
+        ms = time_ms(run_kernel, iters=5, warmup=1)
+        dev_ms = device_ms(run_kernel, iters=5)
+        plain_ms = time_ms(run_plain, iters=2, warmup=1)
+        bound_ms, bound_by, f32_ms, flops = mlstm_bwd_bound(B, S, H, dk, dv,
+                                                            dtype)
+        rows[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          device_ms=dev_ms)
+        say("kernels", f"mlstm_chunk_bwd B={B} S={S} H={H} dk={dk} dv={dv} "
+            f"L={MLSTM_CHUNK} q/k/v {str(dtype)[6:]}: over the largest "
+            "entry (vs plain, vs autograd) "
+            + ", ".join(f"{nm} {a:.3g}/{b:.3g}" for nm, (a, b)
+                        in errs.items())
+            + f" (tol {tols[0]:.3g} dq/dk/dv, {tols[3]:.3g} di/df); repeat "
+            f"bitwise; kernel={ms:.3f} ms device={dev_ms:.3f} ms "
+            f"plain={plain_ms:.3f} ms bound={bound_ms:.4f} ms ({bound_by}; "
+            f"f32 CUDA cores {f32_ms:.3f}); {flops / 1e9:.1f} GFLOP, "
+            f"{flops / dev_ms / 1e9:.1f} TFLOP/s")
+        if case == MLSTM_BWD_REPORT:
+            report = run_kernel
+    profile(f"K6 backward at B, S = {MLSTM_BWD_REPORT[:2]}, q/k/v bf16",
+            report, 8)
+    return rows, max_err
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -1314,17 +1467,19 @@ def bounds_text(r):
             f"{r['f32_ms']:.2f}")
 
 
-def phase_lace():
+def phase_lace(cases=LACE_CASES + [LACE_XLSTM]):
     """K1 and K2 against their plain versions (same arguments, chunked
     logits); ``library_ms`` is the one cuBLAS product feats @ W in
     float32, a yardstick only (no PyTorch call computes the fused
-    boundary)."""
+    boundary). A case is (N, feats dtype, tau, G, absent, head dtype[, d,
+    V]), d 1024 and V 151936 (qwen1.5-0.5b) unless it says."""
     from repro_torch.kernels.lace import kernel, ref
 
     rows, errs = {}, {"fwd": 0.0, "bwd": 0.0}
-    for case in LACE_CASES:
-        N, dtype, tau, G, absent, w_dtype = case
-        args, weights, ts = lace_inputs(N, dtype, tau, G, absent, w_dtype)
+    for case in cases:
+        N, dtype, tau, G, absent, w_dtype, *dV = case
+        args, weights, ts = lace_inputs(N, dtype, tau, G, absent, w_dtype,
+                                        *dV)
         feats, w = args[0], args[1]
         d, V = w.shape
         got = kernel.lace2_fwd_cuda(*args)
@@ -1390,7 +1545,7 @@ def phase_lace():
             f"K2 {times['bwd']:.2f} ms (plain {times['bwd_plain']:.2f}, "
             f"{bounds_text(rows[(case, 'bwd')])}); cuBLAS feats@W "
             f"{times['library']:.2f} ms")
-        if case in (LACE_REPORT, LACE_BF16_HEAD):
+        if case in (LACE_REPORT, LACE_BF16_HEAD, LACE_XLSTM):
             same = [torch.equal(a, b) for a, b in zip(
                 got + gb, kernel.lace2_fwd_cuda(*args)
                 + kernel.lace2_bwd_cuda(*bargs))]
@@ -1546,17 +1701,30 @@ def train_launches(spec, cfg):
 def slot_launches(slots, cfg, boundary="fused"):
     """Kernel launches one local step makes, from the layout: every
     computed client slot runs the client blocks once forward and pulls
-    them back once; the server trunk (not rematerialized) runs once
-    forward and is pulled back twice (the P_s cotangent for w_s, the P_k
-    one for the activations); the boundary's launches
+    them back once; the server trunk runs once forward and is pulled back
+    twice (the P_s cotangent for w_s, the P_k one for the activations);
+    where the server's scan groups are rematerialized (the recurrent
+    archs, ``models.transformer.default_remat``) each pullback reruns
+    their forward, so a grouped layer launches its forward three times a
+    step (the prologue's layers once); the boundary's launches
     (:func:`boundary_launches`)."""
-    n_client = sum(cfg.block_spec(l).mixer == "attn"
-                   for l in range(cfg.split_layer))
-    n_server = sum(cfg.block_spec(l).mixer == "attn"
-                   for l in range(cfg.split_layer, cfg.num_layers))
-    return dict(flash_fwd=slots * n_client + n_server,
-                flash_bwd=slots * n_client + 2 * n_server, mlstm=0,
-                **boundary_launches(boundary))
+    from repro_torch.models.transformer import _layout, default_remat
+
+    _, prologue, first, n_groups = _layout(cfg)
+    grouped = range(first, first + n_groups * cfg.group_size)
+
+    def count(mixer, layers):
+        return sum(cfg.block_spec(l).mixer == mixer for l in layers)
+
+    out = {}
+    for mixer, fwd, bwd in (("attn", "flash_fwd", "flash_bwd"),
+                            ("mlstm", "mlstm", "mlstm_bwd")):
+        n_client = count(mixer, range(cfg.split_layer))
+        n_pro, n_grp = count(mixer, prologue), count(mixer, grouped)
+        reruns = 3 if default_remat(cfg) else 1
+        out[fwd] = slots * n_client + n_pro + reruns * n_grp
+        out[bwd] = slots * n_client + 2 * (n_pro + n_grp)
+    return dict(out, **boundary_launches(boundary))
 
 
 def read_counts():
@@ -1566,7 +1734,7 @@ def read_counts():
     return dict(flash_fwd=fops.LAUNCHES, flash_bwd=fops.LAUNCHES_BWD,
                 lace_fwd=lops.LAUNCHES_FWD, lace_bwd=lops.LAUNCHES_BWD,
                 lace1_fwd=lops.LAUNCHES_FWD1, lace1_bwd=lops.LAUNCHES_BWD1,
-                mlstm=mops.LAUNCHES)
+                mlstm=mops.LAUNCHES, mlstm_bwd=mops.LAUNCHES_BWD)
 
 
 def zero_counts():
@@ -1576,18 +1744,26 @@ def zero_counts():
     fops.LAUNCHES = fops.LAUNCHES_BWD = 0
     lops.LAUNCHES_FWD = lops.LAUNCHES_BWD = 0
     lops.LAUNCHES_FWD1 = lops.LAUNCHES_BWD1 = 0
-    mops.LAUNCHES = 0
+    mops.LAUNCHES = mops.LAUNCHES_BWD = 0
+
+
+TRAIN_WATCH = [("LACE forward (K1/K4)", "lace_fwd"),
+               ("LACE backward (K2/K5)", ("lace_grad", "lace_gemm")),
+               ("K3 backward", "flash_bwd"), ("K3 forward", "flash_fwd")]
 
 
 def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
-                phase="train", on_done=None):
+                phase="train", on_done=None, watch=TRAIN_WATCH,
+                profile_host=True):
     """Full-width training through the CLI's spec and the Trainer: the
     kernels' launches per round (an async event) against
     :func:`train_launches`, finite losses, round seconds (rounds 2 on;
     round 1 includes warm-up), tokens/s, peak memory, and a profiled extra
-    round. Every launch count is set to 0 at the start; returns the
-    counts of the measured rounds (the profiled round not included).
-    ``on_done(trainer)`` runs after the measured rounds."""
+    round (``watch``: the kernel groups whose shares it prints;
+    ``profile_host``: :func:`profile`'s ``host``). Every
+    launch count is set to 0 at the start; returns the counts of the
+    measured rounds (the profiled round not included). ``on_done(trainer)``
+    runs after the measured rounds."""
     from repro_torch import api
     from repro_torch.launch import train
 
@@ -1645,7 +1821,8 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
             f"launches "
             f"K3 fwd {got['flash_fwd']} bwd {got['flash_bwd']}, K1 "
             f"{got['lace_fwd']}, K2 {got['lace_bwd']}, K4 "
-            f"{got['lace1_fwd']}, K5 {got['lace1_bwd']}")
+            f"{got['lace1_fwd']}, K5 {got['lace1_bwd']}, K6 fwd "
+            f"{got['mlstm']} bwd {got['mlstm_bwd']}")
     counts = read_counts()
     steady = secs[1:] or secs
     round_s = float(np.mean(steady))
@@ -1662,18 +1839,67 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
         on_done(trainer)
     if profile_round and torch.device(device).type == "cuda":
         profile(f"training round ({spec.execution.boundary} boundary)",
-                trainer.step, 8, watch=[
-                    ("LACE forward (K1/K4)", "lace_fwd"),
-                    ("LACE backward (K2/K5)", ("lace_grad", "lace_gemm")),
-                    ("K3 backward", "flash_bwd"),
-                    ("K3 forward", "flash_fwd")])
+                trainer.step, 8, watch=watch, host=profile_host)
     return counts
 
 
-def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2):
+XLSTM_TRAIN_FLAGS = ["--arch", XLSTM] + TRAIN_FLAGS[2:]
+XLSTM_WATCH = [("K6 forward", ("mlstm_gate", "mlstm_scores", "mlstm_decay",
+                               "mlstm_state")),
+               ("K6 backward", "mlstm_bwd"),
+               ("LACE forward (K1)", "lace_fwd"),
+               ("LACE backward (K2)", ("lace_grad", "lace_gemm"))]
+
+
+def phase_train_xlstm(device="cuda", flags=XLSTM_TRAIN_FLAGS,
+                      profile_round=True):
+    """Phase 17: phase 6's cell on xlstm-1.3b at full width and depth
+    through :func:`phase_train` -- the launches per round against the
+    layout (K6 forward and backward, the rematerialized groups' reruns,
+    K1, K2; K3 none), finite losses, round seconds, tokens/s, peak
+    memory, then a profiled round (device events only: a round launches
+    about a million kernels) split into K6 forward (the backward's own
+    gate pass, a few microseconds, counts here too), K6 backward and
+    LACE -- with the host seconds of the sLSTM layers' forward loops (the
+    reruns included) and of their backward loops
+    (``xlstm.SLSTMScan.backward``)."""
+    from repro_torch.models.layers import xlstm
+
+    spent = {"forward": [], "backward": []}
+    orig = xlstm.slstm_scan, xlstm.SLSTMScan.backward
+
+    def timed(kind, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            spent[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def report(trainer):
+        rounds = trainer.spec.rounds
+        say("train-xlstm", "sLSTM loops over the rounds, host seconds: "
+            + "; ".join(f"{kind} {len(v)} calls, {sum(v):.3f} s "
+                        f"({sum(v) / rounds:.3f} s a round)"
+                        for kind, v in spent.items()))
+
+    xlstm.slstm_scan = timed("forward", orig[0])
+    xlstm.SLSTMScan.backward = staticmethod(timed("backward", orig[1]))
+    try:
+        return phase_train(device, flags, profile_round=profile_round,
+                           phase="train-xlstm", on_done=report,
+                           watch=XLSTM_WATCH, profile_host=False)
+    finally:
+        xlstm.slstm_scan = orig[0]
+        xlstm.SLSTMScan.backward = staticmethod(orig[1])
+
+
+def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
+                      arch=ARCH, layers=None, phase="train-check"):
     """float32 at full width, TF32 off: one split step and one round on
     ``device`` (the kernels) against the same on the CPU (the plain
-    versions), from the same params and batches."""
+    versions), from the same params and batches; ``layers`` cuts the
+    depth."""
     from repro_torch.configs import ScalaConfig, get_config
     from repro_torch.core import engine
     from repro_torch.core.scala import transformer_split_model
@@ -1682,9 +1908,10 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2):
     from repro_torch.optim import optimizers
     from repro_torch.tree import leaves, tree_map
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
-                              dtype="float32", param_dtype="float32")
+                              dtype="float32", param_dtype="float32",
+                              num_layers=layers or cfg.num_layers)
     gen = torch.Generator(device)
     gen.manual_seed(2)
     full = Tm.init_params(gen, cfg)
@@ -1706,29 +1933,35 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2):
     res = {}
     for dev in (device, "cpu"):
         p, b, _ = on(dev)
+        zero_counts()
         t0 = time.perf_counter()
         res[dev] = engine.split_step_grads(model, p, {k: v[0] for k, v in
                                                       b.items()}, sc)
         sync(dev)
-        say("train-check", f"split step on {dev}: "
-            f"{time.perf_counter() - t0:.2f} s")
+        n = read_counts()
+        say(phase, f"split step on {dev}: "
+            f"{time.perf_counter() - t0:.2f} s, launches {n}")
+        if torch.device(dev).type == "cuda":
+            want = slot_launches(C, cfg)
+            check(n == want, f"{phase} step launches {n} != {want}")
     (g_dev, m_dev), (g_cpu, m_cpu) = res[device], res["cpu"]
     for k in ("loss_server", "loss_client"):
         a, b = float(m_dev[k]), float(m_cpu[k])
         check(abs(a - b) <= LOSS_RTOL * abs(b), f"{k} {a} vs cpu {b}")
     head = rel_err(g_dev["server"]["head"]["out"].cpu(),
                    g_cpu["server"]["head"]["out"])
-    worst = max(rel_err(a.cpu(), b) for a, b in zip(leaves(g_dev),
-                                                     leaves(g_cpu)))
+    want = state_leaves(g_cpu)
+    worst, worst_key = max((rel_err(a.cpu(), want[key]), key)
+                           for key, a in state_leaves(g_dev).items())
     check(head <= LEAF_RTOL and worst <= LEAF_RTOL,
           f"grads: head dW {head}, worst leaf {worst} > {LEAF_RTOL}")
-    say("train-check", f"{cfg.name} float32 split step, {C} clients x {S} "
+    say(phase, f"{cfg.name} float32 split step, {C} clients x {S} "
         f"tokens, {device} (kernels) vs cpu (plain): loss_s "
         f"{float(m_dev['loss_server']):.6f} vs {float(m_cpu['loss_server']):.6f}, "
         f"loss_c {float(m_dev['loss_client']):.6f} vs "
         f"{float(m_cpu['loss_client']):.6f} (rtol {LOSS_RTOL}); head dW rel "
         f"err {head:.3g}, worst of {len(leaves(g_cpu))} grad leaves "
-        f"{worst:.3g} (tol {LEAF_RTOL})")
+        f"{worst:.3g} ({worst_key}; tol {LEAF_RTOL})")
     del res, g_dev, g_cpu
 
     new = {}
@@ -1750,15 +1983,25 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2):
         for a, b, b0 in zip(new[device], new["cpu"],
                             leaves(params["client"])))
     check(worst <= LEAF_RTOL, f"round client params: {worst} > {LEAF_RTOL}")
-    say("train-check", f"one round ({T} steps + FedAvg): aggregated client "
+    say(phase, f"one round ({T} steps + FedAvg): aggregated client "
         f"params, {device} vs cpu, worst leaf difference beyond 3 ulps "
         f"{worst:.3g} of the leaf's largest update (tol {LEAF_RTOL})")
 
 
-def f32_qwen_step_inputs(device, reduced=False, C=2, S=64, seed=3):
-    """float32 qwen1.5-0.5b (full width unless ``reduced``), its split
-    model, stacked params made on ``device`` from a seed, and one step's
-    numpy batch of C clients x S tokens."""
+def phase_xlstm_train_check(device="cuda", reduced=False):
+    """Phase 17b: :func:`phase_train_check` on xlstm-1.3b at full width
+    and one period of its layer pattern (8 layers; deeper random stacks
+    amplify float32 rounding, phase 5c), 2 clients x 256 tokens (4 chunks
+    of 64: the backward's reverse walk crosses chunk boundaries)."""
+    phase_train_check(device, reduced, C=2, S=256, arch=XLSTM,
+                      layers=XLSTM_CHECK_LAYERS, phase="train-check-xlstm")
+
+
+def f32_qwen_step_inputs(device, reduced=False, C=2, S=64, seed=3,
+                         layers=None):
+    """float32 qwen1.5-0.5b (full width unless ``reduced``; ``layers``
+    cuts the depth), its split model, stacked params made on ``device``
+    from a seed, and one step's numpy batch of C clients x S tokens."""
     from repro_torch.configs import get_config
     from repro_torch.core.scala import transformer_split_model
     from repro_torch.core.split import stack_client_params
@@ -1766,7 +2009,8 @@ def f32_qwen_step_inputs(device, reduced=False, C=2, S=64, seed=3):
 
     cfg = get_config(ARCH)
     cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
-                              dtype="float32", param_dtype="float32")
+                              dtype="float32", param_dtype="float32",
+                              num_layers=layers or cfg.num_layers)
     gen = torch.Generator(device)
     gen.manual_seed(seed)
     full = Tm.init_params(gen, cfg)
@@ -1984,6 +2228,12 @@ F32_CPU_REPORTED = ("scala_noadj", "fedavg")
 # leaves hold inf or NaN by round 3), so it runs at a rate where it stays
 # finite and the bitwise check compares real values
 BASELINE_TABLES = ("t1", "t5", "t8")
+# the round check's width: its float64 CPU rounds took 117 s at width 1.0
+# (the tables stay at 1.0). FedDecorr's stays at 1.0: its decorrelation
+# term amplifies float32 rounding, and at 0.5 its float32 one-step round
+# landed 1.04e-3 from float64, over the 1e-3 bar (PERF.md §6)
+BASELINE_CHECK_WIDTH = 0.5
+BASELINE_FULL_WIDTH = ("feddecorr",)
 RESUME_METHODS = (("scala", ALEXNET["lr"]), ("feddyn", ALEXNET["lr"]),
                   ("splitfed_v1", ALEXNET["lr"]), ("sfl_localloss", 0.01))
 
@@ -2034,10 +2284,12 @@ def update_gap(old, want, got, reported=None):
 def phase_baselines(device="cuda", width=ALEXNET["width"],
                     local_iters=ALEXNET["local_iters"]):
     """The paper's baselines on the card. One round of every method but
-    scala from one seeded state, against the CPU in float64, every leaf's
-    update within UPDATE_RTOL of its largest entry: over 1 local step on
-    ``device`` in float32 (cuDNN off), over ``local_iters`` in float64
-    (the float32 rounds reported beside it). Then the paper tables T1, T5
+    scala from one seeded state at BASELINE_CHECK_WIDTH (at most
+    ``width``; BASELINE_FULL_WIDTH's methods at ``width``),
+    against the CPU in float64, every leaf's update within UPDATE_RTOL of
+    its largest entry: over 1 local step on ``device`` in float32 (cuDNN
+    off), over ``local_iters`` in float64 (the float32 rounds reported
+    beside it). Then the paper tables T1, T5
     and T8 (quick) through the port's table runner at ``width``: the
     reference's CSV rows, each experiment's steady round seconds and peak
     device memory, finite losses, and each row's final state checked for
@@ -2051,7 +2303,9 @@ def phase_baselines(device="cuda", width=ALEXNET["width"],
     cpu_s, failed = 0.0, []
     for method in (m for m in api.METHODS if m != "scala"):
         for T in (local_iters, 1):
-            spec = alexnet_method_spec(method, 1, width, T)
+            spec = alexnet_method_spec(method, 1, width if method in
+                                       BASELINE_FULL_WIDTH else
+                                       min(width, BASELINE_CHECK_WIDTH), T)
             host = api.Trainer(spec, device="cpu")
             batches, sizes = host._next_round_batches()
             p0 = (host.state.inner.params if method in api.SCALA_METHODS
@@ -2116,8 +2370,10 @@ def phase_baselines(device="cuda", width=ALEXNET["width"],
                        f"worst {gated:.3g}, tol {UPDATE_RTOL})")
                     + ("" if checked else " (reported, not checked)"))
             del host
-    say("baselines", f"round check: cpu float64 side {cpu_s:.1f} s in all, "
-        f"T = {local_iters} and 1")
+    say("baselines", f"round check at width "
+        f"{min(width, BASELINE_CHECK_WIDTH)} ({', '.join(BASELINE_FULL_WIDTH)}"
+        f" at {width}): cpu float64 side {cpu_s:.1f} s in all, T = "
+        f"{local_iters} and 1")
     check(not failed, f"round updates off: {failed}")
     print(tables_run.HEADER, flush=True)
     timings = []
@@ -2411,15 +2667,15 @@ def fed_round_gap(got, want, start):
     return worst
 
 
-def fed_check_inputs(device, reduced, C, S, T):
-    """f32 qwen1.5-0.5b (full width unless ``reduced``), its split model,
-    params on ``device``, one round's numpy batches of C slots x S tokens
-    and T steps (an eq. 3 padding tail on the last slot), data sizes and a
-    uniform:0.5 mask."""
+def fed_check_inputs(device, reduced, C, S, T, layers=None):
+    """f32 qwen1.5-0.5b (full width unless ``reduced``; ``layers`` cuts
+    the depth), its split model, params on ``device``, one round's numpy
+    batches of C slots x S tokens and T steps (an eq. 3 padding tail on
+    the last slot), data sizes and a uniform:0.5 mask."""
     from repro_torch import fed
 
     cfg, model, params, _ = f32_qwen_step_inputs(device, reduced, C, S,
-                                                 seed=4)
+                                                 seed=4, layers=layers)
     rng = np.random.default_rng(4)
     toks = rng.integers(0, cfg.vocab_size, (T, C, 1, S + 1))
     weights = np.ones((T, C, 1, S), np.float32)
@@ -2434,13 +2690,14 @@ def fed_check_inputs(device, reduced, C, S, T):
 def fed_check_masked(device="cuda", reduced=False, C=4, S=64, T=2):
     """float32, TF32 off: one masked round (bias_compensated, momentum,
     server adamw) on ``device`` (K1, K2, K3) against the same round on
-    the CPU (the plain versions)."""
+    the CPU (the plain versions), at full width and FED_CHECK_LAYERS deep
+    (the CPU's round took 30 s at all 24 layers)."""
     from repro_torch.optim import optimizers
 
     cfg, model, params, batches, sizes, masks = fed_check_inputs(
-        device, reduced, C, S, T)
-    say("fed-check", f"{cfg.name} float32, {C} slots x {S} tokens, {T} "
-        f"steps, mask {masks[0].tolist()}")
+        device, reduced, C, S, T, FED_CHECK_LAYERS)
+    say("fed-check", f"{cfg.name} float32, {cfg.num_layers} layers, {C} "
+        f"slots x {S} tokens, {T} steps, mask {masks[0].tolist()}")
     res = {}
     for dev in (device, "cpu"):
         res[dev] = fed_round(model, params, batches, sizes, masks, dev,
@@ -2656,6 +2913,7 @@ def async_events(model, params, batches, sizes, dev, events, opt, delays,
 ASYNC_CHECK_DELAYS = ([0.5, 2.5, 3.0, 4.0], [1.0, 1.0], [0.5, 2.0],
                       [1.0, 1.0])
 ASYNC_CHECK_DEADLINE = 1.0
+ASYNC_CHECK_LAYERS = 6      # of 24: the CPU's events are the phase's cost
 
 
 def phase_async_check(device="cuda", reduced=False, C=4, S=64, T=2,
@@ -2664,7 +2922,9 @@ def phase_async_check(device="cuda", reduced=False, C=4, S=64, T=2,
     ``device`` (K1, K2, K3) against the CPU (the plain versions) under
     fed-check's rule; zero delays with cohort = K against the sync round
     on ``device`` (the reference's tolerance, atol = rtol = 1e-6); delta
-    against dense snapshots on ``device`` over six events, bitwise."""
+    against dense snapshots on ``device`` over six events, bitwise. At
+    full width and ASYNC_CHECK_LAYERS deep (the CPU's events took 48 s
+    at all 24 layers)."""
     from repro_torch import fed
     from repro_torch.configs import ScalaConfig
     from repro_torch.core import engine
@@ -2672,9 +2932,9 @@ def phase_async_check(device="cuda", reduced=False, C=4, S=64, T=2,
     from repro_torch.tree import leaves, tree_map
 
     cfg, model, params, batches, sizes, _ = fed_check_inputs(
-        device, reduced, C, S, T)
-    say("async-check", f"{cfg.name} float32, {C} slots, cohort {cohort}, "
-        f"{T} steps of 1 x {S} tokens a slot")
+        device, reduced, C, S, T, ASYNC_CHECK_LAYERS)
+    say("async-check", f"{cfg.name} float32, {cfg.num_layers} layers, {C} "
+        f"slots, cohort {cohort}, {T} steps of 1 x {S} tokens a slot")
     rec = fed.delays.recorded(ASYNC_CHECK_DELAYS)
     res = {}
     for dev in (device, "cpu"):
@@ -3431,6 +3691,12 @@ def main() -> int:
     if sys.argv[1:] == ["dispatch"]:
         run_phase("dispatch", phase_dispatch)
         return 0
+    if sys.argv[1:] == ["xlstm-train"]:
+        run_phase("kernels K6 bwd", phase_mlstm_bwd)
+        run_phase("kernels K1 K2 (xLSTM width)", phase_lace, [LACE_XLSTM])
+        run_phase("train-xlstm", phase_train_xlstm)
+        run_phase("train-check-xlstm", phase_xlstm_train_check)
+        return 0
     if sys.argv[1:] == ["mlstm"]:
         run_phase("kernels K6", phase_mlstm)
         run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
@@ -3446,6 +3712,7 @@ def main() -> int:
     if sys.argv[1:] == ["lace"]:
         return 0
     mlstm_rows, mlstm_err = run_phase("kernels K6", phase_mlstm)
+    bwd6_rows, bwd6_err = run_phase("kernels K6 bwd", phase_mlstm_bwd)
     serve = run_phase("serve", phase_serve)
     run_phase("check", phase_check)
     serve_x = run_phase("serve-xlstm", phase_serve, arch=XLSTM,
@@ -3464,6 +3731,8 @@ def main() -> int:
     events = run_phase("async", phase_async)
     faults = run_phase("faults", phase_faults)
     dispatch = run_phase("dispatch", phase_dispatch)
+    xtrain = run_phase("train-xlstm", phase_train_xlstm)
+    run_phase("train-check-xlstm", phase_xlstm_train_check)
     # the federation layer's launches: phase 13's rounds, phase 14's
     # events and phase 15's faulted rounds and events; and phase 16(a)'s
     # bf16 rounds (K1, K2 on their bf16-head build)
@@ -3485,11 +3754,11 @@ def main() -> int:
                           rows_[(case, kind)])
         for kname, src, line, launches, err, rows_, case, kind in (
             ("lace2_fwd", "lace.cu", "219",
-             train["lace_fwd"] + fed["lace_fwd"], lace_err["fwd"],
-             lace_rows, LACE_REPORT, "fwd"),
+             train["lace_fwd"] + fed["lace_fwd"] + xtrain["lace_fwd"],
+             lace_err["fwd"], lace_rows, LACE_REPORT, "fwd"),
             ("lace2_bwd", "lace.cu", "261",
-             train["lace_bwd"] + fed["lace_bwd"], lace_err["bwd"],
-             lace_rows, LACE_REPORT, "bwd"),
+             train["lace_bwd"] + fed["lace_bwd"] + xtrain["lace_bwd"],
+             lace_err["bwd"], lace_rows, LACE_REPORT, "bwd"),
             ("lace_fwd", "lace1.cu", "41",
              dual["lace1_fwd"] + fed["lace1_fwd"], lace1_err["fwd"],
              lace1_rows, LACE1_REPORT["server"], "fwd"),
@@ -3514,6 +3783,13 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "tf32_ms", "route_ms")},
             launches_bf16_head=launches,
             tf32_ms=rows_[(f32_case, kind)]["tf32_ms"])
+    # xlstm-1.3b's boundary (d 2048, V 50304) beside K1, K2, and phase 17's
+    # launches (also in ``launches``)
+    for kname, kind in (("lace2_fwd", "fwd"), ("lace2_bwd", "bwd")):
+        r = lace_rows[(LACE_XLSTM, kind)]
+        lace_row[kname].update({f"{key}_xlstm": r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "library_ms")},
+            launches_xlstm=xtrain[f"lace_{kind}"])
     print(json.dumps({"kernels": [
         fwd_row,
         # the backward of K3 (the JAX package trains through autodiff)
@@ -3525,8 +3801,14 @@ def main() -> int:
         lace_row["lace2_fwd"], lace_row["lace2_bwd"],
         lace_row["lace_fwd"], lace_row["lace_bwd"],
         kernel_row("mlstm_chunk", csrc + "mlstm.cu",
-                   "src/repro/kernels/mlstm/kernel.py:25", serve_x["mlstm"],
-                   mlstm_err, mlstm_rows[MLSTM_REPORT])]}))
+                   "src/repro/kernels/mlstm/kernel.py:25",
+                   serve_x["mlstm"] + xtrain["mlstm"], mlstm_err,
+                   mlstm_rows[MLSTM_REPORT]),
+        # the backward of K6 (the JAX package trains through autodiff)
+        kernel_row("mlstm_chunk_bwd", csrc + "mlstm_bwd.cu",
+                   "src/repro/kernels/mlstm/kernel.py:25",
+                   xtrain["mlstm_bwd"], bwd6_err,
+                   bwd6_rows[MLSTM_BWD_REPORT])]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

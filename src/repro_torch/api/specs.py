@@ -465,10 +465,6 @@ class ExperimentSpec:
                               "pop)", "the multi-device slice")
         if ex.backend == "lace_dp":
             raise _not_ported("backend 'lace_dp'", "the multi-device slice")
-        if any(spec.mixer in ("mlstm", "slstm") for spec in cfg.block_specs):
-            raise _not_ported(f"training arch {self.arch!r} (mLSTM/sLSTM "
-                              "blocks)", "the xLSTM training slice (the "
-                              "chunkwise mLSTM kernel's backward)")
         return self
 
     def to_dict(self) -> Dict[str, Any]:

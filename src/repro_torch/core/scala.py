@@ -7,21 +7,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import SplitModel
 
 
-def transformer_split_model(cfg: ModelConfig) -> SplitModel:
+def transformer_split_model(cfg: ModelConfig, *, remat=None) -> SplitModel:
     """The transformer's client half (embedding + ``split_layer``
-    blocks) and server half (the rest + final norm + head). The
-    reference's ``dp_loss`` (the loss reduced over a device mesh) has no
-    counterpart on one card."""
+    blocks) and server half (the rest + final norm + head). ``remat``:
+    the server's scan groups recomputed on the backward pass
+    (``models.transformer.server_forward``; None: on for the recurrent
+    archs). The reference's ``dp_loss`` (the loss reduced over a device
+    mesh) has no counterpart on one card."""
     from repro_torch.models import transformer as T
 
     def client_fwd(wc, batch):
         return T.client_forward(wc, batch, cfg)
 
     def server_fwd(ws, acts):
-        return T.server_forward(ws, acts, cfg)
+        return T.server_forward(ws, acts, cfg, remat=remat)
 
     def server_trunk(ws, acts):
-        return T.server_forward(ws, acts, cfg, head_mode="feats")
+        return T.server_forward(ws, acts, cfg, head_mode="feats",
+                                remat=remat)
 
     def head_weight(ws):
         return ws["head"]["out"]

@@ -91,6 +91,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mlstm_gates.cuh"
+
 namespace {
 
 constexpr int LC = 64;      // rows of a chunk tile: the longest chunk
@@ -101,10 +103,9 @@ constexpr int NW = NT / 32;
 constexpr int CHAIN = 32;   // products per tensor-core chain (fresh partial)
 constexpr int KSTEP = 8;    // products per m16n8k8 instruction
 constexpr int KCH = CHAIN / KSTEP;  // k steps per chain
-constexpr int GROWS = 5;    // gate rows a chunk: b, i, m, w0, wk
 constexpr int SPLIT_BLOCKS = 132;   // the scores pass splits dk to fill the SMs
 static_assert(DKT == KSTEP * NW, "a warp owns 8 rows of each dk slice");
-static_assert(LC == 2 * 32, "the gate scan takes two rows a lane");
+static_assert(LC == GLC, "the gate pass writes rows of LC");
 static_assert(TV == 32, "two 16-row m tiles of C^T; four 8-column n tiles");
 
 struct Strides {
@@ -232,72 +233,7 @@ __device__ __forceinline__ void load_tile(T* tile, const T* x, long long ld,
   }
 }
 
-// ---------------------------------------------------------------------------
-// 1. The gates: one warp per head, the chunks in order, two rows a lane.
-// gates[(bh * nc + c) * GROWS * LC + q * LC + r], q = 0 .. 4: b, i, m, w0, wk.
-// m0 null: the zero state.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(32) mlstm_gate_kernel(
-    const float* __restrict__ ig, const float* __restrict__ fg,
-    const float* __restrict__ m0, float* __restrict__ gates,
-    float* __restrict__ wc0, float* __restrict__ m1, int S, int H, int chunk,
-    int nc) {
-  const unsigned full = 0xffffffffu;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int lane = threadIdx.x;
-  const int r0 = 2 * lane, r1 = r0 + 1;
-  // the lane's f and i of chunk c (f = 0, i = -inf past the chunk)
-  auto load = [&](int c, float (&x)[4]) {
-    const int t0 = c * chunk;
-    const int Lc = min(chunk, S - t0);
-    const long long base = (static_cast<long long>(b) * S + t0) * H + h;
-    x[0] = r0 < Lc ? fg[base + static_cast<long long>(r0) * H] : 0.f;
-    x[1] = r1 < Lc ? fg[base + static_cast<long long>(r1) * H] : 0.f;
-    x[2] = r0 < Lc ? ig[base + static_cast<long long>(r0) * H] : -CUDART_INF_F;
-    x[3] = r1 < Lc ? ig[base + static_cast<long long>(r1) * H] : -CUDART_INF_F;
-  };
-  float m = m0 ? m0[bh] : 0.f;  // null: the zero state
-  float nxt[4];
-  load(0, nxt);
-  for (int c = 0; c < nc; ++c) {
-    const float f0 = nxt[0], f1 = nxt[1], i0 = nxt[2], i1 = nxt[3];
-    if (c + 1 < nc) load(c + 1, nxt);  // in flight during this chunk
-    // b: inclusive sums of f, the lane's pair, then a scan across lanes
-    float inc = f0 + f1;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(full, inc, off);
-      if (lane >= off) inc += y;
-    }
-    float exc = __shfl_up_sync(full, inc, 1);
-    if (lane == 0) exc = 0.f;
-    const float b0 = exc + f0, b1 = b0 + f1;
-    // cummax of a = i - b
-    const float a0 = i0 - b0, a1 = i1 - b1;
-    float mx = fmaxf(a0, a1);
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(full, mx, off);
-      if (lane >= off) mx = fmaxf(mx, y);
-    }
-    float mex = __shfl_up_sync(full, mx, 1);
-    if (lane == 0) mex = -CUDART_INF_F;
-    const float c0 = fmaxf(mex, a0), c1 = fmaxf(c0, a1);
-    const float mt0 = fmaxf(m + b0, b0 + c0), mt1 = fmaxf(m + b1, b1 + c1);
-    const float F = __shfl_sync(full, b1, 31), A = __shfl_sync(full, c1, 31);
-    const float mn = fmaxf(m + F, F + A);
-    float* g = gates + (static_cast<long long>(bh) * nc + c) * GROWS * LC;
-    g[r0] = b0, g[r1] = b1;
-    g[LC + r0] = i0, g[LC + r1] = i1;
-    g[2 * LC + r0] = mt0, g[2 * LC + r1] = mt1;
-    g[3 * LC + r0] = expf(m + b0 - mt0), g[3 * LC + r1] = expf(m + b1 - mt1);
-    g[4 * LC + r0] = expf(F - b0 + i0 - mn);
-    g[4 * LC + r1] = expf(F - b1 + i1 - mn);
-    if (lane == 0) wc0[static_cast<long long>(bh) * nc + c] = expf(m + F - mn);
-    m = mn;
-  }
-  if (lane == 0) m1[bh] = m;
-}
+// 1. The gates: mlstm_gate_kernel of mlstm_gates.cuh.
 
 // ---------------------------------------------------------------------------
 // 2. q k^T of every chunk, a slice of dk a block: grid (B * H * nc, P).

@@ -1,4 +1,5 @@
-"""Launcher of the Hopper chunkwise mLSTM kernel (K6, ``csrc/mlstm.cu``).
+"""Launchers of the Hopper chunkwise mLSTM kernels: K6 (``csrc/mlstm.cu``)
+and its backward (``csrc/mlstm_bwd.cu``).
 
 :func:`mlstm_chunk_cuda` replaces ``repro/kernels/mlstm/kernel.py:
 mlstm_chunk_pallas`` together with its batch x head vmap
@@ -9,6 +10,13 @@ kernel casts them to float32 inside; so does this one), the initial
 A ragged last chunk is masked in the kernel, never padded here. Its
 scratch (the gates, the split q k^T partials, the decayed scores) is one
 float32 buffer allocated here.
+
+:func:`mlstm_chunk_bwd_cuda` replaces none (the reference trains through
+autodiff of ``models/layers/xlstm.py:mlstm_chunk``): from the same inputs
+and dh it returns dq, dk, dv in q's dtype and d i_raw, d f_log in
+float32, rerunning the forward's gates and state walk itself. Its scratch
+(one state a head, the chunks' f32 tiles) is one float32 buffer
+allocated here too.
 """
 from __future__ import annotations
 
@@ -28,16 +36,32 @@ _FNS = {}    # the bound C functions, resolved on first launch
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
              + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
 
 
 def _fns():
-    if not _FNS:
+    if "fwd" not in _FNS:
         lib = build.load("mlstm")
         lib.mlstm_fwd.argtypes = _ARGTYPES
         lib.mlstm_fwd.restype = ctypes.c_int
         lib.mlstm_workspace.argtypes = [ctypes.c_int] * 5
         lib.mlstm_workspace.restype = ctypes.c_longlong
         _FNS.update(fwd=lib.mlstm_fwd, workspace=lib.mlstm_workspace)
+    return _FNS
+
+
+def _bwd_fns():
+    """The backward's C functions, from its own library (serving never
+    builds it)."""
+    if "bwd" not in _FNS:
+        lib = build.load("mlstm_bwd")
+        lib.mlstm_bwd.argtypes = _BWD_ARGTYPES
+        lib.mlstm_bwd.restype = ctypes.c_int
+        lib.mlstm_bwd_workspace.argtypes = [ctypes.c_int] * 6
+        lib.mlstm_bwd_workspace.restype = ctypes.c_longlong
+        _FNS.update(bwd=lib.mlstm_bwd, bwd_workspace=lib.mlstm_bwd_workspace)
     return _FNS
 
 
@@ -128,3 +152,42 @@ def mlstm_chunk_cuda(q, k, v, i_raw, f_log, state=None, *, chunk: int = 64):
                            f"(B={B} S={S} H={H} dk={dk} dv={dv} "
                            f"chunk={chunk} {q.dtype})")
     return h, (C1, n1, m1)
+
+
+def mlstm_chunk_bwd_cuda(q, k, v, i_raw, f_log, dh, state=None, *,
+                         chunk: int = 64):
+    """The backward of :func:`mlstm_chunk_cuda` from the same inputs and
+    dh (B, S, H, dv), the cotangent of h; the final state's cotangent is
+    zero and ``state`` (the initial one, zeros when None) a constant.
+    Returns (dq, dk, dv) in q's dtype and (d i_raw, d f_log) float32.
+    Raises on what the kernel does not take and on a failed launch."""
+    _check(q, k, v, i_raw, f_log, chunk)
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    dev = q.device
+    if dh.shape != v.shape or dh.dtype != torch.float32 or dh.device != dev:
+        raise ValueError(f"dh must be float32 {tuple(v.shape)} on {dev}, "
+                         f"got {tuple(dh.shape)} {dh.dtype} on {dh.device}")
+    C0, n0, m0 = _state(state, B, H, dk, dv, dev)
+    ig, fg, g = i_raw.contiguous(), f_log.contiguous(), dh.contiguous()
+    dq, dk_, dv_ = (torch.empty(t.shape, dtype=q.dtype, device=dev)
+                    for t in (q, k, v))
+    di, df = (torch.empty((B, S, H), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    fns = _bwd_fns()
+    work = torch.empty((fns["bwd_workspace"](B, S, H, dk, dv, int(chunk)),),
+                       dtype=torch.float32, device=dev)
+    state_in = [None if t is None else t.data_ptr() for t in (C0, n0, m0)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fns["bwd"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPES[q.dtype],
+            ig.data_ptr(), fg.data_ptr(), *state_in, g.data_ptr(),
+            dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), di.data_ptr(),
+            df.data_ptr(), work.data_ptr(), B, S, H, dk, dv, int(chunk),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"mlstm_bwd launch failed with CUDA error {err} "
+                           f"(B={B} S={S} H={H} dk={dk} dv={dv} "
+                           f"chunk={chunk} {q.dtype})")
+    return dq, dk_, dv_, di, df

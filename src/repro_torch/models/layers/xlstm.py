@@ -11,14 +11,16 @@ raw input gates ``i`` (arXiv:2405.04517, stabilized form)::
 
 A full sequence runs it chunkwise through
 :func:`repro_torch.kernels.mlstm.ops.mlstm_chunkwise`: the Hopper kernel
-K6 on a CUDA tensor, its plain version on a CPU one. Decode runs the
-exact per-step recurrence (:func:`mlstm_step`). The reference's
-square-root rematerialization of the chunk scan only serves autodiff; it
-comes with training.
+K6 on a CUDA tensor, its plain version on a CPU one, and under autograd
+K6's backward (or its plain version), which recomputes the chunk states
+where the reference's autodiff keeps them at square-root remat. Decode
+runs the exact per-step recurrence (:func:`mlstm_step`).
 
 sLSTM mixes its hidden state back through a block-diagonal matrix per
-head, so its scan is sequential: a loop over time, a few PyTorch calls a
-step. The input side of every gate is one product over the sequence.
+head, so its scan is sequential: a loop over time, one batched product
+and a dozen elementwise PyTorch calls a step (:func:`_slstm_loop`),
+under autograd with its backward written out (:class:`SLSTMScan`). The
+input side of every gate is one product over the sequence.
 
 Gate weights and biases (``w_gates``, ``b_gates``, ``r_gates``) are used
 in float32 whatever the compute dtype, as the reference uses them.
@@ -210,23 +212,36 @@ def _recurrent(r_gates):
     return r_gates.float().permute(1, 2, 0, 3).reshape(H, hd, G * hd)
 
 
+def _cell(gi, gf, gz, go, state, keep=False):
+    """The elementwise part of one sLSTM step, in any layout the gates and
+    the state (c, n, m, h) share. ``keep``: also return what
+    :class:`SLSTMScan`'s backward reads."""
+    c0, n0, m0, _ = state
+    f_log = F.logsigmoid(gf)
+    fm = f_log + m0
+    m_t = torch.maximum(fm, gi)
+    wf = torch.exp(fm - m_t)
+    wi = torch.exp(gi - m_t)
+    z = torch.tanh(gz)
+    c = torch.addcmul(wf * c0, wi, z)
+    n = torch.addcmul(wi, wf, n0)
+    o = torch.sigmoid(go)
+    h = o * c / torch.clamp(n, min=1e-6)
+    if not keep:
+        return (c, n, m_t, h)
+    return (c, n, m_t, h), dict(c=c, n=n, wf=wf, wi=wi, z=z, o=o,
+                                sg=torch.exp(f_log - gf),  # sigmoid(-gf)
+                                sel=fm >= gi)
+
+
 def _slstm_step(gx, state, R):
     """One sLSTM step. gx: (B, 4d) float32 input pre-activations; state:
     (c, n, m, h) each (B, d); R: :func:`_recurrent`'s (H, hd, 4 hd)."""
-    c0, n0, m0, h0 = state
-    B, d = c0.shape
+    B, d = state[0].shape
     H, hd = R.shape[:2]
-    rec = torch.bmm(h0.reshape(B, H, hd).transpose(0, 1), R)  # (H, B, 4hd)
+    rec = torch.bmm(state[3].reshape(B, H, hd).transpose(0, 1), R)
     rec = rec.reshape(H, B, 4, hd).permute(1, 2, 0, 3).reshape(B, 4, d)
-    gi, gf, gz, go = (gx.reshape(B, 4, d) + rec).unbind(dim=1)
-    f_log = F.logsigmoid(gf)
-    m_t = torch.maximum(f_log + m0, gi)
-    wf = torch.exp(f_log + m0 - m_t)
-    wi = torch.exp(gi - m_t)
-    c = wf * c0 + wi * torch.tanh(gz)
-    n = wf * n0 + wi
-    h = torch.sigmoid(go) * c / torch.clamp(n, min=1e-6)
-    return (c, n, m_t, h)
+    return _cell(*(gx.reshape(B, 4, d) + rec).unbind(dim=1), state)
 
 
 def slstm_cell(gx, state, r_gates):
@@ -240,17 +255,122 @@ def _slstm_gx(params, x32):
     return x32 @ params["w_gates"].float() + params["b_gates"]
 
 
+def _slstm_loop(gx, R, keep=None):
+    """The recurrence over gx (B, S, 4d) from the zero state: (h (B, S,
+    d), the final (c, n, m, h) each (B, d)). The steps run head-major, (H,
+    B, ...): one batched product a step gives every head's four gates
+    with gx already added. ``keep``: a dict that gets, stacked over the
+    steps, what :class:`SLSTMScan`'s backward reads."""
+    B, S, _ = gx.shape
+    H, hd = R.shape[:2]
+    gxh = gx.reshape(B, S, 4, H, hd).permute(1, 3, 0, 2, 4) \
+        .reshape(S, H, B, 4 * hd)
+    state = tuple(gx.new_zeros((H, B, hd)) for _ in range(4))
+    hs, saved = [], {}
+    for t in range(S):
+        gates = torch.baddbmm(gxh[t], state[3], R).chunk(4, dim=-1)
+        if keep is None:
+            state = _cell(*gates, state)
+        else:
+            state, inner = _cell(*gates, state, keep=True)
+            for key, value in inner.items():
+                saved.setdefault(key, []).append(value)
+        hs.append(state[3])
+    if keep is not None:
+        keep.update((key, torch.stack(v)) for key, v in saved.items())
+    return (_unheads(torch.stack(hs), 1),
+            tuple(x.transpose(0, 1).reshape(B, H * hd) for x in state))
+
+
+def _unheads(x, G):
+    """(S, H, B, G * hd) -> (B, S, G * H * hd): the loop's layout back to
+    the sequence's, G gates side by side."""
+    S, H, B, Ghd = x.shape
+    return x.reshape(S, H, B, G, Ghd // G).permute(2, 0, 3, 1, 4) \
+        .reshape(B, S, Ghd * H)
+
+
+class SLSTMScan(torch.autograd.Function):
+    """h, c, n, m = SLSTMScan.apply(gx (B, S, 4d), R (H, hd, 4hd)),
+    float32: the sLSTM recurrence from the zero state, with the final (c,
+    n, m), and a backward written out for h. The
+    forward loop runs without autograd's recording and keeps, per step,
+    the gates' values (wf, wi, tanh z, sigmoid o, sigmoid(-gf)), which
+    branch of m's max was taken, and c, n; the backward walks the steps in
+    reverse with every op's exact derivative (m's max included) and forms
+    dR = sum_t h_{t-1}^T drec_t as one product at the end. Autograd of the
+    loop gives the same function at several times the host's time: a node
+    a PyTorch call, and a full-size gradient buffer for every step's slice
+    of gx."""
+
+    @staticmethod
+    def forward(ctx, gx, R):
+        keep = {}
+        h, (c, n, m, _) = _slstm_loop(gx, R, keep)
+        ctx.save_for_backward(R, h, *(keep[k] for k in _KEPT))
+        ctx.set_materialize_grads(False)
+        return h, c, n, m
+
+    @staticmethod
+    def backward(ctx, dh_out, *d_final):
+        if dh_out is None or any(g is not None for g in d_final):
+            raise NotImplementedError(
+                "the sLSTM scan's backward takes the cotangent of h only; "
+                "the final state's is not carried")
+        R, h, *kept = ctx.saved_tensors
+        k = dict(zip(_KEPT, kept))
+        S, H, B, hd = k["c"].shape
+        Rt = R.transpose(1, 2)
+        dho = dh_out.reshape(B, S, H, hd).permute(1, 2, 0, 3)
+        zero = dh_out.new_zeros((H, B, hd))
+        dh, dc, dn, dm = zero, zero, zero, zero
+        dpre = [None] * S
+        for t in reversed(range(S)):
+            c, n, wf, wi = k["c"][t], k["n"][t], k["wf"][t], k["wi"][t]
+            z, o, sg, sel = k["z"][t], k["o"][t], k["sg"][t], k["sel"][t]
+            c0 = k["c"][t - 1] if t else zero
+            n0 = k["n"][t - 1] if t else zero
+            dh = dh + dho[t]
+            nc = torch.clamp(n, min=1e-6)
+            # h = o c / max(n, 1e-6)
+            dgo = dh * c / nc * o * (1 - o)
+            dc = dc + dh * o / nc
+            dn = dn + torch.where(n >= 1e-6, -dh * o * c / (nc * nc), 0.0)
+            # c = wf c0 + wi z, n = wf n0 + wi
+            a = (dc * c0 + dn * n0) * wf       # of log wf = f_log + m0 - m
+            b = (dc * z + dn) * wi             # of log wi = gi - m
+            dgz = dc * wi * (1 - z * z)
+            dc, dn = dc * wf, dn * wf
+            # m = max(f_log + m0, gi)
+            dmt = dm - a - b
+            d_first = torch.where(sel, dmt, 0.0)
+            dm = a + d_first                   # of m0, the step before's m
+            dgi = b + (dmt - d_first)
+            dgf = dm * sg                      # f_log = logsigmoid(gf)
+            dpre[t] = torch.cat([dgi, dgf, dgz, dgo], dim=-1)
+            dh = torch.bmm(dpre[t], Rt)
+        dpre = torch.stack(dpre)                          # (S, H, B, 4hd)
+        # dR: h_{t-1} (zero before the first step) against dpre_t
+        h_prev = torch.cat([zero[None], h.reshape(B, S, H, hd)
+                            .permute(1, 2, 0, 3)[:-1]])
+        dR = torch.bmm(h_prev.permute(1, 3, 0, 2).reshape(H, hd, S * B),
+                       dpre.transpose(0, 1).reshape(H, S * B, 4 * hd))
+        return _unheads(dpre, 4), dR
+
+
+_KEPT = ("c", "n", "wf", "wi", "z", "o", "sg", "sel")
+
+
 def slstm_scan(params, x32):
-    """x32: (B, S, d) float32 -> h (B, S, d), the final (c, n, m, h)."""
-    B, S, d = x32.shape
+    """x32: (B, S, d) float32 -> h (B, S, d), the final (c, n, m, h).
+    Under autograd through :class:`SLSTMScan` (a gradient of the final c,
+    n, m raises: training reads h only)."""
     gx = _slstm_gx(params, x32)
     R = _recurrent(params["r_gates"])
-    state = tuple(x32.new_zeros((B, d)) for _ in range(4))
-    hs = []
-    for t in range(S):
-        state = _slstm_step(gx[:, t], state, R)
-        hs.append(state[3])
-    return torch.stack(hs, dim=1), state
+    if torch.is_grad_enabled() and (gx.requires_grad or R.requires_grad):
+        h, c, n, m = SLSTMScan.apply(gx, R)
+        return h, (c, n, m, h[:, -1])
+    return _slstm_loop(gx, R)
 
 
 def _slstm_out(params, h, x, cfg):

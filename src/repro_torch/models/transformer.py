@@ -8,8 +8,10 @@ absolute index::
                 'final_norm', 'head'}}
 
 The reference stacks the server's repeated layer groups for a
-``lax.scan`` (:func:`_layout`); here they are a per-layer loop, and
-:mod:`repro_torch.convert` unstacks reference params into this layout.
+``lax.scan`` (:func:`_layout`); here they are a per-layer loop (a group
+rematerialized as one checkpoint for the recurrent archs,
+:func:`server_forward`), and :mod:`repro_torch.convert` unstacks
+reference params into this layout.
 Decode caches are ``{'blk{l}': ...}`` over every layer: ``{'k', 'v'}``
 for attention, the recurrent state for mLSTM (``conv``, ``C``, ``n``,
 ``m``) and sLSTM (``c``, ``n``, ``m``, ``h``).
@@ -19,6 +21,7 @@ from __future__ import annotations
 from typing import Iterator, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import blocks as B
@@ -111,18 +114,50 @@ def client_forward(client_params, batch, cfg: ModelConfig):
     return {"x": x, "positions": positions}
 
 
+def default_remat(cfg: ModelConfig) -> bool:
+    """Whether the server half recomputes its scan groups on the backward
+    pass by default: for the recurrent (mLSTM / sLSTM) archs, whose saved
+    activations at full width would fill a card (the reference
+    rematerializes every arch's groups; the attention archs here keep
+    theirs, so each of their layers launches its kernels once a step)."""
+    return any(spec.mixer in ("mlstm", "slstm") for spec in cfg.block_specs)
+
+
 def server_forward(server_params, acts, cfg: ModelConfig, *,
-                   head_mode: str = "full"):
+                   head_mode: str = "full", remat=None):
     """The server half on (possibly concatenated) activations ``{'x',
     'positions'}``: logits (B, S, V), or the final-normed features with
     ``head_mode='feats'``, or the last position's with 'last'. Returns
     (out, aux); aux is the MoE router loss, zero for the ported dense
-    blocks."""
+    blocks.
+
+    ``remat`` (default :func:`default_remat`): under autograd each of the
+    reference's scan groups (:func:`_layout`; the prologue is not one)
+    runs through ``torch.utils.checkpoint``, which keeps only its input
+    and reruns it on every backward pass through it, as the reference's
+    ``jax.checkpoint`` around its group scan."""
     check_supported(cfg)
     x, positions = acts["x"], acts["positions"]
-    for l in range(cfg.split_layer, cfg.num_layers):
-        x = B.block_apply(server_params["blocks"][f"blk{l}"], x,
-                          cfg.block_spec(l), cfg, positions=positions)
+    if remat is None:
+        remat = default_remat(cfg)
+
+    def run(x, layers):
+        for l in layers:
+            x = B.block_apply(server_params["blocks"][f"blk{l}"], x,
+                              cfg.block_spec(l), cfg, positions=positions)
+        return x
+
+    _, prologue, first, n_groups = _layout(cfg)
+    x = run(x, prologue)
+    gs = cfg.group_size
+    for g in range(n_groups):
+        layers = range(first + g * gs, first + (g + 1) * gs)
+        if remat and torch.is_grad_enabled():
+            # the blocks draw no random numbers: no RNG state to keep
+            x = checkpoint(run, x, layers, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = run(x, layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head({"server": server_params}, x, cfg, head_mode), aux
 

@@ -698,17 +698,25 @@ def test_mlstm_kernel_is_deterministic(B, S, H, dk, dv, chunk, dtype):
 
 @pytest.mark.gpu
 def test_mlstm_kernel_refuses_grad_and_bad_shapes():
-    """No silent zero gradient: a CUDA call whose inputs require a
-    gradient raises (the backward comes with xLSTM training); what the
-    kernel does not take raises before a launch."""
+    """No silent zero gradient: a CUDA call whose initial state requires a
+    gradient raises before a launch (the backward kernel takes the
+    initial state as a constant), and so does a cotangent of the final
+    state; what the kernel does not take raises before a launch."""
     _needs_card()
-    q, k, v, i_raw, f_log, _ = _mlstm_inputs(0, 1, 16, 2, 64, 64, True)
+    q, k, v, i_raw, f_log, state = _mlstm_inputs(0, 1, 16, 2, 64, 64, False)
     before = mlstm_ops.LAUNCHES
-    with pytest.raises(NotImplementedError, match="training slice"):
-        mlstm_ops.mlstm_chunkwise(q.requires_grad_(), k, v, i_raw, f_log)
+    with pytest.raises(NotImplementedError, match="initial state"):
+        mlstm_ops.mlstm_chunkwise(q, k, v, i_raw, f_log,
+                                  (state[0].requires_grad_(), *state[1:]))
+    assert mlstm_ops.LAUNCHES == before
+    h, (C, _, _) = mlstm_ops.mlstm_chunkwise(q.requires_grad_(), k, v, i_raw,
+                                             f_log)
+    with pytest.raises(NotImplementedError, match="final state"):
+        (h.sum() + C.sum()).backward()
+    q = q.detach()
     with torch.no_grad():
         mlstm_ops.mlstm_chunkwise(q, k, v, i_raw, f_log)
-    assert mlstm_ops.LAUNCHES == before + 1
+    assert mlstm_ops.LAUNCHES == before + 2
     q = q.detach()
     with pytest.raises(TypeError, match="float32"):
         mlstm_kernel.mlstm_chunk_cuda(q.bfloat16(), k, v, i_raw, f_log)
@@ -717,6 +725,83 @@ def test_mlstm_kernel_refuses_grad_and_bad_shapes():
                                       f_log)
     with pytest.raises(ValueError, match="chunk"):
         mlstm_kernel.mlstm_chunk_cuda(q, k, v, i_raw, f_log, chunk=128)
+
+
+def _mlstm_bwd_case(seed, B, S, H, dk, dv, dtype):
+    q, k, v, i_raw, f_log, _ = _mlstm_inputs(seed, B, S, H, dk, dv, True)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    dh = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, S, H, dv), np.float32)).cuda()
+    return q, k, v, i_raw, f_log, dh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,dtype", [
+    (2, 512, 4, 1024, 1024, 64, torch.float32),   # a client's training call
+    (2, 200, 3, 64, 64, 64, torch.float32),       # ragged last chunk
+    (1, 13, 2, 128, 96, 8, torch.float32),    # short chunks, dv not 64k
+    (2, 100, 2, 256, 512, 16, torch.float32),
+    (2, 512, 4, 1024, 1024, 64, torch.bfloat16),
+    (2, 200, 3, 64, 64, 64, torch.bfloat16),
+])
+def test_mlstm_backward_matches_plain(B, S, H, dk, dv, chunk, dtype):
+    """K6's backward against the plain backward (the same algorithm) and
+    against autograd of the plain forward, on the same values in float32
+    (bf16 q, k, v: their float32 copies), every gradient within 1e-4 of
+    its largest entry (float32 sums in another order); bf16 dq, dk, dv
+    are the float32 values rounded once, so within 1e-4 plus bf16's
+    rounding (half an ulp: 2^-8 of the entry at most) of the largest
+    entry."""
+    _needs_card()
+    q, k, v, i_raw, f_log, dh = _mlstm_bwd_case(S + dk, B, S, H, dk, dv,
+                                                dtype)
+    got = mlstm_kernel.mlstm_chunk_bwd_cuda(q, k, v, i_raw, f_log, dh,
+                                            chunk=chunk)
+    torch.cuda.synchronize()
+    xs = [x.float() for x in (q, k, v)] + [i_raw, f_log]
+    want = mlstm_ref.mlstm_chunk_bwd_plain(*xs, dh, chunk=chunk)[:5]
+    xs = [x.clone().requires_grad_() for x in xs]
+    h, _ = mlstm_ref.mlstm_chunk_plain(*xs, chunk=chunk)
+    auto = torch.autograd.grad((h * dh).sum(), xs)
+    for name, g, w, a in zip(("dq", "dk", "dv", "di", "df"), got, want,
+                             auto):
+        rounded = name in ("dq", "dk", "dv")
+        assert g.dtype == (dtype if rounded else torch.float32), name
+        tol = 1e-4 + (2 ** -8 if rounded and dtype == torch.bfloat16
+                      else 0.0)
+        assert _rel(g.float(), w) <= tol, (name, "plain", _rel(g.float(), w))
+        assert _rel(g.float(), a) <= tol, (name, "autograd")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_backward_is_deterministic(dtype):
+    _needs_card()
+    args = _mlstm_bwd_case(5, 2, 200, 4, 256, 256, dtype)
+    a = mlstm_kernel.mlstm_chunk_bwd_cuda(*args, chunk=64)
+    b = mlstm_kernel.mlstm_chunk_bwd_cuda(*args, chunk=64)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_mlstm_gradient_launches_the_backward_once():
+    """A CUDA gradient through ``mlstm_chunkwise``: one forward and one
+    backward launch, and the gradients the backward kernel gives."""
+    _needs_card()
+    q, k, v, i_raw, f_log, dh = _mlstm_bwd_case(9, 1, 130, 2, 128, 64,
+                                                torch.float32)
+    xs = [x.clone().requires_grad_() for x in (q, k, v, i_raw, f_log)]
+    fwd, bwd = mlstm_ops.LAUNCHES, mlstm_ops.LAUNCHES_BWD
+    h, _ = mlstm_ops.mlstm_chunkwise(*xs, chunk=64)
+    got = torch.autograd.grad((h * dh).sum(), xs)
+    torch.cuda.synchronize()
+    assert (mlstm_ops.LAUNCHES, mlstm_ops.LAUNCHES_BWD) == (fwd + 1, bwd + 1)
+    want = mlstm_kernel.mlstm_chunk_bwd_cuda(q, k, v, i_raw, f_log, dh,
+                                             chunk=64)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu

@@ -222,9 +222,9 @@ ALEXNET = dict(arch="alexnet-cifar", reduced=False,
     # ... and the reference refuses the baselines on a text arch
     pytest.param(dict(top=dict(method="fedavg")), ValueError,
                  "needs the CNN", id="text-fedavg-ValueError-needs the CNN"),
-    # xLSTM serves; its training needs K6's backward
-    pytest.param(dict(top=dict(arch="xlstm-1.3b")), NotImplementedError,
-                 "xLSTM training slice", id="xlstm-NotImplementedError"),
+    # xLSTM trains (K6's backward is ported)
+    pytest.param(dict(top=dict(arch="xlstm-1.3b")), None, None,
+                 id="xlstm-validates"),
     # the paper's setup validates: AlexNet, logits, the dual boundary
     pytest.param(dict(top=ALEXNET, execution=dict(backend="logits",
                                                   boundary="dual")),
