@@ -194,8 +194,10 @@ summation orders), the last position compared pairwise.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -239,17 +241,23 @@ MLSTM_CASES = ([(1, S, 4, 1024, 1024, torch.float32)
                + [(1, S, 4, 1024, 1024, torch.bfloat16) for S in SERVE_LENS])
 MLSTM_REPORT = (1, 777, 4, 1024, 1024, torch.bfloat16)   # as served
 MLSTM_CHUNK, MLSTM_RTOL = 64, 1e-4
-# K6's backward, (B, S, H, dk, dv, q/k/v dtype): the server's call in
-# phase 17 (16 sequences of 512 tokens), a client's (4 of them), and a
-# ragged last chunk, each with q, k, v in bf16 (as the bf16 policy passes
-# them) and in f32. Against the plain backward and autograd of the plain
-# forward on the f32 copies: every gradient within 1e-4 of its largest
-# entry (sums in another order), bf16 dq, dk, dv within 1e-4 + 2^-8
-# (rounded once to bf16: half an ulp, 2^-8 of the entry at most). Two
-# runs of each case are bitwise equal.
-MLSTM_BWD_CASES = [(B, S, 4, 1024, 1024, dt)
-                   for dt in (torch.bfloat16, torch.float32)
-                   for B, S in ((16, 512), (4, 512), (2, 200))]
+# K6's backward, (B, S, H, dk, dv, q/k/v dtype, initial state): the
+# server's call in phase 17 (16 sequences of 512 tokens), a client's (4 of
+# them), and a ragged last chunk, each with q, k, v in bf16 (as the bf16
+# policy passes them) and in f32, from the zero state; then a client's
+# call from a constant nonzero (C0, n0, m0), and 1000 tokens (past the
+# backward's 512-token block, so its state walk between blocks runs; a
+# ragged last chunk), both in bf16. Against the plain backward and
+# autograd of the plain forward on the f32 copies (the state held
+# constant): every gradient within 1e-4 of its largest entry (sums in
+# another order), bf16 dq, dk, dv within 1e-4 + 2^-8 (rounded once to
+# bf16: half an ulp, 2^-8 of the entry at most). Two runs of each case
+# are bitwise equal.
+MLSTM_BWD_CASES = ([(B, S, 4, 1024, 1024, dt, False)
+                    for dt in (torch.bfloat16, torch.float32)
+                    for B, S in ((16, 512), (4, 512), (2, 200))]
+                   + [(4, 512, 4, 1024, 1024, torch.bfloat16, True),
+                      (2, 1000, 4, 1024, 1024, torch.bfloat16, False)])
 MLSTM_BWD_REPORT = MLSTM_BWD_CASES[0]
 # the prefill against its token-by-token decode, float32: every layer's
 # final state within 1e-3 of its largest entry. xlstm-1.3b is checked at
@@ -528,7 +536,8 @@ def phase_build():
 
 # the kernels of split-TF32 sources whose bodies run tensor-core products
 PRODUCT_BODIES = ("lace_fwd_kernel", "lace_grad_kernel", "lace_gemm_kernel",
-                  "mlstm_scores_kernel", "mlstm_state_kernel")
+                  "mlstm_scores_kernel", "mlstm_state_kernel",
+                  "mlstm_bwd_gemm_kernel")
 
 
 def sass_mix(path, name):
@@ -691,8 +700,10 @@ def profile(what: str, fn, top: int, watch=(), host=True) -> None:
         "names")
     for name, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]
                                )[:top]:
+        short = name.replace("void (anonymous namespace)::", "").replace(
+            "__nv_bfloat16", "bf16")
         say("profile", f"  {t:.4f} s ({100 * t / busy:.1f}% of busy) "
-            f"x{n}: {name[:90]}")
+            f"x{n}: {short[:90]}")
     for label, parts in watch:
         parts = (parts,) if isinstance(parts, str) else parts
         hits = [v for name, v in kernels.items()
@@ -1152,45 +1163,124 @@ def phase_mlstm():
     return rows, max_err
 
 
-def mlstm_bwd_bound(B, S, H, dk, dv, dtype, chunk=MLSTM_CHUNK):
+def mlstm_bwd_bound(B, S, H, dk, dv, dtype, state=False,
+                    chunk=MLSTM_CHUNK):
     """(ms, 'operations' | 'bytes', f32 ms, flops): the least time for
-    K6's backward over these inputs from the zero state, counting what it
-    must recompute: per chunk of L tokens and head, the forward's state
-    rerun (2 L dk dv + 2 L dk, not after the last chunk), C0 g (2 L dk
-    dv, not in the first chunk, whose state is zero), dC v and dC^T k (4
-    L dk dv, not in the last chunk, whose dC is zero), the dC and dn
-    update (2 L dk dv + 2 L dk, not in the first chunk), the causal
-    pairs' q.k, dP k, dP^T q (dk each) and g.v, (S / den)^T g (dv each),
-    and q.n0, q.(C0 g), k.(dC v + dn) (2 L dk each) -- once at TF32's
-    tensor-core rate; or one read of q, k, v (in ``dtype``), the gates
-    and dh and one write of dq, dk, dv and the gates' gradients, the
-    larger. The third, for the text only: the operations at the f32 CUDA
-    cores' rate, which this first version runs on."""
+    K6's backward over these inputs, counting the cheaper of its two
+    algorithms' operations (the backward may block the sequence as it
+    likes: m cancels in h):
+    * chunkwise, chunks of L tokens with the states recomputed: per chunk
+      and head, the forward's state rerun (2 L dk dv + 2 L dk, not after
+      the last chunk), C0 g (2 L dk dv, not in a first chunk from the zero
+      state), dC v and dC^T k (4 L dk dv, not in the last chunk, whose dC
+      is zero), the dC and dn update (2 L dk dv + 2 L dk, not in the
+      first chunk), the causal pairs' q.k, dP k, dP^T q (dk each) and
+      g.v, (S / den)^T g (dv each), and q.n0, q.(C0 g), k.(dC v + dn) (2
+      L dk each);
+    * all pairs over the whole sequence: the causal pairs' products (2 (3
+      dk + 2 dv) a pair) and no state, but for a given initial state its
+      C0 g (2 S dk dv) and q.n0, q.(C0 g) and dq's r1 C0 g + r2 n0 (6 S
+      dk).
+    Each route's time puts its q.k products (dk a pair) at the fastest
+    tensor-core rate for q's and k's type (bf16 x bf16 on the bf16 tensor
+    cores) and every other product, which has an f32 operand, at TF32's;
+    the faster route's time, or one read of q, k, v (in ``dtype``), the
+    gates and dh (and the state) and one write of dq, dk, dv and the
+    gates' gradients, the larger. The third, for the text only: the
+    faster route's operations at the f32 CUDA cores' rate."""
     nc = -(-S // chunk)
-    flops = 0
+    chunked = chunked_qk = 0
     for c in range(nc):
         L = min(chunk, S - c * chunk)
-        state = 2 * L * dk * dv
-        flops += ((c + 1 < nc) * (3 * state + 2 * L * dk)
-                  + (c > 0) * (2 * state + 2 * L * dk)
-                  + L * (L + 1) // 2 * 2 * (3 * dk + 2 * dv) + 6 * L * dk)
-    flops *= B * H
+        st = 2 * L * dk * dv
+        chunked_qk += L * (L + 1) // 2 * 2 * dk
+        chunked += ((c + 1 < nc) * (3 * st + 2 * L * dk)
+                    + (c > 0) * (2 * st + 2 * L * dk)
+                    + (c == 0 and state) * (st + 2 * L * dk)
+                    + L * (L + 1) // 2 * 2 * (3 * dk + 2 * dv) + 6 * L * dk)
+    pairs_qk = S * (S + 1) // 2 * 2 * dk
+    pairs = (S * (S + 1) // 2 * 2 * (3 * dk + 2 * dv)
+             + state * (2 * S * dk * dv + 6 * S * dk))
+    qk_rate = tc_rate(dtype, dtype)
+    t_ops, flops = min(
+        (B * H * (qk / qk_rate + (total - qk) / PEAK_FLOPS["tf32"]),
+         B * H * total)
+        for total, qk in ((chunked, chunked_qk), (pairs, pairs_qk)))
     el = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * el * B * S * H * (2 * dk + dv)
-              + 4 * B * S * H * (dv + 4))
-    t_ops = flops / PEAK_FLOPS["tf32"]
+              + 4 * B * S * H * (dv + 4)
+              + state * 4 * B * H * (dk * dv + dk + 1))
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes",
             flops / PEAK_FLOPS[torch.float32] * 1e3, flops)
 
 
+def mlstm_bwd_route(B, S, H, dk, dv, dtype, state=False):
+    """(split-TF32 flops, bytes of the pair matrices and the state): what
+    K6's backward runs (csrc/mlstm_bwd.cu; its constants read from the
+    source). Every product runs whole BM x BN tiles over BK-deep stages,
+    as its grid and depth ranges give them (the causal triangle's tiles
+    only), each at its term count: 1 for bf16 x bf16, 2 for bf16 x f32, 3
+    for f32 x f32 (P = Q K^T, G V^T, dq, dk, dv in each block of LB
+    tokens; past one block or from a state the walk's Y = G C^T, the
+    state update, dC, U and W). Bytes: each pair matrix element (f32, the
+    triangle) written by its product, read and written by the token pass
+    and read by its one or two products (P 5 times, G V^T 4), and each
+    (dk, dv) f32 state that the walk reads or writes."""
+    src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "src/repro_torch/kernels/csrc/mlstm_bwd.cu")).read()
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
+                                           src)}
+    LB, BM, BN, BK = c["LB"], c["BM"], c["BN"], c["BK"]
+    f32 = dtype == torch.float32
+    t_qkv = 3 if f32 else 1          # q k^T
+    t_mix = 3 if f32 else 2          # an f32 operand against q, k or v
+    Lp = min(LB, -(-S // 64) * 64)
+
+    def tiles(M, N, K, tri, terms, Lm, Ln, Lk):
+        flops = 0
+        for m0 in range(0, M, BM):
+            for n0 in range(0, N, BN):
+                if m0 >= Lm or n0 >= Ln or (tri == 1 and n0 > m0 + BM - 1):
+                    continue
+                kb = m0 if tri == 3 else 0
+                ke = min(Lk, m0 + BM) if tri == 2 else Lk
+                flops += 2 * BM * BN * BK * (-(-(ke - kb) // BK)) * terms
+        return flops
+
+    nb = -(-S // LB)
+    flops = nbytes = 0
+    walk = state or nb > 1
+    for j in range(nb):
+        L = min(LB, S - j * LB)
+        flops += (tiles(Lp, Lp, dk, 1, t_qkv, L, L, dk)
+                  + tiles(Lp, Lp, dv, 1, t_mix, L, L, dv)
+                  + tiles(Lp, dk, Lp, 2, t_mix, L, dk, L)
+                  + tiles(Lp, dk, Lp, 3, t_mix, L, dk, L)
+                  + tiles(Lp, dv, Lp, 3, 3, L, dv, L))
+        nbytes += 9 * 4 * L * (L + 1) // 2
+        if walk and (j > 0 or state):           # Y = G C^T
+            flops += tiles(Lp, dk, dv, 0, 3, L, dk, dv)
+            nbytes += 4 * dk * dv
+        if j + 1 < nb:                           # the state update
+            flops += tiles(dk, dv, Lp, 0, t_mix, dk, dv, L)
+            nbytes += 4 * dk * dv * (2 if j > 0 or state else 1)
+        if j > 0:                                # dC, then U, W of j - 1
+            flops += (tiles(dk, dv, Lp, 0, 3, dk, dv, L)
+                      + tiles(Lp, dk, dv, 0, t_mix, LB, dk, dv)
+                      + tiles(Lp, dv, dk, 0, t_mix, LB, dv, dk))
+            nbytes += 4 * dk * dv * (4 if j + 1 < nb else 3)
+    return B * H * flops, B * H * nbytes
+
+
 def phase_mlstm_bwd():
-    """K6's backward against the plain backward (the same algorithm) and
+    """K6's backward against the plain backward (the same function) and
     against autograd of the plain forward, both on the f32 copies of the
-    inputs, at the training shapes (MLSTM_BWD_CASES); a bitwise repeat;
-    the kernel's time (events, and the card's alone), the plain
-    backward's and the bound. No PyTorch call computes this function."""
+    inputs (an initial state held constant), at the training shapes
+    (MLSTM_BWD_CASES); a bitwise repeat; the kernel's time (events, and
+    the card's alone), the plain backward's, the bound and the route's
+    rate. No PyTorch call computes this function."""
     import torch.nn.functional as F
     from repro_torch.kernels.mlstm import kernel, ref
 
@@ -1198,7 +1288,7 @@ def phase_mlstm_bwd():
     gen.manual_seed(1)
     rows, max_err = {}, 0.0
     for case in MLSTM_BWD_CASES:
-        B, S, H, dk, dv, dtype = case
+        B, S, H, dk, dv, dtype, with_state = case
 
         def n(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device="cuda") * scale
@@ -1207,20 +1297,23 @@ def phase_mlstm_bwd():
                                          n(B, S, H, dk), n(B, S, H, dv)))
         i_raw, f_log = n(B, S, H), F.logsigmoid(n(B, S, H) + 2.0)
         dh = n(B, S, H, dv)
+        state = ((n(B, H, dk, dv, scale=0.1), n(B, H, dk, scale=0.1).abs(),
+                  n(B, H)) if with_state else None)
         x32 = [q.float(), k.float(), v.float(), i_raw, f_log]
 
         def run_kernel():
             return kernel.mlstm_chunk_bwd_cuda(q, k, v, i_raw, f_log, dh,
-                                               chunk=MLSTM_CHUNK)
+                                               state, chunk=MLSTM_CHUNK)
 
         def run_plain():
-            return ref.mlstm_chunk_bwd_plain(*x32, dh, chunk=MLSTM_CHUNK)
+            return ref.mlstm_chunk_bwd_plain(*x32, dh, state,
+                                             chunk=MLSTM_CHUNK)
 
         got = run_kernel()
         sync("cuda")
         want = run_plain()[:5]
         xs = [x.clone().requires_grad_() for x in x32]
-        h, _ = ref.mlstm_chunk_plain(*xs, chunk=MLSTM_CHUNK)
+        h, _ = ref.mlstm_chunk_plain(*xs, state, chunk=MLSTM_CHUNK)
         auto = torch.autograd.grad((h * dh).sum(), xs)
         del h, xs
         names = ("dq", "dk", "dv", "di", "df")
@@ -1244,25 +1337,33 @@ def phase_mlstm_bwd():
         ms = time_ms(run_kernel, iters=5, warmup=1)
         dev_ms = device_ms(run_kernel, iters=5)
         plain_ms = time_ms(run_plain, iters=2, warmup=1)
-        bound_ms, bound_by, f32_ms, flops = mlstm_bwd_bound(B, S, H, dk, dv,
-                                                            dtype)
+        bound_ms, bound_by, f32_ms, flops = mlstm_bwd_bound(
+            B, S, H, dk, dv, dtype, with_state)
+        route, nbytes = mlstm_bwd_route(B, S, H, dk, dv, dtype, with_state)
         rows[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                           bound_ms=bound_ms, bound_by=bound_by,
                           device_ms=dev_ms)
         say("kernels", f"mlstm_chunk_bwd B={B} S={S} H={H} dk={dk} dv={dv} "
-            f"L={MLSTM_CHUNK} q/k/v {str(dtype)[6:]}: over the largest "
-            "entry (vs plain, vs autograd) "
+            f"L={MLSTM_CHUNK} q/k/v {str(dtype)[6:]}"
+            + (", from a constant state" if with_state else "")
+            + ": over the largest entry (vs plain, vs autograd) "
             + ", ".join(f"{nm} {a:.3g}/{b:.3g}" for nm, (a, b)
                         in errs.items())
             + f" (tol {tols[0]:.3g} dq/dk/dv, {tols[3]:.3g} di/df); repeat "
             f"bitwise; kernel={ms:.3f} ms device={dev_ms:.3f} ms "
             f"plain={plain_ms:.3f} ms bound={bound_ms:.4f} ms ({bound_by}; "
-            f"f32 CUDA cores {f32_ms:.3f}); {flops / 1e9:.1f} GFLOP, "
-            f"{flops / dev_ms / 1e9:.1f} TFLOP/s")
+            f"{flops / 1e9:.1f} GFLOP, {flops / dev_ms / 1e9:.1f} TFLOP/s of "
+            f"it; f32 CUDA cores {f32_ms:.3f}); route {route / 1e9:.1f} "
+            f"GFLOP of split products, {route / dev_ms / 1e9:.1f} TFLOP/s; "
+            f"pair matrices and states {nbytes / 1e6:.0f} MB, "
+            f"{nbytes / dev_ms / 1e9:.2f} TB/s")
         if case == MLSTM_BWD_REPORT:
-            report = run_kernel
+            # bound now: run_kernel reads the loop's names when it runs
+            report = functools.partial(
+                kernel.mlstm_chunk_bwd_cuda, q, k, v, i_raw, f_log, dh,
+                state, chunk=MLSTM_CHUNK)
     profile(f"K6 backward at B, S = {MLSTM_BWD_REPORT[:2]}, q/k/v bf16",
-            report, 8)
+            report, 12, host=False)
     return rows, max_err
 
 
@@ -3690,6 +3791,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["dispatch"]:
         run_phase("dispatch", phase_dispatch)
+        return 0
+    if sys.argv[1:] == ["mlstm-bwd"]:
+        run_phase("kernels K6 bwd", phase_mlstm_bwd)
         return 0
     if sys.argv[1:] == ["xlstm-train"]:
         run_phase("kernels K6 bwd", phase_mlstm_bwd)

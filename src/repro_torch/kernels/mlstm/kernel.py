@@ -14,9 +14,11 @@ float32 buffer allocated here.
 :func:`mlstm_chunk_bwd_cuda` replaces none (the reference trains through
 autodiff of ``models/layers/xlstm.py:mlstm_chunk``): from the same inputs
 and dh it returns dq, dk, dv in q's dtype and d i_raw, d f_log in
-float32, rerunning the forward's gates and state walk itself. Its scratch
-(one state a head, the chunks' f32 tiles) is one float32 buffer
-allocated here too.
+float32, rerunning the forward's gate pass itself and taking all pairs of
+tokens in blocks of 512 (a state walk only between blocks, or from a
+given initial state). Its scratch (the blocks' two pair matrices, the
+per-token rows; the state and its f32 rows only where it walks) is one
+float32 buffer allocated here too.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ def _bwd_fns():
         lib = build.load("mlstm_bwd")
         lib.mlstm_bwd.argtypes = _BWD_ARGTYPES
         lib.mlstm_bwd.restype = ctypes.c_int
-        lib.mlstm_bwd_workspace.argtypes = [ctypes.c_int] * 6
+        lib.mlstm_bwd_workspace.argtypes = [ctypes.c_int] * 7
         lib.mlstm_bwd_workspace.restype = ctypes.c_longlong
         _FNS.update(bwd=lib.mlstm_bwd, bwd_workspace=lib.mlstm_bwd_workspace)
     return _FNS
@@ -175,7 +177,8 @@ def mlstm_chunk_bwd_cuda(q, k, v, i_raw, f_log, dh, state=None, *,
     di, df = (torch.empty((B, S, H), dtype=torch.float32, device=dev)
               for _ in range(2))
     fns = _bwd_fns()
-    work = torch.empty((fns["bwd_workspace"](B, S, H, dk, dv, int(chunk)),),
+    work = torch.empty((fns["bwd_workspace"](B, S, H, dk, dv, int(chunk),
+                                             int(C0 is not None)),),
                        dtype=torch.float32, device=dev)
     state_in = [None if t is None else t.data_ptr() for t in (C0, n0, m0)]
     with torch.cuda.device(dev):

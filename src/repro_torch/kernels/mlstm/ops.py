@@ -5,7 +5,7 @@ A CPU tensor gets the plain versions (:func:`ref.mlstm_chunk_plain`,
 or an exception -- never a fallback. A call whose inputs require a
 gradient goes through :class:`MLSTMChunk`: the forward, then on the
 backward pass the backward kernel (on a CPU tensor the plain backward,
-the same algorithm). The final state's m is returned as a constant (the
+the same function). The final state's m is returned as a constant (the
 stabilizer), and a cotangent of the final C or n raises: training reads h
 only. On a CUDA tensor an initial state that requires a gradient raises
 too; training starts from the zero state. ``LAUNCHES`` and

@@ -102,8 +102,10 @@ def mlstm_chunk_plain(q, k, v, i_raw, f_log, state=None, *, chunk: int = 64):
 
 def mlstm_chunk_bwd_plain(q, k, v, i_raw, f_log, dh, state=None, *,
                           chunk: int = 64):
-    """The backward of :func:`mlstm_chunk_plain` as K6's backward kernel
-    (``csrc/mlstm_bwd.cu``) computes it, at the chunk level.
+    """The backward of :func:`mlstm_chunk_plain` at the chunk level: the
+    plain version and oracle of K6's backward kernel (``csrc/mlstm_bwd.cu``,
+    which computes the same function over all pairs of tokens in
+    512-token blocks).
 
     dh: (B, S, H, dv), the cotangent of h; the final state's is taken as
     zero (training reads h only). Returns (dq, dk, dv, d i_raw, d f_log)

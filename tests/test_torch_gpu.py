@@ -736,32 +736,47 @@ def _mlstm_bwd_case(seed, B, S, H, dk, dv, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,H,dk,dv,chunk,dtype", [
-    (2, 512, 4, 1024, 1024, 64, torch.float32),   # a client's training call
-    (2, 200, 3, 64, 64, 64, torch.float32),       # ragged last chunk
-    (1, 13, 2, 128, 96, 8, torch.float32),    # short chunks, dv not 64k
-    (2, 100, 2, 256, 512, 16, torch.float32),
-    (2, 512, 4, 1024, 1024, 64, torch.bfloat16),
-    (2, 200, 3, 64, 64, 64, torch.bfloat16),
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,dtype,with_state", [
+    (2, 512, 4, 1024, 1024, 64, torch.float32, False),  # a client's call
+    (2, 200, 3, 64, 64, 64, torch.float32, False),      # ragged last chunk
+    (1, 13, 2, 128, 96, 8, torch.float32, False),  # short chunks, dv not 64k
+    (2, 100, 2, 256, 512, 16, torch.float32, False),
+    (2, 512, 4, 1024, 1024, 64, torch.bfloat16, False),
+    (2, 200, 3, 64, 64, 64, torch.bfloat16, False),
+    # a constant initial state; past one 512-token block (the state walk
+    # between blocks), ragged; both, with short chunks
+    *[(*shape, dtype, with_state)
+      for shape, with_state in (((2, 512, 4, 1024, 1024, 64), True),
+                                ((1, 1000, 2, 256, 256, 64), False),
+                                ((2, 600, 2, 128, 64, 16), True))
+      for dtype in (torch.float32, torch.bfloat16)],
 ])
-def test_mlstm_backward_matches_plain(B, S, H, dk, dv, chunk, dtype):
-    """K6's backward against the plain backward (the same algorithm) and
-    against autograd of the plain forward, on the same values in float32
-    (bf16 q, k, v: their float32 copies), every gradient within 1e-4 of
-    its largest entry (float32 sums in another order); bf16 dq, dk, dv
-    are the float32 values rounded once, so within 1e-4 plus bf16's
-    rounding (half an ulp: 2^-8 of the entry at most) of the largest
-    entry."""
+def test_mlstm_backward_matches_plain(B, S, H, dk, dv, chunk, dtype,
+                                      with_state):
+    """K6's backward against the plain backward (the same function) and
+    against autograd of the plain forward (a given initial state held
+    constant), on the same values in float32 (bf16 q, k, v: their float32
+    copies), every gradient within 1e-4 of its largest entry (float32
+    sums in another order); bf16 dq, dk, dv are the float32 values
+    rounded once, so within 1e-4 plus bf16's rounding (half an ulp: 2^-8
+    of the entry at most) of the largest entry."""
     _needs_card()
     q, k, v, i_raw, f_log, dh = _mlstm_bwd_case(S + dk, B, S, H, dk, dv,
                                                 dtype)
-    got = mlstm_kernel.mlstm_chunk_bwd_cuda(q, k, v, i_raw, f_log, dh,
+    state = None
+    if with_state:
+        rng = np.random.default_rng(S)
+        state = tuple(torch.from_numpy(x.astype(np.float32)).cuda() for x in (
+            0.1 * rng.standard_normal((B, H, dk, dv)),
+            0.1 * np.abs(rng.standard_normal((B, H, dk))),
+            rng.standard_normal((B, H))))
+    got = mlstm_kernel.mlstm_chunk_bwd_cuda(q, k, v, i_raw, f_log, dh, state,
                                             chunk=chunk)
     torch.cuda.synchronize()
     xs = [x.float() for x in (q, k, v)] + [i_raw, f_log]
-    want = mlstm_ref.mlstm_chunk_bwd_plain(*xs, dh, chunk=chunk)[:5]
+    want = mlstm_ref.mlstm_chunk_bwd_plain(*xs, dh, state, chunk=chunk)[:5]
     xs = [x.clone().requires_grad_() for x in xs]
-    h, _ = mlstm_ref.mlstm_chunk_plain(*xs, chunk=chunk)
+    h, _ = mlstm_ref.mlstm_chunk_plain(*xs, state, chunk=chunk)
     auto = torch.autograd.grad((h * dh).sum(), xs)
     for name, g, w, a in zip(("dq", "dk", "dv", "di", "df"), got, want,
                              auto):
