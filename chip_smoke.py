@@ -20,7 +20,8 @@ Phases, one or more lines each:
    yardstick only), for K3 also the card's time alone (``device_ms``:
    the calls queued behind a sleep kernel, no host time), and the card's
    bound for the work -- the attention forward (K3) at the serving
-   shapes and the training trunk's, then the attention backward (two
+   shapes, the training trunk's and the served MoE model's (hd 128, 32
+   heads on 4 KV heads), then the attention backward (two
    runs bitwise equal), the fused LACE boundary (K1, K2; also at the
    masked round's 16 client prior rows, 12 of them absent) and the
    single-prior LACE kernels of the dual boundary (K4, K5; server side
@@ -55,6 +56,17 @@ Phases, one or more lines each:
    period of its pattern) on an odd prompt of 77 tokens: logits and
    every layer's final state (mLSTM C, n, m through K6 against the
    per-step recurrence);
+5d. serve-moe: phase 4 for full-width, full-depth qwen3-moe-30b-a3b (48
+   layers, 128 experts, top-8, bf16 weights: 61 GB, one copy at a time)
+   -- K3 once per attention layer and admit at 32 heads of 128 on 4 KV
+   heads; the MoE FFN routes in float32, dropless in the prefill; an
+   admit of the longest prompt and a decode step with every slot busy,
+   each split into one layer's MoE FFN and attention (host and device ms,
+   replayed on the run's inputs) and the rest, and the step profiled;
+5e. check-moe: phase 5 for qwen3-moe-30b-a3b at full width and 8 layers
+   in float32 (the fused prefill through K3 and the dropless MoE against
+   the token-by-token loop), after a line with the smallest gap between
+   a token's 8th and 9th router logit over the routings checked;
 6. train: full-width qwen1.5-0.5b through the training CLI's spec and
    Trainer on the card -- 16 clients, 4 sampled per round, 2 local steps
    of 16 x 512 tokens, 3 rounds; finite losses, the kernels' launch
@@ -176,6 +188,8 @@ exits nonzero; without a GPU it exits nonzero before printing a result.
 
 ``python3 chip_smoke.py attention`` runs phases 1 and 2 and the
 attention kernels of phase 3 (K3 forward and backward), then stops;
+``python3 chip_smoke.py moe`` runs phases 1 and 2, K3's forward from
+phase 3, then 5d and 5e;
 ``python3 chip_smoke.py lace`` the same for the LACE kernels (K1, K2,
 K4, K5); ``python3 chip_smoke.py mlstm`` the same for K6, then
 check-xlstm (5c).
@@ -193,8 +207,10 @@ summation orders), the last position compared pairwise.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -216,17 +232,25 @@ PEAK_BYTES = 3.35e12                    # HBM3, H100 SXM
 TOL = {torch.bfloat16: 3e-2,  # output rounded to bf16 (2^-8 relative)
        torch.float32: 1e-4}   # float32 sums over <= 2048 keys in another order
 LOGIT_ATOL = 1e-3   # f32 logits of O(1) after 24 layers, sums in another order
-# (B, P, H, KV, window, dtype): the prefill shapes of the served model,
-# then the training trunk's (16 sequences of 512 tokens)
-KERNEL_CASES = [(1, P, 16, 16, None, dt)
+# (B, P, H, KV, window, dtype, head dim): the prefill shapes of the served
+# model, then the training trunk's (16 sequences of 512 tokens), then the
+# served qwen3-moe-30b-a3b's longest prompt (32 heads of 128 on 4 KV heads)
+KERNEL_CASES = [(1, P, 16, 16, None, dt, 64)
                 for dt in (torch.bfloat16, torch.float32)
                 for P in (128, 777, 2048)]
-KERNEL_CASES += [(1, 777, 16, 2, None, torch.bfloat16),      # GQA
-                 (1, 1024, 16, 16, 256, torch.bfloat16),     # sliding window
-                 (16, 512, 16, 16, None, torch.bfloat16)]    # training
-REPORT_CASE = (1, 777, 16, 16, None, torch.bfloat16)         # the JSON line's
-TRAIN_CASE = KERNEL_CASES[-1]                                # and beside it
+KERNEL_CASES += [(1, 777, 16, 2, None, torch.bfloat16, 64),      # GQA
+                 (1, 1024, 16, 16, 256, torch.bfloat16, 64),     # window
+                 (16, 512, 16, 16, None, torch.bfloat16, 64),    # training
+                 (1, 777, 32, 4, None, torch.bfloat16, 128)]     # MoE serving
+REPORT_CASE = (1, 777, 16, 16, None, torch.bfloat16, 64)     # the JSON line's
+TRAIN_CASE = KERNEL_CASES[-2]                                # and beside it
+MOE_CASE = KERNEL_CASES[-1]                                  # and beside it
 XLSTM = "xlstm-1.3b"
+MOE = "qwen3-moe-30b-a3b"
+# check-moe's depth in float32 at full width: 2.49 GB a layer (the
+# experts' 604 M parameters), 8 layers and the 2.5 GB embedding and head
+# come to ~22 GB
+MOE_CHECK_LAYERS = 8
 # the chunkwise mLSTM (K6), (B, S, H, dk, dv, q/k/v dtype): the served
 # xlstm-1.3b's prefill (4 heads of 1024, chunk 64) at every prompt of the
 # serving mix (777 odd: a ragged last chunk) and an odd prompt below one
@@ -582,8 +606,7 @@ def phase_kernels():
         "card, sets a call's time")
     rows, max_err = {}, 0.0
     for case in KERNEL_CASES:
-        B, P, H, KV, window, dtype = case
-        hd = 64
+        B, P, H, KV, window, dtype, hd = case
         q = torch.randn((B, P, H, hd), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, P, KV, hd), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, P, KV, hd), generator=gen, device="cuda").to(dtype)
@@ -776,9 +799,14 @@ def phase_serve(device="cuda", reduced=False, arch=ARCH, phase="serve",
         if not paged and engine.device.type == "cuda":
             if want["mlstm"]:
                 xlstm_split(engine, phase, max(lens), gen)
+            elif cfg.moe is not None:
+                moe_split(engine, phase, max(lens), gen)
             else:
                 profile("dense run", lambda: engine.serve(list(reqs)), 6)
+        # the next build holds a second copy of the weights: this one
+        # must be gone (61 GB of qwen3-moe twice would not fit)
         del engine
+        gc.collect()
     say(phase, "paged tokens == dense tokens; launches == admits x "
         f"({want['flash_fwd'] // len(reqs)} attention, "
         f"{want['mlstm'] // len(reqs)} mLSTM) layers")
@@ -865,6 +893,145 @@ def xlstm_split(engine, phase, P, gen):
     profile(f"decode step, {engine.slots} slots", engine.step, 6)
 
 
+@contextlib.contextmanager
+def synced_calls(module, name):
+    """While open, each call of ``module.<name>`` starts and ends
+    synchronized, and the dict it yields sums their host seconds
+    (``seconds``), counts them (``calls``) and keeps the first one's
+    (args, kwargs) (``first``)."""
+    spent = {"seconds": 0.0, "calls": 0, "first": None}
+    orig = getattr(module, name)
+
+    def call(*args, **kw):
+        if spent["first"] is None:
+            spent["first"] = (args, kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        spent["seconds"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield spent
+    finally:
+        setattr(module, name, orig)
+
+
+def busy_ms(fn, reps=5):
+    """The card's busy time a call of ``fn`` (the sum of its kernels'
+    times in a device-only profile of ``reps`` calls, after one)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return 1e3 * sum(t for t, _ in device_events(prof).values()) / reps
+
+
+def moe_split(engine, phase, P, gen):
+    """Where an MoE admit and decode step spend their time: one admit of
+    a ``P``-token prompt into the idle engine and one decode step with
+    every slot busy, each timed on the host as it runs, then again with
+    every MoE FFN (routing, dispatch, the expert products, combine) and
+    attention call synchronized before and after and timed, the rest
+    (embedding, norms, head, cache copy) the difference; each component's
+    device time from one layer's call replayed on its inputs under a
+    device-only profile. A profile of the decode step follows."""
+    from repro_torch.models.layers import attention, moe
+    from repro_torch.serve import Request
+
+    cfg = engine.cfg
+    n_moe = sum(s.ffn == "moe" for s in cfg.block_specs)
+    n_attn = sum(s.mixer == "attn" for s in cfg.block_specs)
+    rng = np.random.default_rng(7)
+    reqs = [Request(-100 - i, rng.integers(0, cfg.vocab_size, P), gen)
+            for i in range(engine.slots)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    def split(what, run, attn_name, moe_label, attn_label):
+        wall = run()
+        with synced_calls(moe, "moe_apply") as m, \
+                synced_calls(attention, attn_name) as a:
+            synced = run()
+        rest = synced
+        text = []
+        for label, layers, spent, module, name in (
+                (moe_label, n_moe, m, moe, "moe_apply"),
+                (attn_label, n_attn, a, attention, attn_name)):
+            check(spent["calls"] == layers, f"{layers} {name} calls")
+            ms = 1e3 * spent["seconds"]
+            rest -= ms
+            args, kw = spent["first"]
+            fn = getattr(module, name)
+            dev = busy_ms(lambda: fn(*args, **kw))
+            text.append(f"{layers} x {label} {ms:.2f} ms ({100 * ms / synced:.1f}%; "
+                        f"a layer {ms / layers:.3f} ms host, {dev:.3f} ms "
+                        "device)")
+        say(phase, f"{what}: {wall:.2f} ms host; with each MoE FFN and "
+            f"attention call synchronized {synced:.2f} ms: "
+            + "; ".join(text) + f"; the rest {rest:.2f} ms")
+        return m["first"]
+
+    admits = iter(reqs)
+    (params, x, moe_cfg), _ = split(
+        f"admit of a {P}-token prompt",
+        lambda: timed(lambda: check(engine.admit(next(admits)),
+                                    "a free slot for the split admit")),
+        "attn_apply", f"MoE FFN (dropless, {P * cfg.moe.top_k} pairs)",
+        "attention (K3)")
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    _, _, top_i = moe.route(params, x, moe_cfg.moe)
+    busiest = int(torch.bincount(top_i.flatten(), minlength=E).max())
+    say(phase, f"layer 0's prefill slab: {E} experts x {busiest} rows (its "
+        f"busiest expert's pairs) for {P * K} pairs, {E * busiest / (P * K):.2f}"
+        f"x the rows an even routing ({P * K / E:.1f} an expert) would take")
+    for r in admits:
+        check(engine.admit(r), "a free slot for the decode split")
+    check(engine.n_active == engine.slots, "every slot busy")
+    engine.step()
+    # a replayed attn_decode writes its k, v rows again at the same index:
+    # the engine's cache holds the same values after it
+    split(f"decode step with {engine.slots} busy slots",
+          lambda: timed(engine.step), "attn_decode",
+          f"MoE FFN ({engine.slots} x {cfg.moe.top_k} pairs)",
+          "attention decode")
+    profile(f"decode step, {engine.slots} slots", engine.step, 8)
+
+
+@contextlib.contextmanager
+def router_gaps(cfg):
+    """While open, every MoE routing appends each token's gap between its
+    top_k-th and (top_k+1)-th router logit to the list it yields (nothing
+    for an arch without MoE)."""
+    from repro_torch.models.layers import moe
+
+    gaps, orig = [], moe.route
+
+    def route(params, x, m):
+        top = (x.float() @ params["router"].float()).topk(m.top_k + 1).values
+        gaps.extend((top[..., -2] - top[..., -1]).flatten().tolist())
+        return orig(params, x, m)
+
+    if cfg.moe is not None:
+        moe.route = route
+    try:
+        yield gaps
+    finally:
+        moe.route = orig
+
+
 def phase_check(device="cuda", reduced=False, arch=ARCH, phase="check",
                 prompt_len=64, max_len=128, layers=None):
     """float32, TF32 off: the fused prefill (through the kernels) against
@@ -887,13 +1054,23 @@ def phase_check(device="cuda", reduced=False, arch=ARCH, phase="check",
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, prompt_len)),
                              device=device)
-    with torch.no_grad():
+    with torch.no_grad(), router_gaps(cfg) as gaps:
         logits, cache = T.forward_prefill_cached(
             params, {"tokens": prompt}, cfg, max_len)
         loop = T.init_decode_cache(cfg, 1, max_len, device=device)
         for i in range(prompt_len):
             last, loop = T.decode_step(params, {"tokens": prompt[:, i:i + 1]},
                                        loop, i, cfg)
+    if cfg.moe is not None:
+        # a near-tie here would let rounding flip an expert between the
+        # prefill and the loop: this line, printed before the checks, says
+        # how near the nearest came
+        K = cfg.moe.top_k
+        say(phase, f"smallest gap between a token's router logits {K} "
+            f"and {K + 1} (descending) over the {len(gaps)} routings "
+            f"checked (prefill and "
+            f"loop, {cfg.num_layers} layers x {prompt_len} tokens each): "
+            f"{min(gaps):.3g}")
     err = (logits[0, 0] - last[0, 0]).abs().max().item()
     scale = last.abs().max().item()
     check(err <= LOGIT_ATOL, f"prefill vs loop logits {err} > {LOGIT_ATOL}")
@@ -3808,6 +3985,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] != ["lace"]:
         rows, max_err = run_phase("kernels K3", phase_kernels)
+    if sys.argv[1:] == ["moe"]:
+        run_phase("serve-moe", phase_serve, arch=MOE, phase="serve-moe")
+        run_phase("check-moe", phase_check, arch=MOE, phase="check-moe",
+                  layers=MOE_CHECK_LAYERS)
+        return 0
+    if sys.argv[1:] != ["lace"]:
         bwd_rows, bwd_err = run_phase("kernels K3 bwd", phase_flash_bwd)
     if sys.argv[1:] == ["attention"]:
         return 0
@@ -3823,6 +4006,9 @@ def main() -> int:
                     phase="serve-xlstm")
     run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
           prompt_len=77, max_len=96, layers=XLSTM_CHECK_LAYERS)
+    serve_m = run_phase("serve-moe", phase_serve, arch=MOE, phase="serve-moe")
+    run_phase("check-moe", phase_check, arch=MOE, phase="check-moe",
+              layers=MOE_CHECK_LAYERS)
     train = run_phase("train", phase_train)
     run_phase("train-check", phase_train_check)
     dual = run_phase("train-dual", phase_train, flags=TRAIN_DUAL_FLAGS,
@@ -3843,16 +4029,19 @@ def main() -> int:
     fed = {k: fed[k] + events[k] + faults[k] + dispatch[k] for k in fed}
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
-    # forward launches: the serve path's plus both training paths'; its
-    # times at the serving prompt, and at the training trunk's shape beside
+    # forward launches: both serve paths' plus both training paths'; its
+    # times at the serving prompt, and at the training trunk's shape and
+    # the served MoE model's (hd 128, 32 heads on 4 KV heads) beside
     fwd_row = kernel_row("flash_attn_fwd", csrc + "flash_attn.cu",
                          "src/repro/kernels/flash_attn/kernel.py:23",
-                         serve["flash_fwd"] + train["flash_fwd"]
-                         + dual["flash_fwd"] + fed["flash_fwd"], max_err,
-                         rows[REPORT_CASE])
-    fwd_row.update({f"{key}_train": rows[TRAIN_CASE][key] for key in
-                    ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
-                     "library_device_ms")})
+                         serve["flash_fwd"] + serve_m["flash_fwd"]
+                         + train["flash_fwd"] + dual["flash_fwd"]
+                         + fed["flash_fwd"], max_err, rows[REPORT_CASE])
+    for suffix, case in (("train", TRAIN_CASE), ("moe", MOE_CASE)):
+        fwd_row.update({f"{key}_{suffix}": rows[case][key] for key in
+                        ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "device_ms", "library_device_ms")})
+    fwd_row["launches_moe"] = serve_m["flash_fwd"]
     lace_row = {
         kname: kernel_row(kname, csrc + src, lace_src + line, launches, err,
                           rows_[(case, kind)])

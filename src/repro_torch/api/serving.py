@@ -33,6 +33,7 @@ from repro_torch import checkpoint, convert
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import resolve_device
+from repro_torch.models.transformer import check_supported
 
 ADMISSION_MODES = ("continuous", "static")
 
@@ -68,6 +69,7 @@ class ServeSpec:
             raise ValueError(f"arch {self.arch!r} has frontend "
                              f"{cfg.frontend!r}; ServeSpec serves text-only "
                              "archs")
+        check_supported(cfg)     # a block the port lacks: NotImplementedError
         if self.slots < 1:
             raise ValueError(f"slots must be >= 1, got {self.slots}")
         if self.max_len < 2:

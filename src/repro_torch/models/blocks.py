@@ -1,20 +1,22 @@
 """Residual block assembly: one BlockSpec -> params / apply / cache.
 
-A block is pre-norm -> mixer (+residual) [-> pre-norm -> dense FFN
-(+residual)]. The mixer is attention, mLSTM or sLSTM; xLSTM blocks carry
-their FFN inside the mixer (``ffn == 'none'``). The other mixers and
-FFNs of :mod:`repro.models.blocks` (mamba, MoE, cross-attention) raise
-``NotImplementedError``.
+A block is pre-norm -> mixer (+residual) [-> pre-norm -> FFN
+(+residual)]. The mixer is attention, mLSTM or sLSTM, the FFN dense or
+MoE; xLSTM blocks carry their FFN inside the mixer (``ffn == 'none'``).
+The other mixers of :mod:`repro.models.blocks` (mamba, cross-attention)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
-from repro_torch.models.layers import attention, mlp, norms, xlstm
+from repro_torch.models.layers import attention, mlp, moe, norms, xlstm
 
 MIXERS = ("attn", "mlstm", "slstm")
-FFNS = ("dense", "none")
+FFNS = ("dense", "moe", "none")
 
 
 def check_spec(spec: BlockSpec) -> None:
@@ -22,7 +24,8 @@ def check_spec(spec: BlockSpec) -> None:
         raise NotImplementedError(
             f"block mixer={spec.mixer!r} ffn={spec.ffn!r} "
             f"cross_attn={spec.cross_attn}: the port has mixers {MIXERS} "
-            f"and FFNs {FFNS}, no cross-attention")
+            f"and FFNs {FFNS}; mamba comes with the jamba slice, "
+            "cross-attention with the whisper slice")
 
 
 def cache_length(spec: BlockSpec, max_len: int) -> int:
@@ -46,18 +49,34 @@ def block_init(gen: torch.Generator, spec: BlockSpec, cfg: ModelConfig):
     if spec.ffn == "dense":
         p["norm2"] = norms.rms_norm_init(cfg, gen.device)
         p["ffn"] = mlp.mlp_init(gen, cfg)
+    elif spec.ffn == "moe":
+        p["norm2"] = norms.rms_norm_init(cfg, gen.device)
+        p["ffn"] = moe.moe_init(gen, cfg)
     return p
 
 
+def _dropless(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with an MoE capacity that drops nothing: one-token decode
+    routes each token alone and never drops, so the fused prefill must
+    not either, or it departs from the token-by-token path it replaces."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+
+
 def _ffn(params, x, spec: BlockSpec, cfg):
+    """The FFN sublayer: (y, the MoE router loss or None)."""
     if spec.ffn == "none":
-        return x
+        return x, None
     h = norms.rms_norm_apply(params["norm2"], x, cfg.norm_eps)
-    return x + mlp.mlp_apply(params["ffn"], h, cfg)
+    if spec.ffn == "moe":
+        y, aux = moe.moe_apply(params["ffn"], h, cfg)
+        return x + y, aux
+    return x + mlp.mlp_apply(params["ffn"], h, cfg), None
 
 
 def block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, *, positions):
-    """Full-sequence forward."""
+    """Full-sequence forward. Returns (y, aux): the MoE router loss, a
+    float32 zero for the other FFNs."""
     check_spec(spec)
     h = norms.rms_norm_apply(params["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
@@ -67,13 +86,18 @@ def block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, *, positions):
         h = xlstm.mlstm_apply(params["mixer"], h, cfg)
     else:
         h = xlstm.slstm_apply(params["mixer"], h, cfg)
-    return _ffn(params, x + h, spec, cfg)
+    y, aux = _ffn(params, x + h, spec, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y, aux
 
 
 def block_prefill(params, x, spec: BlockSpec, cfg: ModelConfig, *,
                   positions, max_len: int, cache_dtype):
     """Full-sequence forward that also emits this block's decode cache,
-    structured like :func:`block_cache_init`. Returns (y, cache)."""
+    structured like :func:`block_cache_init`; an MoE FFN routes dropless
+    and its router loss is dropped (serving does not train). Returns (y,
+    cache)."""
     check_spec(spec)
     h = norms.rms_norm_apply(params["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
@@ -87,7 +111,9 @@ def block_prefill(params, x, spec: BlockSpec, cfg: ModelConfig, *,
         h, cache = xlstm.mlstm_prefill(params["mixer"], h, cfg, cache_dtype)
     else:
         h, cache = xlstm.slstm_prefill(params["mixer"], h, cfg)
-    return _ffn(params, x + h, spec, cfg), cache
+    if spec.ffn == "moe":
+        cfg = _dropless(cfg)
+    return _ffn(params, x + h, spec, cfg)[0], cache
 
 
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int,
@@ -104,7 +130,8 @@ def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int,
 def block_decode(params, x, cache, index, spec: BlockSpec, cfg: ModelConfig):
     """One-token decode; ``index`` (B,) holds each row's position.
     Attention updates ``cache`` in place; the recurrent mixers return new
-    state tensors. Returns (y, cache)."""
+    state tensors. An MoE FFN routes at the configured capacity (one
+    token a row drops nothing). Returns (y, cache)."""
     check_spec(spec)
     h = norms.rms_norm_apply(params["norm1"], x, cfg.norm_eps)
     if spec.mixer == "mlstm":
@@ -119,7 +146,7 @@ def block_decode(params, x, cache, index, spec: BlockSpec, cfg: ModelConfig):
     else:
         h, cache = attention.attn_decode(params["mixer"], h, cache, index,
                                          cfg, window=None)
-    return _ffn(params, x + h, spec, cfg), cache
+    return _ffn(params, x + h, spec, cfg)[0], cache
 
 
 def _decode_ring(params, x, cache, index, widx, cfg, window):

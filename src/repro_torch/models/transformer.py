@@ -109,8 +109,9 @@ def client_forward(client_params, batch, cfg: ModelConfig):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = embeddings.embedding_apply(client_params["embed"], tokens, cfg)
     for l in range(cfg.split_layer):
-        x = B.block_apply(client_params["blocks"][f"blk{l}"], x,
-                          cfg.block_spec(l), cfg, positions=positions)
+        # the client blocks' router loss is dropped, as the reference's
+        x, _ = B.block_apply(client_params["blocks"][f"blk{l}"], x,
+                             cfg.block_spec(l), cfg, positions=positions)
     return {"x": x, "positions": positions}
 
 
@@ -128,8 +129,8 @@ def server_forward(server_params, acts, cfg: ModelConfig, *,
     """The server half on (possibly concatenated) activations ``{'x',
     'positions'}``: logits (B, S, V), or the final-normed features with
     ``head_mode='feats'``, or the last position's with 'last'. Returns
-    (out, aux); aux is the MoE router loss, zero for the ported dense
-    blocks.
+    (out, aux); aux is the MoE router loss summed over the server's
+    blocks, zero for the other FFNs.
 
     ``remat`` (default :func:`default_remat`): under autograd each of the
     reference's scan groups (:func:`_layout`; the prologue is not one)
@@ -141,24 +142,25 @@ def server_forward(server_params, acts, cfg: ModelConfig, *,
     if remat is None:
         remat = default_remat(cfg)
 
-    def run(x, layers):
+    def run(x, aux, layers):
         for l in layers:
-            x = B.block_apply(server_params["blocks"][f"blk{l}"], x,
-                              cfg.block_spec(l), cfg, positions=positions)
-        return x
+            x, a = B.block_apply(server_params["blocks"][f"blk{l}"], x,
+                                 cfg.block_spec(l), cfg, positions=positions)
+            aux = aux + a
+        return x, aux
 
     _, prologue, first, n_groups = _layout(cfg)
-    x = run(x, prologue)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = run(x, aux, prologue)
     gs = cfg.group_size
     for g in range(n_groups):
         layers = range(first + g * gs, first + (g + 1) * gs)
         if remat and torch.is_grad_enabled():
             # the blocks draw no random numbers: no RNG state to keep
-            x = checkpoint(run, x, layers, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(run, x, aux, layers, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = run(x, layers)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = run(x, aux, layers)
     return _head({"server": server_params}, x, cfg, head_mode), aux
 
 
@@ -170,7 +172,7 @@ def forward(params, batch, cfg: ModelConfig, *, head_mode: str = "full"):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = embeddings.embedding_apply(params["client"]["embed"], tokens, cfg)
     for _, spec, p in _layers(params, cfg):
-        x = B.block_apply(p, x, spec, cfg, positions=positions)
+        x, _ = B.block_apply(p, x, spec, cfg, positions=positions)
     return _head(params, x, cfg, head_mode)
 
 

@@ -20,10 +20,12 @@ sequences finish -- no generation barrier -- unless
 ``admission='static'`` restores the barrier for A/B comparison.
 
 The engine serves a copy of the params cast once to the compute dtype,
-but for the leaves the reference uses in float32 (norm scales and the
-xLSTM gate weights and biases, :data:`FLOAT32_LEAVES`). The reference
-casts each other weight to the compute dtype at every use; casting once
-yields the same values.
+but for the leaves the reference uses in float32 (norm scales, the
+xLSTM gate weights and biases and the MoE router,
+:data:`FLOAT32_LEAVES`). The reference casts each other weight to the
+compute dtype at every use; casting once yields the same values. A leaf
+already in its serving dtype on the device is served as it is, not
+copied: a model as large as the card holds one copy of its weights.
 """
 from __future__ import annotations
 
@@ -89,13 +91,16 @@ class _Slot:
 
 
 # leaves the reference applies in float32 whatever the compute dtype: norm
-# scales, and the mLSTM / sLSTM gate projections and biases
-FLOAT32_LEAVES = ("scale", "w_gates", "b_gates", "r_gates")
+# scales, the mLSTM / sLSTM gate projections and biases, and the MoE router
+# (routing in float32: a bf16 router would move its logits and flip top-k
+# choices)
+FLOAT32_LEAVES = ("scale", "w_gates", "b_gates", "r_gates", "router")
 
 
 def serving_params(params, cfg, device):
     """The engine's copy of ``params`` on ``device``: every weight in the
-    compute dtype, the :data:`FLOAT32_LEAVES` in float32."""
+    compute dtype, the :data:`FLOAT32_LEAVES` in float32 (``Tensor.to``
+    returns a leaf that is already so as it is)."""
     dtype = dtype_of(cfg.dtype)
 
     def conv(tree, key=""):

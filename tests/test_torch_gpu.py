@@ -59,6 +59,9 @@ def _qkv(seed, B, S, H, KV, hd, dtype):
     (2, 127, 4, 2, 64, None, torch.bfloat16),
     (1, 129, 8, 1, 64, 5, torch.bfloat16),
     (1, 300, 2, 1, 16, 70, torch.bfloat16),
+    # the served qwen3-moe-30b-a3b's longest prompt: hd 128, 32 heads on 4
+    # KV heads
+    (1, 777, 32, 4, 128, None, torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain(B, S, H, KV, hd, window, dtype):
     _needs_card()
@@ -849,6 +852,41 @@ def test_xlstm_prefill_on_card_matches_cpu():
     for layer, leaves in want.items():
         for key, b in leaves.items():
             errs[f"{layer}/{key}"] = _rel(cache[layer][key].cpu(), b)
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.gpu
+def test_moe_prefill_on_card_matches_loop():
+    """Reduced-width qwen3-moe-30b-a3b in float32 on the card: the fused
+    prefill (K3 once per attention layer, the MoE FFN dropless) against
+    the token-by-token decode loop (no kernel, the MoE FFN at its
+    configured capacity): the last position's logits and every cache
+    leaf within 1e-4 of their largest entry."""
+    _needs_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    gen = torch.Generator("cuda")
+    gen.manual_seed(4)
+    params = transformer.init_params(gen, cfg)
+    P, max_len = 77, 96
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, P))).cuda()
+    before = ops.LAUNCHES
+    with torch.no_grad():
+        lg, cache = transformer.forward_prefill_cached(
+            params, {"tokens": toks}, cfg, max_len)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == before + cfg.num_layers
+        loop = transformer.init_decode_cache(cfg, 1, max_len, device="cuda")
+        for i in range(P):
+            want_lg, loop = transformer.decode_step(
+                params, {"tokens": toks[:, i:i + 1]}, loop, i, cfg)
+    errs = {"logits": _rel(lg, want_lg)}
+    for layer, leaves in loop.items():
+        for key, b in leaves.items():
+            errs[f"{layer}/{key}"] = _rel(cache[layer][key], b)
     assert max(errs.values()) <= 1e-4, errs
 
 

@@ -13,7 +13,11 @@
   weights;
 * ``ServeSpec`` validation and JSON round trip; ``restore_global_params``
   from checkpoints written by ``repro.checkpoint.save`` (K-stacked,
-  merged, full training state); ``build_serve`` and the CLI on the CPU.
+  merged, full training state); ``build_serve`` and the CLI on the CPU;
+* MoE (reduced qwen3-moe-30b-a3b): the engine against the JAX engine and
+  the port's token-by-token loop, paged == dense, the router kept in
+  float32 in a bf16 serving copy, the expert leaves converted bit for
+  bit, the CLI; jamba still refused, naming mamba.
 """
 import dataclasses
 import sys
@@ -34,6 +38,7 @@ from repro_torch import convert
 from repro_torch.api import ServeSpec, build_serve, restore_global_params
 from repro_torch.configs import get_config as tget_config
 from repro_torch.configs.base import ModelConfig as TModelConfig
+from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.configs.base import XLSTMConfig as TXLSTMConfig
 from repro_torch.launch.serve import generate
 from repro_torch.models import transformer as T
@@ -45,10 +50,11 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 
 def _port_cfg(cfg):
     xlstm = cfg.xlstm and TXLSTMConfig(**dataclasses.asdict(cfg.xlstm))
+    moe = cfg.moe and TMoEConfig(**dataclasses.asdict(cfg.moe))
     return TModelConfig(**{f.name: getattr(cfg, f.name)
                            for f in dataclasses.fields(cfg)
                            if f.name not in ("moe", "mamba", "xlstm")},
-                        xlstm=xlstm)
+                        xlstm=xlstm, moe=moe)
 
 
 def _f32(cfg):
@@ -64,6 +70,8 @@ CONFIGS = {
     "qwen-reduced": lambda: _f32(get_config("qwen1.5-0.5b").reduced()),
     "xlstm-tiny": tiny_xlstm_cfg,
     "xlstm-reduced": lambda: _f32(get_config("xlstm-1.3b").reduced()),
+    "qwen3-moe-reduced": lambda: _f32(
+        get_config("qwen3-moe-30b-a3b").reduced()),
 }
 XLSTM = ["xlstm-tiny", "xlstm-reduced"]
 # 16 random xLSTM layers amplify float32 rounding: the reference's own
@@ -480,6 +488,114 @@ def test_cli_runs_on_cpu(monkeypatch, capsys):
     from repro_torch.launch import serve
     base = ["serve", "--reduced", "--device", "cpu", "--batch", "3",
             "--prompt-len", "6", "--gen", "3", "--slots", "2"]
+    rows = []
+    for extra in ([], ["--pages", "8", "--page-size", "4"], ["--reference"]):
+        monkeypatch.setattr(sys, "argv", base + extra)
+        serve.main()
+        out = capsys.readouterr().out
+        assert "tok/s" in out
+        rows.append(out.split("sample row:")[1].strip())
+    assert rows[0] == rows[1] == rows[2]
+
+
+# --------------------------------------------------------------------------
+# MoE
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_engine_matches_loop_and_paged_dense(dtype):
+    """Reduced qwen3-moe: paged == dense bitwise under the mixed
+    continuous schedule; in float32 the engine (dropless fused prefill,
+    decode at the configured capacity) == the token-by-token loop; a bf16
+    serving copy keeps the router in float32 and the experts in bf16."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH).reduced(), dtype=dtype)
+    _, params = _setup(cfg)
+    reqs = _mixed_requests(cfg.vocab_size)
+    dense = _engine(params, cfg, slots=2, max_len=18, record_logits=True)
+    paged = _engine(params, cfg, slots=2, max_len=18, pages=2 * 5,
+                    page_size=4, record_logits=True)
+    ffn = dense.params["server"]["blocks"]["blk2"]["ffn"]
+    assert ffn["router"].dtype == torch.float32
+    assert {ffn[k].dtype for k in ("gate", "up", "down")} == {
+        getattr(torch, dtype)}
+    rd = dense.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    rp = paged.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    pcfg = _port_cfg(cfg)
+    for i, toks, n in reqs:
+        np.testing.assert_array_equal(rd[i].tokens, rp[i].tokens)
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(rd[i].logits, rp[i].logits))
+        if dtype == "float32":
+            ref = generate(params, pcfg, torch.as_tensor(toks[None]), 18, n)
+            np.testing.assert_array_equal(rd[i].tokens, ref[0].numpy())
+
+
+def test_moe_serving_copy_shares_leaves_already_served():
+    """A leaf already in its serving dtype on the device is served as it
+    is: a 61 GB bf16 model is not copied a second time."""
+    from repro_torch.serve.engine import serving_params
+    cfg = dataclasses.replace(tget_config(MOE_ARCH).reduced(),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg)
+    served = serving_params(params, cfg, torch.device("cpu"))
+    src = params["server"]["blocks"]["blk2"]["ffn"]
+    got = served["server"]["blocks"]["blk2"]["ffn"]
+    for k in ("router", "gate", "up", "down"):
+        assert got[k] is src[k], k
+
+
+def test_moe_leaves_convert_bitwise(tmp_path):
+    """``params_from_reference`` and ``params_from_npz`` carry every
+    layer's router, gate, up and down bit for bit, out of the client
+    blocks, the prologue and the stacked scan groups."""
+    cfg = _f32(get_config(MOE_ARCH).reduced())
+    pcfg = _port_cfg(cfg)
+    tree = _np(JT.init_params(jax.random.PRNGKey(0), cfg))
+    client_l, prologue_l, first, n_scan = JT._layout(cfg)
+    gs = cfg.group_size
+    want = {l: tree["client"]["blocks"][f"blk{i}"]["ffn"]
+            for i, l in enumerate(client_l)}
+    want.update({l: tree["server"]["prologue"][f"blk{i}"]["ffn"]
+                 for i, l in enumerate(prologue_l)})
+    for g in range(n_scan):
+        for j in range(gs):
+            want[first + g * gs + j] = {
+                k: a[g] for k, a in tree["server"]["groups"][f"blk{j}"][
+                    "ffn"].items()}
+    assert sorted(want) == list(range(cfg.num_layers))
+    d = str(tmp_path / "ckpt")
+    path = checkpoint.save(d, 1, tree)
+    for got in (convert.params_from_reference(tree, pcfg),
+                convert.params_from_npz(path, pcfg)):
+        for l, leaves in want.items():
+            half = "client" if l < cfg.split_layer else "server"
+            ffn = got[half]["blocks"][f"blk{l}"]["ffn"]
+            assert ffn.keys() == leaves.keys() == {"router", "gate", "up",
+                                                   "down"}
+            for k, a in leaves.items():
+                assert ffn[k].numpy().dtype == a.dtype
+                np.testing.assert_array_equal(ffn[k].numpy(), a)
+
+
+def test_servespec_serves_moe_and_refuses_jamba():
+    for arch in (MOE_ARCH, "dbrx-132b"):
+        for reduced in (False, True):
+            ServeSpec(arch=arch, reduced=reduced)
+    for reduced in (False, True):
+        with pytest.raises(NotImplementedError, match="mamba"):
+            ServeSpec(arch="jamba-1.5-large-398b", reduced=reduced)
+
+
+def test_cli_serves_moe_on_cpu(monkeypatch, capsys):
+    from repro_torch.launch import serve
+    base = ["serve", "--arch", MOE_ARCH, "--reduced", "--device", "cpu",
+            "--batch", "3", "--prompt-len", "6", "--gen", "3", "--slots",
+            "2"]
     rows = []
     for extra in ([], ["--pages", "8", "--page-size", "4"], ["--reference"]):
         monkeypatch.setattr(sys, "argv", base + extra)

@@ -229,6 +229,13 @@ ALEXNET = dict(arch="alexnet-cifar", reduced=False,
     pytest.param(dict(top=ALEXNET, execution=dict(backend="logits",
                                                   boundary="dual")),
                  None, None, id="alexnet-dual-validates"),
+    # the MoE archs serve but do not train yet
+    pytest.param(dict(top=dict(arch="qwen3-moe-30b-a3b")),
+                 NotImplementedError, "the MoE training slice",
+                 id="qwen3-moe-NotImplementedError"),
+    pytest.param(dict(top=dict(arch="dbrx-132b")),
+                 NotImplementedError, "the MoE training slice",
+                 id="dbrx-NotImplementedError"),
 ])
 def test_validate_names_what_is_not_ported(change, error, match):
     if error is None:

@@ -5,8 +5,11 @@ Same numpy inputs and the same params (converted by
 2e-5 unless a test says otherwise (sums in another order). Covers the
 layers (norms, rope, embeddings, mlp, attention), the configs, and
 ``forward`` / ``forward_prefill_cached`` (logits and every cache leaf) /
-``decode_step`` on the tiny, ring-window and reduced-qwen configs, plus
-prefill == decode inside the port.
+``decode_step`` on the tiny, ring-window and reduced-qwen configs, the
+reduced MoE archs (qwen3-moe, dbrx; also ``server_forward``'s router
+loss) and the reduced gemma3, granite and h2o-danube (the windowed ones
+on a prompt past the reduced window of 64), plus prefill == decode
+inside the port.
 """
 import dataclasses
 
@@ -27,6 +30,7 @@ from repro.models.layers import rope as JR
 from repro_torch import configs as tcfgs
 from repro_torch import convert
 from repro_torch.configs.base import ModelConfig as TModelConfig
+from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import embeddings as E
@@ -40,9 +44,11 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 
 def _port_cfg(cfg):
     """The port's ModelConfig with the reference config's fields."""
+    moe = cfg.moe and TMoEConfig(**dataclasses.asdict(cfg.moe))
     return TModelConfig(**{f.name: getattr(cfg, f.name)
                            for f in dataclasses.fields(cfg)
-                           if f.name not in ("moe", "mamba", "xlstm")})
+                           if f.name not in ("moe", "mamba", "xlstm")},
+                        moe=moe)
 
 
 def _f32(cfg):
@@ -66,11 +72,24 @@ def _cache_from_reference(tree, cfg):
             for l in range(cfg.num_layers)}
 
 
+def _reduced(arch):
+    return lambda: _f32(jcfgs.get_config(arch).reduced())
+
+
 CONFIGS = {
     "tiny": tiny_cfg,
     "ring": lambda: tiny_cfg(window_pattern=(4,)),
-    "qwen-reduced": lambda: _f32(jcfgs.get_config("qwen1.5-0.5b").reduced()),
+    "qwen-reduced": _reduced("qwen1.5-0.5b"),
+    "qwen3-moe-reduced": _reduced("qwen3-moe-30b-a3b"),
+    "dbrx-reduced": _reduced("dbrx-132b"),
+    "gemma3-reduced": _reduced("gemma3-12b"),
+    "granite-reduced": _reduced("granite-3-8b"),
+    "danube-reduced": _reduced("h2o-danube-3-4b"),
 }
+MOE = ("qwen3-moe-reduced", "dbrx-reduced")
+# (prompt, cache length) where the default's 10 and 16 are not enough: a
+# prompt past the reduced window of 64, so the ring cache wraps
+PROMPTS = {"gemma3-reduced": (70, 80), "danube-reduced": (70, 80)}
 
 
 # --------------------------------------------------------------------------
@@ -216,16 +235,23 @@ def _setup(name, B=2, P=10, seed=0):
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_forward_prefill_decode_match_reference(name):
-    cfg, params, tparams, prompts = _setup(name)
+    P, max_len = PROMPTS.get(name, (10, 16))
+    cfg, params, tparams, prompts = _setup(name, P=P)
     pcfg = _port_cfg(cfg)
-    B, P, max_len = prompts.shape + (16,)
+    B = prompts.shape[0]
     toks, ttoks = jnp.asarray(prompts), _t(prompts)
 
-    want, _ = jax.jit(JT.forward, static_argnums=2,
-                      static_argnames="remat")(params, {"tokens": toks}, cfg,
-                                               remat=False)
+    want, want_aux = jax.jit(JT.forward, static_argnums=2,
+                             static_argnames="remat")(
+        params, {"tokens": toks}, cfg, remat=False)
     got = T.forward(tparams, {"tokens": ttoks}, pcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the split halves: the server's router loss (the client's dropped)
+    acts = T.client_forward(tparams["client"], {"tokens": ttoks}, pcfg)
+    got, aux = T.server_forward(tparams["server"], acts, pcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(aux.numpy(), np.asarray(want_aux), **TOL)
+    assert (float(aux) > 0) == (name in MOE)
 
     jl, jcache = jax.jit(JT.forward_prefill_cached, static_argnums=(2, 3))(
         params, {"tokens": toks}, cfg, max_len)
