@@ -20,8 +20,9 @@ Phases, one or more lines each:
    yardstick only), for K3 also the card's time alone (``device_ms``:
    the calls queued behind a sleep kernel, no host time), and the card's
    bound for the work -- the attention forward (K3) at the serving
-   shapes, the training trunk's and the served MoE model's (hd 128, 32
-   heads on 4 KV heads), then the attention backward (two
+   shapes, the training trunk's, the served MoE model's (hd 128, 32
+   heads on 4 KV heads) and the served jamba's (hd 128, 64 heads on 8 KV
+   heads), then the attention backward (two
    runs bitwise equal), the fused LACE boundary (K1, K2; also at the
    masked round's 16 client prior rows, 12 of them absent) and the
    single-prior LACE kernels of the dual boundary (K4, K5; server side
@@ -67,6 +68,19 @@ Phases, one or more lines each:
    in float32 (the fused prefill through K3 and the dropless MoE against
    the token-by-token loop), after a line with the smallest gap between
    a token's 8th and 9th router logit over the routings checked;
+5f. serve-jamba: phase 4 for full-width jamba-1.5-large-398b cut to its
+   first 5 of 72 layers (mamba 0-3, attention 4 at 64 heads of 128 on 8
+   KV heads, MoE FFNs of 16 experts top-2 at 1 and 3, dense at 0, 2, 4;
+   bf16 params: 24.05 B, 48.16 GB), the cut config's params made from
+   the seed on the card and served by ``ServeEngine`` (a ``ServeSpec``
+   has no depth) -- K3 once per admit; an admit of the longest prompt
+   and a decode step with every slot busy, each split by mixer and FFN
+   (mamba, attention, MoE FFN, dense FFN; host and device ms), and the
+   step profiled;
+5g. check-jamba: phase 5 for jamba at full width and 3 layers in
+   float32 (mamba + dense, mamba + MoE, mamba + dense; 52.8 GB): the
+   prefill's chunked scan against the one-step recurrence, every conv
+   and h leaf;
 6. train: full-width qwen1.5-0.5b through the training CLI's spec and
    Trainer on the card -- 16 clients, 4 sampled per round, 2 local steps
    of 16 x 512 tokens, 3 rounds; finite losses, the kernels' launch
@@ -189,7 +203,8 @@ exits nonzero; without a GPU it exits nonzero before printing a result.
 ``python3 chip_smoke.py attention`` runs phases 1 and 2 and the
 attention kernels of phase 3 (K3 forward and backward), then stops;
 ``python3 chip_smoke.py moe`` runs phases 1 and 2, K3's forward from
-phase 3, then 5d and 5e;
+phase 3, then 5d and 5e; ``python3 chip_smoke.py jamba`` the same, then
+5f and 5g;
 ``python3 chip_smoke.py lace`` the same for the LACE kernels (K1, K2,
 K4, K5); ``python3 chip_smoke.py mlstm`` the same for K6, then
 check-xlstm (5c).
@@ -235,18 +250,29 @@ LOGIT_ATOL = 1e-3   # f32 logits of O(1) after 24 layers, sums in another order
 # (B, P, H, KV, window, dtype, head dim): the prefill shapes of the served
 # model, then the training trunk's (16 sequences of 512 tokens), then the
 # served qwen3-moe-30b-a3b's longest prompt (32 heads of 128 on 4 KV heads)
+# and the served jamba-1.5-large-398b's (64 heads of 128 on 8 KV heads)
 KERNEL_CASES = [(1, P, 16, 16, None, dt, 64)
                 for dt in (torch.bfloat16, torch.float32)
                 for P in (128, 777, 2048)]
 KERNEL_CASES += [(1, 777, 16, 2, None, torch.bfloat16, 64),      # GQA
                  (1, 1024, 16, 16, 256, torch.bfloat16, 64),     # window
                  (16, 512, 16, 16, None, torch.bfloat16, 64),    # training
-                 (1, 777, 32, 4, None, torch.bfloat16, 128)]     # MoE serving
+                 (1, 777, 32, 4, None, torch.bfloat16, 128),     # MoE serving
+                 (1, 777, 64, 8, None, torch.bfloat16, 128)]     # jamba
 REPORT_CASE = (1, 777, 16, 16, None, torch.bfloat16, 64)     # the JSON line's
-TRAIN_CASE = KERNEL_CASES[-2]                                # and beside it
-MOE_CASE = KERNEL_CASES[-1]                                  # and beside it
+TRAIN_CASE = KERNEL_CASES[-3]                                # and beside it
+MOE_CASE = KERNEL_CASES[-2]                                  # and beside it
+JAMBA_CASE = KERNEL_CASES[-1]                                # and beside it
 XLSTM = "xlstm-1.3b"
 MOE = "qwen3-moe-30b-a3b"
+JAMBA = "jamba-1.5-large-398b"
+# jamba's depths on one card: 5 of 72 layers in bf16 (layers 0-3 mamba,
+# 4 attention; 1 and 3 MoE FFNs of 16 experts, 19.3 GB each: 24.05 B
+# parameters, 48.16 GB), the least depth that holds its attention layer;
+# and 3 in float32 for check-jamba (mamba + dense, + MoE, + dense: 52.8
+# GB; 5 would be 96 GB)
+JAMBA_SERVE_LAYERS = 5
+JAMBA_CHECK_LAYERS = 3
 # check-moe's depth in float32 at full width: 2.49 GB a layer (the
 # experts' 604 M parameters), 8 layers and the 2.5 GB embedding and head
 # come to ~22 GB
@@ -652,14 +678,10 @@ def phase_kernels():
     return rows, max_err
 
 
-def serve_run(spec, reqs, warm_len: int):
-    """Build ``spec``, warm up, serve ``reqs`` with every launch count set
-    to 0 just before. Returns (engine, results, seconds, the launches of
-    the run, peak bytes, cache bytes)."""
-    from repro_torch.api import build_serve
-
-    program = build_serve(spec)
-    engine = program.engine
+def serve_run(engine, reqs, warm_len: int):
+    """Warm ``engine`` up, serve ``reqs`` with every launch count set to 0
+    just before. Returns (results, seconds, the launches of the run, peak
+    bytes, cache bytes)."""
     engine.warmup([warm_len])
     dev = engine.device
     if dev.type == "cuda":
@@ -673,7 +695,7 @@ def serve_run(spec, reqs, warm_len: int):
     dt = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    return engine, results, dt, launches, peak, engine.state_bytes()
+    return results, dt, launches, peak, engine.state_bytes()
 
 
 def device_events(prof):
@@ -748,18 +770,51 @@ def serve_launches(cfg, n_admits):
                 mlstm=n_admits * n["mlstm"], mlstm_bwd=0)
 
 
+def free_device_memory():
+    """Return every cached block to the card: the next model's weights
+    (a 12.9 GB float32 expert stack at a time) need room the last one's
+    smaller blocks would split."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def phase_serve(device="cuda", reduced=False, arch=ARCH, phase="serve",
                 n_req=SERVE_REQS, lens=SERVE_LENS, gen=32, slots=8,
-                max_len=1024, page_size=16):
+                max_len=1024, page_size=16, layers=None):
     """Serve the request mix through ``ServeSpec`` -> ``build_serve`` ->
     ``ServeEngine.serve``, dense and then paged; returns the launch
-    counts of the two runs together."""
-    from repro_torch.api import ServeSpec
-    from repro_torch.serve import Request
+    counts of the two runs together. ``layers`` cuts the depth: a
+    ``ServeSpec`` has no depth, so the cut config's params are made once
+    from the seed on the device and each engine built on them
+    (``ServeEngine(params, cfg, ...)``, the engine ``build_serve``
+    returns)."""
+    from repro_torch.api import ServeSpec, build_serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree import leaves
 
+    free_device_memory()
     spec = ServeSpec(arch=arch, reduced=reduced, slots=slots, max_len=max_len,
                      seed=0, device=device)
     cfg = spec.model_config()
+    if layers is None:
+        def make_engine(s):
+            return build_serve(s).engine
+    else:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        param_gen = torch.Generator(device)
+        param_gen.manual_seed(spec.seed)
+        params = T.init_params(param_gen, cfg)
+        say(phase, f"{cfg.name} cut to {layers} of "
+            f"{spec.model_config().num_layers} layers: "
+            f"{sum(t.numel() for t in leaves(params)) / 1e9:.2f} B params, "
+            f"{sum(t.nbytes for t in leaves(params)) / 1e9:.2f} GB")
+
+        def make_engine(s):
+            return ServeEngine(params, cfg, slots=s.slots, max_len=s.max_len,
+                               pages=s.pages, page_size=s.page_size,
+                               seed=s.seed, device=s.device)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(P)), gen)
             for i, P in enumerate(rng.choice(lens, n_req))]
@@ -769,7 +824,8 @@ def phase_serve(device="cuda", reduced=False, arch=ARCH, phase="serve",
     for paged in (False, True):
         s = dataclasses.replace(spec, pages=pages if paged else 0,
                                 page_size=page_size)
-        engine, results, dt, n, peak, cache = serve_run(s, reqs, min(lens))
+        engine = make_engine(s)
+        results, dt, n, peak, cache = serve_run(engine, reqs, min(lens))
         check(set(results) == {r.rid for r in reqs}, "every request served")
         for r in reqs:
             res = results[r.rid]
@@ -799,6 +855,8 @@ def phase_serve(device="cuda", reduced=False, arch=ARCH, phase="serve",
         if not paged and engine.device.type == "cuda":
             if want["mlstm"]:
                 xlstm_split(engine, phase, max(lens), gen)
+            elif cfg.mamba is not None:
+                jamba_split(engine, phase, max(lens), gen)
             elif cfg.moe is not None:
                 moe_split(engine, phase, max(lens), gen)
             else:
@@ -934,79 +992,126 @@ def busy_ms(fn, reps=5):
     return 1e3 * sum(t for t, _ in device_events(prof).values()) / reps
 
 
+def timed_ms(fn):
+    """Host milliseconds of ``fn()``, synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def component_split(phase, what, run, parts):
+    """Where ``run()`` (host ms) spends its time: it runs as it is, then
+    again with every call of each (label, module, function name, calls
+    expected) in ``parts`` synchronized before and after and timed, the
+    rest the difference; each part's device time from its first call
+    replayed on its inputs under a device-only profile. Returns each
+    part's first (args, kwargs)."""
+    wall = run()
+    with contextlib.ExitStack() as stack:
+        spent = [stack.enter_context(synced_calls(module, name))
+                 for _, module, name, _ in parts]
+        synced = run()
+    rest, text = synced, []
+    for (label, module, name, layers), sp in zip(parts, spent):
+        check(sp["calls"] == layers, f"{layers} {name} calls")
+        ms = 1e3 * sp["seconds"]
+        rest -= ms
+        args, kw = sp["first"]
+        fn = getattr(module, name)
+        dev = busy_ms(lambda: fn(*args, **kw))
+        text.append(f"{layers} x {label} {ms:.2f} ms ({100 * ms / synced:.1f}%; "
+                    f"a layer {ms / layers:.3f} ms host, {dev:.3f} ms device)")
+    say(phase, f"{what}: {wall:.2f} ms host; with each part's calls "
+        f"synchronized {synced:.2f} ms: " + "; ".join(text)
+        + f"; the rest {rest:.2f} ms")
+    return [sp["first"] for sp in spent]
+
+
+def busy_admits(engine, P, gen):
+    """``engine.slots`` requests of ``P`` random tokens and ``gen`` new
+    ones each, for an engine whose slots are all free."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(7)
+    return iter([Request(-100 - i, rng.integers(0, engine.cfg.vocab_size, P),
+                         gen) for i in range(engine.slots)])
+
+
+def fill_slots(engine, admits):
+    """Admit the rest of ``admits`` (every slot busy), then one step."""
+    for r in admits:
+        check(engine.admit(r), "a free slot for the decode split")
+    check(engine.n_active == engine.slots, "every slot busy")
+    engine.step()
+
+
 def moe_split(engine, phase, P, gen):
     """Where an MoE admit and decode step spend their time: one admit of
     a ``P``-token prompt into the idle engine and one decode step with
-    every slot busy, each timed on the host as it runs, then again with
-    every MoE FFN (routing, dispatch, the expert products, combine) and
-    attention call synchronized before and after and timed, the rest
-    (embedding, norms, head, cache copy) the difference; each component's
-    device time from one layer's call replayed on its inputs under a
-    device-only profile. A profile of the decode step follows."""
+    every slot busy, each split by :func:`component_split` into the MoE
+    FFN (routing, dispatch, the expert products, combine), attention and
+    the rest (embedding, norms, head, cache copy). A profile of the
+    decode step follows."""
     from repro_torch.models.layers import attention, moe
-    from repro_torch.serve import Request
 
     cfg = engine.cfg
     n_moe = sum(s.ffn == "moe" for s in cfg.block_specs)
     n_attn = sum(s.mixer == "attn" for s in cfg.block_specs)
-    rng = np.random.default_rng(7)
-    reqs = [Request(-100 - i, rng.integers(0, cfg.vocab_size, P), gen)
-            for i in range(engine.slots)]
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0)
-
-    def split(what, run, attn_name, moe_label, attn_label):
-        wall = run()
-        with synced_calls(moe, "moe_apply") as m, \
-                synced_calls(attention, attn_name) as a:
-            synced = run()
-        rest = synced
-        text = []
-        for label, layers, spent, module, name in (
-                (moe_label, n_moe, m, moe, "moe_apply"),
-                (attn_label, n_attn, a, attention, attn_name)):
-            check(spent["calls"] == layers, f"{layers} {name} calls")
-            ms = 1e3 * spent["seconds"]
-            rest -= ms
-            args, kw = spent["first"]
-            fn = getattr(module, name)
-            dev = busy_ms(lambda: fn(*args, **kw))
-            text.append(f"{layers} x {label} {ms:.2f} ms ({100 * ms / synced:.1f}%; "
-                        f"a layer {ms / layers:.3f} ms host, {dev:.3f} ms "
-                        "device)")
-        say(phase, f"{what}: {wall:.2f} ms host; with each MoE FFN and "
-            f"attention call synchronized {synced:.2f} ms: "
-            + "; ".join(text) + f"; the rest {rest:.2f} ms")
-        return m["first"]
-
-    admits = iter(reqs)
-    (params, x, moe_cfg), _ = split(
-        f"admit of a {P}-token prompt",
-        lambda: timed(lambda: check(engine.admit(next(admits)),
-                                    "a free slot for the split admit")),
-        "attn_apply", f"MoE FFN (dropless, {P * cfg.moe.top_k} pairs)",
-        "attention (K3)")
+    admits = busy_admits(engine, P, gen)
+    (params, x, moe_cfg), _ = component_split(
+        phase, f"admit of a {P}-token prompt",
+        lambda: timed_ms(lambda: check(engine.admit(next(admits)),
+                                       "a free slot for the split admit")),
+        [(f"MoE FFN (dropless, {P * cfg.moe.top_k} pairs)", moe,
+          "moe_apply", n_moe),
+         ("attention (K3)", attention, "attn_apply", n_attn)])[0]
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     _, _, top_i = moe.route(params, x, moe_cfg.moe)
     busiest = int(torch.bincount(top_i.flatten(), minlength=E).max())
     say(phase, f"layer 0's prefill slab: {E} experts x {busiest} rows (its "
         f"busiest expert's pairs) for {P * K} pairs, {E * busiest / (P * K):.2f}"
         f"x the rows an even routing ({P * K / E:.1f} an expert) would take")
-    for r in admits:
-        check(engine.admit(r), "a free slot for the decode split")
-    check(engine.n_active == engine.slots, "every slot busy")
-    engine.step()
+    fill_slots(engine, admits)
     # a replayed attn_decode writes its k, v rows again at the same index:
     # the engine's cache holds the same values after it
-    split(f"decode step with {engine.slots} busy slots",
-          lambda: timed(engine.step), "attn_decode",
-          f"MoE FFN ({engine.slots} x {cfg.moe.top_k} pairs)",
-          "attention decode")
+    component_split(
+        phase, f"decode step with {engine.slots} busy slots",
+        lambda: timed_ms(engine.step),
+        [(f"MoE FFN ({engine.slots} x {cfg.moe.top_k} pairs)", moe,
+          "moe_apply", n_moe),
+         ("attention decode", attention, "attn_decode", n_attn)])
+    profile(f"decode step, {engine.slots} slots", engine.step, 8)
+
+
+def jamba_split(engine, phase, P, gen):
+    """:func:`moe_split` for a hybrid of mamba, attention, MoE and dense
+    FFNs: an admit of a ``P``-token prompt and a decode step with every
+    slot busy, each split by mixer and FFN (host and device), then the
+    decode step profiled (the device's busy share)."""
+    from repro_torch.models.layers import attention, mamba, mlp, moe
+
+    cfg = engine.cfg
+    n = {key: sum(getattr(s, attr) == key for s in cfg.block_specs)
+         for attr, key in (("mixer", "mamba"), ("mixer", "attn"),
+                           ("ffn", "moe"), ("ffn", "dense"))}
+    ffns = [(f"MoE FFN ({cfg.moe.num_experts} experts, top-{cfg.moe.top_k})",
+             moe, "moe_apply", n["moe"]),
+            ("dense FFN", mlp, "mlp_apply", n["dense"])]
+    admits = busy_admits(engine, P, gen)
+    component_split(
+        phase, f"admit of a {P}-token prompt",
+        lambda: timed_ms(lambda: check(engine.admit(next(admits)),
+                                       "a free slot for the split admit")),
+        [("mamba (chunked scan)", mamba, "mamba_prefill", n["mamba"]),
+         ("attention (K3)", attention, "attn_apply", n["attn"])] + ffns)
+    fill_slots(engine, admits)
+    component_split(
+        phase, f"decode step with {engine.slots} busy slots",
+        lambda: timed_ms(engine.step),
+        [("mamba decode", mamba, "mamba_decode", n["mamba"]),
+         ("attention decode", attention, "attn_decode", n["attn"])] + ffns)
     profile(f"decode step, {engine.slots} slots", engine.step, 8)
 
 
@@ -1043,7 +1148,9 @@ def phase_check(device="cuda", reduced=False, arch=ARCH, phase="check",
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as T
     from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree import leaves
 
+    free_device_memory()
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
                               dtype="float32", param_dtype="float32",
@@ -1051,6 +1158,8 @@ def phase_check(device="cuda", reduced=False, arch=ARCH, phase="check",
     gen = torch.Generator(device)
     gen.manual_seed(1)
     params = T.init_params(gen, cfg)
+    say(phase, f"{cfg.name} float32, {cfg.num_layers} layers: "
+        f"{sum(t.nbytes for t in leaves(params)) / 1e9:.2f} GB of params")
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, prompt_len)),
                              device=device)
@@ -3990,6 +4099,12 @@ def main() -> int:
         run_phase("check-moe", phase_check, arch=MOE, phase="check-moe",
                   layers=MOE_CHECK_LAYERS)
         return 0
+    if sys.argv[1:] == ["jamba"]:
+        run_phase("serve-jamba", phase_serve, arch=JAMBA, phase="serve-jamba",
+                  layers=JAMBA_SERVE_LAYERS)
+        run_phase("check-jamba", phase_check, arch=JAMBA,
+                  phase="check-jamba", layers=JAMBA_CHECK_LAYERS)
+        return 0
     if sys.argv[1:] != ["lace"]:
         bwd_rows, bwd_err = run_phase("kernels K3 bwd", phase_flash_bwd)
     if sys.argv[1:] == ["attention"]:
@@ -4009,6 +4124,10 @@ def main() -> int:
     serve_m = run_phase("serve-moe", phase_serve, arch=MOE, phase="serve-moe")
     run_phase("check-moe", phase_check, arch=MOE, phase="check-moe",
               layers=MOE_CHECK_LAYERS)
+    serve_j = run_phase("serve-jamba", phase_serve, arch=JAMBA,
+                        phase="serve-jamba", layers=JAMBA_SERVE_LAYERS)
+    run_phase("check-jamba", phase_check, arch=JAMBA, phase="check-jamba",
+              layers=JAMBA_CHECK_LAYERS)
     train = run_phase("train", phase_train)
     run_phase("train-check", phase_train_check)
     dual = run_phase("train-dual", phase_train, flags=TRAIN_DUAL_FLAGS,
@@ -4029,19 +4148,23 @@ def main() -> int:
     fed = {k: fed[k] + events[k] + faults[k] + dispatch[k] for k in fed}
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
-    # forward launches: both serve paths' plus both training paths'; its
+    # forward launches: the serve paths' plus both training paths'; its
     # times at the serving prompt, and at the training trunk's shape and
-    # the served MoE model's (hd 128, 32 heads on 4 KV heads) beside
+    # the served MoE model's (hd 128, 32 heads on 4 KV heads) and jamba's
+    # (hd 128, 64 heads on 8 KV heads) beside
     fwd_row = kernel_row("flash_attn_fwd", csrc + "flash_attn.cu",
                          "src/repro/kernels/flash_attn/kernel.py:23",
                          serve["flash_fwd"] + serve_m["flash_fwd"]
-                         + train["flash_fwd"] + dual["flash_fwd"]
-                         + fed["flash_fwd"], max_err, rows[REPORT_CASE])
-    for suffix, case in (("train", TRAIN_CASE), ("moe", MOE_CASE)):
+                         + serve_j["flash_fwd"] + train["flash_fwd"]
+                         + dual["flash_fwd"] + fed["flash_fwd"], max_err,
+                         rows[REPORT_CASE])
+    for suffix, case in (("train", TRAIN_CASE), ("moe", MOE_CASE),
+                         ("jamba", JAMBA_CASE)):
         fwd_row.update({f"{key}_{suffix}": rows[case][key] for key in
                         ("ms", "plain_ms", "bound_ms", "library_ms",
                          "device_ms", "library_device_ms")})
     fwd_row["launches_moe"] = serve_m["flash_fwd"]
+    fwd_row["launches_jamba"] = serve_j["flash_fwd"]
     lace_row = {
         kname: kernel_row(kname, csrc + src, lace_src + line, launches, err,
                           rows_[(case, kind)])

@@ -1,10 +1,10 @@
 """Residual block assembly: one BlockSpec -> params / apply / cache.
 
 A block is pre-norm -> mixer (+residual) [-> pre-norm -> FFN
-(+residual)]. The mixer is attention, mLSTM or sLSTM, the FFN dense or
-MoE; xLSTM blocks carry their FFN inside the mixer (``ffn == 'none'``).
-The other mixers of :mod:`repro.models.blocks` (mamba, cross-attention)
-raise ``NotImplementedError``.
+(+residual)]. The mixer is attention, mamba, mLSTM or sLSTM, the FFN
+dense or MoE; xLSTM blocks carry their FFN inside the mixer (``ffn ==
+'none'``). A cross-attention sublayer (:mod:`repro.models.blocks`'
+``cross_attn``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -13,9 +13,10 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
-from repro_torch.models.layers import attention, mlp, moe, norms, xlstm
+from repro_torch.models.layers import (attention, mamba, mlp, moe, norms,
+                                       xlstm)
 
-MIXERS = ("attn", "mlstm", "slstm")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("dense", "moe", "none")
 
 
@@ -24,8 +25,7 @@ def check_spec(spec: BlockSpec) -> None:
         raise NotImplementedError(
             f"block mixer={spec.mixer!r} ffn={spec.ffn!r} "
             f"cross_attn={spec.cross_attn}: the port has mixers {MIXERS} "
-            f"and FFNs {FFNS}; mamba comes with the jamba slice, "
-            "cross-attention with the whisper slice")
+            f"and FFNs {FFNS}; cross-attention comes with the whisper slice")
 
 
 def cache_length(spec: BlockSpec, max_len: int) -> int:
@@ -35,6 +35,7 @@ def cache_length(spec: BlockSpec, max_len: int) -> int:
 
 _MIXER_INIT = {
     "attn": attention.attn_init,
+    "mamba": mamba.mamba_init,
     "mlstm": xlstm.mlstm_init,
     "slstm": xlstm.slstm_init,
 }
@@ -82,6 +83,8 @@ def block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, *, positions):
     if spec.mixer == "attn":
         h = attention.attn_apply(params["mixer"], h, cfg,
                                  positions=positions, window=spec.window)
+    elif spec.mixer == "mamba":
+        h = mamba.mamba_apply(params["mixer"], h, cfg)
     elif spec.mixer == "mlstm":
         h = xlstm.mlstm_apply(params["mixer"], h, cfg)
     else:
@@ -107,6 +110,8 @@ def block_prefill(params, x, spec: BlockSpec, cfg: ModelConfig, *,
         cache = attention.prefill_cache(k, v, positions,
                                         cache_length(spec, max_len),
                                         cache_dtype)
+    elif spec.mixer == "mamba":
+        h, cache = mamba.mamba_prefill(params["mixer"], h, cfg, cache_dtype)
     elif spec.mixer == "mlstm":
         h, cache = xlstm.mlstm_prefill(params["mixer"], h, cfg, cache_dtype)
     else:
@@ -119,6 +124,8 @@ def block_prefill(params, x, spec: BlockSpec, cfg: ModelConfig, *,
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int,
                      max_len: int, dtype, device=None):
     check_spec(spec)
+    if spec.mixer == "mamba":
+        return mamba.init_cache(cfg, batch, dtype, device)
     if spec.mixer == "mlstm":
         return xlstm.mlstm_init_cache(cfg, batch, dtype, device)
     if spec.mixer == "slstm":
@@ -134,7 +141,9 @@ def block_decode(params, x, cache, index, spec: BlockSpec, cfg: ModelConfig):
     token a row drops nothing). Returns (y, cache)."""
     check_spec(spec)
     h = norms.rms_norm_apply(params["norm1"], x, cfg.norm_eps)
-    if spec.mixer == "mlstm":
+    if spec.mixer == "mamba":
+        h, cache = mamba.mamba_decode(params["mixer"], h, cache, cfg)
+    elif spec.mixer == "mlstm":
         h, cache = xlstm.mlstm_decode(params["mixer"], h, cache, cfg)
     elif spec.mixer == "slstm":
         h, cache = xlstm.slstm_decode(params["mixer"], h, cache, cfg)

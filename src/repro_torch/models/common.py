@@ -39,7 +39,9 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: int,
     """Truncated-normal fan-in initializer (LeCun-style)."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * (1.0 / math.sqrt(max(1, in_axis_size)))).to(dtype)
+    # scaled in place: a (16, 8192, 24576) expert stack holds one float32
+    # copy at a time, not two
+    return t.mul_(1.0 / math.sqrt(max(1, in_axis_size))).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype: torch.dtype) -> torch.Tensor:

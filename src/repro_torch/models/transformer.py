@@ -13,8 +13,8 @@ rematerialized as one checkpoint for the recurrent archs,
 :func:`server_forward`), and :mod:`repro_torch.convert` unstacks
 reference params into this layout.
 Decode caches are ``{'blk{l}': ...}`` over every layer: ``{'k', 'v'}``
-for attention, the recurrent state for mLSTM (``conv``, ``C``, ``n``,
-``m``) and sLSTM (``c``, ``n``, ``m``, ``h``).
+for attention, the recurrent state for mamba (``conv``, ``h``), mLSTM
+(``conv``, ``C``, ``n``, ``m``) and sLSTM (``c``, ``n``, ``m``, ``h``).
 """
 from __future__ import annotations
 

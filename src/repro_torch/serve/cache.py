@@ -21,10 +21,11 @@ out-of-range indices; those rows always get exactly zero attention
 weight. Windowed layers keep their ring: a leaf of ring length
 ``L < max_len`` only touches positions ``pos % L``.
 
-Recurrent-mixer state (xLSTM's ``conv``, ``C``, ``n``, ``m`` and sLSTM's
-``c``, ``n``, ``m``, ``h``) is O(1) per slot and stays dense in both
-modes: admission copies a slot's rows, and each step takes the decode's
-new state wholesale. A model without attention needs no page.
+Recurrent-mixer state (mamba's ``conv``, ``h``, mLSTM's ``conv``, ``C``,
+``n``, ``m`` and sLSTM's ``c``, ``n``, ``m``, ``h``) is O(1) per slot and
+stays dense in both modes: admission copies a slot's rows, and each step
+takes the decode's new state wholesale. A model without attention needs
+no page; a hybrid one takes pages for its attention layers only.
 """
 from __future__ import annotations
 

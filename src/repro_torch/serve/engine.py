@@ -21,9 +21,11 @@ sequences finish -- no generation barrier -- unless
 
 The engine serves a copy of the params cast once to the compute dtype,
 but for the leaves the reference uses in float32 (norm scales, the
-xLSTM gate weights and biases and the MoE router,
-:data:`FLOAT32_LEAVES`). The reference casts each other weight to the
-compute dtype at every use; casting once yields the same values. A leaf
+xLSTM gate weights and biases, the MoE router and mamba's dt
+projection, dt bias, ``A_log`` and ``D``: :data:`FLOAT32_LEAVES`). The
+reference casts each other weight to the compute dtype at every use
+(mamba's ``conv_w``, ``conv_b``, ``x_proj`` among them); casting once
+yields the same values. A leaf
 already in its serving dtype on the device is served as it is, not
 copied: a model as large as the card holds one copy of its weights.
 """
@@ -91,10 +93,12 @@ class _Slot:
 
 
 # leaves the reference applies in float32 whatever the compute dtype: norm
-# scales, the mLSTM / sLSTM gate projections and biases, and the MoE router
+# scales, the mLSTM / sLSTM gate projections and biases, the MoE router
 # (routing in float32: a bf16 router would move its logits and flip top-k
-# choices)
-FLOAT32_LEAVES = ("scale", "w_gates", "b_gates", "r_gates", "router")
+# choices) and mamba's dt_proj, dt_bias, A_log and D (dt and A = -exp(A_log)
+# in bf16 would round the decay of every state entry)
+FLOAT32_LEAVES = ("scale", "w_gates", "b_gates", "r_gates", "router",
+                  "dt_proj", "dt_bias", "A_log", "D")
 
 
 def serving_params(params, cfg, device):

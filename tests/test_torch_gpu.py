@@ -62,6 +62,8 @@ def _qkv(seed, B, S, H, KV, hd, dtype):
     # the served qwen3-moe-30b-a3b's longest prompt: hd 128, 32 heads on 4
     # KV heads
     (1, 777, 32, 4, 128, None, torch.bfloat16),
+    # the served jamba-1.5-large-398b's: hd 128, 64 heads on 8 KV heads
+    (1, 777, 64, 8, 128, None, torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain(B, S, H, KV, hd, window, dtype):
     _needs_card()
@@ -888,6 +890,40 @@ def test_moe_prefill_on_card_matches_loop():
         for key, b in leaves.items():
             errs[f"{layer}/{key}"] = _rel(cache[layer][key], b)
     assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.gpu
+def test_jamba_engine_on_card_matches_cpu():
+    """Reduced jamba-1.5-large-398b in float32 (mamba, attention, MoE):
+    the engine on the card (K3 once per attention layer and admit) and
+    on the CPU (the plain attention) serve the same greedy tokens, each
+    step's logits within 1e-4 of their largest entry."""
+    _needs_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    params = transformer.init_params(torch.Generator().manual_seed(5), cfg)
+    rng = np.random.default_rng(5)
+    reqs = [(i, rng.integers(0, cfg.vocab_size, P), n)
+            for i, (P, n) in enumerate([(77, 6), (9, 4), (64, 5), (130, 3)])]
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = ServeEngine(params, cfg, slots=2, max_len=160,
+                          record_logits=True, device=device)
+        before = ops.LAUNCHES
+        out[device] = eng.serve([Request(i, t, n) for i, t, n in reqs],
+                                wall_clock=False)
+        if device == "cuda":
+            n_attn = sum(s.mixer == "attn" for s in cfg.block_specs)
+            assert ops.LAUNCHES == before + len(reqs) * n_attn
+    for i, _, n in reqs:
+        got, want = out["cuda"][i], out["cpu"][i]
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+        for a, b in zip(got.logits, want.logits):
+            err = np.abs(a - b).max() / np.abs(b).max()
+            assert err <= 1e-4, (i, err)
 
 
 def _baseline_spec(method, rounds=1, width=0.25, local_iters=5):

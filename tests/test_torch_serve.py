@@ -17,7 +17,12 @@
 * MoE (reduced qwen3-moe-30b-a3b): the engine against the JAX engine and
   the port's token-by-token loop, paged == dense, the router kept in
   float32 in a bf16 serving copy, the expert leaves converted bit for
-  bit, the CLI; jamba still refused, naming mamba.
+  bit, the CLI;
+* jamba (reduced jamba-1.5-large-398b: mamba, attention and MoE): the
+  engine against the JAX engine, ``ServeSpec`` accepting it, paged ==
+  dense with pages taken for the attention layers only, mamba's dt
+  projection, dt bias, ``A_log`` and ``D`` kept in float32 in a bf16
+  serving copy, the CLI.
 """
 import dataclasses
 import sys
@@ -37,6 +42,7 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch import convert
 from repro_torch.api import ServeSpec, build_serve, restore_global_params
 from repro_torch.configs import get_config as tget_config
+from repro_torch.configs.base import MambaConfig as TMambaConfig
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.configs.base import XLSTMConfig as TXLSTMConfig
@@ -51,10 +57,11 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 def _port_cfg(cfg):
     xlstm = cfg.xlstm and TXLSTMConfig(**dataclasses.asdict(cfg.xlstm))
     moe = cfg.moe and TMoEConfig(**dataclasses.asdict(cfg.moe))
+    mamba = cfg.mamba and TMambaConfig(**dataclasses.asdict(cfg.mamba))
     return TModelConfig(**{f.name: getattr(cfg, f.name)
                            for f in dataclasses.fields(cfg)
                            if f.name not in ("moe", "mamba", "xlstm")},
-                        xlstm=xlstm, moe=moe)
+                        xlstm=xlstm, moe=moe, mamba=mamba)
 
 
 def _f32(cfg):
@@ -72,6 +79,8 @@ CONFIGS = {
     "xlstm-reduced": lambda: _f32(get_config("xlstm-1.3b").reduced()),
     "qwen3-moe-reduced": lambda: _f32(
         get_config("qwen3-moe-30b-a3b").reduced()),
+    "jamba-reduced": lambda: _f32(
+        get_config("jamba-1.5-large-398b").reduced()),
 }
 XLSTM = ["xlstm-tiny", "xlstm-reduced"]
 # 16 random xLSTM layers amplify float32 rounding: the reference's own
@@ -484,10 +493,13 @@ def test_build_serve_from_checkpoint(tmp_path):
     assert set(done) == {0} and done[0].tokens.shape == (10,)
 
 
-def test_cli_runs_on_cpu(monkeypatch, capsys):
+def _cli_rows_agree(monkeypatch, capsys, arch_flags):
+    """The serving CLI on the CPU, dense, paged and ``--reference``: each
+    prints tok/s and the same sample row."""
     from repro_torch.launch import serve
-    base = ["serve", "--reduced", "--device", "cpu", "--batch", "3",
-            "--prompt-len", "6", "--gen", "3", "--slots", "2"]
+    base = ["serve"] + arch_flags + [
+        "--reduced", "--device", "cpu", "--batch", "3", "--prompt-len", "6",
+        "--gen", "3", "--slots", "2"]
     rows = []
     for extra in ([], ["--pages", "8", "--page-size", "4"], ["--reference"]):
         monkeypatch.setattr(sys, "argv", base + extra)
@@ -498,11 +510,16 @@ def test_cli_runs_on_cpu(monkeypatch, capsys):
     assert rows[0] == rows[1] == rows[2]
 
 
+def test_cli_runs_on_cpu(monkeypatch, capsys):
+    _cli_rows_agree(monkeypatch, capsys, [])
+
+
 # --------------------------------------------------------------------------
 # MoE
 # --------------------------------------------------------------------------
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
+JAMBA = "jamba-1.5-large-398b"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -583,24 +600,82 @@ def test_moe_leaves_convert_bitwise(tmp_path):
 
 
 def test_servespec_serves_moe_and_refuses_jamba():
-    for arch in (MOE_ARCH, "dbrx-132b"):
+    """Every MoE arch is accepted, jamba (mamba + attention + MoE) too,
+    at full and reduced size; a cross-attention arch is still refused."""
+    for arch in (MOE_ARCH, "dbrx-132b", JAMBA):
         for reduced in (False, True):
-            ServeSpec(arch=arch, reduced=reduced)
-    for reduced in (False, True):
-        with pytest.raises(NotImplementedError, match="mamba"):
-            ServeSpec(arch="jamba-1.5-large-398b", reduced=reduced)
+            spec = ServeSpec(arch=arch, reduced=reduced)
+            assert spec.model_config().moe is not None
+    assert ServeSpec(arch=JAMBA).model_config().mamba.d_state == 16
+    from repro_torch.models.blocks import check_spec
+    whisper = tget_config("whisper-tiny")
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        check_spec(whisper.block_spec(0))
 
 
 def test_cli_serves_moe_on_cpu(monkeypatch, capsys):
-    from repro_torch.launch import serve
-    base = ["serve", "--arch", MOE_ARCH, "--reduced", "--device", "cpu",
-            "--batch", "3", "--prompt-len", "6", "--gen", "3", "--slots",
-            "2"]
-    rows = []
-    for extra in ([], ["--pages", "8", "--page-size", "4"], ["--reference"]):
-        monkeypatch.setattr(sys, "argv", base + extra)
-        serve.main()
-        out = capsys.readouterr().out
-        assert "tok/s" in out
-        rows.append(out.split("sample row:")[1].strip())
-    assert rows[0] == rows[1] == rows[2]
+    _cli_rows_agree(monkeypatch, capsys, ["--arch", MOE_ARCH])
+
+
+# --------------------------------------------------------------------------
+# jamba: mamba + attention + MoE
+# --------------------------------------------------------------------------
+
+
+def test_jamba_paged_equals_dense_pages_for_attention_only():
+    """Reduced jamba (14 mamba layers, 2 attention): the paged pool holds
+    k, v for the attention layers alone, mamba's conv and h stay dense
+    slot rows; paged == dense bitwise under the mixed continuous schedule,
+    and both equal the token-by-token loop."""
+    cfg = CONFIGS["jamba-reduced"]()
+    _, params = _setup(cfg)
+    reqs = _mixed_requests(cfg.vocab_size)
+    dense = _engine(params, cfg, slots=2, max_len=18, record_logits=True)
+    paged = _engine(params, cfg, slots=2, max_len=18, pages=2 * 5,
+                    page_size=4, record_logits=True)
+    attn = {f"blk{l}" for l, s in enumerate(cfg.block_specs)
+            if s.mixer == "attn"}
+    assert attn and len(attn) < cfg.num_layers
+    assert {i.layer for i in paged.ops.kv} == attn
+    assert {i.name for i in paged.ops.dense} == {"conv", "h"}
+    for layer, leaves in paged._cache.items():
+        if layer in attn:
+            assert leaves["k"].shape[:2] == (10, 4)
+        else:
+            assert leaves["h"].shape[0] == leaves["conv"].shape[0] == 2
+    assert paged.ops.pages_needed(18) == 5
+    rd = dense.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    rp = paged.serve([Request(i, t, n) for i, t, n in reqs], wall_clock=False)
+    pcfg = _port_cfg(cfg)
+    for i, toks, n in reqs:
+        np.testing.assert_array_equal(rd[i].tokens, rp[i].tokens)
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(rd[i].logits, rp[i].logits))
+        ref = generate(params, pcfg, torch.as_tensor(toks[None]), 18, n)
+        np.testing.assert_array_equal(rd[i].tokens, ref[0].numpy())
+    assert len(paged._free_pages) == 10
+
+
+def test_jamba_serving_params_keep_float32_ssm_leaves():
+    """The reference computes dt and A = -exp(A_log) in float32 whatever
+    the compute dtype: the engine's bf16 copy keeps mamba's dt_proj,
+    dt_bias, A_log and D so, the conv and the projections in bf16; the
+    state h stays float32 in a bf16 cache."""
+    cfg = dataclasses.replace(get_config(JAMBA).reduced(),
+                              dtype="bfloat16")
+    _, params = _setup(cfg)
+    eng = _engine(params, cfg, slots=2, max_len=18)
+    mixer = eng.params["client"]["blocks"]["blk0"]["mixer"]
+    for k in ("dt_proj", "dt_bias", "A_log", "D"):
+        assert mixer[k].dtype == torch.float32, k
+    for k in ("in_proj", "conv_w", "conv_b", "x_proj", "out_proj"):
+        assert mixer[k].dtype == torch.bfloat16, k
+    assert eng._cache["blk0"]["conv"].dtype == torch.bfloat16
+    assert eng._cache["blk0"]["h"].dtype == torch.float32
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 7))
+    out = eng.generate(prompts, 4)
+    assert out.shape == (2, 11) and out.max() < cfg.vocab_size
+
+
+def test_cli_serves_jamba_on_cpu(monkeypatch, capsys):
+    _cli_rows_agree(monkeypatch, capsys, ["--arch", JAMBA])

@@ -7,9 +7,10 @@ layers (norms, rope, embeddings, mlp, attention), the configs, and
 ``forward`` / ``forward_prefill_cached`` (logits and every cache leaf) /
 ``decode_step`` on the tiny, ring-window and reduced-qwen configs, the
 reduced MoE archs (qwen3-moe, dbrx; also ``server_forward``'s router
-loss) and the reduced gemma3, granite and h2o-danube (the windowed ones
-on a prompt past the reduced window of 64), plus prefill == decode
-inside the port.
+loss), the reduced gemma3, granite and h2o-danube (the windowed ones
+on a prompt past the reduced window of 64) and the reduced jamba (mamba
+with attention and MoE: every cache leaf, ``conv`` and ``h`` as well as
+``k`` and ``v``), plus prefill == decode inside the port.
 """
 import dataclasses
 
@@ -29,6 +30,7 @@ from repro.models.layers import norms as JN
 from repro.models.layers import rope as JR
 from repro_torch import configs as tcfgs
 from repro_torch import convert
+from repro_torch.configs.base import MambaConfig as TMambaConfig
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.models import transformer as T
@@ -45,10 +47,11 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 def _port_cfg(cfg):
     """The port's ModelConfig with the reference config's fields."""
     moe = cfg.moe and TMoEConfig(**dataclasses.asdict(cfg.moe))
+    mamba = cfg.mamba and TMambaConfig(**dataclasses.asdict(cfg.mamba))
     return TModelConfig(**{f.name: getattr(cfg, f.name)
                            for f in dataclasses.fields(cfg)
                            if f.name not in ("moe", "mamba", "xlstm")},
-                        moe=moe)
+                        moe=moe, mamba=mamba)
 
 
 def _f32(cfg):
@@ -65,7 +68,7 @@ def _t(a):
 
 def _cache_from_reference(tree, cfg):
     """A reference decode cache {'client', 'prologue', 'groups'} -> the
-    port's {'blk{l}': {'k', 'v'}}."""
+    port's {'blk{l}': {leaf: tensor}}."""
     layers = convert.per_layer(tree["client"], tree["prologue"],
                                tree["groups"], cfg)
     return {f"blk{l}": {n: convert.to_tensor(a) for n, a in layers[l].items()}
@@ -85,8 +88,9 @@ CONFIGS = {
     "gemma3-reduced": _reduced("gemma3-12b"),
     "granite-reduced": _reduced("granite-3-8b"),
     "danube-reduced": _reduced("h2o-danube-3-4b"),
+    "jamba-reduced": _reduced("jamba-1.5-large-398b"),
 }
-MOE = ("qwen3-moe-reduced", "dbrx-reduced")
+MOE = ("qwen3-moe-reduced", "dbrx-reduced", "jamba-reduced")
 # (prompt, cache length) where the default's 10 and 16 are not enough: a
 # prompt past the reduced window of 64, so the ring cache wraps
 PROMPTS = {"gemma3-reduced": (70, 80), "danube-reduced": (70, 80)}
@@ -216,8 +220,16 @@ def test_attn_apply_and_decode(window, qk_norm):
 
 
 def test_unported_mixers_raise():
-    with pytest.raises(NotImplementedError, match="mamba"):
-        T.init_params(torch.Generator(), _port_cfg(tiny_mamba_cfg()))
+    """Cross-attention (whisper's decoder) is refused at the block, past
+    the frontend's own refusal; mamba builds."""
+    whisper = _port_cfg(jcfgs.get_config("whisper-tiny").reduced())
+    with pytest.raises(NotImplementedError, match="frontend"):
+        T.init_params(torch.Generator(), whisper)
+    text_only = dataclasses.replace(whisper, frontend=None, pos_embed="none")
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        T.init_params(torch.Generator(), text_only)
+    params = T.init_params(torch.Generator(), _port_cfg(tiny_mamba_cfg()))
+    assert set(params["client"]["blocks"]["blk0"]["mixer"]) >= {"A_log", "D"}
 
 
 # --------------------------------------------------------------------------
@@ -231,6 +243,17 @@ def _setup(name, B=2, P=10, seed=0):
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, P))
     tparams = convert.params_from_reference(_np(params), _port_cfg(cfg))
     return cfg, params, tparams, prompts
+
+
+def _assert_caches_close(got, want):
+    """Every layer's every cache leaf (attention's k, v; mamba's conv, h)
+    within TOL."""
+    assert got.keys() == want.keys()
+    for layer in want:
+        assert got[layer].keys() == want[layer].keys(), layer
+        for leaf, a in want[layer].items():
+            np.testing.assert_allclose(got[layer][leaf].numpy(), a.numpy(),
+                                       err_msg=f"{layer}/{leaf}", **TOL)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -258,13 +281,7 @@ def test_forward_prefill_decode_match_reference(name):
     tl, tcache = T.forward_prefill_cached(tparams, {"tokens": ttoks}, pcfg,
                                           max_len)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    want_cache = _cache_from_reference(_np(jcache), pcfg)
-    assert tcache.keys() == want_cache.keys()
-    for layer in want_cache:
-        for leaf in ("k", "v"):
-            np.testing.assert_allclose(
-                tcache[layer][leaf].numpy(), want_cache[layer][leaf].numpy(),
-                err_msg=f"{layer}/{leaf}", **TOL)
+    _assert_caches_close(tcache, _cache_from_reference(_np(jcache), pcfg))
 
     # three decode steps from the prefilled caches, shared index
     nxt = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, 3))
@@ -276,18 +293,14 @@ def test_forward_prefill_decode_match_reference(name):
         tl, tcache = T.decode_step(tparams, {"tokens": _t(nxt[:, i:i + 1])},
                                    tcache, P + i, pcfg)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    want_cache = _cache_from_reference(_np(jcache), pcfg)
-    for layer in want_cache:
-        for leaf in ("k", "v"):
-            np.testing.assert_allclose(
-                tcache[layer][leaf].numpy(), want_cache[layer][leaf].numpy(),
-                err_msg=f"{layer}/{leaf}", **TOL)
+    _assert_caches_close(tcache, _cache_from_reference(_np(jcache), pcfg))
 
 
-@pytest.mark.parametrize("name", ["tiny", "ring"])
+@pytest.mark.parametrize("name", ["tiny", "ring", "jamba-reduced"])
 def test_prefill_matches_decode_in_port(name):
-    """The fused prefill (flash path) == the token-by-token decode loop
-    (dense-attend path), logits and every cache leaf."""
+    """The fused prefill (flash path; mamba's chunked scan) == the
+    token-by-token decode loop (dense-attend path; the one-step
+    recurrence), logits and every cache leaf."""
     cfg, _, tparams, prompts = _setup(name, P=9)
     pcfg = _port_cfg(cfg)
     B, P, max_len = prompts.shape + (16,)
@@ -299,11 +312,7 @@ def test_prefill_matches_decode_in_port(name):
         lg, cache = T.decode_step(tparams, {"tokens": ttoks[:, i:i + 1]},
                                   cache, i, pcfg)
     np.testing.assert_allclose(logits_f.numpy(), lg.numpy(), **TOL)
-    for layer in cache:
-        for leaf in ("k", "v"):
-            np.testing.assert_allclose(cache_f[layer][leaf].numpy(),
-                                       cache[layer][leaf].numpy(),
-                                       err_msg=f"{layer}/{leaf}", **TOL)
+    _assert_caches_close(cache_f, cache)
 
 
 def test_per_row_decode_matches_single_rows():
@@ -326,7 +335,6 @@ def test_per_row_decode_matches_single_rows():
         lb, cb = T.decode_step(tparams, {"tokens": tok[b:b + 1]}, solo[b],
                                int(idx[b]), pcfg)
         np.testing.assert_allclose(lg[b:b + 1].numpy(), lb.numpy(), **TOL)
-        for layer in cb:
-            for leaf in ("k", "v"):
-                np.testing.assert_allclose(cache[layer][leaf][b:b + 1].numpy(),
-                                           cb[layer][leaf].numpy(), **TOL)
+        _assert_caches_close(
+            {l: {n: t[b:b + 1] for n, t in c.items()}
+             for l, c in cache.items()}, cb)
