@@ -23,7 +23,8 @@ Phases, one or more lines each:
    shapes, the training trunk's, the served MoE model's (hd 128, 32
    heads on 4 KV heads) and the served jamba's (hd 128, 64 heads on 8 KV
    heads), then the attention backward (two
-   runs bitwise equal), the fused LACE boundary (K1, K2; also at the
+   runs bitwise equal; also at qwen3-moe-30b-a3b's training shapes, 32
+   heads of 128 on 4 KV heads), the fused LACE boundary (K1, K2; also at the
    masked round's 16 client prior rows, 12 of them absent) and the
    single-prior LACE kernels of the dual boundary (K4, K5; server side
    with dW, client side without) at the training shapes, each also with
@@ -31,7 +32,8 @@ Phases, one or more lines each:
    every pass at TF32's rate, the split-TF32 route's cost and the f32
    CUDA cores' beside it, and a bitwise repeat at the main path's cases,
    float32 and bf16 head), K1 and K2 at xlstm-1.3b's boundary (d 2048,
-   V 50304), and the chunkwise
+   V 50304) and at qwen3-moe-30b-a3b's (d 2048, V 151936, bf16 head;
+   a bitwise repeat), and the chunkwise
    mLSTM (K6) at the served xlstm-1.3b's prefill shapes, every prompt
    length of the serving mix, q, k, v in float32 and in bfloat16 (h and
    the final C, n, m against the plain version, a bitwise repeat, the
@@ -185,16 +187,32 @@ Phases, one or more lines each:
    phase 13(a)'s cell with and without donation; (d) AlexNet at width
    1.0 in bf16, one round of scala, fedavg and splitfed_v1, every leaf
    float32 and finite;
-17. train-xlstm: phase 6's cell on full-width, full-depth xlstm-1.3b (48
-   layers, 42 mLSTM with K6 and its backward, 6 sLSTM, the server's 5
-   scan groups rematerialized) -- the launches per round against the
-   layout (K6 forward 118 and backward 88 a step, K1 = K2 = 1, K3 none),
+17. train-xlstm: phase 6's cell on full-width xlstm-1.3b cut to 16 of
+   its 48 layers (14 mLSTM with K6 and its backward, 2 sLSTM, the
+   server's scan group 8-15 rematerialized) -- the launches per round
+   against the layout (K6 forward 34 and backward 32 a step, K1 = K2 =
+   1, K3 none),
    finite losses, round seconds, tokens/s, peak memory, the sLSTM loops'
    host seconds and a profiled round (device events only) split into K6
    forward, K6 backward and LACE;
 17b. train-check-xlstm: phase 7 on xlstm-1.3b at full width and 8
    layers (one period of its pattern), 2 clients x 256 tokens (4 chunks:
-   the backward's reverse walk crosses chunk boundaries).
+   the backward's reverse walk crosses chunk boundaries);
+18. train-moe: phase 6's cell on full-width qwen3-moe-30b-a3b in its own
+   dtypes (bf16 params and compute, float32 routers) cut to 6 of 48
+   layers (2 client, 4 server), through ``engine.make_round_runner``
+   with ``api.build``'s arguments on params made once on the card (a
+   spec has no depth) -- a memory reckoning printed first, then the
+   launches per round against the cut layout, finite losses and router
+   loss, round seconds, tokens/s, peak memory, the MoE slabs' rows and
+   the host syncs of round 0, a profiled round (device events) and a
+   round split into the MoE FFN and attention (forward and backward
+   each) and the LACE boundary, host and device;
+18b. check-moe-train: phase 7 on qwen3-moe-30b-a3b at full width and 3
+   layers (one server MoE layer), 2 clients x 64 tokens (pairs drop), the
+   nearest 8th / 9th router gap printed first, aux and the router grads
+   (and the round's server routers) among the checks; then a bf16 step
+   of 3 layers, 2 clients x 4 x 512 tokens, run twice: bitwise.
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -214,7 +232,9 @@ chip_smoke.py async`` phases 1, 2 and 14; ``python3 chip_smoke.py
 faults`` phases 1, 2 and 15; ``python3 chip_smoke.py dispatch`` phases
 1, 2 and 16; ``python3 chip_smoke.py xlstm-train`` phases 1 and 2, K6's
 backward and K1 / K2 at xlstm-1.3b's width from phase 3, then 17 and
-17b.
+17b; ``python3 chip_smoke.py moe-train`` phases 1 and 2, K3's backward
+and K1 / K2 at qwen3-moe-30b-a3b's training shapes from phase 3, then 18
+and 18b.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -277,6 +297,16 @@ JAMBA_CHECK_LAYERS = 3
 # experts' 604 M parameters), 8 layers and the 2.5 GB embedding and head
 # come to ~22 GB
 MOE_CHECK_LAYERS = 8
+# train-moe's depth: full-width qwen3-moe-30b-a3b cut from 48 to 6 layers,
+# the client's 2 (split_layer) and 4 server layers. A layer is 622.9 M bf16
+# params (18.9 M of attention, 604.0 M of experts) and a float32 router;
+# the embedding and the head 311.2 M each: 4 slots of the client half and
+# the server half come to 18.07 GB, their gradients as much again
+# (``moe_memory_reckoning`` prints it). check-moe-train: float32, 3 layers
+# (one server MoE layer), 2 clients x 64 tokens: capacity 5 a row for 8
+# of 128 experts, so pairs drop.
+MOE_TRAIN_LAYERS = 6
+MOE_TRAIN_CHECK_LAYERS = 3
 # the chunkwise mLSTM (K6), (B, S, H, dk, dv, q/k/v dtype): the served
 # xlstm-1.3b's prefill (4 heads of 1024, chunk 64) at every prompt of the
 # serving mix (777 odd: a ragged last chunk) and an odd prompt below one
@@ -318,18 +348,24 @@ MLSTM_BWD_REPORT = MLSTM_BWD_CASES[0]
 # full depth no check can tell the kernel from rounding
 STATE_RTOL = 1e-3
 XLSTM_CHECK_LAYERS = 8
-# attention backward, (B, P, H, KV, window, dtype): the training trunk's
-# shape (16 sequences of 512 tokens) first, then other lengths, GQA and a
-# window. Tolerance against autograd of the plain version, relative to
-# the largest entry: bf16 3e-2 (inputs, output and grads rounded to
-# bf16), f32 1e-4 (sums in another order).
-FLASH_BWD_CASES = [(16, 512, 16, 16, None, torch.bfloat16),
-                   (16, 512, 16, 16, None, torch.float32),
-                   (1, 777, 16, 16, None, torch.bfloat16),
-                   (1, 777, 16, 16, None, torch.float32),
-                   (4, 512, 16, 2, None, torch.bfloat16),          # GQA
-                   (2, 1024, 16, 16, 256, torch.bfloat16)]         # window
+# attention backward, (B, P, H, KV, window, dtype, head dim): the training
+# trunk's shape (16 sequences of 512 tokens) first, then other lengths, GQA
+# and a window, then qwen3-moe-30b-a3b's training (32 heads of 128 on 4 KV
+# heads): the server's 16 x 512 and a client's 4 x 512. Tolerance against
+# autograd of the plain version, relative to the largest entry: bf16 3e-2
+# (inputs, output and grads rounded to bf16), f32 1e-4 (sums in another
+# order). Two runs of each case are bitwise equal.
+FLASH_BWD_CASES = [(16, 512, 16, 16, None, torch.bfloat16, 64),
+                   (16, 512, 16, 16, None, torch.float32, 64),
+                   (1, 777, 16, 16, None, torch.bfloat16, 64),
+                   (1, 777, 16, 16, None, torch.float32, 64),
+                   (4, 512, 16, 2, None, torch.bfloat16, 64),      # GQA
+                   (2, 1024, 16, 16, 256, torch.bfloat16, 64),     # window
+                   (16, 512, 32, 4, None, torch.bfloat16, 128),    # MoE server
+                   (4, 512, 32, 4, None, torch.bfloat16, 128)]     # MoE client
 FLASH_BWD_REPORT = FLASH_BWD_CASES[0]
+FLASH_BWD_MOE = FLASH_BWD_CASES[-2]        # the JSON line's *_moe keys
+FLASH_BWD_MOE_CASES = FLASH_BWD_CASES[-2:]
 # the fused LACE boundary (K1, K2), (N tokens, feats dtype, tau, G client
 # prior rows, absent clients, head dtype) at the training width (d 1024, V
 # 151936, G per-client prior rows, one concatenated row, the last eighth of
@@ -357,6 +393,9 @@ LACE_REPORT = LACE_CASES[0]
 # the boundary of xlstm-1.3b's training (phase 17): d 2048 (the first width
 # above the kernels' KSEG = 1024 on a card), V 50304, bf16 feats
 LACE_XLSTM = (8192, BF16, 1.0, LACE_CLIENTS, 0, F32, 2048, 50304)
+# the boundary of qwen3-moe-30b-a3b's training (train-moe): d 2048, V
+# 151936, its params (the head too) stored in bf16
+LACE_MOE = (8192, BF16, 1.0, LACE_CLIENTS, 0, BF16, 2048, 151936)
 LACE_BF16_HEAD = LACE_CASES[-1]          # the bf16 policy's main path
 # the single-prior LACE kernels (K4, K5) of the dual boundary, (N tokens,
 # feats dtype, side, head dtype) at the training width: the server side
@@ -951,24 +990,69 @@ def xlstm_split(engine, phase, P, gen):
     profile(f"decode step, {engine.slots} slots", engine.step, 6)
 
 
+class _Mark(torch.autograd.Function):
+    """Identity on its tensors; when autograd's backward pass reaches it,
+    it synchronizes the card and calls ``hook()``. A missing cotangent
+    stays missing (nothing is pushed into a branch the pass skips)."""
+
+    @staticmethod
+    def forward(ctx, hook, *xs):
+        ctx.hook = hook
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        torch.cuda.synchronize()
+        ctx.hook()
+        return (None,) + grads
+
+
 @contextlib.contextmanager
-def synced_calls(module, name):
+def synced_calls(module, name, backward=False):
     """While open, each call of ``module.<name>`` starts and ends
     synchronized, and the dict it yields sums their host seconds
     (``seconds``), counts them (``calls``) and keeps the first one's
-    (args, kwargs) (``first``)."""
-    spent = {"seconds": 0.0, "calls": 0, "first": None}
+    (args, kwargs) (``first``). ``backward=True``, for a function
+    ``(params, x, ...)`` under autograd: each backward pass through a
+    call starts and ends synchronized too, from autograd reaching its
+    outputs to its input x (``bwd_seconds``, ``bwd_calls``; nothing else
+    runs in between, as autograd takes the ready node created last
+    first), and ``first`` keeps the call with the largest x."""
+    spent = {"seconds": 0.0, "calls": 0, "bwd_seconds": 0.0,
+             "bwd_calls": 0, "first": None}
     orig = getattr(module, name)
 
     def call(*args, **kw):
-        if spent["first"] is None:
+        if spent["first"] is None or (
+                backward and args[1].numel() > spent["first"][0][1].numel()):
             spent["first"] = (args, kw)
+        marks = (backward and torch.is_grad_enabled()
+                 and args[1].requires_grad)
+        t = {}
+        if marks:
+            def end():
+                if "t0" in t:
+                    spent["bwd_seconds"] += time.perf_counter() - t.pop("t0")
+                    spent["bwd_calls"] += 1
+
+            args = (args[0],) + _Mark.apply(end, args[1]) + args[2:]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = orig(*args, **kw)
         torch.cuda.synchronize()
         spent["seconds"] += time.perf_counter() - t0
         spent["calls"] += 1
+        if marks:
+            def start():
+                t["t0"] = time.perf_counter()
+
+            outs = list(out) if isinstance(out, tuple) else [out]
+            idx = [i for i, o in enumerate(outs)
+                   if isinstance(o, torch.Tensor) and o.requires_grad]
+            for i, o in zip(idx, _Mark.apply(start, *[outs[i] for i in idx])):
+                outs[i] = o
+            out = tuple(outs) if isinstance(out, tuple) else outs[0]
         return out
 
     setattr(module, name, call)
@@ -1001,32 +1085,63 @@ def timed_ms(fn):
     return 1e3 * (time.perf_counter() - t0)
 
 
-def component_split(phase, what, run, parts):
-    """Where ``run()`` (host ms) spends its time: it runs as it is, then
-    again with every call of each (label, module, function name, calls
-    expected) in ``parts`` synchronized before and after and timed, the
-    rest the difference; each part's device time from its first call
-    replayed on its inputs under a device-only profile. Returns each
-    part's first (args, kwargs)."""
-    wall = run()
+def component_split(phase, what, run, parts, wall_ms=None):
+    """Where ``run()`` (host ms) spends its time: it runs as it is (unless
+    ``wall_ms`` gives that time), then again with every call of each
+    (label, module, function name, calls expected[, backward passes
+    expected]) in ``parts`` synchronized before and after and timed
+    (:func:`synced_calls`; with backward passes given, each backward pass
+    through the function too), the rest the difference; each part's
+    device time from its first call (the largest, with backward passes)
+    replayed on its inputs under a device-only profile, forward and
+    backward apart. Returns each part's first (args, kwargs)."""
+    wall = run() if wall_ms is None else wall_ms
     with contextlib.ExitStack() as stack:
-        spent = [stack.enter_context(synced_calls(module, name))
-                 for _, module, name, _ in parts]
+        spent = [stack.enter_context(synced_calls(
+            part[1], part[2], backward=len(part) > 4)) for part in parts]
         synced = run()
     rest, text = synced, []
-    for (label, module, name, layers), sp in zip(parts, spent):
-        check(sp["calls"] == layers, f"{layers} {name} calls")
+    for (label, module, name, layers, *bwd), sp in zip(parts, spent):
+        check(sp["calls"] == layers, f"{layers} {name} calls, "
+              f"{sp['calls']} seen")
         ms = 1e3 * sp["seconds"]
         rest -= ms
         args, kw = sp["first"]
         fn = getattr(module, name)
         dev = busy_ms(lambda: fn(*args, **kw))
-        text.append(f"{layers} x {label} {ms:.2f} ms ({100 * ms / synced:.1f}%; "
-                    f"a layer {ms / layers:.3f} ms host, {dev:.3f} ms device)")
+        line = (f"{layers} x {label} {ms:.2f} ms ({100 * ms / synced:.1f}%; "
+                f"a call {ms / layers:.3f} ms host, {dev:.3f} ms device)")
+        if bwd:
+            check(sp["bwd_calls"] == bwd[0], f"{bwd[0]} backward passes "
+                  f"through {name}, {sp['bwd_calls']} seen")
+            bms = 1e3 * sp["bwd_seconds"]
+            rest -= bms
+            line += (f", backward {bwd[0]} passes {bms:.2f} ms "
+                     f"({100 * bms / synced:.1f}%; the largest call's "
+                     f"{replay_bwd_ms(fn, args, kw):.3f} ms device)")
+        text.append(line)
     say(phase, f"{what}: {wall:.2f} ms host; with each part's calls "
         f"synchronized {synced:.2f} ms: " + "; ".join(text)
         + f"; the rest {rest:.2f} ms")
     return [sp["first"] for sp in spent]
+
+
+def replay_bwd_ms(fn, args, kw):
+    """The card's busy ms of one backward pass through ``fn(*args,
+    **kw)`` (params, x, ...), rebuilt on the same inputs: the gradients of
+    its outputs (cotangents of ones) with respect to x and every param
+    leaf that takes one."""
+    from repro_torch.tree import leaves
+
+    params, x = args[0], args[1].detach().requires_grad_()
+    with torch.enable_grad():
+        out = fn(params, x, *args[2:], **kw)
+        outs = [o for o in (out if isinstance(out, tuple) else (out,))
+                if isinstance(o, torch.Tensor) and o.requires_grad]
+        inputs = [x] + [p for p in leaves(params) if p.requires_grad]
+        cots = [torch.ones_like(o) for o in outs]
+        return busy_ms(lambda: torch.autograd.grad(
+            outs, inputs, cots, retain_graph=True, allow_unused=True))
 
 
 def busy_admits(engine, P, gen):
@@ -1665,7 +1780,7 @@ def rel_err(got, want) -> float:
             / want.abs().max().clamp(min=1e-30)).item()
 
 
-def phase_flash_bwd():
+def phase_flash_bwd(cases=FLASH_BWD_CASES):
     """The attention backward kernel against autograd of the plain
     version; ``library_ms`` is SDPA's backward alone, timed through
     autograd with the graph kept (the forward outside the timed
@@ -1676,9 +1791,8 @@ def phase_flash_bwd():
     gen = torch.Generator("cuda")
     gen.manual_seed(1)
     rows, max_err = {}, 0.0
-    for case in FLASH_BWD_CASES:
-        B, P, H, KV, window, dtype = case
-        hd = 64
+    for case in cases:
+        B, P, H, KV, window, dtype, hd = case
         q, k, v = (torch.randn((B, P, n, hd), generator=gen, device="cuda")
                    .to(dtype).requires_grad_() for n in (H, KV, KV))
         gout = torch.randn((B, P, H, hd), generator=gen,
@@ -1854,7 +1968,7 @@ def bounds_text(r):
             f"{r['f32_ms']:.2f}")
 
 
-def phase_lace(cases=LACE_CASES + [LACE_XLSTM]):
+def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE]):
     """K1 and K2 against their plain versions (same arguments, chunked
     logits); ``library_ms`` is the one cuBLAS product feats @ W in
     float32, a yardstick only (no PyTorch call computes the fused
@@ -1932,7 +2046,7 @@ def phase_lace(cases=LACE_CASES + [LACE_XLSTM]):
             f"K2 {times['bwd']:.2f} ms (plain {times['bwd_plain']:.2f}, "
             f"{bounds_text(rows[(case, 'bwd')])}); cuBLAS feats@W "
             f"{times['library']:.2f} ms")
-        if case in (LACE_REPORT, LACE_BF16_HEAD, LACE_XLSTM):
+        if case in (LACE_REPORT, LACE_BF16_HEAD, LACE_XLSTM, LACE_MOE):
             same = [torch.equal(a, b) for a, b in zip(
                 got + gb, kernel.lace2_fwd_cuda(*args)
                 + kernel.lace2_bwd_cuda(*bargs))]
@@ -2160,7 +2274,8 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
     t0 = time.perf_counter()
     trainer = api.Trainer(spec, device=device)
     sync(device)
-    say(phase, f"{cfg.name} {cfg.dtype} compute, {cfg.param_dtype} params: "
+    say(phase, f"{cfg.name} ({cfg.num_layers} layers) {cfg.dtype} compute, "
+        f"{cfg.param_dtype} params: "
         f"{spec.scala.num_clients} clients, mode {spec.execution.mode} "
         f"({spec.slots} slots, {compute_slots(spec)} computed, "
         f"participation {spec.fed.participation or spec.scala.participation}"
@@ -2231,6 +2346,33 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
 
 
 XLSTM_TRAIN_FLAGS = ["--arch", XLSTM] + TRAIN_FLAGS[2:]
+# phase 17's depth since the MoE training phases joined the run: 16 of
+# xlstm-1.3b's 48 layers, two periods of its 7:1 pattern (14 mLSTM, the
+# sLSTM layers 3 and 11; the prologue 2-7 and one rematerialized scan
+# group 8-15), to keep the script within its time limit: the sLSTM
+# loops' host time is most of a round (13.5-18.3 s of ~18 at 48 layers)
+XLSTM_TRAIN_LAYERS = 16
+
+
+@contextlib.contextmanager
+def depth_cut(layers):
+    """While open, every ``ExperimentSpec``'s model config is cut to its
+    first ``layers`` layers (a spec has no depth of its own), so the
+    Trainer and :func:`phase_train`'s launch counts see the cut model."""
+    from repro_torch.api import specs
+
+    orig = specs.ExperimentSpec.model_config
+
+    def cut(self):
+        cfg = orig(self)
+        return dataclasses.replace(cfg, num_layers=min(layers,
+                                                       cfg.num_layers))
+
+    specs.ExperimentSpec.model_config = cut
+    try:
+        yield
+    finally:
+        specs.ExperimentSpec.model_config = orig
 XLSTM_WATCH = [("K6 forward", ("mlstm_gate", "mlstm_scores", "mlstm_decay",
                                "mlstm_state")),
                ("K6 backward", "mlstm_bwd"),
@@ -2239,9 +2381,10 @@ XLSTM_WATCH = [("K6 forward", ("mlstm_gate", "mlstm_scores", "mlstm_decay",
 
 
 def phase_train_xlstm(device="cuda", flags=XLSTM_TRAIN_FLAGS,
-                      profile_round=True):
-    """Phase 17: phase 6's cell on xlstm-1.3b at full width and depth
-    through :func:`phase_train` -- the launches per round against the
+                      profile_round=True, layers=XLSTM_TRAIN_LAYERS):
+    """Phase 17: phase 6's cell on xlstm-1.3b at full width, its depth
+    cut to ``layers`` (:func:`depth_cut`), through :func:`phase_train` --
+    the launches per round against the
     layout (K6 forward and backward, the rematerialized groups' reruns,
     K1, K2; K3 none), finite losses, round seconds, tokens/s, peak
     memory, then a profiled round (device events only: a round launches
@@ -2273,9 +2416,10 @@ def phase_train_xlstm(device="cuda", flags=XLSTM_TRAIN_FLAGS,
     xlstm.slstm_scan = timed("forward", orig[0])
     xlstm.SLSTMScan.backward = staticmethod(timed("backward", orig[1]))
     try:
-        return phase_train(device, flags, profile_round=profile_round,
-                           phase="train-xlstm", on_done=report,
-                           watch=XLSTM_WATCH, profile_host=False)
+        with depth_cut(layers):
+            return phase_train(device, flags, profile_round=profile_round,
+                               phase="train-xlstm", on_done=report,
+                               watch=XLSTM_WATCH, profile_host=False)
     finally:
         xlstm.slstm_scan = orig[0]
         xlstm.SLSTMScan.backward = staticmethod(orig[1])
@@ -2317,13 +2461,14 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
                 {k: torch.from_numpy(v).to(dev) for k, v in batches.items()},
                 torch.from_numpy(sizes).to(dev))
 
-    res = {}
+    res, gaps = {}, {}
     for dev in (device, "cpu"):
         p, b, _ = on(dev)
         zero_counts()
         t0 = time.perf_counter()
-        res[dev] = engine.split_step_grads(model, p, {k: v[0] for k, v in
-                                                      b.items()}, sc)
+        with router_gaps(cfg) as gaps[dev]:
+            res[dev] = engine.split_step_grads(model, p, {k: v[0] for k, v
+                                                          in b.items()}, sc)
         sync(dev)
         n = read_counts()
         say(phase, f"split step on {dev}: "
@@ -2331,8 +2476,19 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
         if torch.device(dev).type == "cuda":
             want = slot_launches(C, cfg)
             check(n == want, f"{phase} step launches {n} != {want}")
+        del p, b
+    if cfg.moe is not None:
+        # a near-tie would let rounding send a token to another expert on
+        # one device: printed before the checks
+        K = cfg.moe.top_k
+        say(phase, "smallest gap between a token's router logits "
+            f"{K} and {K + 1} (descending) over the step's routings "
+            f"({C} clients x {cfg.split_layer} layers, then the server's "
+            f"{cfg.num_layers - cfg.split_layer}; {S} tokens a client): "
+            + ", ".join(f"{dev} {min(g):.3g}" for dev, g in gaps.items()))
     (g_dev, m_dev), (g_cpu, m_cpu) = res[device], res["cpu"]
-    for k in ("loss_server", "loss_client"):
+    # the router loss is 0 on both devices for the archs without MoE
+    for k in ("loss_server", "loss_client", "aux"):
         a, b = float(m_dev[k]), float(m_cpu[k])
         check(abs(a - b) <= LOSS_RTOL * abs(b), f"{k} {a} vs cpu {b}")
     head = rel_err(g_dev["server"]["head"]["out"].cpu(),
@@ -2346,18 +2502,43 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
         f"tokens, {device} (kernels) vs cpu (plain): loss_s "
         f"{float(m_dev['loss_server']):.6f} vs {float(m_cpu['loss_server']):.6f}, "
         f"loss_c {float(m_dev['loss_client']):.6f} vs "
-        f"{float(m_cpu['loss_client']):.6f} (rtol {LOSS_RTOL}); head dW rel "
+        f"{float(m_cpu['loss_client']):.6f}, aux {float(m_dev['aux']):.6f} "
+        f"vs {float(m_cpu['aux']):.6f} (rtol {LOSS_RTOL}); head dW rel "
         f"err {head:.3g}, worst of {len(leaves(g_cpu))} grad leaves "
         f"{worst:.3g} ({worst_key}; tol {LEAF_RTOL})")
+    if cfg.moe is not None:
+        routers = {key: rel_err(a.cpu(), want[key])
+                   for key, a in state_leaves(g_dev).items()
+                   if key.endswith("router")}
+        say(phase, f"router grads, rel err (within the {LEAF_RTOL} above): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in routers.items()))
     del res, g_dev, g_cpu
 
-    new = {}
+    # the client half, and for an MoE arch the server's routers too
+    def kept(params):
+        out = leaves(params["client"])
+        if cfg.moe is not None:
+            out += [a for key, a in state_leaves(params["server"]).items()
+                    if key.endswith("router")]
+        return out
+
+    new, round_m = {}, {}
     for dev in (device, "cpu"):
         p, b, s = on(dev)
         round_fn = engine.make_round_runner(model, sc)
-        state, _ = round_fn(engine.init_train_state(p, optimizers.sgd()),
-                            b, s)
-        new[dev] = [a.cpu() for a in leaves(state.params["client"])]
+        t0 = time.perf_counter()
+        with router_gaps(cfg) as gaps:
+            state, round_m[dev] = round_fn(
+                engine.init_train_state(p, optimizers.sgd()), b, s)
+        sync(dev)
+        say(phase, f"round on {dev}: {time.perf_counter() - t0:.2f} s"
+            + (f"; smallest router gap over its {T} steps' routings "
+               f"{min(gaps):.3g}" if gaps else ""))
+        new[dev] = [a.cpu() for a in kept(state.params)]
+        del p, b, state
+    for k in ("loss_server", "loss_client", "aux"):
+        a, b = float(round_m[device][k]), float(round_m["cpu"][k])
+        check(abs(a - b) <= LOSS_RTOL * abs(b), f"round {k} {a} vs cpu {b}")
     # Each device rounds the update p - lr * g, the client weight's product
     # and the weighted sum to float32 on its own (half an ulp each), so
     # the two may land up to three ulps apart where the updates agree:
@@ -2367,12 +2548,13 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
     worst = max(
         ((a - b).abs() - 3 * ulp * b.abs()).clamp(min=0).max().item()
         / max((b - b0.cpu()).abs().max().item(), 1e-30)
-        for a, b, b0 in zip(new[device], new["cpu"],
-                            leaves(params["client"])))
+        for a, b, b0 in zip(new[device], new["cpu"], kept(params)))
     check(worst <= LEAF_RTOL, f"round client params: {worst} > {LEAF_RTOL}")
     say(phase, f"one round ({T} steps + FedAvg): aggregated client "
-        f"params, {device} vs cpu, worst leaf difference beyond 3 ulps "
-        f"{worst:.3g} of the leaf's largest update (tol {LEAF_RTOL})")
+        f"params{' and the server routers' if cfg.moe is not None else ''}, "
+        f"{device} vs cpu, worst leaf difference beyond 3 ulps "
+        f"{worst:.3g} of the leaf's largest update (tol {LEAF_RTOL}); "
+        f"the round's last losses and aux within {LOSS_RTOL}")
 
 
 def phase_xlstm_train_check(device="cuda", reduced=False):
@@ -2382,6 +2564,343 @@ def phase_xlstm_train_check(device="cuda", reduced=False):
     of 64: the backward's reverse walk crosses chunk boundaries)."""
     phase_train_check(device, reduced, C=2, S=256, arch=XLSTM,
                       layers=XLSTM_CHECK_LAYERS, phase="train-check-xlstm")
+
+
+# ---------------------------------------------------------------------------
+# MoE training: train-moe and check-moe-train
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_FLAGS = ["--arch", MOE] + TRAIN_FLAGS[2:]
+
+
+@contextlib.contextmanager
+def moe_routings():
+    """While open, every MoE routing appends (rows G, tokens a row n, the
+    top-k expert ids (G, n, K)) to the list it yields."""
+    from repro_torch.models.layers import moe
+
+    seen, orig = [], moe.route
+
+    def route(params, x, m):
+        out = orig(params, x, m)
+        seen.append((x.shape[0], x.shape[1], out[2].detach()))
+        return out
+
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = orig
+
+
+def slab_rows(seen, m):
+    """For each routing of :func:`moe_routings`: (the slab's rows an
+    expert as ``moe_apply`` lays them out, whether that is the static
+    bound G x min(cap, n) or the exact count read back to the host, the
+    kept pairs, the routed pairs)."""
+    import torch.nn.functional as F
+    from repro_torch.models.layers import moe
+
+    out = []
+    for G, n, top_i in seen:
+        cap = moe.capacity(n, m)
+        bound = G * min(cap, n)
+        counts = F.one_hot(top_i.reshape(G, -1), m.num_experts).sum(1)
+        kept = counts.clamp(max=cap)
+        static = bound <= moe.STATIC_ROWS
+        rows = bound if static else max(1, int(kept.sum(0).max()))
+        out.append((rows, static, int(kept.sum()), G * n * m.top_k))
+    return out
+
+
+def slab_text(seen, m):
+    """The slabs of a list of routings, grouped by (G, n)."""
+    groups = {}
+    for (G, n, _), r in zip(seen, slab_rows(seen, m)):
+        groups.setdefault((G, n), []).append(r)
+    return "; ".join(
+        f"{len(rs)} routings of {G} rows x {n} tokens: slab rows "
+        f"{min(r[0] for r in rs)}-{max(r[0] for r in rs)} an expert "
+        f"({'the static bound' if rs[0][1] else 'the exact count, read back'}"
+        f"), kept {sum(r[2] for r in rs)} of {sum(r[3] for r in rs)} pairs"
+        for (G, n), rs in groups.items())
+
+
+def moe_memory_reckoning(cfg, params, slots, tokens):
+    """The peak a training step should reach, from the params on the card
+    and the shapes (printed before the run): the larger of the backward
+    pass's -- every slot's client half and the server half, their
+    gradients as much, each layer's saved activations at ``tokens``
+    boundary tokens at most (the slab at its bound and its three expert
+    products, the (token, k) outputs the combine keeps, ~8 (tokens, d)
+    tensors of attention and norms) and the boundary's float32 dW -- and
+    the update's: SGD writes bf16 params anew (the float32 result is
+    rounded into a new leaf), so params, gradients and the new params are
+    live at once, with three float32 temporaries of the largest leaf
+    (the gradient, the step, the param). Returns (text, GB)."""
+    from repro_torch.models.layers import moe
+    from repro_torch.tree import leaves
+
+    m, d, el = cfg.moe, cfg.d_model, 2 if cfg.dtype == "bfloat16" else 4
+    client = sum(a[0].numel() * a.element_size()
+                 for a in leaves(params["client"])) / 1e9
+    server = sum(a.numel() * a.element_size()
+                 for a in leaves(params["server"])) / 1e9
+    total = slots * client + server
+    # the client leaves carry the slot axis already
+    largest = max(a.numel() for a in leaves(params)) * 4 / 1e9
+    seq = tokens // slots
+    n_rows = (tokens // seq) * min(moe.capacity(seq, m), seq)
+    slab = m.num_experts * n_rows * (d + 3 * m.d_expert) * el / 1e9
+    pairs = tokens * m.top_k * d * el / 1e9
+    attn = 8 * tokens * d * el / 1e9
+    act = cfg.num_layers * (slab + pairs + attn)
+    dw = 4 * d * cfg.vocab_size / 1e9
+    step = 2 * total + act + dw
+    update = 3 * total + 3 * largest
+    return (f"client half {client:.2f} GB a slot x {slots}, server half "
+            f"{server:.2f} GB: params {total:.2f} GB; the backward pass: "
+            f"params, gradients as much, saved activations at most "
+            f"~{act:.1f} GB ({cfg.num_layers} layers at {tokens} tokens: "
+            f"the slab at its bound {slab:.2f}, the (token, k) outputs "
+            f"{pairs:.2f}, attention and norms ~{attn:.2f} a layer), the "
+            f"boundary's dW {dw:.2f}: ~{step:.1f} GB; the update: params, "
+            f"gradients, the new params and 3 float32 copies of the largest "
+            f"leaf ({largest:.2f} GB each): ~{update:.1f} GB; peak at most "
+            f"~{max(step, update):.1f} GB"), max(step, update)
+
+
+def phase_train_moe(device="cuda", flags=MOE_TRAIN_FLAGS,
+                    layers=MOE_TRAIN_LAYERS, phase="train-moe"):
+    """train-moe: phase 6's cell (``TRAIN_FLAGS``: 16 clients, 4 slots, 2
+    local steps of 16 x 512 tokens, SCALA, the fused ``lace`` boundary,
+    weighted FedAvg, SGD, 3 rounds) on full-width qwen3-moe-30b-a3b in its
+    own dtypes (bf16 params and compute, float32 routers), the depth cut
+    to ``layers``. An ``ExperimentSpec`` has no depth, so the round runs
+    through ``engine.make_round_runner`` on the cut config's split model
+    with the arguments ``api.build`` passes for the spec, on params made
+    once on the card from the spec's seed (``build``'s ``init`` would copy
+    them under donation), and the Trainer's host data stream. Reports the
+    memory reckoning (before the run), the launches per round against
+    :func:`train_launches` on the cut config, finite losses and router
+    loss, the seconds of rounds 1-2, tokens/s and the peak, the slab's
+    rows and the host syncs of round 0, a profiled round (device only)
+    and a round split into the MoE FFN, attention (forward and backward
+    each) and the LACE boundary (:func:`component_split`). Returns the
+    launches of the 3 rounds."""
+    from repro_torch.api.build import _server_optimizer
+    from repro_torch.api.trainer import build_lm_data
+    from repro_torch.core import engine, scala as core_scala
+    from repro_torch.data.loader import lm_round_batches, sample_clients
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as Tm
+    from repro_torch.models.layers import attention, moe
+
+    on_card = torch.device(device).type == "cuda"
+    spec = train.spec_from_args(train.build_parser().parse_args(flags))
+    spec.validate()
+    ex, fd, sc = spec.execution, spec.fed, spec.scala
+    faults, guards = fd.make_faults(), fd.make_guards()
+    server_opt, server_lr = _server_optimizer(spec)
+    agg = fd.make_aggregator()
+    # build()'s round for this spec: subset mode, no scheduler, no fed state
+    check(ex.mode == "subset" and spec.method == "scala" and faults is None
+          and guards is None and server_opt is None and not agg.stateful,
+          f"{phase}: the cell is a plain subset-mode SCALA spec")
+    full_cfg = spec.model_config()
+    cfg = dataclasses.replace(full_cfg, num_layers=min(layers,
+                                                       full_cfg.num_layers))
+    free_device_memory()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device)
+    gen.manual_seed(spec.seed)
+    full = Tm.init_params(gen, cfg)
+    params = engine.init_scala_params(gen, lambda g: full["client"],
+                                      lambda g: full["server"], spec.slots)
+    del full
+    opt = spec.optim.make()
+    round_fn = engine.make_round_runner(
+        core_scala.transformer_split_model(cfg), sc, backend=ex.backend,
+        boundary=ex.boundary, optimizer=opt,
+        schedule=spec.optim.make_schedule(spec.rounds * sc.local_iters,
+                                          default_lr=sc.lr),
+        aggregator=agg, participation=None,
+        opt_state_policy=fd.opt_state_policy, slot_gather=False,
+        server_optimizer=server_opt, server_lr=server_lr,
+        precision=ex.precision, faults=faults, guards=guards,
+        donate=ex.donate)
+    tokens = participating_tokens(spec)
+    reckoning, predicted = moe_memory_reckoning(
+        cfg, params, spec.slots, tokens // sc.local_iters)
+    state = engine.init_train_state(params, opt)
+    del params
+    sync(device)
+    say(phase, f"{cfg.name} cut to {cfg.num_layers} of "
+        f"{full_cfg.num_layers} layers ({cfg.split_layer} client, "
+        f"{cfg.num_layers - cfg.split_layer} server), {cfg.dtype} compute, "
+        f"{cfg.param_dtype} params, float32 routers; {sc.num_clients} "
+        f"clients, {spec.slots} slots, {sc.local_iters} local steps of "
+        f"{sc.server_batch} x {spec.data.seq} tokens, boundary {ex.boundary}"
+        f", {fd.aggregator} FedAvg, {spec.optim.name}; params made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(phase, f"memory reckoning before the run: {reckoning}")
+    data = build_lm_data(cfg, sc.num_clients, spec.data.docs_per_client,
+                         spec.data.seq, spec.seed)
+    rng = np.random.default_rng(spec.seed)
+
+    def draw():
+        rb = lm_round_batches(data, sample_clients(
+            sc.num_clients, sc.clients_per_round, rng), sc.server_batch,
+            sc.local_iters, rng)
+        sizes = torch.from_numpy(rb.pop("sizes")).to(device)
+        return {k: torch.from_numpy(v).to(device) for k, v in rb.items()}, \
+            sizes
+
+    def one_round():
+        nonlocal state
+        batches, sizes = draw()
+        state, m = round_fn(state, batches, sizes)
+        return {k: float(m[k]) for k in ("loss_server", "loss_client", "aux")}
+
+    T = sc.local_iters
+    per_step = train_launches(spec, cfg)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    before = read_counts()
+    secs, syncs = [], None
+    for r in range(spec.rounds):
+        t0 = time.perf_counter()
+        if r == 0 and on_card:
+            with moe_routings() as seen:
+                m, syncs = count_syncs(one_round)
+        else:
+            m = one_round()
+        sync(device)
+        secs.append(time.perf_counter() - t0)
+        now = read_counts()
+        got = {k: now[k] - before[k] for k in now}
+        before = now
+        check(all(np.isfinite(m[k]) for k in m), f"{phase} round {r}: "
+              f"finite losses and router loss {m}")
+        if on_card:
+            want = {k: T * n for k, n in per_step.items()}
+            check(got == want, f"{phase} round {r} launches {got} != {want} "
+                  f"({T} steps x {per_step})")
+        say(phase, f"round {r} loss_s={m['loss_server']:.4f} "
+            f"loss_c={m['loss_client']:.4f} aux={m['aux']:.4f} in "
+            f"{secs[-1]:.3f} s; launches K3 fwd {got['flash_fwd']} bwd "
+            f"{got['flash_bwd']}, K1 {got['lace_fwd']}, K2 "
+            f"{got['lace_bwd']}")
+    counts = read_counts()
+    steady = secs[1:] or secs
+    round_s = float(np.mean(steady))
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    say(phase, f"round seconds (rounds 1..{len(secs) - 1}, round 0 has the "
+        f"warm-up): {[round(x, 3) for x in steady]}, mean {round_s:.3f} s "
+        f"-> {tokens / round_s:.0f} training tokens/s ({tokens} tokens a "
+        f"round); round 0 {secs[0]:.3f} s; peak {peak / 2**20:.0f} MiB "
+        f"allocated (reckoned at most ~{predicted * 1e9 / 2**20:.0f} MiB); "
+        f"per step: {per_step}")
+    if not on_card:
+        return counts
+    m_cfg = cfg.moe
+    reads = sum(not r[1] for r in slab_rows(seen, m_cfg))
+    say(phase, f"round 0's MoE routings: {slab_text(seen, m_cfg)}; "
+        f"{reads / T:.0f} exact slab counts read back a step; synchronizing "
+        f"CUDA calls in round 0: {syncs} ({syncs / T:.1f} a step, the "
+        f"round's host copy of the metrics among them)")
+    del seen
+    profile("MoE training round (device events only)", one_round, 10,
+            watch=TRAIN_WATCH, host=False)
+    n_moe = sum(s.ffn == "moe" for s in cfg.block_specs)
+    n_attn = sum(s.mixer == "attn" for s in cfg.block_specs)
+    slots, split = spec.slots, cfg.split_layer
+
+    def passes(n_client_layers, n_layers):
+        # the client layers once forward and once back a slot, the
+        # server's once forward and twice back (one pullback per prior)
+        n_server = n_layers - n_client_layers
+        return (T * (slots * n_client_layers + n_server),
+                T * (slots * n_client_layers + 2 * n_server))
+
+    client_moe = sum(s.ffn == "moe" for s in cfg.block_specs[:split])
+    client_attn = sum(s.mixer == "attn" for s in cfg.block_specs[:split])
+    component_split(
+        phase, f"a training round ({T} steps + FedAvg; the largest call: "
+        "the server's)", lambda: timed_ms(one_round), [
+            ("MoE FFN", moe, "moe_apply", *passes(client_moe, n_moe)),
+            ("attention (K3)", attention, "attn_apply",
+             *passes(client_attn, n_attn)),
+            ("LACE boundary (K1, K2)", engine, "_lace_boundary", T)],
+        wall_ms=1e3 * round_s)
+    del state
+    free_device_memory()
+    return counts
+
+
+def moe_step_repeat(device="cuda", reduced=False, layers=MOE_TRAIN_CHECK_LAYERS,
+                    C=2, Bk=4, S=512, phase="check-moe-train"):
+    """One split step of qwen3-moe-30b-a3b in its own dtypes (bf16 params
+    and compute, float32 routers; full width unless ``reduced``, cut to
+    ``layers``) run twice on the same params and batch: every gradient
+    and metric bitwise equal. C clients x Bk x S tokens: each MoE layer's
+    slab takes the exact count (read back) and pairs drop."""
+    from repro_torch.configs import ScalaConfig, get_config
+    from repro_torch.core import engine
+    from repro_torch.core.scala import transformer_split_model
+    from repro_torch.core.split import stack_client_params
+    from repro_torch.models import transformer as Tm
+    from repro_torch.tree import leaves
+
+    cfg = get_config(MOE)
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
+                              num_layers=layers)
+    free_device_memory()
+    gen = torch.Generator(device)
+    gen.manual_seed(5)
+    full = Tm.init_params(gen, cfg)
+    params = {"client": stack_client_params(full["client"], C),
+              "server": full["server"]}
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (C, Bk, S + 1))).to(device)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             "weights": torch.ones((C, Bk, S), device=device)}
+    model = transformer_split_model(cfg)
+    sc = ScalaConfig(num_clients=C)
+    runs = []
+    for _ in range(2):
+        with moe_routings() as seen:
+            g, m = engine.split_step_grads(model, params, batch, sc)
+        sync(device)
+        runs.append((leaves(g), m))
+    (g1, m1), (g2, m2) = runs
+    same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    same_m = all(torch.equal(torch.as_tensor(m1[k]), torch.as_tensor(m2[k]))
+                 for k in m1)
+    check(same and same_m, f"{phase}: a bf16 MoE step repeated: grads "
+          f"bitwise {same}, metrics bitwise {same_m}")
+    say(phase, f"{cfg.name} {cfg.param_dtype} params, {cfg.num_layers} "
+        f"layers, {C} clients x {Bk} x {S} tokens: one split step twice, "
+        f"all {len(g1)} grad leaves and the metrics bitwise equal "
+        f"(loss_s {float(m1['loss_server']):.4f}, aux "
+        f"{float(m1['aux']):.4f}); routings: {slab_text(seen, cfg.moe)}")
+    del runs, g1, g2, params
+    free_device_memory()
+
+
+def phase_moe_train_check(device="cuda", reduced=False):
+    """check-moe-train: :func:`phase_train_check` on qwen3-moe-30b-a3b in
+    float32 at full width (unless ``reduced``) and 3 layers, 2 clients x
+    64 tokens (the nearest 8th / 9th router gap printed first; aux and
+    the router grads among the checks; the round's server routers too),
+    then a bf16 step twice, bitwise (:func:`moe_step_repeat`)."""
+    free_device_memory()
+    phase_train_check(device, reduced, C=2, S=64, T=2, arch=MOE,
+                      layers=MOE_TRAIN_CHECK_LAYERS, phase="check-moe-train")
+    free_device_memory()
+    moe_step_repeat(device, reduced)
 
 
 def f32_qwen_step_inputs(device, reduced=False, C=2, S=64, seed=3,
@@ -4092,6 +4611,13 @@ def main() -> int:
         run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
                   prompt_len=77, max_len=96, layers=XLSTM_CHECK_LAYERS)
         return 0
+    if sys.argv[1:] == ["moe-train"]:
+        run_phase("kernels K3 bwd (MoE training)", phase_flash_bwd,
+                  FLASH_BWD_MOE_CASES)
+        run_phase("kernels K1 K2 (MoE width)", phase_lace, [LACE_MOE])
+        run_phase("train-moe", phase_train_moe)
+        run_phase("check-moe-train", phase_moe_train_check)
+        return 0
     if sys.argv[1:] != ["lace"]:
         rows, max_err = run_phase("kernels K3", phase_kernels)
     if sys.argv[1:] == ["moe"]:
@@ -4142,6 +4668,8 @@ def main() -> int:
     dispatch = run_phase("dispatch", phase_dispatch)
     xtrain = run_phase("train-xlstm", phase_train_xlstm)
     run_phase("train-check-xlstm", phase_xlstm_train_check)
+    mtrain = run_phase("train-moe", phase_train_moe)
+    run_phase("check-moe-train", phase_moe_train_check)
     # the federation layer's launches: phase 13's rounds, phase 14's
     # events and phase 15's faulted rounds and events; and phase 16(a)'s
     # bf16 rounds (K1, K2 on their bf16-head build)
@@ -4156,7 +4684,8 @@ def main() -> int:
                          "src/repro/kernels/flash_attn/kernel.py:23",
                          serve["flash_fwd"] + serve_m["flash_fwd"]
                          + serve_j["flash_fwd"] + train["flash_fwd"]
-                         + dual["flash_fwd"] + fed["flash_fwd"], max_err,
+                         + dual["flash_fwd"] + fed["flash_fwd"]
+                         + mtrain["flash_fwd"], max_err,
                          rows[REPORT_CASE])
     for suffix, case in (("train", TRAIN_CASE), ("moe", MOE_CASE),
                          ("jamba", JAMBA_CASE)):
@@ -4170,10 +4699,12 @@ def main() -> int:
                           rows_[(case, kind)])
         for kname, src, line, launches, err, rows_, case, kind in (
             ("lace2_fwd", "lace.cu", "219",
-             train["lace_fwd"] + fed["lace_fwd"] + xtrain["lace_fwd"],
+             train["lace_fwd"] + fed["lace_fwd"] + xtrain["lace_fwd"]
+             + mtrain["lace_fwd"],
              lace_err["fwd"], lace_rows, LACE_REPORT, "fwd"),
             ("lace2_bwd", "lace.cu", "261",
-             train["lace_bwd"] + fed["lace_bwd"] + xtrain["lace_bwd"],
+             train["lace_bwd"] + fed["lace_bwd"] + xtrain["lace_bwd"]
+             + mtrain["lace_bwd"],
              lace_err["bwd"], lace_rows, LACE_REPORT, "bwd"),
             ("lace_fwd", "lace1.cu", "41",
              dual["lace1_fwd"] + fed["lace1_fwd"], lace1_err["fwd"],
@@ -4206,14 +4737,27 @@ def main() -> int:
         lace_row[kname].update({f"{key}_xlstm": r[key] for key in (
             "ms", "plain_ms", "bound_ms", "library_ms")},
             launches_xlstm=xtrain[f"lace_{kind}"])
+    # qwen3-moe-30b-a3b's boundary (d 2048, V 151936, bf16 head) beside
+    # K1, K2, and train-moe's launches (also in ``launches``)
+    for kname, kind in (("lace2_fwd", "fwd"), ("lace2_bwd", "bwd")):
+        r = lace_rows[(LACE_MOE, kind)]
+        lace_row[kname].update({f"{key}_moe": r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "library_ms")},
+            launches_moe=mtrain[f"lace_{kind}"])
+    fwd_row["launches_moe_train"] = mtrain["flash_fwd"]
+    # the backward of K3 (the JAX package trains through autodiff); its
+    # times at qwen3-moe's server call (16 x 512, 32 heads of 128 on 4 KV
+    # heads) and train-moe's launches beside
+    bwd_row = kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
+                         "src/repro/kernels/flash_attn/kernel.py:23",
+                         train["flash_bwd"] + dual["flash_bwd"]
+                         + fed["flash_bwd"] + mtrain["flash_bwd"], bwd_err,
+                         bwd_rows[FLASH_BWD_REPORT])
+    bwd_row.update({f"{key}_moe": bwd_rows[FLASH_BWD_MOE][key] for key in (
+        "ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+        "library_device_ms")}, launches_moe=mtrain["flash_bwd"])
     print(json.dumps({"kernels": [
-        fwd_row,
-        # the backward of K3 (the JAX package trains through autodiff)
-        kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
-                   "src/repro/kernels/flash_attn/kernel.py:23",
-                   train["flash_bwd"] + dual["flash_bwd"]
-                   + fed["flash_bwd"], bwd_err,
-                   bwd_rows[FLASH_BWD_REPORT]),
+        fwd_row, bwd_row,
         lace_row["lace2_fwd"], lace_row["lace2_bwd"],
         lace_row["lace_fwd"], lace_row["lace_bwd"],
         kernel_row("mlstm_chunk", csrc + "mlstm.cu",

@@ -20,15 +20,14 @@ compute policies (``precision`` f32 or bf16), any ``rounds_per_call``,
 donation, every aggregator, server-side FedOpt, and the FL / SFL
 baselines on the CNN family in ``subset`` mode -- and raises
 ``NotImplementedError`` naming the missing piece for the rest
-(``lace_dp`` and ``arrival="topk:sharded"``, and training an MoE
-arch), and ``ValueError`` for combinations the reference rejects too
-(an unknown precision, ``rounds_per_call < 1``, host paging with
-``rounds_per_call > 1``). ``unroll`` has nothing to act on in an eager
-program: a fused chunk is its rounds one after another, whatever it
-says. ``donate`` gives up the state passed to ``step``: the synchronous
-round overwrites it from its first local step on, and the async event
-writes its cohort's rows into its own stacks
-(:mod:`repro_torch.api.build`).
+(``lace_dp`` and ``arrival="topk:sharded"``), and ``ValueError`` for
+combinations the reference rejects too (an unknown precision,
+``rounds_per_call < 1``, host paging with ``rounds_per_call > 1``).
+``unroll`` has nothing to act on in an eager program: a fused chunk is
+its rounds one after another, whatever it says. ``donate`` gives up
+the state passed to ``step``: the synchronous round overwrites it from
+its first local step on, and the async event writes its cohort's rows
+into its own stacks (:mod:`repro_torch.api.build`).
 """
 from __future__ import annotations
 
@@ -465,12 +464,6 @@ class ExperimentSpec:
                               "pop)", "the multi-device slice")
         if ex.backend == "lace_dp":
             raise _not_ported("backend 'lace_dp'", "the multi-device slice")
-        if any(s.ffn == "moe" for s in cfg.block_specs):
-            # the router loss's cotangent, capacity drops over the
-            # concatenated server batch and the expert gradients are not
-            # held against the reference's training yet
-            raise _not_ported(f"training an MoE arch ({self.arch!r})",
-                              "the MoE training slice")
         return self
 
     def to_dict(self) -> Dict[str, Any]:

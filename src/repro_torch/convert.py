@@ -42,8 +42,14 @@ def _map(fn: Callable, tree):
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
     """A tensor that owns its memory: a read-only array (a JAX buffer's
-    host view) is copied, not shared."""
-    return torch.from_numpy(np.array(a, order="C")).to(device)
+    host view) is copied, not shared. A bfloat16 array (numpy's
+    ``ml_dtypes`` extension type, which torch does not read) comes over
+    as its 16-bit patterns."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def per_layer(client_blocks, prologue, groups, cfg: ModelConfig) -> Dict[int, dict]:

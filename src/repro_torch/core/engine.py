@@ -12,9 +12,12 @@ The reference's five stages (paper Alg. 2 lines 9-20), in PyTorch:
                               logits (backend ``logits``) or
                               ``server_trunk`` to the features (``lace``)
   stage 4  dual pullbacks     both losses and both cotangents at the
-                              boundary; autograd pulls the P_s cotangent
-                              back to d w_s (keeping the graph) and the
-                              P_k one back to the activation grads G_k;
+                              boundary; autograd pulls (P_s cotangent, 1)
+                              through (out, aux) back to d w_s (keeping
+                              the graph), so the MoE router loss charges
+                              the server weights, and the P_k one through
+                              out alone (aux's cotangent 0) back to the
+                              activation grads G_k;
                               under ``lace`` the head, unused by the
                               trunk, gets dW_s; each client pulls its
                               slice of G_k back through its own graph
@@ -324,9 +327,16 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
         g_s = g_s.reshape(out.shape).to(out.dtype)
         g_k = g_k.reshape(out.shape).to(out.dtype)
 
-    # stage 4a: P_s cotangent -> d w_s; P_k cotangent -> G_k
-    d_ws = torch.autograd.grad(out, ws_leaves, g_s, retain_graph=True,
-                               allow_unused=True)
+    # stage 4a: (P_s cotangent, 1) through (out, aux) -> d w_s, so the
+    # router loss charges the server weights; (P_k cotangent, 0) -> G_k,
+    # i.e. out alone. A dense arch's aux needs no grad: out alone too.
+    if aux.requires_grad:
+        d_ws = torch.autograd.grad((out, aux), ws_leaves,
+                                   (g_s, torch.ones_like(aux)),
+                                   retain_graph=True, allow_unused=True)
+    else:
+        d_ws = torch.autograd.grad(out, ws_leaves, g_s, retain_graph=True,
+                                   allow_unused=True)
     d_ws = unflatten(params["server"], [
         torch.zeros_like(p) if g is None else g
         for p, g in zip(ws_leaves, d_ws)])

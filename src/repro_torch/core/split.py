@@ -40,9 +40,19 @@ def normalize_client_weights(weights, mask=None, eps: float = 1e-8):
 
 def weighted_mean(stacked_params, weights):
     """Weighted sum over the leading client axis; ``weights`` (C,) must
-    already be normalized."""
+    already be normalized. The weights are cast to the leaf's dtype, as
+    the reference's; a bf16 / f16 leaf is then multiplied and summed in
+    float32, a slot at a time, and rounded once, as XLA evaluates the
+    reference's low-precision product and sum on a CPU (a product rounded
+    to bf16 before the sum moves ~20% of the entries by an ulp)."""
 
     def avg(a):
+        if a.dtype in (torch.bfloat16, torch.float16):
+            w = weights.to(a.dtype).float()
+            acc = a[0].float() * w[0]
+            for c in range(1, a.shape[0]):
+                acc += a[c].float() * w[c]
+            return acc.to(a.dtype)
         wb = weights.reshape((-1,) + (1,) * (a.dim() - 1)).to(a.dtype)
         return (a * wb).sum(0)
 

@@ -98,6 +98,10 @@ def test_flash_kernel_matches_plain(B, S, H, KV, hd, window, dtype):
     (1, 97, 2, 2, 32, None, torch.bfloat16),
     (1, 33, 2, 2, 128, 9, torch.bfloat16),
     (1, 40, 2, 2, 8, None, torch.bfloat16),         # hd 8: CUDA-core body
+    # qwen3-moe-30b-a3b's training: the server's 16 x 512 and a client's
+    # 4 x 512, 32 heads of 128 on 4 KV heads
+    (16, 512, 32, 4, 128, None, torch.bfloat16),
+    (4, 512, 32, 4, 128, None, torch.bfloat16),
 ])
 def test_flash_backward_matches_autograd_of_plain(B, S, H, KV, hd, window,
                                                   dtype):
@@ -175,6 +179,7 @@ def test_flash_strided_views_match_plain(dtype):
     (1, 517, 4, 4, 64, 100, torch.bfloat16),
     (1, 200, 2, 2, 128, None, torch.bfloat16),
     (1, 130, 4, 2, 64, None, torch.float32),
+    (4, 512, 32, 4, 128, None, torch.bfloat16),     # qwen3-moe's client
 ])
 def test_flash_backward_is_deterministic(B, S, H, KV, hd, window, dtype):
     """The backward sums every gradient in one order, with no atomics:
@@ -1223,3 +1228,42 @@ def test_chunked_qwen_rounds_on_card_equal_sequential():
             assert torch.equal(x, fb[key]), key
         else:
             assert np.array_equal(np.asarray(x), np.asarray(fb[key])), key
+
+
+@pytest.mark.gpu
+def test_lace_kernels_at_moe_boundary():
+    """K1 and K2 at qwen3-moe-30b-a3b's boundary (8192 tokens, d 2048, V
+    151936, bf16 feats and head) through chip_smoke's kernel phase: the
+    losses and lse within 1e-4, df and dW within 1e-5 of their largest
+    entry against the plain version, df of 256 tokens within 1e-5 of
+    float64, and two runs bitwise equal."""
+    _needs_card()
+    cs = _chip_smoke()
+    rows, _ = cs.phase_lace([cs.LACE_MOE])
+    assert {kind for _, kind in rows} == {"fwd", "bwd"}
+
+
+@pytest.mark.gpu
+def test_moe_train_step_on_card_matches_cpu():
+    """qwen3-moe-30b-a3b at full width and 3 layers (one server MoE
+    layer) in float32: chip_smoke's check-moe-train step and round, the
+    card (K1, K2, K3) against the CPU (the plain versions): losses and
+    aux within 1e-4 relative, every grad leaf (the routers too) within
+    1e-3 of its largest entry, the round's client params and server
+    routers within 1e-3 of the leaf's largest update beyond 3 ulps, and
+    the step's launches against the layout."""
+    _needs_card()
+    cs = _chip_smoke()
+    cs.phase_train_check("cuda", C=2, S=64, T=2, arch=cs.MOE,
+                         layers=cs.MOE_TRAIN_CHECK_LAYERS,
+                         phase="check-moe-train")
+
+
+@pytest.mark.gpu
+def test_moe_bf16_train_step_repeats_bitwise():
+    """One split step of qwen3-moe-30b-a3b in bf16 at full width and 3
+    layers, 2 clients x 4 x 512 tokens (the slabs' exact counts read
+    back, pairs dropped), run twice: every gradient and metric bitwise
+    equal."""
+    _needs_card()
+    _chip_smoke().moe_step_repeat("cuda")

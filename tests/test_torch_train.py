@@ -229,12 +229,10 @@ ALEXNET = dict(arch="alexnet-cifar", reduced=False,
     pytest.param(dict(top=ALEXNET, execution=dict(backend="logits",
                                                   boundary="dual")),
                  None, None, id="alexnet-dual-validates"),
-    # the MoE archs serve but do not train yet
-    pytest.param(dict(top=dict(arch="qwen3-moe-30b-a3b")),
-                 NotImplementedError, "the MoE training slice",
+    # the MoE archs train (the router loss's cotangent is ported)
+    pytest.param(dict(top=dict(arch="qwen3-moe-30b-a3b")), None, None,
                  id="qwen3-moe-NotImplementedError"),
-    pytest.param(dict(top=dict(arch="dbrx-132b")),
-                 NotImplementedError, "the MoE training slice",
+    pytest.param(dict(top=dict(arch="dbrx-132b")), None, None,
                  id="dbrx-NotImplementedError"),
 ])
 def test_validate_names_what_is_not_ported(change, error, match):
@@ -248,3 +246,22 @@ def test_validate_names_what_is_not_ported(change, error, match):
     with pytest.raises(SystemExit, match="not ported"):
         train.main(FLAGS + ["--device", "cpu", "--async", "--faults",
                             "drop:0.1", "--arrival", "topk:sharded"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_archs_validate_and_train_through_the_cli(arch, capsys):
+    """The MoE archs (jamba's mixers mamba and attention) validate for
+    training, and the port's CLI trains each, reduced, for 2 rounds on
+    the CPU with finite losses and router loss."""
+    spec = _spec(top=dict(arch=arch))
+    assert spec.validate() is spec
+    flags = [arch if f == "qwen1.5-0.5b" else f for f in FLAGS]
+    history = train.main(flags + ["--device", "cpu"]).history
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if LINE.match(l)]
+    assert len(history) == len(lines) == 2
+    for h in history:
+        for key in ("loss_server", "loss_client", "aux"):
+            assert np.isfinite(h[key]), (arch, key, h)
+        assert h["aux"] > 0, (arch, h)
