@@ -42,7 +42,17 @@ Phases, one or more lines each:
    backward at phase 17's shapes (the server's 16 x 512 tokens, a
    client's 4 x 512, a ragged 2 x 200), q, k, v in bf16 and f32, against
    the plain backward and autograd of the plain forward, a bitwise
-   repeat, its time, the plain backward's and the bound;
+   repeat, its time, the plain backward's and the bound; then K3 at the
+   frontend archs' shapes -- its non-causal mode (cross-attention over
+   Skv != S keys: whisper-tiny's 16 x 448 queries and a decode step's
+   8 x 1 on 1500 audio frames, 6 heads of 64), whisper's causal 16 x 448
+   and internvl2-26b's causal 16 x 512 at 48 heads of 128 on 8 KV heads,
+   forward and (but the decode step's) backward against the plain
+   version, each twice bitwise, beside the bound (non-causal: S x Skv
+   pairs, k and v bytes at Skv) and SDPA's time on the same inputs; and
+   K1 / K2 at the frontend archs' odd vocabularies (whisper d 384, V
+   51865, f32 head; internvl2 d 6144, V 92553, bf16 head: head rows off
+   16-byte boundaries), a bitwise repeat each;
 4. serve: full-width qwen1.5-0.5b in bf16 through ServeSpec ->
    build_serve -> ServeEngine.serve, dense and paged cache; paged tokens
    must equal dense tokens, and every admitted request must have
@@ -51,16 +61,19 @@ Phases, one or more lines each:
    and decode cache (through the kernel) against the token-by-token
    decode loop's (no kernel), and the engine's greedy tokens against the
    loop's;
-5b. serve-xlstm: phase 4 for full-width xlstm-1.3b (42 mLSTM, 6 sLSTM
-   layers) in bf16: K6 launched once per mLSTM layer and admit, none of
+5b. serve-xlstm: phase 4 for full-width xlstm-1.3b cut to one period of
+   its pattern (8 of 48 layers: 7 mLSTM, 1 sLSTM; the cut config's
+   params made from the seed on the card and served by ``ServeEngine``,
+   as 5f) in bf16: K6 launched once per mLSTM layer and admit, none of
    K3; an admit split by mixer (host time, K6's device time) and a
    decode step with every slot busy, profiled;
 5c. check-xlstm: phase 5 for xlstm-1.3b at full width and 8 layers (one
    period of its pattern) on an odd prompt of 77 tokens: logits and
    every layer's final state (mLSTM C, n, m through K6 against the
    per-step recurrence);
-5d. serve-moe: phase 4 for full-width, full-depth qwen3-moe-30b-a3b (48
-   layers, 128 experts, top-8, bf16 weights: 61 GB, one copy at a time)
+5d. serve-moe: phase 4 for full-width qwen3-moe-30b-a3b cut to 16 of
+   its 48 layers (128 experts, top-8, bf16 weights: 20.4 GB, one copy at
+   a time; served by ``ServeEngine`` as 5f)
    -- K3 once per attention layer and admit at 32 heads of 128 on 4 KV
    heads; the MoE FFN routes in float32, dropless in the prefill; an
    admit of the longest prompt and a decode step with every slot busy,
@@ -212,7 +225,38 @@ Phases, one or more lines each:
    layers (one server MoE layer), 2 clients x 64 tokens (pairs drop), the
    nearest 8th / 9th router gap printed first, aux and the router grads
    (and the round's server routers) among the checks; then a bf16 step
-   of 3 layers, 2 clients x 4 x 512 tokens, run twice: bitwise.
+   of 3 layers, 2 clients x 4 x 512 tokens, run twice: bitwise;
+5h. serve-whisper: whisper-tiny at full width and depth in its dtypes
+   (f32 params, bf16 compute) through ``forward_prefill_cached`` and
+   ``decode_step`` (``ServeEngine`` refuses frontends, as the
+   reference's): batches of 8 rows, each row its own 1500 x 384 encoder
+   output, prompts of 4, 64, 128 and 224 tokens, 32 greedy new tokens
+   each -- tok/s, prefill and step ms, peak memory, and K3's launches,
+   self and cross, equal to the layout's (a decode step cross-attends
+   through K3 in every layer);
+5i. check-whisper: phase 5 for whisper-tiny in float32 at full depth, 2
+   rows: the fused prefill against the token-by-token decode loop;
+19. train-whisper: phase 6's cell on whisper-tiny at full width and
+   depth, 2 steps of 16 x 448 tokens (Whisper's decoder context) on 1500
+   frames a row, through ``engine.make_round_runner`` with
+   ``api.build``'s arguments (a spec takes no frontend arch) -- the
+   memory concatenated at the split and pulled back through each
+   client's projector; the launches per round against the layout (K3
+   self and cross, forward and backward), finite losses, round seconds,
+   tokens/s, peak memory and a profiled round;
+19b. check-whisper-train: phase 7 on whisper-tiny in float32 at full
+   width and depth, 2 clients x 64 tokens on 1500 frames (the
+   projector's and ``pos``'s grads printed); then a bf16 step of 2
+   clients x 4 x 448 tokens twice: bitwise;
+20. train-vlm: phase 6's cell on internvl2-26b at full width cut to 6 of
+   48 layers (2 client, 4 server) in bf16, 4 slots x 4 rows x (256 image
+   + 256 text) rows, the image rows' labels of weight 0 -- a memory
+   reckoning first, the launches per round (K3 at 48 / 8 heads of 128,
+   K1 / K2 at d 6144 x V 92553), the peak held under 72 GB, a profiled
+   round;
+20b. check-vlm: internvl2-26b's projector alone at full width in float32,
+   (2, 256, 3200) -> (2, 256, 6144), card against CPU: its output and
+   the grads of its four leaves.
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -235,6 +279,8 @@ backward and K1 / K2 at xlstm-1.3b's width from phase 3, then 17 and
 17b; ``python3 chip_smoke.py moe-train`` phases 1 and 2, K3's backward
 and K1 / K2 at qwen3-moe-30b-a3b's training shapes from phase 3, then 18
 and 18b.
+``python3 chip_smoke.py frontends`` runs phases 1 and 2, the frontend
+cases of phase 3 (K3 and K1 / K2), then 5h, 5i, 19, 19b, 20 and 20b.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -297,12 +343,19 @@ JAMBA_CHECK_LAYERS = 3
 # experts' 604 M parameters), 8 layers and the 2.5 GB embedding and head
 # come to ~22 GB
 MOE_CHECK_LAYERS = 8
+# serve-moe's and serve-xlstm's depths, cut to keep the whole script well
+# within its time limit (both serving runs are host-bound, their seconds
+# a layer count's multiple): qwen3-moe-30b-a3b at 16 of 48 layers (20.4
+# GB in bf16), xlstm-1.3b at one period of its 7:1 pattern (8 of 48: 7
+# mLSTM, 1 sLSTM)
+MOE_SERVE_LAYERS = 16
+XLSTM_SERVE_LAYERS = 8
 # train-moe's depth: full-width qwen3-moe-30b-a3b cut from 48 to 6 layers,
 # the client's 2 (split_layer) and 4 server layers. A layer is 622.9 M bf16
 # params (18.9 M of attention, 604.0 M of experts) and a float32 router;
 # the embedding and the head 311.2 M each: 4 slots of the client half and
 # the server half come to 18.07 GB, their gradients as much again
-# (``moe_memory_reckoning`` prints it). check-moe-train: float32, 3 layers
+# (``memory_reckoning`` prints it). check-moe-train: float32, 3 layers
 # (one server MoE layer), 2 clients x 64 tokens: capacity 5 a row for 8
 # of 128 experts, so pairs drop.
 MOE_TRAIN_LAYERS = 6
@@ -396,6 +449,13 @@ LACE_XLSTM = (8192, BF16, 1.0, LACE_CLIENTS, 0, F32, 2048, 50304)
 # the boundary of qwen3-moe-30b-a3b's training (train-moe): d 2048, V
 # 151936, its params (the head too) stored in bf16
 LACE_MOE = (8192, BF16, 1.0, LACE_CLIENTS, 0, BF16, 2048, 151936)
+# the boundaries of the frontend archs' training (phases 19, 20), at odd
+# vocabularies whose head rows miss 16-byte boundaries (the kernels'
+# plain-copy path): whisper-tiny's server batch of 16 x 448 tokens, d 384,
+# V 51865, its f32 head; internvl2-26b's 16 x (256 + 256) rows, d 6144, V
+# 92553, its bf16 head
+LACE_WHISPER = (7168, BF16, 1.0, LACE_CLIENTS, 0, F32, 384, 51865)
+LACE_VLM = (8192, BF16, 1.0, LACE_CLIENTS, 0, BF16, 6144, 92553)
 LACE_BF16_HEAD = LACE_CASES[-1]          # the bf16 policy's main path
 # the single-prior LACE kernels (K4, K5) of the dual boundary, (N tokens,
 # feats dtype, side, head dtype) at the training width: the server side
@@ -525,17 +585,24 @@ def device_ms(fn, iters: int = 20) -> float:
                        f"than a {sleep_s / 4:.4f} s sleep")
 
 
-def causal_pairs(P, window):
-    """The (query, key) pairs causal attention over P tokens scores."""
+def causal_pairs(P, window, Skv=None, causal=True):
+    """The (query, key) pairs attention over P queries scores: causal (and
+    windowed) over P tokens, or, with ``causal=False``, every one of the
+    ``Skv`` keys (cross-attention; ``Skv`` defaults to P)."""
+    if not causal:
+        return P * (P if Skv is None else Skv)
     span = np.arange(P) + 1
     return int(np.minimum(span, window).sum() if window else span.sum())
 
 
-def attention_bound(B, P, H, KV, hd, window, dtype):
-    """(ms, 'operations' | 'bytes'): the least time for causal attention
-    over B prompts of P tokens, from the (q, k) pairs it must score."""
-    flops = 4 * hd * causal_pairs(P, window) * H * B   # QK^T and PV
-    nbytes = B * (2 * P * H * hd + 2 * P * KV * hd) * torch.empty(
+def attention_bound(B, P, H, KV, hd, window, dtype, Skv=None, causal=True):
+    """(ms, 'operations' | 'bytes'): the least time for attention over B
+    rows of P queries, from the (q, k) pairs it must score
+    (:func:`causal_pairs`), or from its bytes: q and the output at P
+    rows, k and v at ``Skv`` (default P)."""
+    Skv = P if Skv is None else Skv
+    flops = 4 * hd * causal_pairs(P, window, Skv, causal) * H * B  # QK^T, PV
+    nbytes = B * (2 * P * H * hd + 2 * Skv * KV * hd) * torch.empty(
         (), dtype=dtype).element_size()
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -754,19 +821,18 @@ def device_events(prof):
     return per
 
 
-def profile(what: str, fn, top: int, watch=(), host=True) -> None:
-    """Run ``fn`` once more under torch.profiler: the wall time, the
-    device's busy time (the sum of kernel times), the ``top`` kernels
-    that take the most of it and, for each (label, name part) in
-    ``watch``, the share of the kernels whose name holds that part.
-    Profiling slows the host, so only the device numbers are read from
-    this run. ``host=False`` records no host ops (the device numbers need
-    none): a run of a million launches then costs far less to collect."""
+def profile(what: str, fn, top: int, watch=()) -> None:
+    """Run ``fn`` once more under torch.profiler, recording device events
+    only: the wall time, the device's busy time (the sum of kernel
+    times), the ``top`` kernels that take the most of it and, for each
+    (label, name part) in ``watch``, the share of the kernels whose name
+    holds that part. No host op is recorded: no number here reads one,
+    and recording them slows a serving run's host and takes seconds to
+    collect."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     t_start = time.perf_counter()
-    with torch_profile(activities=[ProfilerActivity.CUDA] + (
-            [ProfilerActivity.CPU] if host else [])) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1545,8 +1611,11 @@ def phase_mlstm():
             f"the state blocks {l2 / 1e6:.0f} MB, "
             f"{l2 / dev_ms / 1e9:.2f} TB/s")
     # launches x (time - bound) over the serving mix: every admit runs K6
-    # once per mLSTM layer, in the dense and the paged run
-    layers = sum(s.mixer == "mlstm" for s in get_config(XLSTM).block_specs)
+    # once per mLSTM layer of serve-xlstm's depth, in the dense and the
+    # paged run
+    served = dataclasses.replace(get_config(XLSTM),
+                                 num_layers=XLSTM_SERVE_LAYERS)
+    layers = sum(s.mixer == "mlstm" for s in served.block_specs)
     mix = serve_mix()
     for dtype in (torch.bfloat16, torch.float32):
         parts = {P: 2 * c * layers * (rows[(1, P, 4, 1024, 1024, dtype)]["ms"]
@@ -1764,7 +1833,7 @@ def phase_mlstm_bwd():
                 kernel.mlstm_chunk_bwd_cuda, q, k, v, i_raw, f_log, dh,
                 state, chunk=MLSTM_CHUNK)
     profile(f"K6 backward at B, S = {MLSTM_BWD_REPORT[:2]}, q/k/v bf16",
-            report, 12, host=False)
+            report, 12)
     return rows, max_err
 
 
@@ -1968,7 +2037,8 @@ def bounds_text(r):
             f"{r['f32_ms']:.2f}")
 
 
-def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE]):
+def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE, LACE_WHISPER,
+                                   LACE_VLM]):
     """K1 and K2 against their plain versions (same arguments, chunked
     logits); ``library_ms`` is the one cuBLAS product feats @ W in
     float32, a yardstick only (no PyTorch call computes the fused
@@ -2046,7 +2116,8 @@ def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE]):
             f"K2 {times['bwd']:.2f} ms (plain {times['bwd_plain']:.2f}, "
             f"{bounds_text(rows[(case, 'bwd')])}); cuBLAS feats@W "
             f"{times['library']:.2f} ms")
-        if case in (LACE_REPORT, LACE_BF16_HEAD, LACE_XLSTM, LACE_MOE):
+        if case in (LACE_REPORT, LACE_BF16_HEAD, LACE_XLSTM, LACE_MOE,
+                    LACE_WHISPER, LACE_VLM):
             same = [torch.equal(a, b) for a, b in zip(
                 got + gb, kernel.lace2_fwd_cuda(*args)
                 + kernel.lace2_bwd_cuda(*bargs))]
@@ -2215,7 +2286,9 @@ def slot_launches(slots, cfg, boundary="fused"):
     grouped = range(first, first + n_groups * cfg.group_size)
 
     def count(mixer, layers):
-        return sum(cfg.block_spec(l).mixer == mixer for l in layers)
+        # a cross-attention sublayer runs K3 as an attention mixer does
+        return sum((s.mixer == mixer) + (mixer == "attn" and s.cross_attn)
+                   for s in map(cfg.block_spec, layers))
 
     out = {}
     for mixer, fwd, bwd in (("attn", "flash_fwd", "flash_bwd"),
@@ -2254,14 +2327,12 @@ TRAIN_WATCH = [("LACE forward (K1/K4)", "lace_fwd"),
 
 
 def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
-                phase="train", on_done=None, watch=TRAIN_WATCH,
-                profile_host=True):
+                phase="train", on_done=None, watch=TRAIN_WATCH):
     """Full-width training through the CLI's spec and the Trainer: the
     kernels' launches per round (an async event) against
     :func:`train_launches`, finite losses, round seconds (rounds 2 on;
     round 1 includes warm-up), tokens/s, peak memory, and a profiled extra
-    round (``watch``: the kernel groups whose shares it prints;
-    ``profile_host``: :func:`profile`'s ``host``). Every
+    round (``watch``: the kernel groups whose shares it prints). Every
     launch count is set to 0 at the start; returns the counts of the
     measured rounds (the profiled round not included). ``on_done(trainer)``
     runs after the measured rounds."""
@@ -2341,7 +2412,7 @@ def phase_train(device="cuda", flags=TRAIN_FLAGS, profile_round=True,
         on_done(trainer)
     if profile_round and torch.device(device).type == "cuda":
         profile(f"training round ({spec.execution.boundary} boundary)",
-                trainer.step, 8, watch=watch, host=profile_host)
+                trainer.step, 8, watch=watch)
     return counts
 
 
@@ -2419,7 +2490,7 @@ def phase_train_xlstm(device="cuda", flags=XLSTM_TRAIN_FLAGS,
         with depth_cut(layers):
             return phase_train(device, flags, profile_round=profile_round,
                                phase="train-xlstm", on_done=report,
-                               watch=XLSTM_WATCH, profile_host=False)
+                               watch=XLSTM_WATCH)
     finally:
         xlstm.slstm_scan = orig[0]
         xlstm.SLSTMScan.backward = staticmethod(orig[1])
@@ -2450,16 +2521,27 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
               "server": full["server"]}
     rng = np.random.default_rng(2)
     toks = rng.integers(0, cfg.vocab_size, (T, C, 1, S + 1))
-    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
-               "weights": np.ones((T, C, 1, S), np.float32)}
+    batches = frontend_batch(cfg, rng, {
+        "tokens": toks[..., :-1], "labels": toks[..., 1:],
+        "weights": np.ones((T, C, 1, S), np.float32)})
     sizes = np.array([3.0, 1.0][:C], np.float32)
     sc = ScalaConfig(num_clients=C, lr=0.01)
     model = transformer_split_model(cfg)
+    copies = {}
 
     def on(dev):
-        return (tree_map(lambda a: a.to(dev), params),
+        # one copy of the params a device: neither the step nor the round
+        # (not donated) writes to the params it is given
+        if dev not in copies:
+            copies[dev] = tree_map(lambda a: a.to(dev), params)
+        return (copies[dev],
                 {k: torch.from_numpy(v).to(dev) for k, v in batches.items()},
                 torch.from_numpy(sizes).to(dev))
+
+    def err(a, b):
+        # the card's leaf against the CPU's, on the card (the same
+        # arithmetic; the CPU took ~1 s a GB)
+        return rel_err(a, b.to(a.device))
 
     res, gaps = {}, {}
     for dev in (device, "cpu"):
@@ -2491,10 +2573,9 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
     for k in ("loss_server", "loss_client", "aux"):
         a, b = float(m_dev[k]), float(m_cpu[k])
         check(abs(a - b) <= LOSS_RTOL * abs(b), f"{k} {a} vs cpu {b}")
-    head = rel_err(g_dev["server"]["head"]["out"].cpu(),
-                   g_cpu["server"]["head"]["out"])
+    head = err(g_dev["server"]["head"]["out"], g_cpu["server"]["head"]["out"])
     want = state_leaves(g_cpu)
-    worst, worst_key = max((rel_err(a.cpu(), want[key]), key)
+    worst, worst_key = max((err(a, want[key]), key)
                            for key, a in state_leaves(g_dev).items())
     check(head <= LEAF_RTOL and worst <= LEAF_RTOL,
           f"grads: head dW {head}, worst leaf {worst} > {LEAF_RTOL}")
@@ -2506,13 +2587,20 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
         f"vs {float(m_cpu['aux']):.6f} (rtol {LOSS_RTOL}); head dW rel "
         f"err {head:.3g}, worst of {len(leaves(g_cpu))} grad leaves "
         f"{worst:.3g} ({worst_key}; tol {LEAF_RTOL})")
+    if cfg.frontend is not None:
+        front = {key: err(a, want[key])
+                 for key, a in state_leaves(g_dev).items()
+                 if "projector" in key or key.endswith("embed/pos")}
+        say(phase, f"the frontend's grads (the projector through the "
+            f"split's cotangent), rel err (within the {LEAF_RTOL} above): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in front.items()))
     if cfg.moe is not None:
-        routers = {key: rel_err(a.cpu(), want[key])
+        routers = {key: err(a, want[key])
                    for key, a in state_leaves(g_dev).items()
                    if key.endswith("router")}
         say(phase, f"router grads, rel err (within the {LEAF_RTOL} above): "
             + ", ".join(f"{k} {v:.3g}" for k, v in routers.items()))
-    del res, g_dev, g_cpu
+    del res, g_dev, g_cpu, want
 
     # the client half, and for an MoE arch the server's routers too
     def kept(params):
@@ -2534,7 +2622,8 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
         say(phase, f"round on {dev}: {time.perf_counter() - t0:.2f} s"
             + (f"; smallest router gap over its {T} steps' routings "
                f"{min(gaps):.3g}" if gaps else ""))
-        new[dev] = [a.cpu() for a in kept(state.params)]
+        # each device's leaves stay where they are
+        new[dev] = kept(state.params)
         del p, b, state
     for k in ("loss_server", "loss_client", "aux"):
         a, b = float(round_m[device][k]), float(round_m["cpu"][k])
@@ -2543,12 +2632,15 @@ def phase_train_check(device="cuda", reduced=False, C=2, S=64, T=2,
     # and the weighted sum to float32 on its own (half an ulp each), so
     # the two may land up to three ulps apart where the updates agree:
     # that is allowed, and the rest of the difference is measured against
-    # the leaf's largest update.
+    # the leaf's largest update. Computed on the card, from the CPU's
+    # leaves copied there one at a time.
     ulp = torch.finfo(torch.float32).eps
-    worst = max(
-        ((a - b).abs() - 3 * ulp * b.abs()).clamp(min=0).max().item()
-        / max((b - b0.cpu()).abs().max().item(), 1e-30)
-        for a, b, b0 in zip(new[device], new["cpu"], kept(params)))
+    worst = 0.0
+    for a, b, b0 in zip(new[device], new["cpu"], kept(params)):
+        b = b.to(a.device)
+        worst = max(worst, ((a - b).abs() - 3 * ulp * b.abs()).clamp(
+            min=0).max().item() / max((b - b0).abs().max().item(), 1e-30))
+        del b
     check(worst <= LEAF_RTOL, f"round client params: {worst} > {LEAF_RTOL}")
     say(phase, f"one round ({T} steps + FedAvg): aggregated client "
         f"params{' and the server routers' if cfg.moe is not None else ''}, "
@@ -2626,48 +2718,239 @@ def slab_text(seen, m):
         for (G, n), rs in groups.items())
 
 
-def moe_memory_reckoning(cfg, params, slots, tokens):
+def update_slice_gb(params):
+    """GB of float32 in the largest slice the optimizer's update takes at
+    a time (``optim.optimizers._slices``: ~2^26 entries, or one row of
+    the first axis where a row holds more, such as a client slot's
+    embedding; the client leaves carry the slot axis already)."""
+    from repro_torch.optim.optimizers import _slices
+    from repro_torch.tree import leaves
+
+    return max(_slices(a)[0].numel() for a in leaves(params)) * 4 / 1e9
+
+
+def memory_reckoning(cfg, params, slots, rows, seq):
     """The peak a training step should reach, from the params on the card
     and the shapes (printed before the run): the larger of the backward
     pass's -- every slot's client half and the server half, their
-    gradients as much, each layer's saved activations at ``tokens``
-    boundary tokens at most (the slab at its bound and its three expert
-    products, the (token, k) outputs the combine keeps, ~8 (tokens, d)
-    tensors of attention and norms) and the boundary's float32 dW -- and
-    the update's: SGD writes bf16 params anew (the float32 result is
-    rounded into a new leaf), so params, gradients and the new params are
-    live at once, with three float32 temporaries of the largest leaf
-    (the gradient, the step, the param). Returns (text, GB)."""
+    gradients as much, each layer's saved activations at the server's
+    ``rows`` rows of ``seq`` (+ an image prefix) tokens at most and the
+    boundary's float32 dW -- and the update's: SGD writes bf16 params anew
+    (the float32 result is rounded into a new leaf), so params, gradients
+    and the new params are live at once, with three float32 temporaries
+    of the largest slice the update takes (:func:`update_slice_gb`). A
+    layer saves ~8 (tokens, d) tensors of attention and norms, and an MoE
+    FFN the slab at its bound with its three expert products and the
+    (token, k) outputs the combine keeps, a dense MLP 4 (tokens, d_ff), a
+    cross-attention the memory's k and v. Returns (text, GB)."""
     from repro_torch.models.layers import moe
     from repro_torch.tree import leaves
 
-    m, d, el = cfg.moe, cfg.d_model, 2 if cfg.dtype == "bfloat16" else 4
+    d, el = cfg.d_model, 2 if cfg.dtype == "bfloat16" else 4
     client = sum(a[0].numel() * a.element_size()
                  for a in leaves(params["client"])) / 1e9
     server = sum(a.numel() * a.element_size()
                  for a in leaves(params["server"])) / 1e9
     total = slots * client + server
-    # the client leaves carry the slot axis already
-    largest = max(a.numel() for a in leaves(params)) * 4 / 1e9
-    seq = tokens // slots
-    n_rows = (tokens // seq) * min(moe.capacity(seq, m), seq)
-    slab = m.num_experts * n_rows * (d + 3 * m.d_expert) * el / 1e9
-    pairs = tokens * m.top_k * d * el / 1e9
-    attn = 8 * tokens * d * el / 1e9
-    act = cfg.num_layers * (slab + pairs + attn)
+    largest = update_slice_gb(params)
+    prefix = cfg.num_prefix_tokens if cfg.frontend == "vision" else 0
+    tokens = rows * (prefix + seq)
+    layer = 8 * tokens * d
+    if cfg.moe is not None:
+        m, per_slot = cfg.moe, tokens // slots
+        slab_rows = slots * min(moe.capacity(per_slot, m), per_slot)
+        layer += (m.num_experts * slab_rows * (d + 3 * m.d_expert)
+                  + tokens * m.top_k * d)
+    else:
+        layer += 4 * tokens * cfg.d_ff
+    if cfg.frontend == "audio":
+        layer += (rows * cfg.num_prefix_tokens * 4 * cfg.num_kv_heads
+                  * cfg.head_dim)
+    layer *= el / 1e9
+    act = cfg.num_layers * layer
     dw = 4 * d * cfg.vocab_size / 1e9
     step = 2 * total + act + dw
     update = 3 * total + 3 * largest
     return (f"client half {client:.2f} GB a slot x {slots}, server half "
             f"{server:.2f} GB: params {total:.2f} GB; the backward pass: "
             f"params, gradients as much, saved activations at most "
-            f"~{act:.1f} GB ({cfg.num_layers} layers at {tokens} tokens: "
-            f"the slab at its bound {slab:.2f}, the (token, k) outputs "
-            f"{pairs:.2f}, attention and norms ~{attn:.2f} a layer), the "
-            f"boundary's dW {dw:.2f}: ~{step:.1f} GB; the update: params, "
-            f"gradients, the new params and 3 float32 copies of the largest "
-            f"leaf ({largest:.2f} GB each): ~{update:.1f} GB; peak at most "
+            f"~{act:.1f} GB ({cfg.num_layers} layers at {tokens} server "
+            f"rows, ~{layer:.2f} a layer), the boundary's dW {dw:.2f}: "
+            f"~{step:.1f} GB; the update: params, gradients, the new params "
+            f"and 3 float32 temporaries of its largest slice ({largest:.2f} "
+            f"GB each): ~{update:.1f} GB; peak at most "
             f"~{max(step, update):.1f} GB"), max(step, update)
+
+
+class RoundCell:
+    """``api.build``'s round of a plain subset-mode SCALA spec (``flags``)
+    on a model config that no spec names: ``cfg`` (by default the spec's
+    own) cut to ``layers``. An ``ExperimentSpec`` has no depth and takes
+    no frontend arch, so the round runs through
+    ``engine.make_round_runner`` with the arguments ``build`` passes for
+    the spec, on params made once on ``device`` from the spec's seed
+    (``build``'s ``init`` would copy them under donation), and the
+    Trainer's host data stream, each batch with the arch's encoder output
+    (:func:`frontend_batch`). Prints the cell and the memory reckoning
+    (:func:`memory_reckoning`) before any round."""
+
+    def __init__(self, phase, flags, device, cfg=None, layers=None):
+        from repro_torch.api.build import _server_optimizer
+        from repro_torch.api.trainer import build_lm_data
+        from repro_torch.core import engine, scala as core_scala
+        from repro_torch.launch import train
+        from repro_torch.models import transformer as Tm
+
+        self.phase, self.device = phase, device
+        self.on_card = torch.device(device).type == "cuda"
+        spec = train.spec_from_args(train.build_parser().parse_args(flags))
+        spec.validate()
+        ex, fd, sc = spec.execution, spec.fed, spec.scala
+        faults, guards = fd.make_faults(), fd.make_guards()
+        server_opt, server_lr = _server_optimizer(spec)
+        agg = fd.make_aggregator()
+        # build()'s round for this spec: subset mode, no scheduler, no fed
+        # state
+        check(ex.mode == "subset" and spec.method == "scala"
+              and faults is None and guards is None and server_opt is None
+              and not agg.stateful,
+              f"{phase}: the cell is a plain subset-mode SCALA spec")
+        full = cfg or spec.model_config()
+        cfg = dataclasses.replace(full, num_layers=min(
+            layers or full.num_layers, full.num_layers))
+        free_device_memory()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device)
+        gen.manual_seed(spec.seed)
+        made = Tm.init_params(gen, cfg)
+        params = engine.init_scala_params(gen, lambda _: made["client"],
+                                          lambda _: made["server"],
+                                          spec.slots)
+        del made
+        opt = spec.optim.make()
+        self.round_fn = engine.make_round_runner(
+            core_scala.transformer_split_model(cfg), sc, backend=ex.backend,
+            boundary=ex.boundary, optimizer=opt,
+            schedule=spec.optim.make_schedule(spec.rounds * sc.local_iters,
+                                              default_lr=sc.lr),
+            aggregator=agg, participation=None,
+            opt_state_policy=fd.opt_state_policy, slot_gather=False,
+            server_optimizer=server_opt, server_lr=server_lr,
+            precision=ex.precision, faults=faults, guards=guards,
+            donate=ex.donate)
+        reckoning, self.predicted = memory_reckoning(
+            cfg, params, spec.slots, sc.server_batch, spec.data.seq)
+        self.state = engine.init_train_state(params, opt)
+        del params
+        sync(device)
+        prefix = cfg.num_prefix_tokens if cfg.frontend == "vision" else 0
+        say(phase, f"{cfg.name} ({cfg.num_layers} of {full.num_layers} "
+            f"layers: {cfg.split_layer} client, "
+            f"{cfg.num_layers - cfg.split_layer} server), {cfg.dtype} "
+            f"compute, {cfg.param_dtype} params"
+            + (", float32 routers" if cfg.moe is not None else "")
+            + (f", frontend {cfg.frontend} ({cfg.num_prefix_tokens} x "
+               f"{cfg.frontend_dim} a row)" if cfg.frontend else "")
+            + f"; {sc.num_clients} clients, {spec.slots} slots, "
+            f"{sc.local_iters} local steps of {sc.server_batch} x "
+            + (f"({prefix} + {spec.data.seq}) rows" if prefix else
+               f"{spec.data.seq} tokens")
+            + f", boundary {ex.boundary}, {fd.aggregator} FedAvg, "
+            f"{spec.optim.name}; params made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        say(phase, f"memory reckoning before the run: {reckoning}")
+        self.spec, self.cfg = spec, cfg
+        self.data = build_lm_data(cfg, sc.num_clients,
+                                  spec.data.docs_per_client, spec.data.seq,
+                                  spec.seed)
+        self.rng = np.random.default_rng(spec.seed)
+
+    def draw(self):
+        """One round's batches and client sizes, on the device."""
+        from repro_torch.data.loader import lm_round_batches, sample_clients
+
+        sc = self.spec.scala
+        rb = lm_round_batches(self.data, sample_clients(
+            sc.num_clients, sc.clients_per_round, self.rng), sc.server_batch,
+            sc.local_iters, self.rng)
+        sizes = torch.from_numpy(rb.pop("sizes")).to(self.device)
+        rb = frontend_batch(self.cfg, self.rng, rb)
+        return ({k: torch.from_numpy(v).to(self.device)
+                 for k, v in rb.items()}, sizes)
+
+    def run(self, drawn=None):
+        """One round on ``drawn`` (:meth:`draw`; a fresh draw if None);
+        returns its losses and router loss."""
+        self.state, m = self.round_fn(self.state, *(drawn or self.draw()))
+        return {k: float(m[k]) for k in ("loss_server", "loss_client",
+                                         "aux")}
+
+    def rounds(self, watch=lambda r, run: run(), peak_bar=None):
+        """The spec's rounds on batches drawn before them (set-up, not
+        timed: a frontend arch's encoder outputs are ~74-105 MB a round),
+        ``watch(r, run)`` running round r (``run()``) and returning its
+        metrics. Checks them finite and, on a card, each round's launches
+        against the layout (:func:`train_launches`), and the peak against
+        ``peak_bar``; prints each round (K3's calls self and cross), the
+        seconds of rounds 1.., tokens/s and the peak beside the
+        reckoning. Returns (the launches of the rounds, the mean seconds
+        of rounds 1..)."""
+        spec, cfg, phase = self.spec, self.cfg, self.phase
+        T = spec.scala.local_iters
+        t0 = time.perf_counter()
+        drawn = [self.draw() for _ in range(spec.rounds)]
+        say(phase, f"{len(drawn)} rounds' batches drawn in "
+            f"{time.perf_counter() - t0:.1f} s (set-up, not timed)")
+        per_step = train_launches(spec, cfg)
+        if self.on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        before = read_counts()
+        secs = []
+        for r in range(spec.rounds):
+            t0 = time.perf_counter()
+            with k3_calls() as seen:
+                m = watch(r, lambda: self.run(drawn[r]))
+            sync(self.device)
+            secs.append(time.perf_counter() - t0)
+            now = read_counts()
+            got = {k: now[k] - before[k] for k in now}
+            before = now
+            check(all(np.isfinite(v) for v in m.values()),
+                  f"{phase} round {r}: finite losses and router loss {m}")
+            if self.on_card:
+                want = {k: T * n for k, n in per_step.items()}
+                check(got == want, f"{phase} round {r} launches {got} != "
+                      f"{want} ({T} steps x {per_step})")
+            say(phase, f"round {r} loss_s={m['loss_server']:.4f} "
+                f"loss_c={m['loss_client']:.4f} aux={m['aux']:.4f} in "
+                f"{secs[-1]:.3f} s; launches K3 fwd {got['flash_fwd']} "
+                f"(self {sum(seen)}, cross {len(seen) - sum(seen)}) bwd "
+                f"{got['flash_bwd']}, K1 {got['lace_fwd']}, K2 "
+                f"{got['lace_bwd']}")
+        del drawn
+        counts = read_counts()
+        steady = secs[1:] or secs
+        round_s = float(np.mean(steady))
+        tokens = participating_tokens(spec)
+        peak = torch.cuda.max_memory_allocated() if self.on_card else 0
+        say(phase, f"round seconds (rounds 1..{len(secs) - 1}, round 0 has "
+            f"the warm-up): {[round(x, 3) for x in steady]}, mean "
+            f"{round_s:.3f} s -> {tokens / round_s:.0f} training tokens/s "
+            f"({tokens} text tokens a round); round 0 {secs[0]:.3f} s; peak "
+            f"{peak / 2**20:.0f} MiB allocated ({peak / 1e9:.2f} GB; "
+            f"reckoned at most ~{self.predicted:.1f} GB"
+            + (f", bar {peak_bar / 1e9:.0f} GB" if peak_bar else "")
+            + f"); per step: {per_step}")
+        if peak_bar is not None and self.on_card:
+            check(peak < peak_bar, f"{phase}: peak {peak / 1e9:.2f} GB >= "
+                  f"{peak_bar / 1e9:.0f} GB")
+        return counts, round_s
+
+    def close(self):
+        """Frees the train state on the device."""
+        del self.state
+        free_device_memory()
 
 
 def phase_train_moe(device="cuda", flags=MOE_TRAIN_FLAGS,
@@ -2676,143 +2959,40 @@ def phase_train_moe(device="cuda", flags=MOE_TRAIN_FLAGS,
     local steps of 16 x 512 tokens, SCALA, the fused ``lace`` boundary,
     weighted FedAvg, SGD, 3 rounds) on full-width qwen3-moe-30b-a3b in its
     own dtypes (bf16 params and compute, float32 routers), the depth cut
-    to ``layers``. An ``ExperimentSpec`` has no depth, so the round runs
-    through ``engine.make_round_runner`` on the cut config's split model
-    with the arguments ``api.build`` passes for the spec, on params made
-    once on the card from the spec's seed (``build``'s ``init`` would copy
-    them under donation), and the Trainer's host data stream. Reports the
-    memory reckoning (before the run), the launches per round against
-    :func:`train_launches` on the cut config, finite losses and router
-    loss, the seconds of rounds 1-2, tokens/s and the peak, the slab's
-    rows and the host syncs of round 0, a profiled round (device only)
-    and a round split into the MoE FFN, attention (forward and backward
-    each) and the LACE boundary (:func:`component_split`). Returns the
-    launches of the 3 rounds."""
-    from repro_torch.api.build import _server_optimizer
-    from repro_torch.api.trainer import build_lm_data
-    from repro_torch.core import engine, scala as core_scala
-    from repro_torch.data.loader import lm_round_batches, sample_clients
-    from repro_torch.launch import train
-    from repro_torch.models import transformer as Tm
+    to ``layers``, as a :class:`RoundCell`: the memory reckoning (before
+    the run), the launches per round against :func:`train_launches` on
+    the cut config, finite losses and router loss, the seconds of rounds
+    1-2, tokens/s and the peak; then the slab's rows and the host syncs
+    of round 0, a profiled round (device only) and a round split into the
+    MoE FFN, attention (forward and backward each) and the LACE boundary
+    (:func:`component_split`). Returns the launches of the 3 rounds."""
+    from repro_torch.core import engine
     from repro_torch.models.layers import attention, moe
 
-    on_card = torch.device(device).type == "cuda"
-    spec = train.spec_from_args(train.build_parser().parse_args(flags))
-    spec.validate()
-    ex, fd, sc = spec.execution, spec.fed, spec.scala
-    faults, guards = fd.make_faults(), fd.make_guards()
-    server_opt, server_lr = _server_optimizer(spec)
-    agg = fd.make_aggregator()
-    # build()'s round for this spec: subset mode, no scheduler, no fed state
-    check(ex.mode == "subset" and spec.method == "scala" and faults is None
-          and guards is None and server_opt is None and not agg.stateful,
-          f"{phase}: the cell is a plain subset-mode SCALA spec")
-    full_cfg = spec.model_config()
-    cfg = dataclasses.replace(full_cfg, num_layers=min(layers,
-                                                       full_cfg.num_layers))
-    free_device_memory()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device)
-    gen.manual_seed(spec.seed)
-    full = Tm.init_params(gen, cfg)
-    params = engine.init_scala_params(gen, lambda g: full["client"],
-                                      lambda g: full["server"], spec.slots)
-    del full
-    opt = spec.optim.make()
-    round_fn = engine.make_round_runner(
-        core_scala.transformer_split_model(cfg), sc, backend=ex.backend,
-        boundary=ex.boundary, optimizer=opt,
-        schedule=spec.optim.make_schedule(spec.rounds * sc.local_iters,
-                                          default_lr=sc.lr),
-        aggregator=agg, participation=None,
-        opt_state_policy=fd.opt_state_policy, slot_gather=False,
-        server_optimizer=server_opt, server_lr=server_lr,
-        precision=ex.precision, faults=faults, guards=guards,
-        donate=ex.donate)
-    tokens = participating_tokens(spec)
-    reckoning, predicted = moe_memory_reckoning(
-        cfg, params, spec.slots, tokens // sc.local_iters)
-    state = engine.init_train_state(params, opt)
-    del params
-    sync(device)
-    say(phase, f"{cfg.name} cut to {cfg.num_layers} of "
-        f"{full_cfg.num_layers} layers ({cfg.split_layer} client, "
-        f"{cfg.num_layers - cfg.split_layer} server), {cfg.dtype} compute, "
-        f"{cfg.param_dtype} params, float32 routers; {sc.num_clients} "
-        f"clients, {spec.slots} slots, {sc.local_iters} local steps of "
-        f"{sc.server_batch} x {spec.data.seq} tokens, boundary {ex.boundary}"
-        f", {fd.aggregator} FedAvg, {spec.optim.name}; params made in "
-        f"{time.perf_counter() - t0:.1f} s")
-    say(phase, f"memory reckoning before the run: {reckoning}")
-    data = build_lm_data(cfg, sc.num_clients, spec.data.docs_per_client,
-                         spec.data.seq, spec.seed)
-    rng = np.random.default_rng(spec.seed)
+    cell = RoundCell(phase, flags, device, layers=layers)
+    first = {}
 
-    def draw():
-        rb = lm_round_batches(data, sample_clients(
-            sc.num_clients, sc.clients_per_round, rng), sc.server_batch,
-            sc.local_iters, rng)
-        sizes = torch.from_numpy(rb.pop("sizes")).to(device)
-        return {k: torch.from_numpy(v).to(device) for k, v in rb.items()}, \
-            sizes
+    def watch(r, run):
+        if r or not cell.on_card:
+            return run()
+        with moe_routings() as first["seen"]:
+            m, first["syncs"] = count_syncs(run)
+        return m
 
-    def one_round():
-        nonlocal state
-        batches, sizes = draw()
-        state, m = round_fn(state, batches, sizes)
-        return {k: float(m[k]) for k in ("loss_server", "loss_client", "aux")}
-
-    T = sc.local_iters
-    per_step = train_launches(spec, cfg)
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    before = read_counts()
-    secs, syncs = [], None
-    for r in range(spec.rounds):
-        t0 = time.perf_counter()
-        if r == 0 and on_card:
-            with moe_routings() as seen:
-                m, syncs = count_syncs(one_round)
-        else:
-            m = one_round()
-        sync(device)
-        secs.append(time.perf_counter() - t0)
-        now = read_counts()
-        got = {k: now[k] - before[k] for k in now}
-        before = now
-        check(all(np.isfinite(m[k]) for k in m), f"{phase} round {r}: "
-              f"finite losses and router loss {m}")
-        if on_card:
-            want = {k: T * n for k, n in per_step.items()}
-            check(got == want, f"{phase} round {r} launches {got} != {want} "
-                  f"({T} steps x {per_step})")
-        say(phase, f"round {r} loss_s={m['loss_server']:.4f} "
-            f"loss_c={m['loss_client']:.4f} aux={m['aux']:.4f} in "
-            f"{secs[-1]:.3f} s; launches K3 fwd {got['flash_fwd']} bwd "
-            f"{got['flash_bwd']}, K1 {got['lace_fwd']}, K2 "
-            f"{got['lace_bwd']}")
-    counts = read_counts()
-    steady = secs[1:] or secs
-    round_s = float(np.mean(steady))
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
-    say(phase, f"round seconds (rounds 1..{len(secs) - 1}, round 0 has the "
-        f"warm-up): {[round(x, 3) for x in steady]}, mean {round_s:.3f} s "
-        f"-> {tokens / round_s:.0f} training tokens/s ({tokens} tokens a "
-        f"round); round 0 {secs[0]:.3f} s; peak {peak / 2**20:.0f} MiB "
-        f"allocated (reckoned at most ~{predicted * 1e9 / 2**20:.0f} MiB); "
-        f"per step: {per_step}")
-    if not on_card:
+    counts, round_s = cell.rounds(watch)
+    if not cell.on_card:
+        cell.close()
         return counts
-    m_cfg = cfg.moe
-    reads = sum(not r[1] for r in slab_rows(seen, m_cfg))
-    say(phase, f"round 0's MoE routings: {slab_text(seen, m_cfg)}; "
-        f"{reads / T:.0f} exact slab counts read back a step; synchronizing "
-        f"CUDA calls in round 0: {syncs} ({syncs / T:.1f} a step, the "
-        f"round's host copy of the metrics among them)")
-    del seen
-    profile("MoE training round (device events only)", one_round, 10,
-            watch=TRAIN_WATCH, host=False)
+    spec, cfg = cell.spec, cell.cfg
+    T = spec.scala.local_iters
+    reads = sum(not r[1] for r in slab_rows(first["seen"], cfg.moe))
+    say(phase, f"round 0's MoE routings: {slab_text(first['seen'], cfg.moe)}"
+        f"; {reads / T:.0f} exact slab counts read back a step; "
+        f"synchronizing CUDA calls in round 0: {first['syncs']} "
+        f"({first['syncs'] / T:.1f} a step, the round's host copy of the "
+        f"metrics among them)")
+    del first
+    profile("MoE training round", cell.run, 10, watch=TRAIN_WATCH)
     n_moe = sum(s.ffn == "moe" for s in cfg.block_specs)
     n_attn = sum(s.mixer == "attn" for s in cfg.block_specs)
     slots, split = spec.slots, cfg.split_layer
@@ -2828,45 +3008,40 @@ def phase_train_moe(device="cuda", flags=MOE_TRAIN_FLAGS,
     client_attn = sum(s.mixer == "attn" for s in cfg.block_specs[:split])
     component_split(
         phase, f"a training round ({T} steps + FedAvg; the largest call: "
-        "the server's)", lambda: timed_ms(one_round), [
+        "the server's)", lambda: timed_ms(cell.run), [
             ("MoE FFN", moe, "moe_apply", *passes(client_moe, n_moe)),
             ("attention (K3)", attention, "attn_apply",
              *passes(client_attn, n_attn)),
             ("LACE boundary (K1, K2)", engine, "_lace_boundary", T)],
         wall_ms=1e3 * round_s)
-    del state
-    free_device_memory()
+    cell.close()
     return counts
 
 
-def moe_step_repeat(device="cuda", reduced=False, layers=MOE_TRAIN_CHECK_LAYERS,
-                    C=2, Bk=4, S=512, phase="check-moe-train"):
-    """One split step of qwen3-moe-30b-a3b in its own dtypes (bf16 params
-    and compute, float32 routers; full width unless ``reduced``, cut to
-    ``layers``) run twice on the same params and batch: every gradient
-    and metric bitwise equal. C clients x Bk x S tokens: each MoE layer's
-    slab takes the exact count (read back) and pairs drop."""
-    from repro_torch.configs import ScalaConfig, get_config
+def step_repeat(cfg, device, C, Bk, S, seed, phase):
+    """One split step of ``cfg`` in its own dtypes, C clients x Bk x S
+    tokens (each row with the arch's encoder output), run twice on the
+    same params and batch: every gradient and metric bitwise equal."""
+    from repro_torch.configs import ScalaConfig
     from repro_torch.core import engine
     from repro_torch.core.scala import transformer_split_model
     from repro_torch.core.split import stack_client_params
     from repro_torch.models import transformer as Tm
     from repro_torch.tree import leaves
 
-    cfg = get_config(MOE)
-    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
-                              num_layers=layers)
     free_device_memory()
     gen = torch.Generator(device)
-    gen.manual_seed(5)
+    gen.manual_seed(seed)
     full = Tm.init_params(gen, cfg)
     params = {"client": stack_client_params(full["client"], C),
               "server": full["server"]}
-    rng = np.random.default_rng(5)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                         (C, Bk, S + 1))).to(device)
-    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
-             "weights": torch.ones((C, Bk, S), device=device)}
+    del full
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (C, Bk, S + 1))
+    b = frontend_batch(cfg, rng, {"tokens": toks[..., :-1],
+                                  "labels": toks[..., 1:],
+                                  "weights": np.ones((C, Bk, S), np.float32)})
+    batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
     model = transformer_split_model(cfg)
     sc = ScalaConfig(num_clients=C)
     runs = []
@@ -2879,15 +3054,32 @@ def moe_step_repeat(device="cuda", reduced=False, layers=MOE_TRAIN_CHECK_LAYERS,
     same = all(torch.equal(a, b) for a, b in zip(g1, g2))
     same_m = all(torch.equal(torch.as_tensor(m1[k]), torch.as_tensor(m2[k]))
                  for k in m1)
-    check(same and same_m, f"{phase}: a bf16 MoE step repeated: grads "
-          f"bitwise {same}, metrics bitwise {same_m}")
-    say(phase, f"{cfg.name} {cfg.param_dtype} params, {cfg.num_layers} "
-        f"layers, {C} clients x {Bk} x {S} tokens: one split step twice, "
-        f"all {len(g1)} grad leaves and the metrics bitwise equal "
-        f"(loss_s {float(m1['loss_server']):.4f}, aux "
-        f"{float(m1['aux']):.4f}); routings: {slab_text(seen, cfg.moe)}")
-    del runs, g1, g2, params
+    check(same and same_m, f"{phase}: a {cfg.param_dtype} {cfg.name} step "
+          f"repeated: grads bitwise {same}, metrics bitwise {same_m}")
+    say(phase, f"{cfg.name} {cfg.param_dtype} params, {cfg.dtype} compute, "
+        f"{cfg.num_layers} layers, {C} clients x {Bk} x {S} tokens"
+        + (f" on {cfg.num_prefix_tokens} frames a row"
+           if cfg.frontend == "audio" else "")
+        + f": one split step twice, all {len(g1)} grad leaves and the "
+        f"metrics bitwise equal (loss_s {float(m1['loss_server']):.4f}"
+        + (f", aux {float(m1['aux']):.4f}); routings: "
+           f"{slab_text(seen, cfg.moe)}" if cfg.moe is not None else ")"))
+    del runs, g1, g2, params, batch
     free_device_memory()
+
+
+def moe_step_repeat(device="cuda", reduced=False, layers=MOE_TRAIN_CHECK_LAYERS,
+                    C=2, Bk=4, S=512, phase="check-moe-train"):
+    """:func:`step_repeat` on qwen3-moe-30b-a3b in its own dtypes (bf16
+    params and compute, float32 routers; full width unless ``reduced``,
+    cut to ``layers``). At C clients x Bk x S tokens each MoE layer's
+    slab takes the exact count (read back) and pairs drop."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE)
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
+                              num_layers=layers)
+    step_repeat(cfg, device, C, Bk, S, 5, phase)
 
 
 def phase_moe_train_check(device="cuda", reduced=False):
@@ -3165,15 +3357,17 @@ def update_gap(old, want, got, reported=None):
     over all leaves, the worst leaf's largest error over its update's
     largest entry, that leaf, the entries over UPDATE_RTOL and the worst
     ||got - want|| / ||update||; and the worst of the first over the
-    leaves whose path does not start with ``reported``."""
+    leaves whose path does not start with ``reported``. Computed where
+    ``got``'s leaves lie."""
     worst, worst_key, n_off, fro, checked = 0.0, "", 0, 0.0, 0.0
     for key, b in want.items():
         if not isinstance(b, torch.Tensor):
             check(got[key] == b, f"{key}: {got[key]} != {b}")
             continue
-        a = got[key].double().cpu()
+        a = got[key].double()
+        b = b.to(a.device)
         check(bool(torch.isfinite(a).all()), f"{key} finite")
-        upd = b - old[key]
+        upd = b - old[key].to(a.device)
         top = max(upd.abs().max().item(), 1e-30)
         err = (a - b).abs()
         gap = err.max().item() / top
@@ -3355,19 +3549,22 @@ def resume_check(what, make_trainer, rounds_before, rounds_after, device):
     """``rounds_before + rounds_after`` rounds uninterrupted against
     ``rounds_before``, ``Trainer.save``, a fresh Trainer, ``resume`` and
     ``rounds_after``: bitwise equal states and histories. One Trainer is
-    alive at a time; the uninterrupted state is kept on the host."""
+    alive at a time; the uninterrupted state is kept on the host (its
+    leaves checked finite where they lie: on the CPU that check took
+    longer than the copy)."""
     import shutil
     import tempfile
 
     t = make_trainer()
     t.run(rounds_before + rounds_after)
-    want = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
-            for k, v in state_leaves(t.state).items()}
-    want_hist = list(t.history)
-    del t
-    nonfinite = [k for k, v in want.items()
+    final = state_leaves(t.state)
+    nonfinite = [k for k, v in final.items()
                  if isinstance(v, torch.Tensor) and v.is_floating_point()
                  and not bool(torch.isfinite(v).all())]
+    want = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in final.items()}
+    want_hist = list(t.history)
+    del t, final
     check(not nonfinite, f"{what}: the uninterrupted run diverged ("
           f"{len(nonfinite)} leaves hold inf or NaN), so a bitwise check "
           f"would compare NaN payloads")
@@ -3480,7 +3677,7 @@ def fed_round(model, params, batches, sizes, masks, dev, opt, gather,
               server_opt=None):
     """One round of T steps with the injected ``masks`` (bias_compensated;
     ``server_opt`` at FED_CHECK_SERVER_LR) on ``dev`` from ``params``:
-    (state and fed-state leaves on the host, the server half's leaves
+    (state and fed-state leaves, on ``dev``, the server half's leaves
     before its FedOpt step (w_start - delta; {} without one), metrics,
     seconds, launches). ``server_opt`` is adamw from zero moments: fails
     unless its state and the server half are, bit for bit,
@@ -3524,12 +3721,10 @@ def fed_round(model, params, batches, sizes, masks, dev, opt, gather,
                       "Adam's first step on the round's own delta")
         check(int(so["count"]) == 1,
               f"fed-check on {dev}: server count {so['count']}")
-        pre = {k: v.cpu() for k, v in state_leaves({"state": {".params": {
+        pre = state_leaves({"state": {".params": {
             "server": tree_map(lambda w, d: w - d, p["server"],
-                               seen["delta"])}}}).items()}
-    leaves_ = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
-               for k, v in state_leaves({"state": state, "fed": fs}).items()}
-    return (leaves_, pre, {k: float(v) for k, v in m.items() if v.dim() == 0},
+                               seen["delta"])}}})
+    return (state_leaves({"state": state, "fed": fs}), pre, {k: float(v) for k, v in m.items() if v.dim() == 0},
             secs, n)
 
 
@@ -3549,11 +3744,14 @@ def fed_round_gap(got, want, start):
     ulps (phase 7's rule), over the leaf's largest update; "moments": the
     other float leaves over their largest entry, except the server
     optimizer's (held on each device by :func:`fed_round`). Integer leaves
-    must be equal."""
+    must be equal. Computed where ``got``'s leaves lie, ``want``'s and
+    ``start``'s copied there a leaf at a time."""
     ulp = torch.finfo(torch.float32).eps
     worst = {"params": (0.0, ""), "moments": (0.0, "")}
     for key, b in want.items():
         a = got[key]
+        if isinstance(b, torch.Tensor):
+            b = b.to(a.device)
         if not isinstance(b, torch.Tensor) or not b.is_floating_point():
             check(torch.equal(a, b) if isinstance(b, torch.Tensor)
                   else np.array_equal(a, b),
@@ -3563,6 +3761,7 @@ def fed_round_gap(got, want, start):
             continue
         p0 = start.get(key)
         if p0 is not None:
+            p0 = p0.to(a.device)
             kind, err = "params", (
                 ((a - b).abs() - 3 * ulp * b.abs()).clamp(min=0).max()
                 / (b - p0.expand(b.shape)).abs().max().clamp(min=1e-30))
@@ -3623,8 +3822,7 @@ def fed_check_masked(device="cuda", reduced=False, C=4, S=64, T=2):
     for k in ("loss_server", "loss_client"):
         check(abs(m_dev[k] - m_cpu[k]) <= LOSS_RTOL * abs(m_cpu[k]),
               f"fed-check {k} {m_dev[k]} vs cpu {m_cpu[k]}")
-    start = {k: v.cpu() for k, v in
-             state_leaves({"state": {".params": params}}).items()}
+    start = state_leaves({"state": {".params": params}})
     worst = fed_round_gap(got, want, start)
     pre = fed_round_gap(got_pre, want_pre, start)["params"]
     check(max(w for w, _ in (*worst.values(), pre)) <= LEAF_RTOL,
@@ -3765,9 +3963,9 @@ def async_report(phase):
 def async_events(model, params, batches, sizes, dev, events, opt, delays,
                  cohort, every=False, **kw):
     """``events`` async events on ``dev`` from ``params`` (each event's
-    batches the same): (the final state and async state's leaves on the
-    host, the metrics of each event, seconds, launches; with ``every``
-    also the leaves after each event)."""
+    batches the same): (the final state and async state's leaves, on
+    ``dev``, the metrics of each event, seconds, launches; with ``every``
+    also copies of the leaves after each event)."""
     from repro_torch import fed
     from repro_torch.configs import ScalaConfig
     from repro_torch.core import engine
@@ -3790,11 +3988,6 @@ def async_events(model, params, batches, sizes, dev, events, opt, delays,
     b = {k: torch.from_numpy(v).to(dev) for k, v in batches.items()}
     sz = torch.from_numpy(sizes).to(dev)
 
-    def host():
-        return {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
-                for k, v in state_leaves({"state": state,
-                                          "fed": afed}).items()}
-
     zero_counts()
     t0 = time.perf_counter()
     mets, per_event = [], []
@@ -3803,13 +3996,14 @@ def async_events(model, params, batches, sizes, dev, events, opt, delays,
         mets.append({k: (float(v) if np.ndim(v) == 0 else v)
                      for k, v in m.items()})
         if every:
-            per_event.append((tree_map(lambda a: a[0].cpu(),
+            per_event.append((tree_map(lambda a: a[0].clone(),
                                        state.params["client"]),
-                              [a.cpu() for a in
+                              [a.clone() for a in
                                leaves(state.params["server"])]))
     sync(dev)
     secs = time.perf_counter() - t0
-    return host(), mets, secs, read_counts(), per_event
+    return (state_leaves({"state": state, "fed": afed}), mets, secs,
+            read_counts(), per_event)
 
 
 # (c) async-check: f32 full width, 4 slots, cohort 2, T = 2, S = 64.
@@ -3864,8 +4058,7 @@ def phase_async_check(device="cuda", reduced=False, C=4, S=64, T=2,
         for k in ("loss_server", "loss_client"):
             check(abs(a[k] - b[k]) <= LOSS_RTOL * abs(b[k]),
                   f"async-check event {e} {k} {a[k]} vs cpu {b[k]}")
-    start = {k: v.cpu() for k, v in
-             state_leaves({"state": {".params": params}}).items()}
+    start = state_leaves({"state": {".params": params}})
     worst = fed_round_gap(got, want, start)
     check(max(w for w, _ in worst.values()) <= LEAF_RTOL,
           f"async-check leaves {worst} > {LEAF_RTOL}")
@@ -4084,7 +4277,7 @@ def fault_runs(model, params, batches, sizes, dev, mode, rounds, opt,
     """``rounds`` rounds (or async events) on ``dev`` from ``params`` with
     the scheduler's recorded ``sched_masks`` (masked, sparse) or the
     lognormal:1:1 delays of seed 7 (async, cohort 2, or ``delays=``):
-    (the state's and fed state's leaves on the host, the metrics of each
+    (the state's and fed state's leaves, on ``dev``, the metrics of each
     round, each round's seconds). ``donate``: the sync rounds may
     overwrite their state from the first step on (a copy of ``params``)."""
     from repro_torch import fed
@@ -4125,9 +4318,7 @@ def fault_runs(model, params, batches, sizes, dev, mode, rounds, opt,
         secs.append(time.perf_counter() - t0)
         mets.append({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
                      for k, v in m.items()})
-    host = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
-            for k, v in state_leaves({"state": state, "fed": fs}).items()}
-    return host, mets, secs
+    return state_leaves({"state": state, "fed": fs}), mets, secs
 
 
 def leaves_bitwise(a, b, what):
@@ -4239,8 +4430,7 @@ def phase_fault_cpu_check(device="cuda", C=4, S=64, T=2):
                        faults=F.recorded([{"corrupt": [0, 1]}]),
                        guards="nonfinite",
                        delays=fed.delays.recorded(ASYNC_CHECK_DELAYS))))
-    start = {k: v.cpu() for k, v in
-             state_leaves({"state": {".params": params}}).items()}
+    start = state_leaves({"state": {".params": params}})
     for mode, kw in cases:
         res = {dev: fault_runs(model, params, batches, sizes, dev, mode, 1,
                                optimizers.momentum(0.9), **kw)
@@ -4549,6 +4739,477 @@ def phase_dispatch(device="cuda", extra=(), width=ALEXNET["width"]):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# frontends and cross-attention: whisper-tiny and internvl2-26b
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-tiny"
+VLM = "internvl2-26b"
+# K3 at the frontend archs' shapes, (B, S, Skv, H, KV, hd, causal, dtype):
+# whisper-tiny's cross-attention (non-causal, 6 heads of 64 on its 1500
+# audio frames) at a training step's 16 x 448 text queries and a decode
+# step's 8 x 1, its causal self-attention at 16 x 448, and internvl2-26b's
+# causal server call at 16 x (256 + 256) rows, 48 heads of 128 on 8 KV
+# heads; then two non-causal cases whose key count leaves a short last
+# tile (65 = 64 + 1 keys under a decode step's single queries, 130 = 2 x
+# 64 + 2 under 16 queries), where a key tile dropped or left unmasked
+# past Skv moves the output by 10-40% of its largest entry (at 1500 keys
+# an unmasked tail moves it by ~1%). The forward against the plain
+# version within FRONTEND_FWD_RTOL of the plain output's largest entry
+# (~1 bf16 ulp of it; at 1500 keys that entry is ~0.3, so an absolute
+# TOL would pass a tail fault); the backward (every case with more than
+# one query) against autograd of it, relative to the largest entry
+# (bf16 3e-2); two runs of each bitwise equal.
+FRONTEND_ATTN_CASES = [(16, 448, 1500, 6, 6, 64, False, BF16),
+                       (8, 1, 1500, 6, 6, 64, False, BF16),
+                       (16, 448, 448, 6, 6, 64, True, BF16),
+                       (16, 512, 512, 48, 8, 128, True, BF16),
+                       (8, 1, 65, 6, 6, 64, False, BF16),
+                       (4, 16, 130, 6, 6, 64, False, BF16)]
+CROSS_CASE, CROSS_DECODE_CASE, WHISPER_SELF_CASE, VLM_CASE = \
+    FRONTEND_ATTN_CASES[:4]
+FRONTEND_FWD_RTOL = 1e-2
+# serve-whisper: batches of 8 rows, each row its own 1500 x 384 encoder
+# output, prompts of these text lengths, 32 greedy new tokens each
+WHISPER_SERVE_ROWS, WHISPER_SERVE_LENS, WHISPER_SERVE_GEN = 8, (4, 64, 128,
+                                                               224), 32
+# phase 6's cell (16 clients, 4 slots, 2 local steps of 16 rows, SCALA,
+# fused LACE, weighted FedAvg, SGD, 3 rounds) at the frontend archs' text
+# lengths: Whisper's decoder context (448), and 256 text tokens after
+# internvl2's 256 image rows. A spec takes no frontend arch, so the flags
+# are the text arch's and the model config the frontend arch's.
+WHISPER_SEQ, VLM_SEQ = 448, 256
+def frontend_train_flags(seq):
+    """``TRAIN_FLAGS`` at ``seq`` text tokens a row."""
+    flags = list(TRAIN_FLAGS)
+    flags[flags.index("--seq") + 1] = str(seq)
+    return flags
+# internvl2-26b's depth on one card: 6 of 48 layers (2 client, 4 server),
+# bf16 params: ~7.75 B parameters with 4 client slots; the peak held under
+# phase 18's bar
+VLM_TRAIN_LAYERS = 6
+PEAK_BAR = 72e9
+# 20b: the projector at full width, (B, 256, 3200) -> (B, 256, 6144)
+VLM_PROJECTOR_ROWS = 2
+
+
+def frontend_batch(cfg, rng, batch):
+    """``batch`` (numpy tokens of shape (..., S); for a vision arch also
+    labels and weights) with a frontend arch's encoder output drawn from
+    ``rng`` (normal x 0.1, float32): an audio arch's ``memory_emb``
+    (..., M, fd); a vision arch's ``prefix_emb`` (..., P, fd) with its P
+    rows put before the labels and weights (weight 0: the priors and
+    losses leave them out). A text arch's batch comes back as it was."""
+    if cfg.frontend is None:
+        return batch
+    lead = batch["tokens"].shape[:-1]
+    emb = (0.1 * rng.standard_normal(
+        lead + (cfg.num_prefix_tokens, cfg.frontend_dim),
+        dtype=np.float32))
+    if cfg.frontend == "audio":
+        return dict(batch, memory_emb=emb)
+    pad = lead + (cfg.num_prefix_tokens,)
+    return dict(batch, prefix_emb=emb,
+                labels=np.concatenate([np.zeros(pad, batch["labels"].dtype),
+                                       batch["labels"]], -1),
+                weights=np.concatenate([np.zeros(pad, np.float32),
+                                        batch["weights"]], -1))
+
+
+def attn_case_text(case):
+    B, S, Skv, H, KV, hd, causal, dtype = case
+    return (f"B={B} S={S} Skv={Skv} H={H} KV={KV} hd={hd} "
+            f"{'causal' if causal else 'non-causal'} {str(dtype)[6:]}")
+
+
+def phase_frontend_attention(cases=FRONTEND_ATTN_CASES):
+    """K3 forward and backward at the frontend archs' shapes (``cases``):
+    each against its plain version, two runs bitwise equal, times (CUDA
+    events and the card's alone, ``device_ms``), the bound (non-causal:
+    S x Skv pairs, k and v bytes at Skv) and SDPA's on the same inputs
+    (no mask where non-causal). Returns ({(case, 'fwd' | 'bwd'): row},
+    {'fwd': err, 'bwd': err})."""
+    from repro_torch.kernels.flash_attn import kernel, ref
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda")
+    gen.manual_seed(11)
+    rows, errs = {}, {"fwd": 0.0, "bwd": 0.0}
+    for case in cases:
+        B, S, Skv, H, KV, hd, causal, dtype = case
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   .requires_grad_() for shape in ((B, S, H, hd),
+                                                   (B, Skv, KV, hd),
+                                                   (B, Skv, KV, hd)))
+        gout = torch.randn((B, S, H, hd), generator=gen,
+                           device="cuda").to(dtype)
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
+        gqa = {"enable_gqa": True} if KV != H else {}
+
+        def run_kernel():
+            return kernel.flash_attention_cuda(qd, kd, vd, causal=causal)
+
+        def run_plain():
+            return ref.mha_ref(qd, kd, vd, causal=causal)
+
+        def run_library():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal, **gqa)
+
+        out, again = run_kernel(), run_kernel()
+        sync("cuda")
+        check(torch.equal(out, again), f"K3 fwd {case}: two runs differ")
+        want = run_plain()
+        err = (out.float() - want.float()).abs().max().item()
+        tol = FRONTEND_FWD_RTOL * want.float().abs().max().item()
+        lib_err = (run_library().transpose(1, 2).float()
+                   - want.float()).abs().max().item()
+        errs["fwd"] = max(errs["fwd"], err)
+        check(err <= tol, f"K3 fwd vs plain {case}: {err} > {tol} "
+              f"({FRONTEND_FWD_RTOL} of the plain output's largest entry)")
+        ms, plain_ms, lib_ms = (time_ms(f) for f in
+                                (run_kernel, run_plain, run_library))
+        dev_ms, lib_dev_ms = device_ms(run_kernel), device_ms(run_library)
+        bound_ms, bound_by = attention_bound(B, S, H, KV, hd, None, dtype,
+                                             Skv, causal)
+        rows[(case, "fwd")] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by, device_ms=dev_ms, library_device_ms=lib_dev_ms)
+        say("kernels", f"flash_attn_fwd {attn_case_text(case)}: "
+            f"max_abs_err={err:.3g} (tol {tol:.3g}, {FRONTEND_FWD_RTOL} of "
+            f"the largest entry; sdpa vs plain {lib_err:.3g}; two runs "
+            f"bitwise equal) kernel={ms:.4f} ms "
+            f"plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms "
+            f"bound={bound_ms:.4f} ms ({bound_by}); device: "
+            f"kernel={dev_ms:.4f} ms sdpa={lib_dev_ms:.4f} ms")
+        if S == 1:          # a decode step's: served only, no backward
+            continue
+        with torch.no_grad():
+            o, lse = kernel.flash_attention_cuda(qd, kd, vd, causal=causal,
+                                                 return_lse=True)
+        wantg = ref.mha_ref(q, k, v, causal=causal)
+        lib = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, **gqa)
+        gout_t = gout.transpose(1, 2)
+
+        def run_kernel_bwd():
+            return kernel.flash_attention_bwd_cuda(qd, kd, vd, o, lse, gout,
+                                                   causal=causal)
+
+        def run_plain_bwd():
+            return torch.autograd.grad(wantg, (q, k, v), gout,
+                                       retain_graph=True)
+
+        def run_library_bwd():
+            return torch.autograd.grad(lib, (q, k, v), gout_t,
+                                       retain_graph=True)
+
+        got, again = run_kernel_bwd(), run_kernel_bwd()
+        sync("cuda")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K3 bwd {case}: two runs differ")
+        exp = run_plain_bwd()
+        tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+        rels = [rel_err(a, b) for a, b in zip(got, exp)]
+        errs["bwd"] = max(errs["bwd"], max(
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, exp)))
+        check(max(rels) <= tol, f"K3 bwd vs autograd of plain {case}: "
+              f"{rels} > {tol}")
+        ms, plain_ms, lib_ms = (time_ms(f, iters=5, warmup=1) for f in
+                                (run_kernel_bwd, run_plain_bwd,
+                                 run_library_bwd))
+        dev_ms = device_ms(run_kernel_bwd)
+        lib_dev_ms = device_ms(run_library_bwd)
+        pairs = causal_pairs(S, None, Skv, causal) * B * H
+        flops = 10 * hd * pairs        # S, dP, dV, dK, dQ: 5 products
+        el = torch.empty((), dtype=dtype).element_size()
+        # read q, o, dO, k, v and lse; write dq, dk, dv
+        nbytes = (el * (4 * B * S * H * hd + 4 * B * Skv * KV * hd)
+                  + 4 * B * H * S)
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+        rows[(case, "bwd")] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            device_ms=dev_ms, library_device_ms=lib_dev_ms)
+        r = rows[(case, "bwd")]
+        say("kernels", f"flash_attn_bwd {attn_case_text(case)}: rel err "
+            f"dq/dk/dv {'/'.join(f'{e:.3g}' for e in rels)} (tol {tol}; "
+            f"two runs bitwise equal) kernel={ms:.4f} ms plain="
+            f"{plain_ms:.4f} ms sdpa_bwd={lib_ms:.4f} ms bound="
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); device: kernel="
+            f"{dev_ms:.4f} ms sdpa_bwd={lib_dev_ms:.4f} ms")
+        del got, again, exp, wantg, lib
+    return rows, errs
+
+
+@contextlib.contextmanager
+def k3_calls():
+    """While open, every model attention call through K3's entry point
+    appends its ``causal`` flag to the list it yields: self-attention
+    (True) and cross-attention (False) told apart, on any device."""
+    from repro_torch.models.layers import attention
+
+    seen, orig = [], attention.flash_attention
+
+    def counted(q, k, v, *, causal=True, **kw):
+        seen.append(causal)
+        return orig(q, k, v, causal=causal, **kw)
+
+    attention.flash_attention = counted
+    try:
+        yield seen
+    finally:
+        attention.flash_attention = orig
+
+
+def frontend_cfg(arch, reduced=False, f32=False, layers=None):
+    """``arch``'s config (reduced, in float32, cut to ``layers``)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    return dataclasses.replace(cfg, num_layers=min(layers or cfg.num_layers,
+                                                   cfg.num_layers))
+
+
+def phase_serve_whisper(device="cuda", reduced=False,
+                        rows=WHISPER_SERVE_ROWS, lens=WHISPER_SERVE_LENS,
+                        gen=WHISPER_SERVE_GEN, phase="serve-whisper"):
+    """5h: whisper-tiny at full width and depth in its dtypes (f32 params,
+    bf16 compute) through the model-level path the reference serves audio
+    with (``ServeEngine`` refuses frontends in both packages): for each
+    prompt length, a batch of ``rows`` rows, each with its own encoder
+    output, through ``forward_prefill_cached`` and ``gen - 1`` greedy
+    ``decode_step`` calls (the memory re-projected and cross-attended
+    every step, as the reference). K3's launches, self and cross, against
+    the layout: a prefill runs both in every layer, a decode step the
+    cross-attention alone (its self-attention reads the cache with plain
+    products). Returns the run's launch counts."""
+    from repro_torch.models import transformer as Tm
+
+    on_card = torch.device(device).type == "cuda"
+    free_device_memory()
+    cfg = frontend_cfg(WHISPER, reduced)
+    g = torch.Generator(device)
+    g.manual_seed(4)
+    params = Tm.init_params(g, cfg)
+    rng = np.random.default_rng(4)
+    max_len = max(lens) + gen
+    batches = []
+    for P in (lens[0],) + tuple(lens):      # the first is the warm-up's
+        b = frontend_batch(cfg, rng, {
+            "tokens": rng.integers(0, cfg.vocab_size, (rows, P))})
+        batches.append({k: torch.from_numpy(v).to(device)
+                        for k, v in b.items()})
+
+    def run(batch):
+        P = batch["tokens"].shape[1]
+        t0 = time.perf_counter()
+        logits, cache = Tm.forward_prefill_cached(params, batch, cfg, max_len)
+        tok = logits.argmax(-1)
+        sync(device)
+        t1 = time.perf_counter()
+        out = [tok]
+        for i in range(gen - 1):
+            logits, cache = Tm.decode_step(params, dict(batch, tokens=tok),
+                                           cache, P + i, cfg)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        sync(device)
+        t2 = time.perf_counter()
+        check(bool(torch.isfinite(logits).all()), f"{phase}: finite logits "
+              f"at prompt {P}")
+        return torch.cat(out, 1), t1 - t0, (t2 - t1) / max(1, gen - 1)
+
+    with torch.no_grad():
+        run(batches[0])
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with k3_calls() as seen:
+            res = [run(b) for b in batches[1:]]
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_attn = sum(s.mixer == "attn" for s in cfg.block_specs)
+    n_cross = sum(s.cross_attn for s in cfg.block_specs)
+    want_self = len(lens) * n_attn
+    want_cross = len(lens) * n_cross * gen      # prefill + (gen - 1) steps
+    n_self, n_x = sum(seen), len(seen) - sum(seen)
+    check((n_self, n_x) == (want_self, want_cross),
+          f"{phase}: K3 calls self {n_self} cross {n_x} != layout "
+          f"{want_self} / {want_cross}")
+    if on_card:
+        check(counts["flash_fwd"] == want_self + want_cross and
+              counts["flash_bwd"] == 0, f"{phase}: K3 launches {counts} != "
+              f"{want_self + want_cross}")
+    tokens = rows * gen * len(lens)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    say(phase, f"{cfg.name} ({cfg.num_layers} layers, {n_cross} "
+        f"cross-attending) {cfg.param_dtype} params, {cfg.dtype} compute: "
+        f"{len(lens)} batches of {rows} rows, prompts {lens}, {gen} new "
+        f"tokens each, a {cfg.num_prefix_tokens} x {cfg.frontend_dim} "
+        f"encoder output a row: {tokens} tokens in {wall:.3f} s -> "
+        f"{tokens / wall:.1f} tok/s; prefill ms "
+        + ", ".join(f"{P}: {1e3 * r[1]:.2f}" for P, r in zip(lens, res))
+        + "; decode step ms "
+        + ", ".join(f"{P}: {1e3 * r[2]:.2f}" for P, r in zip(lens, res))
+        + f"; peak {peak / 2**20:.0f} MiB allocated; K3 launches "
+        f"{counts['flash_fwd']} (self {n_self}, cross {n_x}: the layout's "
+        f"{want_self} + {want_cross})")
+    del params, batches
+    free_device_memory()
+    return counts
+
+
+def phase_check_whisper(device="cuda", reduced=False, rows=2, prompt_len=64,
+                        max_len=96, phase="check-whisper"):
+    """5i: whisper-tiny in float32 at full width and depth, TF32 off, 2
+    rows with their own encoder output: the fused prefill (K3, self and
+    cross) against the token-by-token decode loop (the cross-attention
+    through K3's non-causal mode at one query, the self-attention plain)
+    -- the last position's logits within LOGIT_ATOL, every layer's cache
+    within STATE_RTOL of its largest entry."""
+    from repro_torch.models import transformer as Tm
+
+    free_device_memory()
+    cfg = frontend_cfg(WHISPER, reduced, f32=True)
+    g = torch.Generator(device)
+    g.manual_seed(5)
+    params = Tm.init_params(g, cfg)
+    rng = np.random.default_rng(5)
+    b = frontend_batch(cfg, rng, {
+        "tokens": rng.integers(0, cfg.vocab_size, (rows, prompt_len))})
+    batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    with torch.no_grad():
+        logits, cache = Tm.forward_prefill_cached(params, batch, cfg, max_len)
+        loop = Tm.init_decode_cache(cfg, rows, max_len, device=device)
+        for i in range(prompt_len):
+            last, loop = Tm.decode_step(
+                params, dict(batch, tokens=batch["tokens"][:, i:i + 1]),
+                loop, i, cfg)
+    err = (logits[:, 0] - last[:, 0]).abs().max().item()
+    check(err <= LOGIT_ATOL, f"{phase}: prefill vs loop logits {err} > "
+          f"{LOGIT_ATOL}")
+    worst = {}
+    for layer, leaves_ in loop.items():
+        for key, want in leaves_.items():
+            e = rel_err(cache[layer][key], want)
+            check(e <= STATE_RTOL, f"{phase}: prefill vs loop {layer}/{key}:"
+                  f" {e} > {STATE_RTOL} of its largest entry")
+            worst[key] = max(worst.get(key, 0.0), e)
+    say(phase, f"{cfg.name} float32, {cfg.num_layers} layers, {rows} rows "
+        f"of a {prompt_len}-token prompt on {cfg.num_prefix_tokens} encoder "
+        f"frames: prefill logits (K3) vs token-by-token loop: "
+        f"max_abs_err={err:.3g} (atol {LOGIT_ATOL}, max |logit| "
+        f"{last.abs().max().item():.3g}); cache leaves, worst error over "
+        f"the largest entry (tol {STATE_RTOL}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    del params, cache, loop
+    free_device_memory()
+
+
+def phase_train_frontend(device="cuda", arch=WHISPER, seq=WHISPER_SEQ,
+                         layers=None, phase="train-whisper", peak_bar=None,
+                         reduced=False):
+    """19 (whisper-tiny, full depth) and 20 (internvl2-26b cut to
+    ``layers``): phase 6's cell (:func:`frontend_train_flags` at ``seq``
+    text tokens a row) in the arch's own dtypes (at reduced width with
+    ``reduced``) as a :class:`RoundCell`, each row with its own encoder
+    output (whisper's 1500 audio frames; internvl2's 256 patches, put
+    before the text with labels of weight 0): the memory reckoning (before
+    the run; the peak checked against ``peak_bar``), the launches per
+    round against the layout (K3 self and cross, K1 = K2 = 1 a step),
+    finite losses, round seconds, tokens/s (text tokens), peak memory and
+    a profiled round. Returns the launches of the rounds."""
+    cell = RoundCell(phase, frontend_train_flags(seq), device,
+                     cfg=frontend_cfg(arch, reduced), layers=layers)
+    counts, _ = cell.rounds(peak_bar=peak_bar)
+    if cell.on_card:
+        profile(f"{cell.cfg.name} training round", cell.run, 8,
+                watch=TRAIN_WATCH)
+    cell.close()
+    return counts
+
+
+def phase_whisper_train_check(device="cuda", reduced=False):
+    """19b: :func:`phase_train_check` on whisper-tiny in float32 at full
+    width and depth (unless ``reduced``), 2 clients x 64 tokens, each on
+    its own 1500 encoder frames: losses, every grad leaf (the projector's
+    through the memory's cotangent, and ``pos``, printed) and one round's
+    client updates, card against CPU; then a step in its own dtypes (f32
+    params, bf16 compute) at 2 clients x 4 x 448 tokens twice, bitwise
+    (:func:`step_repeat`)."""
+    free_device_memory()
+    phase_train_check(device, reduced, C=2, S=64, T=2, arch=WHISPER,
+                      phase="check-whisper-train")
+    step_repeat(frontend_cfg(WHISPER, reduced), device, C=2, Bk=4,
+                S=WHISPER_SEQ, seed=6, phase="check-whisper-train")
+
+
+def phase_vlm_projector_check(device="cuda", reduced=False,
+                              rows=VLM_PROJECTOR_ROWS, phase="check-vlm"):
+    """20b: internvl2-26b's projector alone at full width (unless
+    ``reduced``) in float32, TF32 off: (rows, 256, 3200) -> (rows, 256,
+    6144), its output and the gradients of all four leaves (the layer
+    norm's scale and bias, fc1, fc2) under a random cotangent, card
+    against CPU, each within LEAF_RTOL of its largest entry. (A
+    full-width split step of internvl2 on the CPU would take minutes.)"""
+    from repro_torch.models.layers import frontends
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = frontend_cfg(VLM, reduced, f32=True)
+    g = torch.Generator("cpu")
+    g.manual_seed(7)
+    params = frontends.projector_init(g, cfg)
+    rng = np.random.default_rng(7)
+    params["norm"]["bias"] = torch.from_numpy(0.1 * rng.standard_normal(
+        cfg.frontend_dim, dtype=np.float32))
+    emb = torch.from_numpy(0.1 * rng.standard_normal(
+        (rows, cfg.num_prefix_tokens, cfg.frontend_dim), dtype=np.float32))
+    ct = torch.from_numpy(rng.standard_normal(
+        (rows, cfg.num_prefix_tokens, cfg.d_model), dtype=np.float32))
+    res = {}
+    for dev in (device, "cpu"):
+        p = tree_map(lambda a: a.to(dev).requires_grad_(), params)
+        out = frontends.projector_apply(p, emb.to(dev), cfg)
+        grads = torch.autograd.grad(out, leaves(p), ct.to(dev))
+        sync(dev)
+        res[dev] = [out.detach().cpu()] + [a.cpu() for a in grads]
+    names = ["output", "norm.scale", "norm.bias", "fc1", "fc2"]
+    errs = [rel_err(a, b) for a, b in zip(res[device], res["cpu"])]
+    check(max(errs) <= LEAF_RTOL, f"{phase}: projector card vs cpu "
+          f"{dict(zip(names, errs))} > {LEAF_RTOL}")
+    say(phase, f"{cfg.name}'s projector, float32, ({rows}, "
+        f"{cfg.num_prefix_tokens}, {cfg.frontend_dim}) -> ({rows}, "
+        f"{cfg.num_prefix_tokens}, {cfg.d_model}), {device} vs cpu, error "
+        f"over the largest entry (tol {LEAF_RTOL}): "
+        + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, errs)))
+
+
+def phase_frontends(device="cuda"):
+    """5h, 5i, 19, 19b, 20 and 20b; returns the launches of the served
+    and trained runs: {'serve-whisper', 'train-whisper', 'train-vlm'}."""
+    out = {}
+    out["serve-whisper"] = run_phase("serve-whisper", phase_serve_whisper,
+                                     device)
+    run_phase("check-whisper", phase_check_whisper, device)
+    out["train-whisper"] = run_phase("train-whisper", phase_train_frontend,
+                                     device)
+    run_phase("check-whisper-train", phase_whisper_train_check, device)
+    out["train-vlm"] = run_phase(
+        "train-vlm", phase_train_frontend, device, arch=VLM, seq=VLM_SEQ,
+        layers=VLM_TRAIN_LAYERS, phase="train-vlm", peak_bar=PEAK_BAR)
+    run_phase("check-vlm", phase_vlm_projector_check, device)
+    return out
+
+
 def run_phase(label, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, then its wall seconds on a line of its own
     (what each phase adds to the run's time limit)."""
@@ -4618,10 +5279,17 @@ def main() -> int:
         run_phase("train-moe", phase_train_moe)
         run_phase("check-moe-train", phase_moe_train_check)
         return 0
+    if sys.argv[1:] == ["frontends"]:
+        run_phase("kernels K3 (frontends)", phase_frontend_attention)
+        run_phase("kernels K1 K2 (frontends)", phase_lace,
+                  [LACE_WHISPER, LACE_VLM])
+        phase_frontends()
+        return 0
     if sys.argv[1:] != ["lace"]:
         rows, max_err = run_phase("kernels K3", phase_kernels)
     if sys.argv[1:] == ["moe"]:
-        run_phase("serve-moe", phase_serve, arch=MOE, phase="serve-moe")
+        run_phase("serve-moe", phase_serve, arch=MOE, phase="serve-moe",
+                  layers=MOE_SERVE_LAYERS)
         run_phase("check-moe", phase_check, arch=MOE, phase="check-moe",
                   layers=MOE_CHECK_LAYERS)
         return 0
@@ -4633,6 +5301,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] != ["lace"]:
         bwd_rows, bwd_err = run_phase("kernels K3 bwd", phase_flash_bwd)
+    if sys.argv[1:] != ["lace"]:
+        front_rows, front_err = run_phase("kernels K3 (frontends)",
+                                          phase_frontend_attention)
     if sys.argv[1:] == ["attention"]:
         return 0
     lace_rows, lace_err = run_phase("kernels K1 K2", phase_lace)
@@ -4644,10 +5315,11 @@ def main() -> int:
     serve = run_phase("serve", phase_serve)
     run_phase("check", phase_check)
     serve_x = run_phase("serve-xlstm", phase_serve, arch=XLSTM,
-                    phase="serve-xlstm")
+                        phase="serve-xlstm", layers=XLSTM_SERVE_LAYERS)
     run_phase("check-xlstm", phase_check, arch=XLSTM, phase="check-xlstm",
           prompt_len=77, max_len=96, layers=XLSTM_CHECK_LAYERS)
-    serve_m = run_phase("serve-moe", phase_serve, arch=MOE, phase="serve-moe")
+    serve_m = run_phase("serve-moe", phase_serve, arch=MOE, phase="serve-moe",
+                        layers=MOE_SERVE_LAYERS)
     run_phase("check-moe", phase_check, arch=MOE, phase="check-moe",
               layers=MOE_CHECK_LAYERS)
     serve_j = run_phase("serve-jamba", phase_serve, arch=JAMBA,
@@ -4670,6 +5342,9 @@ def main() -> int:
     run_phase("train-check-xlstm", phase_xlstm_train_check)
     mtrain = run_phase("train-moe", phase_train_moe)
     run_phase("check-moe-train", phase_moe_train_check)
+    front = phase_frontends()
+    serve_w, wtrain, vtrain = (front[k] for k in (
+        "serve-whisper", "train-whisper", "train-vlm"))
     # the federation layer's launches: phase 13's rounds, phase 14's
     # events and phase 15's faulted rounds and events; and phase 16(a)'s
     # bf16 rounds (K1, K2 on their bf16-head build)
@@ -4685,7 +5360,9 @@ def main() -> int:
                          serve["flash_fwd"] + serve_m["flash_fwd"]
                          + serve_j["flash_fwd"] + train["flash_fwd"]
                          + dual["flash_fwd"] + fed["flash_fwd"]
-                         + mtrain["flash_fwd"], max_err,
+                         + mtrain["flash_fwd"] + serve_w["flash_fwd"]
+                         + wtrain["flash_fwd"] + vtrain["flash_fwd"],
+                         max(max_err, front_err["fwd"]),
                          rows[REPORT_CASE])
     for suffix, case in (("train", TRAIN_CASE), ("moe", MOE_CASE),
                          ("jamba", JAMBA_CASE)):
@@ -4694,17 +5371,31 @@ def main() -> int:
                          "device_ms", "library_device_ms")})
     fwd_row["launches_moe"] = serve_m["flash_fwd"]
     fwd_row["launches_jamba"] = serve_j["flash_fwd"]
+    # the frontend archs' shapes (non-causal: whisper's cross-attention at
+    # a training step's 16 x 448 on 1500 frames and a decode step's 8 x 1;
+    # causal: whisper's 16 x 448, internvl2's 16 x 512 at 48 / 8 heads of
+    # 128) beside, and their phases' launches (also in ``launches``)
+    for suffix, case in (("cross", CROSS_CASE),
+                         ("cross_decode", CROSS_DECODE_CASE),
+                         ("whisper", WHISPER_SELF_CASE), ("vlm", VLM_CASE)):
+        fwd_row.update({f"{key}_{suffix}": front_rows[(case, "fwd")][key]
+                        for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "device_ms",
+                                    "library_device_ms")})
+    fwd_row.update(launches_whisper_serve=serve_w["flash_fwd"],
+                   launches_whisper_train=wtrain["flash_fwd"],
+                   launches_vlm_train=vtrain["flash_fwd"])
     lace_row = {
         kname: kernel_row(kname, csrc + src, lace_src + line, launches, err,
                           rows_[(case, kind)])
         for kname, src, line, launches, err, rows_, case, kind in (
             ("lace2_fwd", "lace.cu", "219",
              train["lace_fwd"] + fed["lace_fwd"] + xtrain["lace_fwd"]
-             + mtrain["lace_fwd"],
+             + mtrain["lace_fwd"] + wtrain["lace_fwd"] + vtrain["lace_fwd"],
              lace_err["fwd"], lace_rows, LACE_REPORT, "fwd"),
             ("lace2_bwd", "lace.cu", "261",
              train["lace_bwd"] + fed["lace_bwd"] + xtrain["lace_bwd"]
-             + mtrain["lace_bwd"],
+             + mtrain["lace_bwd"] + wtrain["lace_bwd"] + vtrain["lace_bwd"],
              lace_err["bwd"], lace_rows, LACE_REPORT, "bwd"),
             ("lace_fwd", "lace1.cu", "41",
              dual["lace1_fwd"] + fed["lace1_fwd"], lace1_err["fwd"],
@@ -4744,6 +5435,15 @@ def main() -> int:
         lace_row[kname].update({f"{key}_moe": r[key] for key in (
             "ms", "plain_ms", "bound_ms", "library_ms")},
             launches_moe=mtrain[f"lace_{kind}"])
+    # the frontend archs' boundaries (odd V) beside K1, K2, and their
+    # training phases' launches (also in ``launches``)
+    for kname, kind in (("lace2_fwd", "fwd"), ("lace2_bwd", "bwd")):
+        for suffix, case, launches in (("whisper", LACE_WHISPER, wtrain),
+                                       ("vlm", LACE_VLM, vtrain)):
+            r = lace_rows[(case, kind)]
+            lace_row[kname].update({f"{key}_{suffix}": r[key] for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms")})
+            lace_row[kname][f"launches_{suffix}"] = launches[f"lace_{kind}"]
     fwd_row["launches_moe_train"] = mtrain["flash_fwd"]
     # the backward of K3 (the JAX package trains through autodiff); its
     # times at qwen3-moe's server call (16 x 512, 32 heads of 128 on 4 KV
@@ -4751,11 +5451,21 @@ def main() -> int:
     bwd_row = kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
                          "src/repro/kernels/flash_attn/kernel.py:23",
                          train["flash_bwd"] + dual["flash_bwd"]
-                         + fed["flash_bwd"] + mtrain["flash_bwd"], bwd_err,
+                         + fed["flash_bwd"] + mtrain["flash_bwd"]
+                         + wtrain["flash_bwd"] + vtrain["flash_bwd"],
+                         max(bwd_err, front_err["bwd"]),
                          bwd_rows[FLASH_BWD_REPORT])
     bwd_row.update({f"{key}_moe": bwd_rows[FLASH_BWD_MOE][key] for key in (
         "ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
         "library_device_ms")}, launches_moe=mtrain["flash_bwd"])
+    for suffix, case in (("cross", CROSS_CASE), ("whisper", WHISPER_SELF_CASE),
+                         ("vlm", VLM_CASE)):
+        bwd_row.update({f"{key}_{suffix}": front_rows[(case, "bwd")][key]
+                        for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "device_ms",
+                                    "library_device_ms")})
+    bwd_row.update(launches_whisper_train=wtrain["flash_bwd"],
+                   launches_vlm_train=vtrain["flash_bwd"])
     print(json.dumps({"kernels": [
         fwd_row, bwd_row,
         lace_row["lace2_fwd"], lace_row["lace2_bwd"],

@@ -2,12 +2,13 @@
 """Where the wall time of ``chip_smoke.py``'s host-heavy phases goes, by
 sampling the main thread's Python stack every 10 ms.
 
-    python3 scripts/smoke_phase_sample.py [serve serve-xlstm baselines fed async]
+    python3 scripts/smoke_phase_sample.py [phase ...]
 
 Builds the kernels as ``chip_smoke.py`` does, then runs each named phase
-(default: all five) once with a sampler thread beside it. For each phase
+of ``PHASES`` (default: serve, serve-xlstm, baselines, fed and async)
+once with a sampler thread beside it. For each phase
 it prints the phase's seconds and writes ``results/sample_<phase>.txt``:
-the seconds spent inside each function (inclusive, the 70 largest) and
+the seconds spent inside each function (inclusive, the 120 largest) and
 at the top of the stack (the 30 largest), each the phase's seconds times
 the function's share of the samples. Needs one CUDA device.
 """
@@ -25,11 +26,21 @@ import chip_smoke as cs  # noqa: E402
 
 PHASES = {
     "serve": lambda: cs.phase_serve(),
-    "serve-xlstm": lambda: cs.phase_serve(arch=cs.XLSTM, phase="serve-xlstm"),
+    "serve-xlstm": lambda: cs.phase_serve(arch=cs.XLSTM, phase="serve-xlstm",
+                                          layers=cs.XLSTM_SERVE_LAYERS),
     "baselines": lambda: cs.phase_baselines(),
     "fed": lambda: cs.phase_fed(),
     "async": lambda: cs.phase_async(),
+    "resume": lambda: cs.phase_resume(),
+    "faults": lambda: cs.phase_faults(),
+    "dispatch": lambda: cs.phase_dispatch(),
+    "serve-moe": lambda: cs.phase_serve(arch=cs.MOE, phase="serve-moe",
+                                        layers=cs.MOE_SERVE_LAYERS),
+    "train-check": lambda: cs.phase_train_check(),
+    "train-check-xlstm": lambda: cs.phase_xlstm_train_check(),
+    "check-moe-train": lambda: cs.phase_moe_train_check(),
 }
+DEFAULT = ("serve", "serve-xlstm", "baselines", "fed", "async")
 
 
 def sampled(label, fn, period=0.01):
@@ -64,7 +75,7 @@ def sampled(label, fn, period=0.01):
     n = max(count[0], 1)
     with open(os.path.join("results", f"sample_{label}.txt"), "w") as f:
         f.write(f"{label}: {seconds:.1f} s, {n} samples\n-- inclusive\n")
-        for key, c in inclusive.most_common(70):
+        for key, c in inclusive.most_common(120):
             f.write(f"{c / n * seconds:8.1f} s  {key}\n")
         f.write("-- top of the stack\n")
         for key, c in top.most_common(30):
@@ -73,7 +84,7 @@ def sampled(label, fn, period=0.01):
 
 
 def main():
-    names = sys.argv[1:] or list(PHASES)
+    names = sys.argv[1:] or list(DEFAULT)
     unknown = set(names) - set(PHASES)
     if unknown:
         sys.exit(f"unknown phases {sorted(unknown)}; choose from {list(PHASES)}")

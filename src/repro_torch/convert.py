@@ -70,9 +70,12 @@ def _client_half(client, cfg: ModelConfig, device):
     """A reference client-half tree (params, or an optimizer-state tree
     shaped like them) -> the port's; leading axes are kept."""
     t = lambda sub: _map(lambda a: to_tensor(a, device), sub)
-    return {"embed": t(client["embed"]),
-            "blocks": {f"blk{l}": t(client["blocks"][f"blk{l}"])
-                       for l in range(cfg.split_layer)}}
+    out = {"embed": t(client["embed"])}
+    if "projector" in client:      # a frontend arch's (vision, audio)
+        out["projector"] = t(client["projector"])
+    out["blocks"] = {f"blk{l}": t(client["blocks"][f"blk{l}"])
+                     for l in range(cfg.split_layer)}
+    return out
 
 
 def _server_half(server, cfg: ModelConfig, device):

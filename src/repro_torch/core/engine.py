@@ -7,8 +7,10 @@ The reference's five stages (paper Alg. 2 lines 9-20), in PyTorch:
                               reference vmaps it); each client's half runs
                               on its own detached leaves, its graph kept
   stage 3  server forward     ONE forward of the server half on the
-                              concatenated activations, a detached leaf
-                              that requires grad: ``server_fwd`` to the
+                              concatenated activations (and a cross-
+                              attention arch's concatenated encoder
+                              memory), each a detached leaf that
+                              requires grad: ``server_fwd`` to the
                               logits (backend ``logits``) or
                               ``server_trunk`` to the features (``lace``)
   stage 4  dual pullbacks     both losses and both cotangents at the
@@ -17,11 +19,13 @@ The reference's five stages (paper Alg. 2 lines 9-20), in PyTorch:
                               the graph), so the MoE router loss charges
                               the server weights, and the P_k one through
                               out alone (aux's cotangent 0) back to the
-                              activation grads G_k;
+                              activation grads G_k (and the memory's
+                              G_mem; the P_s pass's is dropped, as the
+                              reference's);
                               under ``lace`` the head, unused by the
                               trunk, gets dW_s; each client pulls its
-                              slice of G_k back through its own graph
-                              (eq. 9)
+                              slice of G_k (and of G_mem) back through
+                              its own graph (eq. 9)
   stage 5  update             an :class:`repro_torch.optim.Optimizer`
 
 The boundary (stage 4), per backend and ``boundary``:
@@ -298,12 +302,12 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
             acts = model.client_fwd(wc, b)
             client_trees.append(wc_leaves)
             client_acts.append(acts)
-        if "memory" in client_acts[0]:
-            raise NotImplementedError("cross-attention memory at the split "
-                                      "is not ported yet; it comes with the "
-                                      "other archs")
-        x_c = [a["x"] for a in client_acts]
-        x = torch.cat([a.detach() for a in x_c]).requires_grad_()
+        # the uploads the server differentiates: x, and a cross-attention
+        # arch's encoder memory, each concatenated over the clients
+        keys = ["x"] + (["memory"] if "memory" in client_acts[0] else [])
+        ups = {k: [a[k] for a in client_acts] for k in keys}
+        cat = {k: torch.cat([a.detach() for a in v]).requires_grad_()
+               for k, v in ups.items()}
 
         # --- stage 3: one server forward on the concatenation, every
         # other activation (positions) taken from client 0, as the
@@ -311,7 +315,7 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
         ws, ws_leaves = _grad_leaves(params["server"])
         server = model.server_fwd if backend == "logits" else \
             model.server_trunk
-        out, aux = server(ws, {**client_acts[0], "x": x})
+        out, aux = server(ws, {**client_acts[0], **cat})
 
         # --- stage 4: both losses and cotangents at the split boundary ---
         metrics = {}
@@ -330,6 +334,8 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
     # stage 4a: (P_s cotangent, 1) through (out, aux) -> d w_s, so the
     # router loss charges the server weights; (P_k cotangent, 0) -> G_k,
     # i.e. out alone. A dense arch's aux needs no grad: out alone too.
+    # The memory's cotangent under P_s is not asked for (the reference
+    # drops it); under P_k it is G_mem, beside G_k.
     if aux.requires_grad:
         d_ws = torch.autograd.grad((out, aux), ws_leaves,
                                    (g_s, torch.ones_like(aux)),
@@ -340,20 +346,22 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
     d_ws = unflatten(params["server"], [
         torch.zeros_like(p) if g is None else g
         for p, g in zip(ws_leaves, d_ws)])
-    (g_x,) = torch.autograd.grad(out, [x], g_k)
+    g_up = torch.autograd.grad(out, [cat[k] for k in keys], g_k)
     if backend != "logits":
         d_ws = model.head_grad_merge(d_ws, gW_s)
 
-    # stage 4b (eq. 9): each client pulls its own G_k back
-    # into the stacked (C, ...) grads slot by slot, each client's freed
-    # at once (16 slots of qwen's embedding grad are 10 GB)
+    # stage 4b (eq. 9): each client pulls its own slices of G_k (and
+    # G_mem) back through its own (x, memory) into the stacked (C, ...)
+    # grads slot by slot, each client's freed at once (16 slots of qwen's
+    # embedding grad are 10 GB)
     d_wc = [torch.empty(p.shape, dtype=p.dtype, device=p.device)
             for p in leaves(params["client"])]
     start = 0
     for c in range(C):
-        n = x_c[c].shape[0]
-        g = torch.autograd.grad(x_c[c], client_trees[c],
-                                g_x[start:start + n], allow_unused=True)
+        n = ups["x"][c].shape[0]
+        g = torch.autograd.grad([ups[k][c] for k in keys], client_trees[c],
+                                [gu[start:start + n] for gu in g_up],
+                                allow_unused=True)
         for out, gi in zip(d_wc, g):
             if gi is None:
                 out[c].zero_()

@@ -13,7 +13,14 @@ def transformer_split_model(cfg: ModelConfig, *, remat=None) -> SplitModel:
     the server's scan groups recomputed on the backward pass
     (``models.transformer.server_forward``; None: on for the recurrent
     archs). The reference's ``dp_loss`` (the loss reduced over a device
-    mesh) has no counterpart on one card."""
+    mesh) has no counterpart on one card.
+
+    A frontend arch's batch carries its encoder output: an audio arch's
+    client half uploads the projected ``memory`` beside ``x``, which the
+    engine concatenates and hands to ``server_fwd`` / ``server_trunk``;
+    a vision arch's ``x`` holds the projected image prefix before the
+    text, so its ``labels`` and ``weights`` cover the prefix rows too
+    (weight 0: the priors and losses leave them out)."""
     from repro_torch.models import transformer as T
 
     def client_fwd(wc, batch):

@@ -1,10 +1,9 @@
 """Residual block assembly: one BlockSpec -> params / apply / cache.
 
-A block is pre-norm -> mixer (+residual) [-> pre-norm -> FFN
-(+residual)]. The mixer is attention, mamba, mLSTM or sLSTM, the FFN
-dense or MoE; xLSTM blocks carry their FFN inside the mixer (``ffn ==
-'none'``). A cross-attention sublayer (:mod:`repro.models.blocks`'
-``cross_attn``) raises ``NotImplementedError``.
+A block is pre-norm -> mixer (+residual) [-> pre-norm -> cross-attention
+over the encoder memory (+residual)] [-> pre-norm -> FFN (+residual)].
+The mixer is attention, mamba, mLSTM or sLSTM, the FFN dense or MoE;
+xLSTM blocks carry their FFN inside the mixer (``ffn == 'none'``).
 """
 from __future__ import annotations
 
@@ -21,11 +20,10 @@ FFNS = ("dense", "moe", "none")
 
 
 def check_spec(spec: BlockSpec) -> None:
-    if spec.mixer not in MIXERS or spec.ffn not in FFNS or spec.cross_attn:
+    if spec.mixer not in MIXERS or spec.ffn not in FFNS:
         raise NotImplementedError(
-            f"block mixer={spec.mixer!r} ffn={spec.ffn!r} "
-            f"cross_attn={spec.cross_attn}: the port has mixers {MIXERS} "
-            f"and FFNs {FFNS}; cross-attention comes with the whisper slice")
+            f"block mixer={spec.mixer!r} ffn={spec.ffn!r}: the port has "
+            f"mixers {MIXERS} and FFNs {FFNS}")
 
 
 def cache_length(spec: BlockSpec, max_len: int) -> int:
@@ -47,6 +45,9 @@ def block_init(gen: torch.Generator, spec: BlockSpec, cfg: ModelConfig):
         "norm1": norms.rms_norm_init(cfg, gen.device),
         "mixer": _MIXER_INIT[spec.mixer](gen, cfg),
     }
+    if spec.cross_attn:
+        p["norm_cross"] = norms.rms_norm_init(cfg, gen.device)
+        p["cross"] = attention.attn_init(gen, cfg, cross=True)
     if spec.ffn == "dense":
         p["norm2"] = norms.rms_norm_init(cfg, gen.device)
         p["ffn"] = mlp.mlp_init(gen, cfg)
@@ -64,6 +65,14 @@ def _dropless(cfg: ModelConfig) -> ModelConfig:
         cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
 
 
+def _cross(params, x, spec: BlockSpec, cfg, memory):
+    """The cross-attention sublayer, where the block has one."""
+    if not spec.cross_attn:
+        return x
+    h = norms.rms_norm_apply(params["norm_cross"], x, cfg.norm_eps)
+    return x + attention.cross_attn_apply(params["cross"], h, memory, cfg)
+
+
 def _ffn(params, x, spec: BlockSpec, cfg):
     """The FFN sublayer: (y, the MoE router loss or None)."""
     if spec.ffn == "none":
@@ -75,7 +84,8 @@ def _ffn(params, x, spec: BlockSpec, cfg):
     return x + mlp.mlp_apply(params["ffn"], h, cfg), None
 
 
-def block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, *, positions):
+def block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, *, positions,
+                memory=None):
     """Full-sequence forward. Returns (y, aux): the MoE router loss, a
     float32 zero for the other FFNs."""
     check_spec(spec)
@@ -89,14 +99,15 @@ def block_apply(params, x, spec: BlockSpec, cfg: ModelConfig, *, positions):
         h = xlstm.mlstm_apply(params["mixer"], h, cfg)
     else:
         h = xlstm.slstm_apply(params["mixer"], h, cfg)
-    y, aux = _ffn(params, x + h, spec, cfg)
+    y, aux = _ffn(params, _cross(params, x + h, spec, cfg, memory), spec,
+                  cfg)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return y, aux
 
 
 def block_prefill(params, x, spec: BlockSpec, cfg: ModelConfig, *,
-                  positions, max_len: int, cache_dtype):
+                  positions, max_len: int, cache_dtype, memory=None):
     """Full-sequence forward that also emits this block's decode cache,
     structured like :func:`block_cache_init`; an MoE FFN routes dropless
     and its router loss is dropped (serving does not train). Returns (y,
@@ -118,7 +129,8 @@ def block_prefill(params, x, spec: BlockSpec, cfg: ModelConfig, *,
         h, cache = xlstm.slstm_prefill(params["mixer"], h, cfg)
     if spec.ffn == "moe":
         cfg = _dropless(cfg)
-    return _ffn(params, x + h, spec, cfg)[0], cache
+    return _ffn(params, _cross(params, x + h, spec, cfg, memory), spec,
+                cfg)[0], cache
 
 
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int,
@@ -134,7 +146,8 @@ def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int,
                                 dtype, device)
 
 
-def block_decode(params, x, cache, index, spec: BlockSpec, cfg: ModelConfig):
+def block_decode(params, x, cache, index, spec: BlockSpec, cfg: ModelConfig,
+                 *, memory=None):
     """One-token decode; ``index`` (B,) holds each row's position.
     Attention updates ``cache`` in place; the recurrent mixers return new
     state tensors. An MoE FFN routes at the configured capacity (one
@@ -155,7 +168,8 @@ def block_decode(params, x, cache, index, spec: BlockSpec, cfg: ModelConfig):
     else:
         h, cache = attention.attn_decode(params["mixer"], h, cache, index,
                                          cfg, window=None)
-    return _ffn(params, x + h, spec, cfg)[0], cache
+    return _ffn(params, _cross(params, x + h, spec, cfg, memory), spec,
+                cfg)[0], cache
 
 
 def _decode_ring(params, x, cache, index, widx, cfg, window):

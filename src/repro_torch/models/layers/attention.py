@@ -1,6 +1,7 @@
-"""Multi-head attention: GQA + RoPE + sliding window + KV cache.
+"""Multi-head attention: GQA + RoPE + sliding window + KV cache, and
+cross-attention.
 
-Two execution paths:
+Three execution paths:
 
 * ``attn_apply`` -- self-attention over a whole sequence (prefill). It
   goes through :func:`repro_torch.kernels.flash_attn.ops.flash_attention`:
@@ -9,6 +10,11 @@ Two execution paths:
   :func:`attend_dense` (plain products, as the reference computes decode
   outside any kernel). Every row carries its own position, so one batched
   call steps serving slots at different lengths.
+* ``cross_attn_apply`` -- every query against every row of an encoder
+  memory, through the same ``flash_attention`` with ``causal=False``:
+  the Hopper kernel's non-causal mode on a CUDA tensor, its plain version
+  on the CPU. A decode step projects the memory's keys and values anew
+  each time, as the reference does; nothing of them is cached.
 """
 from __future__ import annotations
 
@@ -29,7 +35,9 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
-def attn_init(gen: torch.Generator, cfg):
+def attn_init(gen: torch.Generator, cfg, *, cross: bool = False):
+    """Self-attention params, or with ``cross`` a cross-attention's (no
+    q/k norm, as the reference's)."""
     pd = dtype_of(cfg.param_dtype)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
@@ -43,7 +51,7 @@ def attn_init(gen: torch.Generator, cfg):
         p["bq"] = torch.zeros((h, hd), dtype=pd, device=dev)
         p["bk"] = torch.zeros((kv, hd), dtype=pd, device=dev)
         p["bv"] = torch.zeros((kv, hd), dtype=pd, device=dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = {"scale": torch.ones((hd,), device=dev)}
         p["k_norm"] = {"scale": torch.ones((hd,), device=dev)}
     return p
@@ -163,6 +171,14 @@ def prefill_cache(k, v, positions, cache_len: int, dtype):
     kc[:, slots] = k[:, P - n:].to(dtype)
     vc[:, slots] = v[:, P - n:].to(dtype)
     return {"k": kc, "v": vc}
+
+
+def cross_attn_apply(params, x, memory, cfg):
+    """Cross-attention: queries from x (B, S, d), keys and values from the
+    encoder memory (B, M, d), every query seeing every memory row."""
+    q = _project_q(params, x, cfg)
+    k, v = _project_kv(params, memory, cfg)
+    return _project_out(params, flash_attention(q, k, v, causal=False))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Token embeddings and the output head."""
+"""Token embeddings, learned positions and the output head."""
 from __future__ import annotations
 
 import torch
@@ -8,15 +8,26 @@ from repro_torch.models.common import dense_init, dtype_of, embed_init
 
 
 def embedding_init(gen: torch.Generator, cfg):
-    return {"tok": embed_init(gen, (cfg.vocab_size, cfg.d_model),
-                              dtype_of(cfg.param_dtype))}
+    p = {"tok": embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                           dtype_of(cfg.param_dtype))}
+    if cfg.pos_embed == "learned":
+        p["pos"] = embed_init(gen, (cfg.max_position, cfg.d_model),
+                              dtype_of(cfg.param_dtype))
+    return p
 
 
-def embedding_apply(params, tokens: torch.Tensor, cfg):
+def embedding_apply(params, tokens: torch.Tensor, cfg, positions=None):
+    """The tokens' rows in the compute dtype; with learned positions, plus
+    the ``pos`` rows at ``positions`` (broadcast against ``tokens``)."""
     # F.embedding, not indexing: its backward sums the rows of a repeated
     # token in a fixed order (indexing's accumulating put does not on a
     # multi-threaded CPU), so a resumed run stays bitwise on its path
-    return F.embedding(tokens, params["tok"]).to(dtype_of(cfg.dtype))
+    x = F.embedding(tokens, params["tok"]).to(dtype_of(cfg.dtype))
+    if cfg.pos_embed == "learned":
+        if positions is None:
+            raise ValueError("learned positions need the tokens' positions")
+        x = x + F.embedding(positions, params["pos"]).to(x.dtype)
+    return x
 
 
 def head_init(gen: torch.Generator, cfg):

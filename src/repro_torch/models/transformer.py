@@ -3,7 +3,8 @@
 Params are split into the SFL halves, one entry per layer keyed by its
 absolute index::
 
-    {'client': {'embed', 'blocks': {'blk0', ..., 'blk{split-1}'}},
+    {'client': {'embed', 'projector'?,
+                'blocks': {'blk0', ..., 'blk{split-1}'}},
      'server': {'blocks': {'blk{split}', ..., 'blk{L-1}'},
                 'final_norm', 'head'}}
 
@@ -15,6 +16,13 @@ reference params into this layout.
 Decode caches are ``{'blk{l}': ...}`` over every layer: ``{'k', 'v'}``
 for attention, the recurrent state for mamba (``conv``, ``h``), mLSTM
 (``conv``, ``C``, ``n``, ``m``) and sLSTM (``c``, ``n``, ``m``, ``h``).
+
+A frontend arch takes its encoder's output in the batch (the encoders are
+stubs, as in the reference): a vision arch's ``prefix_emb`` (B, P, fd),
+projected and put before the text, which then sits at positions P ..
+P + S - 1; an audio arch's ``memory_emb`` (B, M, fd), projected into the
+memory that every cross-attention layer reads (the client half uploads it
+beside ``x``).
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.common import dtype_of
-from repro_torch.models.layers import embeddings, norms
+from repro_torch.models.layers import embeddings, frontends, norms
 
 
 # ---------------------------------------------------------------------------
@@ -47,9 +55,9 @@ def _layout(cfg: ModelConfig):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.frontend is not None:
+    if cfg.frontend not in (None, "vision", "audio"):
         raise NotImplementedError(f"frontend {cfg.frontend!r}")
-    if cfg.pos_embed not in ("rope", "none"):
+    if cfg.pos_embed not in ("rope", "none", "learned"):
         raise NotImplementedError(f"pos_embed {cfg.pos_embed!r}")
     for spec in cfg.block_specs:
         B.check_spec(spec)
@@ -73,11 +81,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     blocks = {f"blk{l}": B.block_init(gen, cfg.block_spec(l), cfg)
               for l in range(cfg.num_layers)}
     split = cfg.split_layer
+    client = {"embed": embeddings.embedding_init(gen, cfg)}
+    if cfg.frontend:
+        client["projector"] = frontends.projector_init(gen, cfg)
+    client["blocks"] = {f"blk{l}": blocks[f"blk{l}"] for l in range(split)}
     return {
-        "client": {
-            "embed": embeddings.embedding_init(gen, cfg),
-            "blocks": {f"blk{l}": blocks[f"blk{l}"] for l in range(split)},
-        },
+        "client": client,
         "server": {
             "blocks": {f"blk{l}": blocks[f"blk{l}"]
                        for l in range(split, cfg.num_layers)},
@@ -101,18 +110,45 @@ def _head(params, x, cfg: ModelConfig, head_mode: str):
     return embeddings.head_apply(params["server"]["head"], x, cfg)
 
 
-def client_forward(client_params, batch, cfg: ModelConfig):
-    """The client half: embedding + the first ``split_layer`` blocks.
-    Returns the SFL activation upload ``{'x', 'positions'}``."""
-    check_supported(cfg)
+def _embed_inputs(client_params, batch, cfg: ModelConfig):
+    """(x, positions, memory): the embedded tokens (after the projected
+    image prefix for vision), their positions ``arange`` over the whole
+    row, and the projected audio memory (None without one)."""
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = embeddings.embedding_apply(client_params["embed"], tokens, cfg)
+    memory = None
+    if cfg.frontend == "vision":
+        prefix = frontends.projector_apply(client_params["projector"],
+                                           batch["prefix_emb"], cfg)
+        P = prefix.shape[1]
+        positions = torch.arange(P + tokens.shape[1], device=tokens.device)
+        x = embeddings.embedding_apply(client_params["embed"], tokens, cfg,
+                                       positions=positions[None, P:])
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    else:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = embeddings.embedding_apply(client_params["embed"], tokens, cfg,
+                                       positions=positions[None, :])
+        if cfg.frontend == "audio":
+            memory = frontends.projector_apply(client_params["projector"],
+                                               batch["memory_emb"], cfg)
+    return x, positions, memory
+
+
+def client_forward(client_params, batch, cfg: ModelConfig):
+    """The client half: embedding (and the frontend's projector) + the
+    first ``split_layer`` blocks. Returns the SFL activation upload
+    ``{'x', 'positions'}``, and ``'memory'`` for an audio arch."""
+    check_supported(cfg)
+    x, positions, memory = _embed_inputs(client_params, batch, cfg)
     for l in range(cfg.split_layer):
         # the client blocks' router loss is dropped, as the reference's
         x, _ = B.block_apply(client_params["blocks"][f"blk{l}"], x,
-                             cfg.block_spec(l), cfg, positions=positions)
-    return {"x": x, "positions": positions}
+                             cfg.block_spec(l), cfg, positions=positions,
+                             memory=memory)
+    out = {"x": x, "positions": positions}
+    if memory is not None:
+        out["memory"] = memory
+    return out
 
 
 def default_remat(cfg: ModelConfig) -> bool:
@@ -127,10 +163,10 @@ def default_remat(cfg: ModelConfig) -> bool:
 def server_forward(server_params, acts, cfg: ModelConfig, *,
                    head_mode: str = "full", remat=None):
     """The server half on (possibly concatenated) activations ``{'x',
-    'positions'}``: logits (B, S, V), or the final-normed features with
-    ``head_mode='feats'``, or the last position's with 'last'. Returns
-    (out, aux); aux is the MoE router loss summed over the server's
-    blocks, zero for the other FFNs.
+    'positions', 'memory'?}``: logits (B, S, V), or the final-normed
+    features with ``head_mode='feats'``, or the last position's with
+    'last'. Returns (out, aux); aux is the MoE router loss summed over
+    the server's blocks, zero for the other FFNs.
 
     ``remat`` (default :func:`default_remat`): under autograd each of the
     reference's scan groups (:func:`_layout`; the prologue is not one)
@@ -138,14 +174,15 @@ def server_forward(server_params, acts, cfg: ModelConfig, *,
     and reruns it on every backward pass through it, as the reference's
     ``jax.checkpoint`` around its group scan."""
     check_supported(cfg)
-    x, positions = acts["x"], acts["positions"]
+    x, positions, memory = acts["x"], acts["positions"], acts.get("memory")
     if remat is None:
         remat = default_remat(cfg)
 
     def run(x, aux, layers):
         for l in layers:
             x, a = B.block_apply(server_params["blocks"][f"blk{l}"], x,
-                                 cfg.block_spec(l), cfg, positions=positions)
+                                 cfg.block_spec(l), cfg, positions=positions,
+                                 memory=memory)
             aux = aux + a
         return x, aux
 
@@ -168,11 +205,10 @@ def forward(params, batch, cfg: ModelConfig, *, head_mode: str = "full"):
     """Merged (non-split) forward: logits (B, S, V), or (B, 1, V) with
     ``head_mode='last'``, or the final-normed features with 'feats'."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = embeddings.embedding_apply(params["client"]["embed"], tokens, cfg)
+    x, positions, memory = _embed_inputs(params["client"], batch, cfg)
     for _, spec, p in _layers(params, cfg):
-        x, _ = B.block_apply(p, x, spec, cfg, positions=positions)
+        x, _ = B.block_apply(p, x, spec, cfg, positions=positions,
+                             memory=memory)
     return _head(params, x, cfg, head_mode)
 
 
@@ -184,17 +220,21 @@ def forward_prefill_cached(params, batch, cfg: ModelConfig, max_len: int,
     Returns (logits (B, 1, V), cache): the logits at the last prompt
     position and a cache structured like :func:`init_decode_cache`
     ``(cfg, B, max_len)``, so :func:`decode_step` continues from it.
+    A vision prefix is refused, as in the reference (it would shift the
+    cached positions against the token index decode uses); the audio
+    memory is not cached: decode recomputes it from the batch each step.
     """
     check_supported(cfg)
+    if cfg.frontend == "vision":
+        raise NotImplementedError(
+            "forward_prefill_cached does not support vision prefixes")
     dtype = cache_dtype or dtype_of(cfg.dtype)
-    tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = embeddings.embedding_apply(params["client"]["embed"], tokens, cfg)
+    x, positions, memory = _embed_inputs(params["client"], batch, cfg)
     cache = {}
     for l, spec, p in _layers(params, cfg):
         x, cache[f"blk{l}"] = B.block_prefill(
             p, x, spec, cfg, positions=positions, max_len=max_len,
-            cache_dtype=dtype)
+            cache_dtype=dtype, memory=memory)
     return _head(params, x, cfg, "last"), cache
 
 
@@ -215,17 +255,25 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(params, batch, cache, index, cfg: ModelConfig):
     """One-token decode on the merged model.
 
-    batch: {'tokens': (B, 1)}; index: an int shared by every row, or a
-    (B,) tensor with each row's own position (the serving engine steps
-    slots at different lengths in one call). The cache is updated in
-    place. Returns (logits (B, 1, V), cache).
+    batch: {'tokens': (B, 1), 'memory_emb'?: (B, M, fd)}; index: an int
+    shared by every row, or a (B,) tensor with each row's own position
+    (the serving engine steps slots at different lengths in one call).
+    An audio arch projects ``memory_emb`` anew each step, as the
+    reference. The cache is updated in place. Returns (logits (B, 1, V),
+    cache).
     """
     tokens = batch["tokens"]
     index = torch.as_tensor(index, device=tokens.device).long()
     if index.dim() == 0:
         index = index.expand(tokens.shape[0])
-    x = embeddings.embedding_apply(params["client"]["embed"], tokens, cfg)
+    client = params["client"]
+    memory = None
+    if cfg.frontend == "audio":
+        memory = frontends.projector_apply(client["projector"],
+                                           batch["memory_emb"], cfg)
+    x = embeddings.embedding_apply(client["embed"], tokens, cfg,
+                                   positions=index[:, None])
     for l, spec, p in _layers(params, cfg):
         x, cache[f"blk{l}"] = B.block_decode(p, x, cache[f"blk{l}"], index,
-                                             spec, cfg)
+                                             spec, cfg, memory=memory)
     return _head(params, x, cfg, "full"), cache

@@ -6,10 +6,14 @@ by ``repro_torch.convert``, each client slot perturbed so the slots
 differ) through both: ``split_step_grads`` (backend ``lace``, fused
 boundary, with and without a participation mask) and a two-step
 ``make_round_runner`` round (sgd / momentum / adamw under the carry /
-reset / average opt-state policies), on ``helpers.tiny_cfg`` and on
-qwen1.5-0.5b reduced, in float32. Every leaf of the grads, params and
-optimizer state is held to 1e-4 of its largest entry (float32 sums in
-another order through a few layers); the losses to 1e-5 relative. Also
+reset / average opt-state policies), on ``helpers.tiny_cfg``, on
+qwen1.5-0.5b reduced and on the reduced frontend archs (whisper: the
+concatenated audio memory at the split, its cotangent G_mem pulled back
+through each client's projector beside G_k; internvl2: an image prefix
+whose rows carry labels of weight 0), in float32. Every leaf of the
+grads, params and optimizer state is held to 1e-4 of its largest entry
+(float32 sums in another order through a few layers); the losses to
+1e-5 relative. Also
 the SCALA helpers elementwise: label statistics, the split helpers, the
 aggregators and the optimizers.
 """
@@ -66,7 +70,13 @@ CONFIGS = {
     "tiny": lambda: tiny_cfg(qkv_bias=True),
     "qwen-reduced": lambda: dataclasses.replace(
         jcfgs.get_config("qwen1.5-0.5b").reduced(), vocab_size=97),
+    "whisper-reduced": lambda: dataclasses.replace(
+        jcfgs.get_config("whisper-tiny").reduced(), vocab_size=97,
+        max_position=64),
+    "internvl2-reduced": lambda: dataclasses.replace(
+        jcfgs.get_config("internvl2-26b").reduced(), vocab_size=97),
 }
+FRONTENDS = ("whisper-reduced", "internvl2-reduced")
 
 
 def _setup(name, C=2, Bk=2, S=12, T=2, seed=0):
@@ -85,6 +95,21 @@ def _setup(name, C=2, Bk=2, S=12, T=2, seed=0):
     weights[:, -1, -1] = 0.0                  # an eq. 3 padding row
     batches = {"tokens": toks[..., :-1].astype(np.int32),
                "labels": toks[..., 1:].astype(np.int32), "weights": weights}
+    if cfg.frontend:
+        emb = (0.1 * rng.standard_normal(
+            (T, C, Bk, cfg.num_prefix_tokens, cfg.frontend_dim))).astype(
+                np.float32)
+        if cfg.frontend == "audio":
+            batches["memory_emb"] = emb
+        else:
+            # the image prefix's rows: labels of weight 0, so neither the
+            # priors nor the losses see them
+            P = cfg.num_prefix_tokens
+            batches["prefix_emb"] = emb
+            batches["labels"] = np.concatenate(
+                [np.zeros((T, C, Bk, P), np.int32), batches["labels"]], -1)
+            batches["weights"] = np.concatenate(
+                [np.zeros((T, C, Bk, P), np.float32), weights], -1)
     sizes = np.array([5.0, 3.0] + [2.0] * (C - 2), np.float32)
     return cfg, params, batches, sizes
 
@@ -148,6 +173,17 @@ def test_split_step_grads_matches_reference(name, masked):
     if masked:                                  # an absent client: no grad
         assert all(float(g[1].abs().max()) == 0.0
                    for g in leaves(got["client"]))
+    if name in FRONTENDS:
+        # the projector trains from the split's cotangents (whisper's
+        # through G_mem alone: its memory reaches no client-side token
+        # but through the cross-attention), learned positions from G_k
+        trained = [c for c in range(len(batch["tokens"]))
+                   if mask is None or mask[c]]
+        for g in leaves(got["client"]["projector"]):
+            assert all(float(g[c].abs().max()) > 0 for c in trained)
+        if cfg.pos_embed == "learned":
+            pos = got["client"]["embed"]["pos"]
+            assert all(float(pos[c].abs().max()) > 0 for c in trained)
 
 
 ROUND_CASES = [
@@ -157,6 +193,8 @@ ROUND_CASES = [
     # rounding difference into an update difference of up to lr
     ("tiny", "adamw", "reset", 1e-3),
     ("qwen-reduced", "sgd", "carry", LEAF_RTOL),
+    ("whisper-reduced", "momentum", "carry", LEAF_RTOL),
+    ("internvl2-reduced", "sgd", "carry", LEAF_RTOL),
 ]
 
 

@@ -452,8 +452,11 @@ def _setup(arch, C=4, Bk=3, T=2, seed=0):
         pcfg = get_config("alexnet-cifar")
         shape = (T, C, Bk)
     else:
-        cfg = dataclasses.replace(
-            jcfgs.get_config("qwen1.5-0.5b").reduced(), vocab_size=97)
+        name = {"qwen": "qwen1.5-0.5b", "whisper": "whisper-tiny"}[arch]
+        cfg = dataclasses.replace(jcfgs.get_config(name).reduced(),
+                                  vocab_size=97)
+        if cfg.pos_embed == "learned":
+            cfg = dataclasses.replace(cfg, max_position=64)
         params = jengine.init_scala_params(
             jax.random.PRNGKey(seed),
             lambda k: JT.init_params(k, cfg)["client"],
@@ -462,6 +465,11 @@ def _setup(arch, C=4, Bk=3, T=2, seed=0):
         toks = rng.integers(0, cfg.vocab_size, (T, C, Bk, S + 1))
         batches = {"tokens": toks[..., :-1].astype(np.int32),
                    "labels": toks[..., 1:].astype(np.int32)}
+        if cfg.frontend == "audio":
+            # each slot's own encoder memory, gathered with its tokens
+            batches["memory_emb"] = (0.1 * rng.standard_normal(
+                (T, C, Bk, cfg.num_prefix_tokens, cfg.frontend_dim))
+            ).astype(np.float32)
         models = (j_tf_model(cfg), None)
         pcfg = _port_cfg(cfg)
         models = (models[0], transformer_split_model(pcfg))
@@ -538,6 +546,53 @@ def test_round_matches_reference_with_injected_masks(arch, mode, agg_name):
                                       np.asarray(jfs["agg"]["age"]))
         assert tfs["agg"]["age"].max() > 0
     assert int(tfs["sched"]) == rounds
+    for a in leaves(ts.params["client"]):        # slots re-unified
+        assert torch.equal(a[0], a[1])
+
+
+@pytest.mark.parametrize("mode", ["masked", "sparse"])
+def test_frontend_round_matches_reference(mode):
+    """Reduced whisper, each slot with its own audio memory, through the
+    masked round and the sparse gather (the reference's masks injected,
+    bias_compensated, momentum; no server optimizer: FedOpt's state is the
+    difference of two float32 params, and the cross-attention norms'
+    round deltas sit near their ulps) against the reference's round:
+    losses, params and optimizer state."""
+    C, rounds = 4, 2
+    (jm, tm), pcfg, params, batches, sizes = _setup("whisper", C=C)
+    assert "memory_emb" in batches
+    ja, ta = jfed.bias_compensated(), fed.bias_compensated()
+    jpart = jfed.uniform(C, 0.5)
+    jfs = jfed.init_fed_state(jax.random.PRNGKey(7), ja, jpart)
+    masks, sched = [], jfs["sched"]
+    for _ in range(rounds):
+        m, sched = jpart.sample(sched)
+        masks.append(np.asarray(m))
+    gather = mode == "sparse"
+    jround = jax.jit(jengine.make_round_runner(
+        jm, JScala(num_clients=C, lr=0.05), backend="lace",
+        optimizer=jopt.momentum(0.9), aggregator=ja, participation=jpart,
+        slot_gather=gather, unroll=True))
+    tpart = _recorded(masks)
+    tround = engine.make_round_runner(
+        tm, ScalaConfig(num_clients=C, lr=0.05), backend="lace",
+        optimizer=optimizers.momentum(0.9), aggregator=ta,
+        participation=tpart, slot_gather=gather)
+    js = jengine.init_train_state(jax.tree.map(jnp.asarray, params),
+                                  jopt.momentum(0.9))
+    ts = convert.train_state_from_reference(_np(js), pcfg)
+    tfs = fed.init_fed_state(0, ta, tpart)
+    jb = jax.tree.map(jnp.asarray, batches)
+    tb = {k: _t(v) for k, v in batches.items()}
+    for r in range(rounds):
+        js, jfs, jmet = jround(js, jb, jnp.asarray(sizes), jfs)
+        ts, tfs, tmet = tround(ts, tb, _t(sizes), tfs)
+        for key in ("loss_server", "loss_client"):
+            _close(tmet[key], jmet[key], f"round {r} {key}")
+    want = convert.train_state_from_reference(_np(js), pcfg)
+    assert ts.step == want.step == rounds * 2
+    _close_tree(ts.params, want.params, "params")
+    _close_tree(ts.opt_state, want.opt_state, "opt state")
     for a in leaves(ts.params["client"]):        # slots re-unified
         assert torch.equal(a[0], a[1])
 

@@ -146,6 +146,58 @@ def test_flash_backward_matches_autograd_of_plain(B, S, H, KV, hd, window,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Skv,H,KV,hd,dtype", [
+    # whisper-tiny's cross-attention: a training step's 16 x 448 text
+    # queries and a decode step's 8 x 1 on 1500 audio frames, 6 heads of 64
+    (16, 448, 1500, 6, 6, 64, torch.bfloat16),
+    (8, 1, 1500, 6, 6, 64, torch.bfloat16),
+    # ragged key counts against the 64-key tiles (under a decode step's
+    # single queries too), more queries than keys, GQA, hd 128, float32
+    (2, 9, 130, 4, 2, 64, torch.float32),
+    (1, 200, 65, 4, 4, 64, torch.bfloat16),
+    (8, 1, 65, 6, 6, 64, torch.bfloat16),
+    (1, 100, 257, 4, 4, 128, torch.bfloat16),
+    (2, 33, 1, 2, 1, 16, torch.float32),
+])
+def test_flash_noncausal_matches_plain(B, S, Skv, H, KV, hd, dtype):
+    """K3's non-causal mode over Skv != S keys (cross-attention): the
+    forward and, through the autograd Function, the backward against the
+    plain version and autograd of it, each relative to the plain side's
+    largest entry (the output bf16 1e-2, ~1 bf16 ulp of it, since over
+    1500 keys that entry is ~0.3 and an absolute bound would pass a key
+    tile dropped or left unmasked past Skv; the gradients bf16 3e-2; f32
+    1e-4); a second backward is bitwise equal."""
+    _needs_card()
+    rng = np.random.default_rng(S + Skv + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to("cuda", dtype).requires_grad_()
+               for shape in ((B, S, H, hd), (B, Skv, KV, hd),
+                             (B, Skv, KV, hd)))
+    gout = torch.from_numpy(rng.standard_normal((B, S, H, hd), np.float32)
+                            ).to("cuda", dtype)
+    before = (ops.LAUNCHES, ops.LAUNCHES_BWD)
+    out = ops.flash_attention(q, k, v, causal=False)
+    grads = torch.autograd.grad(out, (q, k, v), gout)
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES, ops.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    want = ref.mha_ref(q, k, v, causal=False)
+    wgrads = torch.autograd.grad(want, (q, k, v), gout)
+    for name, got, exp in zip(("out", "dq", "dk", "dv"), (out,) + grads,
+                              (want,) + wgrads):
+        assert got.shape == exp.shape, name
+        rtol = {torch.float32: 1e-4,
+                torch.bfloat16: 1e-2 if name == "out" else 3e-2}[dtype]
+        err = (got.float() - exp.float()).abs().max().item()
+        scale = exp.float().abs().max().item()
+        if Skv == 1:    # softmax over one key: dq and dk vanish exactly
+            scale = max(scale, 1.0)
+        assert err <= rtol * scale, (name, err, scale)
+    again = torch.autograd.grad(ops.flash_attention(q, k, v, causal=False),
+                                (q, k, v), gout)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_strided_views_match_plain(dtype):
     """q, k, v as head slices of one fused (B, S, H + 2 KV, hd) projection
@@ -325,6 +377,38 @@ def test_lace_kernels_are_deterministic(feats_dtype, monkeypatch):
         for a, b in zip(first, second):
             assert (a is None) == (b is None), name
             assert a is None or torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,d,V,head_dtype", [
+    (256, 384, 51865, torch.float32),       # whisper-tiny: f32 params
+    (256, 6144, 92553, torch.bfloat16),     # internvl2-26b: bf16 params
+])
+def test_lace_kernels_at_odd_vocab(N, d, V, head_dtype):
+    """K1 + K2 at the frontend archs' odd vocabularies, whose head rows do
+    not start on 16-byte boundaries (the operands' plain-copy path),
+    against the plain version under the tolerances above, bf16 feats; a
+    second run bitwise equal."""
+    _needs_card()
+    feats, w_head, labels, weights, p_s, p_k = _lace_inputs(
+        V, 2, N // 2, d, V, torch.bfloat16)
+    w_head = w_head.to(head_dtype)
+    ids = torch.arange(2, device="cuda")
+    args = (feats, w_head, labels, p_s, None, p_k, ids, weights, 1.0, 1e-8)
+    got = lace_ops.lace2_grads(*args, chunk=64)
+    again = lace_ops.lace2_grads(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got[:5], again[:5]))
+    want = lace_ops.lace2_grads_plain(*args, 64, True, None)
+    for name, a, b in zip(("loss_s", "loss_k"), got[:2], want[:2]):
+        assert abs(a.item() - b.item()) <= 1e-4 * abs(b.item()), name
+    for name, a, b in zip(("df_s", "df_k", "dW_s"), got[2:5], want[2:5]):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        tol = 1e-5 * b.float().abs().max().item()
+        if name != "dW_s" or head_dtype == torch.bfloat16:
+            tol = 1e-2 * b.float().abs().max().item()   # rounded to bf16
+        assert err <= tol, (name, err, tol)
 
 
 @pytest.mark.gpu

@@ -601,7 +601,9 @@ def test_moe_leaves_convert_bitwise(tmp_path):
 
 def test_servespec_serves_moe_and_refuses_jamba():
     """Every MoE arch is accepted, jamba (mamba + attention + MoE) too,
-    at full and reduced size; a cross-attention arch is still refused."""
+    at full and reduced size. The frontend archs' blocks (whisper's
+    cross-attention) are ported, but ServeSpec still refuses both for
+    their frontend, as the reference's does."""
     for arch in (MOE_ARCH, "dbrx-132b", JAMBA):
         for reduced in (False, True):
             spec = ServeSpec(arch=arch, reduced=reduced)
@@ -609,8 +611,11 @@ def test_servespec_serves_moe_and_refuses_jamba():
     assert ServeSpec(arch=JAMBA).model_config().mamba.d_state == 16
     from repro_torch.models.blocks import check_spec
     whisper = tget_config("whisper-tiny")
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        check_spec(whisper.block_spec(0))
+    assert whisper.block_spec(0).cross_attn
+    check_spec(whisper.block_spec(0))
+    for arch in ("whisper-tiny", "internvl2-26b"):
+        with pytest.raises(ValueError, match="frontend"):
+            ServeSpec(arch=arch, reduced=True)
 
 
 def test_cli_serves_moe_on_cpu(monkeypatch, capsys):

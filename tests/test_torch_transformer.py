@@ -8,9 +8,12 @@ layers (norms, rope, embeddings, mlp, attention), the configs, and
 ``decode_step`` on the tiny, ring-window and reduced-qwen configs, the
 reduced MoE archs (qwen3-moe, dbrx; also ``server_forward``'s router
 loss), the reduced gemma3, granite and h2o-danube (the windowed ones
-on a prompt past the reduced window of 64) and the reduced jamba (mamba
+on a prompt past the reduced window of 64), the reduced jamba (mamba
 with attention and MoE: every cache leaf, ``conv`` and ``h`` as well as
-``k`` and ``v``), plus prefill == decode inside the port.
+``k`` and ``v``) and the reduced frontend archs (whisper: learned
+positions and cross-attention over a projected audio memory; internvl2:
+a projected image prefix before the text, whose cached prefill both
+packages refuse), plus prefill == decode inside the port.
 """
 import dataclasses
 
@@ -89,6 +92,8 @@ CONFIGS = {
     "granite-reduced": _reduced("granite-3-8b"),
     "danube-reduced": _reduced("h2o-danube-3-4b"),
     "jamba-reduced": _reduced("jamba-1.5-large-398b"),
+    "whisper-reduced": _reduced("whisper-tiny"),
+    "internvl2-reduced": _reduced("internvl2-26b"),
 }
 MOE = ("qwen3-moe-reduced", "dbrx-reduced", "jamba-reduced")
 # (prompt, cache length) where the default's 10 and 16 are not enough: a
@@ -220,16 +225,25 @@ def test_attn_apply_and_decode(window, qk_norm):
 
 
 def test_unported_mixers_raise():
-    """Cross-attention (whisper's decoder) is refused at the block, past
-    the frontend's own refusal; mamba builds."""
+    """Every block of the repo's archs builds: whisper's cross-attention
+    (with its learned positions and projector), internvl2's projector and
+    mamba; a mixer the port lacks is refused at the block."""
     whisper = _port_cfg(jcfgs.get_config("whisper-tiny").reduced())
-    with pytest.raises(NotImplementedError, match="frontend"):
-        T.init_params(torch.Generator(), whisper)
-    text_only = dataclasses.replace(whisper, frontend=None, pos_embed="none")
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        T.init_params(torch.Generator(), text_only)
+    params = T.init_params(torch.Generator(), whisper)
+    blk = params["server"]["blocks"]["blk1"]
+    assert set(blk) == {"norm1", "mixer", "norm_cross", "cross", "norm2",
+                        "ffn"}
+    assert "q_norm" not in blk["cross"]
+    assert set(params["client"]["projector"]) == {"norm", "fc1", "fc2"}
+    assert params["client"]["embed"]["pos"].shape == (whisper.max_position,
+                                                      whisper.d_model)
+    vlm = _port_cfg(jcfgs.get_config("internvl2-26b").reduced())
+    assert "projector" in T.init_params(torch.Generator(), vlm)["client"]
     params = T.init_params(torch.Generator(), _port_cfg(tiny_mamba_cfg()))
     assert set(params["client"]["blocks"]["blk0"]["mixer"]) >= {"A_log", "D"}
+    with pytest.raises(NotImplementedError, match="mixers"):
+        T.init_params(torch.Generator(), _port_cfg(tiny_cfg(
+            mixer_pattern=("rwkv",))))
 
 
 # --------------------------------------------------------------------------
@@ -243,6 +257,18 @@ def _setup(name, B=2, P=10, seed=0):
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, P))
     tparams = convert.params_from_reference(_np(params), _port_cfg(cfg))
     return cfg, params, tparams, prompts
+
+
+def _frontend_inputs(cfg, B, seed=0):
+    """The stub encoder's output a frontend arch's batch carries, drawn
+    with numpy (normal x 0.1): {'memory_emb'} (audio), {'prefix_emb'}
+    (vision) or {} (text)."""
+    key = {"audio": "memory_emb", "vision": "prefix_emb"}.get(cfg.frontend)
+    if key is None:
+        return {}
+    rng = np.random.default_rng([seed, 7])
+    return {key: (0.1 * rng.standard_normal(
+        (B, cfg.num_prefix_tokens, cfg.frontend_dim))).astype(np.float32)}
 
 
 def _assert_caches_close(got, want):
@@ -262,54 +288,75 @@ def test_forward_prefill_decode_match_reference(name):
     cfg, params, tparams, prompts = _setup(name, P=P)
     pcfg = _port_cfg(cfg)
     B = prompts.shape[0]
-    toks, ttoks = jnp.asarray(prompts), _t(prompts)
+    extra = _frontend_inputs(cfg, B)
+    jbatch = {"tokens": jnp.asarray(prompts),
+              **{k: jnp.asarray(v) for k, v in extra.items()}}
+    tbatch = {"tokens": _t(prompts), **{k: _t(v) for k, v in extra.items()}}
 
     want, want_aux = jax.jit(JT.forward, static_argnums=2,
                              static_argnames="remat")(
-        params, {"tokens": toks}, cfg, remat=False)
-    got = T.forward(tparams, {"tokens": ttoks}, pcfg)
+        params, jbatch, cfg, remat=False)
+    got = T.forward(tparams, tbatch, pcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # the split halves: the server's router loss (the client's dropped)
-    acts = T.client_forward(tparams["client"], {"tokens": ttoks}, pcfg)
+    acts = T.client_forward(tparams["client"], tbatch, pcfg)
+    assert ("memory" in acts) == (cfg.frontend == "audio")
     got, aux = T.server_forward(tparams["server"], acts, pcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(aux.numpy(), np.asarray(want_aux), **TOL)
     assert (float(aux) > 0) == (name in MOE)
 
-    jl, jcache = jax.jit(JT.forward_prefill_cached, static_argnums=(2, 3))(
-        params, {"tokens": toks}, cfg, max_len)
-    tl, tcache = T.forward_prefill_cached(tparams, {"tokens": ttoks}, pcfg,
-                                          max_len)
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    _assert_caches_close(tcache, _cache_from_reference(_np(jcache), pcfg))
+    if cfg.frontend == "vision":
+        # both packages refuse a cached prefill behind an image prefix;
+        # decode runs on the text alone from empty caches
+        with pytest.raises(NotImplementedError, match="vision"):
+            JT.forward_prefill_cached(params, jbatch, cfg, max_len)
+        with pytest.raises(NotImplementedError, match="vision"):
+            T.forward_prefill_cached(tparams, tbatch, pcfg, max_len)
+        jcache = JT.init_decode_cache(cfg, B, max_len)
+        tcache = T.init_decode_cache(pcfg, B, max_len)
+        P = 0
+    else:
+        jl, jcache = jax.jit(JT.forward_prefill_cached,
+                             static_argnums=(2, 3))(params, jbatch, cfg,
+                                                    max_len)
+        tl, tcache = T.forward_prefill_cached(tparams, tbatch, pcfg, max_len)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        _assert_caches_close(tcache, _cache_from_reference(_np(jcache), pcfg))
 
-    # three decode steps from the prefilled caches, shared index
+    # three decode steps from the prefilled caches, shared index (an
+    # audio arch's memory re-projected each step)
     nxt = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, 3))
     decode = jax.jit(JT.decode_step, static_argnums=4)
     for i in range(3):
         jl, jcache = decode(params,
-                                    {"tokens": jnp.asarray(nxt[:, i:i + 1])},
-                                    jcache, jnp.int32(P + i), cfg)
-        tl, tcache = T.decode_step(tparams, {"tokens": _t(nxt[:, i:i + 1])},
+                            {**jbatch, "tokens": jnp.asarray(nxt[:, i:i + 1])},
+                            jcache, jnp.int32(P + i), cfg)
+        tl, tcache = T.decode_step(tparams,
+                                   {**tbatch, "tokens": _t(nxt[:, i:i + 1])},
                                    tcache, P + i, pcfg)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     _assert_caches_close(tcache, _cache_from_reference(_np(jcache), pcfg))
 
 
-@pytest.mark.parametrize("name", ["tiny", "ring", "jamba-reduced"])
+@pytest.mark.parametrize("name", ["tiny", "ring", "jamba-reduced",
+                                  "whisper-reduced"])
 def test_prefill_matches_decode_in_port(name):
     """The fused prefill (flash path; mamba's chunked scan) == the
     token-by-token decode loop (dense-attend path; the one-step
-    recurrence), logits and every cache leaf."""
+    recurrence; whisper's cross-attention over the same memory in both),
+    logits and every cache leaf."""
     cfg, _, tparams, prompts = _setup(name, P=9)
     pcfg = _port_cfg(cfg)
     B, P, max_len = prompts.shape + (16,)
     ttoks = _t(prompts)
-    logits_f, cache_f = T.forward_prefill_cached(tparams, {"tokens": ttoks},
-                                                 pcfg, max_len)
+    extra = {k: _t(v) for k, v in _frontend_inputs(cfg, B).items()}
+    logits_f, cache_f = T.forward_prefill_cached(
+        tparams, {"tokens": ttoks, **extra}, pcfg, max_len)
     cache = T.init_decode_cache(pcfg, B, max_len)
     for i in range(P):
-        lg, cache = T.decode_step(tparams, {"tokens": ttoks[:, i:i + 1]},
+        lg, cache = T.decode_step(tparams,
+                                  {"tokens": ttoks[:, i:i + 1], **extra},
                                   cache, i, pcfg)
     np.testing.assert_allclose(logits_f.numpy(), lg.numpy(), **TOL)
     _assert_caches_close(cache_f, cache)
