@@ -457,6 +457,10 @@ LACE_MOE = (8192, BF16, 1.0, LACE_CLIENTS, 0, BF16, 2048, 151936)
 LACE_WHISPER = (7168, BF16, 1.0, LACE_CLIENTS, 0, F32, 384, 51865)
 LACE_VLM = (8192, BF16, 1.0, LACE_CLIENTS, 0, BF16, 6144, 92553)
 LACE_BF16_HEAD = LACE_CASES[-1]          # the bf16 policy's main path
+# the lace_dp boundary's raw sums (mean=False: each token's scale its
+# weight, no 1 / W) at the per-rank shape of phase 21's cell on a
+# two-rank grid: 8 client slots x 512 tokens, 8 prior rows
+LACE_RAW = (4096, BF16, 1.0, 8, 0, F32, 1024, 151936)
 # the single-prior LACE kernels (K4, K5) of the dual boundary, (N tokens,
 # feats dtype, side, head dtype) at the training width: the server side
 # (one concatenated prior row, dW) and the client side (4 per-client rows
@@ -469,6 +473,10 @@ LACE1_CASES = [(N, dt, side, F32) for N in (8192, 2048)
 LACE1_CASES += [(8192, BF16, side, BF16) for side in ("server", "client")]
 LACE1_REPORT = {"server": LACE1_CASES[0], "client": LACE1_CASES[1]}
 LACE1_BF16_HEAD = {"server": LACE1_CASES[-2], "client": LACE1_CASES[-1]}
+# K4, K5 in raw-sum mode (the lace_dp dual boundary) at LACE_RAW's shape
+LACE1_RAW = {side: (4096, BF16, side, F32, "raw")
+             for side in ("server", "client")}
+LACE1_CASES += list(LACE1_RAW.values())
 # the training phase: the reference LM training CLI's defaults (SCALA, subset
 # sampling, fused LACE boundary, weighted FedAvg, SGD) at full width
 TRAIN_FLAGS = ["--arch", ARCH, "--clients", "16", "--participation", "0.25",
@@ -1933,12 +1941,13 @@ def phase_flash_bwd(cases=FLASH_BWD_CASES):
 
 
 def lace_inputs(N, dtype, tau, G=LACE_CLIENTS, absent=0, w_dtype=F32,
-                d=1024, V=151936):
+                d=1024, V=151936, raw=False):
     """Boundary inputs at the training width, from a seeded generator:
     feats (N, d), w_head (d, V) in ``w_dtype`` (bf16: the same draws
     rounded), labels, the two sides' prior tables and per-token client
-    ids, and the per-token scale weight / sum. The last ``absent`` of the
-    G clients are masked out, as a masked round gives them: every token
+    ids, and the per-token scale weight / sum (``raw``: the weight alone,
+    the raw-sum mode ``mean=False``). The last ``absent`` of the G
+    clients are masked out, as a masked round gives them: every token
     weight 0 and the uniform prior row."""
     from repro_torch.kernels.lace import ops
 
@@ -1962,7 +1971,7 @@ def lace_inputs(N, dtype, tau, G=LACE_CLIENTS, absent=0, w_dtype=F32,
         p[1 + G - absent:] = 1.0 / V
     adj_s, _ = ops._side_table(p[:1], None, tau, 1e-8, 1, N)
     adj_k = (tau * torch.log(p[1:] + 1e-8)).contiguous()
-    ts = (weights / weights.sum()).contiguous()
+    ts = (weights if raw else weights / weights.sum()).contiguous()
     return (feats, w, labels, adj_s, None, adj_k,
             cid.to(torch.int32).contiguous()), weights, ts
 
@@ -2038,7 +2047,7 @@ def bounds_text(r):
 
 
 def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE, LACE_WHISPER,
-                                   LACE_VLM]):
+                                   LACE_VLM, LACE_RAW]):
     """K1 and K2 against their plain versions (same arguments, chunked
     logits); ``library_ms`` is the one cuBLAS product feats @ W in
     float32, a yardstick only (no PyTorch call computes the fused
@@ -2050,7 +2059,7 @@ def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE, LACE_WHISPER,
     for case in cases:
         N, dtype, tau, G, absent, w_dtype, *dV = case
         args, weights, ts = lace_inputs(N, dtype, tau, G, absent, w_dtype,
-                                        *dV)
+                                        *dV, raw=case == LACE_RAW)
         feats, w = args[0], args[1]
         d, V = w.shape
         got = kernel.lace2_fwd_cuda(*args)
@@ -2103,7 +2112,9 @@ def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE, LACE_WHISPER,
                 library_ms=times["library"],
                 **lace_bounds(N, d, V, passes, nbytes))
         say("kernels", f"lace2 N={N} d={d} V={V} feats {str(dtype)[6:]} "
-            f"head {str(w_dtype)[6:]} tau={tau}, {G} client prior rows "
+            f"head {str(w_dtype)[6:]} tau={tau}"
+            f"{' raw sums (mean=False)' if case == LACE_RAW else ''}, "
+            f"{G} client prior rows "
             f"({absent} absent): rel err "
             f"nll_s/nll_k/lse_s/lse_k "
             f"{'/'.join(f'{e:.3g}' for e in e_fwds)} (tol 1e-4), df_s/df_k/dW_s "
@@ -2117,7 +2128,7 @@ def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE, LACE_WHISPER,
             f"{bounds_text(rows[(case, 'bwd')])}); cuBLAS feats@W "
             f"{times['library']:.2f} ms")
         if case in (LACE_REPORT, LACE_BF16_HEAD, LACE_XLSTM, LACE_MOE,
-                    LACE_WHISPER, LACE_VLM):
+                    LACE_WHISPER, LACE_VLM, LACE_RAW):
             same = [torch.equal(a, b) for a, b in zip(
                 got + gb, kernel.lace2_fwd_cuda(*args)
                 + kernel.lace2_bwd_cuda(*bargs))]
@@ -2137,14 +2148,14 @@ def boundary_launches(boundary):
 
 
 def lace1_inputs(N, dtype, side, w_dtype=F32, d=1024, V=151936,
-                 G=LACE_CLIENTS):
+                 G=LACE_CLIENTS, raw=False):
     """One side of the dual boundary at the training width, from a seeded
     generator: feats (N, d), w_head (d, V) in ``w_dtype``, int32 labels,
     the side's prior table and per-token client ids (server: one
     concatenated row, no ids; client: G rows), and the per-token scale
-    weight / sum."""
+    weight / sum (``raw``: the weight, as :func:`lace_inputs`)."""
     args, weights, ts = lace_inputs(N, dtype, 1.0, G, w_dtype=w_dtype, d=d,
-                                    V=V)
+                                    V=V, raw=raw)
     feats, w, labels, adj_s, _, adj_k, ids_k = args
     adj, ids = (adj_s, None) if side == "server" else (adj_k, ids_k)
     return (feats, w, labels, adj, ids), weights, ts
@@ -2161,8 +2172,10 @@ def phase_lace1():
 
     rows, errs = {}, {"fwd": 0.0, "bwd": 0.0}
     for case in LACE1_CASES:
-        N, dtype, side, w_dtype = case
-        args, weights, ts = lace1_inputs(N, dtype, side, w_dtype)
+        N, dtype, side, w_dtype, *raw = case
+        args, weights, ts = lace1_inputs(
+            N, dtype, side, w_dtype, G=8 if raw else LACE_CLIENTS,
+            raw=bool(raw))
         feats, w, _, adj, ids = args
         d, V = w.shape
         want_dw = side == "server"
@@ -2209,7 +2222,8 @@ def phase_lace1():
                 library_ms=times["library"],
                 **lace_bounds(N, d, V, passes, nbytes))
         say("kernels", f"lace {side} side N={N} d={d} V={V} rows="
-            f"{adj.shape[0]} feats {str(dtype)[6:]} head "
+            f"{adj.shape[0]}{' raw sums (mean=False)' if raw else ''} "
+            f"feats {str(dtype)[6:]} head "
             f"{str(w_dtype)[6:]}: rel err nll/lse "
             f"{'/'.join(f'{e:.3g}' for e in e_fwds)} (tol 1e-4), df"
             f"{'/dW' if want_dw else ''} "
@@ -2219,7 +2233,8 @@ def phase_lace1():
             f"(plain {times['bwd_plain']:.2f}, "
             f"{bounds_text(rows[(case, 'bwd')])}); cuBLAS feats@W "
             f"{times['library']:.2f} ms")
-        if case in (*LACE1_REPORT.values(), *LACE1_BF16_HEAD.values()):
+        if case in (*LACE1_REPORT.values(), *LACE1_BF16_HEAD.values(),
+                    *LACE1_RAW.values()):
             again = (kernel.lace_fwd_cuda(*args)
                      + kernel.lace_bwd_cuda(*bargs))
             same = [torch.equal(a, b) for a, b in zip(got + gb, again)
@@ -2311,6 +2326,18 @@ def read_counts():
                 mlstm=mops.LAUNCHES, mlstm_bwd=mops.LAUNCHES_BWD)
 
 
+def read_counts_raw():
+    """:func:`read_counts`, plus ``raw_*``: the LACE launches with
+    ``mean=False`` (the ``lace_dp`` boundary's raw sums), a subset of
+    ``lace_*`` / ``lace1_*``."""
+    from repro_torch.kernels.lace import ops as lops
+
+    raw = lops.LAUNCHES_RAW
+    return dict(read_counts(), raw_lace_fwd=raw["K1"],
+                raw_lace_bwd=raw["K2"], raw_lace1_fwd=raw["K4"],
+                raw_lace1_bwd=raw["K5"])
+
+
 def zero_counts():
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.lace import ops as lops
@@ -2318,6 +2345,8 @@ def zero_counts():
     fops.LAUNCHES = fops.LAUNCHES_BWD = 0
     lops.LAUNCHES_FWD = lops.LAUNCHES_BWD = 0
     lops.LAUNCHES_FWD1 = lops.LAUNCHES_BWD1 = 0
+    for key in lops.LAUNCHES_RAW:
+        lops.LAUNCHES_RAW[key] = 0
     mops.LAUNCHES = mops.LAUNCHES_BWD = 0
 
 
@@ -5210,6 +5239,492 @@ def phase_frontends(device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21 (dp, PR 29): the multi-device path, backend lace_dp
+# ---------------------------------------------------------------------------
+# Phase 13's cell (full-width qwen1.5-0.5b, SCALA, 16 clients, uniform:0.25
+# balanced over 2 client shards, one 512-token document a slot, 2 local
+# steps, split after layer 2, SGD) through ExperimentSpec(backend=
+# "lace_dp") -> build(spec, mesh=grid, batch_specs=) -> Trainer, and the
+# async event through fed.make_async_runner. (a) A world of one over NCCL
+# in this process: the masked round (bias_compensated), the sparse round
+# with the in-shard gather (weighted), a dual-boundary step and a
+# faulted, guarded masked step (a NaN corruption rejected, the step
+# re-run over the survivors), each against the single-program ``lace``
+# program of the same spec (the same
+# seeded params, host batches and masks), the gradients float32 on the
+# wire (as the reference's own test); then one masked step in the spec's
+# default bfloat16 on the wire against ``lace``'s, within DP_WIRE_RTOL:
+# twice one bf16 rounding of a gradient (up to 2^-8 of itself), for a
+# leaf that starts at zero -- the biases -- is measured against its own
+# update (over two steps the second's gradients move with the first's
+# rounding: 1.5e-2 of a bias at this lr in the first run). (b)
+# Two ranks on the one
+# card over gloo (client axis 2, 8 of the 16 clients a rank), spawned
+# here: the sparse round, held against (a)'s, and the lace_dp async event
+# (cohort 4, the two-shard pop: two arrivals a shard) held against the
+# single-program ``lace`` event on the same arrivals. The arrivals' delays
+# are zero; a recorded delay model makes the single program pop the same
+# four slots (0, 1 of shard 0; 8, 9 of shard 1) the shards pop. Every
+# comparison runs on the card ((b)'s references shared with the ranks
+# over CUDA IPC): every weight leaf within DP_PARAM_RTOL of its largest
+# entry (the reference's own bar, tests/test_fed.py:624-625); the bias
+# leaves, which start at zero, against the largest entry of their half's
+# biases (:func:`dp_gap`; the key bias's update is rounding alone, its
+# exact gradient zero), within DP_PARAM_RTOL, and the last step's
+# loss_server within DP_LOSS_ATOL, where both sides run the same
+# products on the same per-token scales (4 x 512 participating tokens:
+# 1 / W exact, so ``lace_dp``'s raw sums divided by W are ``lace``'s
+# scaled sums bit for bit). The cell computes in bfloat16, so where the
+# products' shapes differ (the sparse round's gathered slots against the
+# masked round's 16, two ranks' halves against one rank's whole) or 1 / W
+# is inexact (the faulted step's survivors) the biases within
+# DP_SHAPE_RTOL (2^-5: a bias's gradient, a sum over the tokens of
+# cotangents that cancel, is rounded to bf16 at the cast to the float32
+# master, about 2^-8 of itself; the async event's value biases came to
+# 1.33e-2 of the server's largest bias in the run that set this bar)
+# and the last step's loss within DP_SHAPE_LOSS_RTOL relative: the first
+# step at this lr takes the loss from 11.9 to 5.8, so the second step's
+# loss carries the first's rounding (two ranks against one: 1.4e-4
+# absolute, 2.5e-5 relative; the weights within 7.2e-5).
+DP_FLAGS = ["--arch", ARCH, "--clients", "16", "--participation",
+            "uniform:0.25:2", "--aggregator", "bias_compensated",
+            "--local-iters", "2", "--seq", "512", "--server-batch", "16",
+            "--docs-per-client", "8", "--rounds", "1", "--seed", "0"]
+DP_SPARSE_FLAGS = DP_FLAGS[:6] + ["--slot-gather", "--aggregator",
+                                  "weighted"] + DP_FLAGS[8:]
+DP_STEP_FLAGS = DP_FLAGS[:8] + ["--local-iters", "1"] + DP_FLAGS[10:]
+DP_DUAL_FLAGS = DP_STEP_FLAGS + ["--boundary", "dual"]
+# a masked step under drops and a NaN corruption, guarded: the guards
+# reject the corrupted slots and re-run the step over the survivors
+DP_FAULT_FLAGS = DP_STEP_FLAGS + ["--faults", "drop:0.2,corrupt:0.25:nan",
+                                  "--guards", "nonfinite,clip:10"]
+DP_PARAM_RTOL, DP_LOSS_ATOL = 5e-4, 1e-5
+DP_SHAPE_RTOL, DP_SHAPE_LOSS_RTOL = 2 ** -5, 1e-4
+DP_WIRE_RTOL = 2 ** -7
+DP_COHORT = 4
+DP_ARRIVALS = (0, 1, 8, 9)
+
+
+def dp_spec(flags, backend, wire=None, reduced=False):
+    """The spec of ``flags`` on ``backend``, its gradients all_reduced in
+    ``wire`` (None: float32)."""
+    from repro_torch.launch import train
+
+    spec = train.spec_from_args(train.build_parser().parse_args(
+        flags + (["--reduced"] if reduced else [])))
+    return dataclasses.replace(
+        spec, scala=dataclasses.replace(spec.scala, grad_reduce_dtype=wire),
+        execution=dataclasses.replace(spec.execution,
+                                      backend=backend)).validate()
+
+
+def dp_batch_specs(spec, grid):
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.input_specs import train_batch_specs
+    from repro_torch.sharding import tree_specs
+
+    C = spec.slots
+    shapes, axes = train_batch_specs(spec.model_config(), InputShape(
+        "dp", spec.data.seq, C, "train"), C)
+    return tree_specs(axes, shapes, grid)
+
+
+def dp_global(params):
+    """The global model of a state after its FL phase: the client half
+    (every slot holds it; row 0 taken) and the server half."""
+    from repro_torch.tree import tree_map
+
+    return {"client": tree_map(lambda a: a[0], params["client"]),
+            "server": params["server"]}
+
+
+def dp_trainer_round(phase, spec, device, grid=None):
+    """One round of ``spec`` through the Trainer (``grid``: on that grid):
+    (global params, last loss_server, seconds, launches, the grid's
+    collective stats, peak bytes, clients the guards rejected)."""
+    from repro_torch import api
+
+    free_device_memory()
+    kw = ({} if grid is None else
+          dict(mesh=grid, batch_specs=dp_batch_specs(spec, grid)))
+    tr = api.Trainer(spec, device=device, **kw)
+    if grid is not None:
+        grid.reset_stats()
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = tr.run()
+    sync(device)
+    secs = time.perf_counter() - t0
+    rejected = sum(h.get("guard_rejected", 0.0) for h in hist)
+    n = read_counts_raw()
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else 0)
+    stats = None if grid is None else {g: dict(v) for g, v in
+                                       grid.stats.items()}
+    out = dp_global(tr.state.inner.params)
+    del tr
+    return out, hist[-1]["loss_server"], secs, n, stats, peak, rejected
+
+
+def dp_gap(got, want):
+    """How far ``got`` lies from ``want``: (the worst weight leaf's max
+    |got - want| over its max |want|, its name; the worst bias leaf's max
+    |got - want| over the largest entry of its half's biases, its name).
+    The biases start at zero, so their largest entry is their update, and
+    the key bias's is rounding alone (its exact gradient is zero: a key
+    bias shifts all of a query's scores alike); a half's biases together
+    scale them by the q and v biases' real updates. Computed where
+    ``got`` lies (``want`` copied there a leaf at a time)."""
+    got, want = state_leaves(got), state_leaves(want)
+    is_bias = lambda key: key.rsplit("/", 1)[-1].startswith("b")  # noqa
+    scale = {}
+    for key, b in want.items():
+        if is_bias(key):
+            half = key.split("/", 1)[0]
+            scale[half] = max(scale.get(half, 0.0), b.abs().max().item())
+    worst = {False: (0.0, ""), True: (0.0, "")}
+    for key, b in want.items():
+        a = got[key]
+        b = b.to(a.device)
+        den = (scale[key.split("/", 1)[0]] if is_bias(key)
+               else b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item() / max(den, 1e-30)
+        worst[is_bias(key)] = max(worst[is_bias(key)], (err, key))
+    return worst[False] + worst[True]
+
+
+def dp_gap_text(gap):
+    w_err, w_leaf, b_err, b_leaf = gap
+    return (f"worst weight leaf {w_err:.3g} of its largest entry ({w_leaf}), "
+            f"worst bias leaf {b_err:.3g} of its half's largest bias "
+            f"({b_leaf})")
+
+
+def dp_loss_ok(loss, want, shapes_differ):
+    if shapes_differ:
+        return abs(loss - want) <= DP_SHAPE_LOSS_RTOL * abs(want)
+    return abs(loss - want) <= DP_LOSS_ATOL
+
+
+def dp_gap_ok(gap, bias_rtol, weight_rtol=DP_PARAM_RTOL):
+    return gap[0] <= weight_rtol and gap[2] <= bias_rtol
+
+
+def dp_check(phase, what, got, want, loss, want_loss, bias_rtol=DP_PARAM_RTOL,
+             weight_rtol=DP_PARAM_RTOL):
+    gap = dp_gap(got, want)
+    shapes = bias_rtol == DP_SHAPE_RTOL
+    check(dp_gap_ok(gap, bias_rtol, weight_rtol)
+          and dp_loss_ok(loss, want_loss, shapes),
+          f"{phase} {what}: {dp_gap_text(gap)}, loss_server {loss} vs "
+          f"{want_loss}")
+    say(phase, f"{what}: loss_server {loss:.7f} vs {want_loss:.7f} ("
+        + (f"rtol {DP_SHAPE_LOSS_RTOL}" if shapes else f"atol {DP_LOSS_ATOL}")
+        + f"); {len(state_leaves(want))} leaves, {dp_gap_text(gap)} (tol "
+        f"{weight_rtol:.3g}, {bias_rtol:.3g})")
+    return gap
+
+
+def dp_stats_text(stats, steps):
+    return ", ".join(f"{g} {v['calls'] / steps:g} calls "
+                     f"{v['bytes'] / steps / 1e6:.1f} MB" for g, v in
+                     stats.items()) + " a step"
+
+
+def dp_launch_check(phase, spec, n, slots, steps, device,
+                    boundary="fused"):
+    """On a card, a lace_dp run's launches: the layout's a step over
+    ``slots`` computed slots, the boundary's in raw-sum mode (every LACE
+    launch). The CPU's plain versions launch nothing."""
+    cfg = spec.model_config()
+    want = {k: steps * v for k, v in slot_launches(slots, cfg,
+                                                    boundary).items()}
+    got = {k: n[k] for k in want}
+    raw = {k: n["raw_" + k] for k in ("lace_fwd", "lace_bwd", "lace1_fwd",
+                                      "lace1_bwd")}
+    if torch.device(device).type == "cuda":
+        check(got == want and raw == {k: want[k] for k in raw},
+              f"{phase} launches {got} (raw {raw}) != {want}")
+
+
+def dp_async_inputs(spec, device):
+    """The async cell: the spec's model and seeded params, one event's
+    round batches (T, 16, 1, 512) and data sizes from a seeded host
+    stream, and the recorded delays under which the 16-slot pop takes
+    DP_ARRIVALS (their delays 0, the others' 1; the re-dispatch 0)."""
+    from repro_torch import fed
+    from repro_torch.api.build import text_split_init
+
+    K, T, S = spec.slots, spec.scala.local_iters, spec.data.seq
+    model, params = text_split_init(spec, K, device)
+    cfg = spec.model_config()
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, cfg.vocab_size, (T, K, 1, S + 1))
+    batches = {"tokens": torch.from_numpy(toks[..., :-1]).to(device),
+               "labels": torch.from_numpy(toks[..., 1:]).to(device),
+               "weights": torch.ones((T, K, 1, S), device=device)}
+    sizes = torch.from_numpy(rng.integers(1, 9, K).astype(np.float32)
+                             ).to(device)
+    first = np.ones(K, np.float32)
+    first[list(DP_ARRIVALS)] = 0.0
+    delays = fed.delays.recorded([first, np.zeros(DP_COHORT, np.float32)])
+    return model, params, batches, sizes, delays
+
+
+def dp_event(spec, device, grid=None):
+    """One event of the async cell: the single program's (``grid`` None,
+    backend lace) or the lace_dp event on ``grid``: (global params,
+    loss_server, seconds, launches, stats, the arrivals' slot ids)."""
+    from repro_torch import fed
+    from repro_torch.core import engine
+
+    free_device_memory()
+    model, params, batches, sizes, delays = dp_async_inputs(spec, device)
+    if grid is not None:
+        params = {"client": grid.local_clients(params["client"]),
+                  "server": params["server"]}
+    state = engine.init_train_state(params, spec.optim.make())
+    afed = fed.init_async_state(3, params["client"], delays,
+                                num_clients=spec.slots, mesh=grid)
+    ev = fed.make_async_runner(
+        model, spec.scala, backend="lace" if grid is None else "lace_dp",
+        delays=delays, cohort=DP_COHORT, mesh=grid,
+        batch_specs=None if grid is None else dp_batch_specs(spec, grid))
+    if grid is not None:
+        grid.reset_stats()
+    sync(device)
+    zero_counts()
+    t0 = time.perf_counter()
+    state, afed, m = ev(state, afed, batches, sizes)
+    sync(device)
+    secs = time.perf_counter() - t0
+    n = read_counts_raw()
+    mask = m["arrival_mask"]
+    if grid is not None:
+        mask = grid.all_gather_host(mask)
+    arrivals = tuple(np.flatnonzero(mask).tolist())
+    stats = None if grid is None else {g: dict(v) for g, v in
+                                       grid.stats.items()}
+    return (dp_global(state.params), float(m["loss_server"]), secs, n, stats,
+            arrivals)
+
+
+def dp_rank(rank, world, port, device, reduced, refs, queue):
+    """One rank of (b): a (data=2, model=1) grid over gloo; the sparse
+    round against (a)'s, the async event against the single program's,
+    both compared on the card. Puts its report on ``queue``."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import Grid
+
+    torch.set_num_threads(1)
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    phase = f"dp-gloo rank {rank}"
+    try:
+        grid = Grid(("data", "model"), (world, 1))
+        check(grid.backend == "gloo", f"{phase}: backend {grid.backend}")
+        t0 = time.perf_counter()
+        sparse = dp_trainer_round(phase, dp_spec(DP_SPARSE_FLAGS, "lace_dp",
+                                                 reduced=reduced),
+                                  device, grid)
+        sparse_err = dp_gap(sparse[0], refs["sparse"]["params"])
+        event = dp_event(dp_spec(DP_FLAGS, "lace_dp", reduced=reduced),
+                         device, grid)
+        event_err = dp_gap(event[0], refs["async"]["params"])
+        peak = (torch.cuda.max_memory_allocated()
+                if torch.device(device).type == "cuda" else 0)
+        queue.put({"rank": rank, "seconds": time.perf_counter() - t0,
+                   "sparse": (sparse[1:5], sparse_err),
+                   "async": (event[1:], event_err), "peak": peak})
+    except BaseException as e:                      # noqa: BLE001
+        queue.put({"rank": rank, "error": repr(e)})
+        raise
+    finally:
+        # release (a)'s shared tensors before the parent collects them
+        del refs
+        gc.collect()
+        dist.destroy_process_group()
+
+
+def phase_dp(device="cuda", reduced=False):
+    """Phase 21: (a) a world of one over NCCL (gloo on the CPU), (b) two
+    ranks on the one card over gloo; returns the launches of the lace_dp
+    runs of (a) and (b) together."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.sharding import free_port, init_local_group, \
+        make_host_grid
+
+    on_card = torch.device(device).type == "cuda"
+    steps = 2
+    total = None
+
+    def add(n):
+        nonlocal total
+        total = dict(n) if total is None else {k: total[k] + n[k]
+                                               for k in total}
+
+    # --- (a) a world of one ---
+    made = init_local_group("nccl" if on_card else "gloo")
+    try:
+        grid = make_host_grid()
+        say("dp", f"(a) {grid}: client shards {grid.n_client_shards}, inner "
+            f"{grid.inner_size}")
+        want = dp_trainer_round("dp", dp_spec(DP_FLAGS, "lace", None,
+                                              reduced), device)
+        got = dp_trainer_round("dp", dp_spec(DP_FLAGS, "lace_dp", None,
+                                             reduced), device, grid)
+        dp_check("dp", "(a) masked lace_dp (float32 wire) vs lace", got[0],
+                 want[0], got[1], want[1])
+        dp_launch_check("dp (a) masked", dp_spec(DP_FLAGS, "lace_dp",
+                                                 None, reduced), got[3],
+                        16, steps, device)
+        add(got[3])
+        say("dp", f"(a) masked round: lace_dp {got[2]:.3f} s, lace "
+            f"{want[2]:.3f} s; launches K3 fwd {got[3]['flash_fwd']} bwd "
+            f"{got[3]['flash_bwd']}, K1 {got[3]['lace_fwd']} (raw "
+            f"{got[3]['raw_lace_fwd']}), K2 {got[3]['lace_bwd']} (raw "
+            f"{got[3]['raw_lace_bwd']}); all_reduce "
+            f"{dp_stats_text(got[4], steps)}; peak "
+            f"{got[5] / 2**20:.0f} MiB")
+        del want, got
+        want = dp_trainer_round("dp", dp_spec(DP_STEP_FLAGS, "lace", None,
+                                              reduced), device)
+        wire = dp_trainer_round("dp", dp_spec(DP_STEP_FLAGS, "lace_dp",
+                                              "bfloat16", reduced), device,
+                                grid)
+        dp_check("dp", "(a) masked lace_dp step, bfloat16 on the wire, vs "
+                 "lace", wire[0], want[0], wire[1], want[1], DP_WIRE_RTOL,
+                 DP_WIRE_RTOL)
+        add(wire[3])
+        say("dp", f"(a) masked step, bfloat16 wire: {wire[2]:.3f} s; "
+            f"all_reduce {dp_stats_text(wire[4], 1)}")
+        del want, wire
+        want = dp_trainer_round("dp", dp_spec(
+            DP_SPARSE_FLAGS[:6] + DP_SPARSE_FLAGS[7:], "lace", None,
+            reduced), device)
+        sparse = dp_trainer_round("dp", dp_spec(DP_SPARSE_FLAGS, "lace_dp",
+                                                reduced=reduced), device,
+                                  grid)
+        dp_check("dp", "(a) sparse in-shard lace_dp vs the masked lace "
+                 "round", sparse[0], want[0], sparse[1], want[1],
+                 DP_SHAPE_RTOL)
+        add(sparse[3])
+        dp_launch_check("dp (a) sparse", dp_spec(DP_SPARSE_FLAGS, "lace_dp",
+                                                 reduced=reduced),
+                        sparse[3], 4, steps, device)
+        say("dp", f"(a) sparse round: lace_dp {sparse[2]:.3f} s, masked "
+            f"lace {want[2]:.3f} s; all_reduce "
+            f"{dp_stats_text(sparse[4], steps)}; peak "
+            f"{sparse[5] / 2**20:.0f} MiB")
+        del want
+        want = dp_trainer_round("dp", dp_spec(DP_DUAL_FLAGS, "lace", None,
+                                              reduced), device)
+        got = dp_trainer_round("dp", dp_spec(DP_DUAL_FLAGS, "lace_dp", None,
+                                             reduced), device, grid)
+        dp_check("dp", "(a) dual-boundary lace_dp step vs lace", got[0],
+                 want[0], got[1], want[1])
+        dp_launch_check("dp (a) dual", dp_spec(DP_DUAL_FLAGS, "lace_dp",
+                                               None, reduced), got[3], 16,
+                        1, device, "dual")
+        add(got[3])
+        say("dp", f"(a) dual step: lace_dp {got[2]:.3f} s, lace "
+            f"{want[2]:.3f} s; K4 {got[3]['lace1_fwd']} (raw "
+            f"{got[3]['raw_lace1_fwd']}), K5 {got[3]['lace1_bwd']} (raw "
+            f"{got[3]['raw_lace1_bwd']})")
+        del want, got
+        want = dp_trainer_round("dp", dp_spec(DP_FAULT_FLAGS, "lace", None,
+                                              reduced), device)
+        got = dp_trainer_round("dp", dp_spec(DP_FAULT_FLAGS, "lace_dp",
+                                             None, reduced), device, grid)
+        # the survivors' weight sum (3 x 512 tokens) makes the per-token
+        # scale 1 / W inexact, where ``lace`` scales inside the kernels
+        # and ``lace_dp`` after its raw sums: a last-bit difference in the
+        # cotangent, which the bf16 trunk rounds on (shapes differ in
+        # effect: DP_SHAPE_RTOL)
+        dp_check("dp", "(a) faulted, guarded masked lace_dp step vs lace",
+                 got[0], want[0], got[1], want[1], DP_SHAPE_RTOL)
+        check(got[6] == want[6] and got[6] > 0, f"dp faulted step: "
+              f"rejected {got[6]} vs lace's {want[6]}")
+        add(got[3])
+        say("dp", f"(a) faulted step: {got[6]:g} slots rejected (lace "
+            f"{want[6]:g}), the step re-run over the survivors; lace_dp "
+            f"{got[2]:.3f} s, lace {want[2]:.3f} s")
+        del want, got
+        event = dp_event(dp_spec(DP_FLAGS, "lace", reduced=reduced), device)
+        check(event[5] == DP_ARRIVALS, f"dp single-program event popped "
+              f"{event[5]}, not {DP_ARRIVALS}")
+        say("dp", f"(b)'s reference: the single-program lace event on "
+            f"arrivals {event[5]}, {event[2]:.3f} s")
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+    # --- (b) two ranks on the one card over gloo ---
+    refs = {"sparse": {"params": sparse[0], "loss": sparse[1]},
+            "async": {"params": event[0], "loss": event[1]}}
+    free_device_memory()      # the ranks need the room (a) cached
+    ctx = mp.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    t0 = time.perf_counter()
+    # the ranks' reports are a few kB, below a pipe's buffer: joining
+    # before reading the queue cannot block
+    mp.start_processes(dp_rank, args=(2, free_port(), device, reduced, refs,
+                                      queue), nprocs=2, join=True,
+                       start_method="spawn")
+    reports = sorted((queue.get() for _ in range(2)),
+                     key=lambda r: r["rank"])
+    secs = time.perf_counter() - t0
+    ref_loss = {k: v["loss"] for k, v in refs.items()}
+    del refs, sparse, event
+    if on_card:
+        torch.cuda.ipc_collect()       # the ranks' handles on (a)'s refs
+    for r in reports:
+        check("error" not in r, f"dp rank {r['rank']}: {r.get('error')}")
+    for r in reports:
+        (loss, s_secs, n, stats), gap = r["sparse"]
+        check(dp_gap_ok(gap, DP_SHAPE_RTOL)
+              and dp_loss_ok(loss, ref_loss["sparse"], True),
+              f"dp (b) rank {r['rank']} sparse: {dp_gap_text(gap)}, loss "
+              f"{loss} vs {ref_loss['sparse']}")
+        (e_loss, e_secs, e_n, e_stats, arrivals), e_gap = r["async"]
+        check(dp_gap_ok(e_gap, DP_SHAPE_RTOL) and arrivals == DP_ARRIVALS
+              and dp_loss_ok(e_loss, ref_loss["async"], True),
+              f"dp (b) rank {r['rank']} async: {dp_gap_text(e_gap)}, "
+              f"arrivals {arrivals}, loss {e_loss} vs "
+              f"{ref_loss['async']}")
+        dp_launch_check(f"dp (b) rank {r['rank']} sparse", dp_spec(
+            DP_SPARSE_FLAGS, "lace_dp", reduced=reduced), n, 2, steps,
+            device)
+        dp_launch_check(f"dp (b) rank {r['rank']} async", dp_spec(
+            DP_FLAGS, "lace_dp", reduced=reduced), e_n, 2, steps, device)
+        add(n)
+        add(e_n)
+        say("dp", f"(b) rank {r['rank']} over gloo: sparse round "
+            f"{s_secs:.3f} s, loss_server {loss:.7f} vs (a) "
+            f"{ref_loss['sparse']:.7f}, {dp_gap_text(gap)}; all_reduce "
+            f"{dp_stats_text(stats, steps)}; async event {e_secs:.3f} s on "
+            f"arrivals {arrivals}, loss_server {e_loss:.7f} vs "
+            f"{ref_loss['async']:.7f}, {dp_gap_text(e_gap)} (tol "
+            f"{DP_PARAM_RTOL}, {DP_SHAPE_RTOL:.3g}, loss rtol "
+            f"{DP_SHAPE_LOSS_RTOL}); "
+            f"all_reduce "
+            f"{dp_stats_text(e_stats, steps)}; rank {r['seconds']:.1f} s, "
+            f"peak {r['peak'] / 2**20:.0f} MiB")
+    say("dp", f"(b) two ranks over gloo: {secs:.1f} s with the spawn")
+    return total
+
+
 def run_phase(label, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, then its wall seconds on a line of its own
     (what each phase adds to the run's time limit)."""
@@ -5285,6 +5800,10 @@ def main() -> int:
                   [LACE_WHISPER, LACE_VLM])
         phase_frontends()
         return 0
+    if sys.argv[1:] == ["dp"]:
+        run_phase("kernels K1 K2 (raw sums)", phase_lace, [LACE_RAW])
+        run_phase("dp", phase_dp)
+        return 0
     if sys.argv[1:] != ["lace"]:
         rows, max_err = run_phase("kernels K3", phase_kernels)
     if sys.argv[1:] == ["moe"]:
@@ -5345,10 +5864,15 @@ def main() -> int:
     front = phase_frontends()
     serve_w, wtrain, vtrain = (front[k] for k in (
         "serve-whisper", "train-whisper", "train-vlm"))
+    dp = run_phase("dp", phase_dp)
     # the federation layer's launches: phase 13's rounds, phase 14's
     # events and phase 15's faulted rounds and events; and phase 16(a)'s
     # bf16 rounds (K1, K2 on their bf16-head build)
     fed = {k: fed[k] + events[k] + faults[k] + dispatch[k] for k in fed}
+    # phase 21's lace_dp runs (its world of one and both gloo ranks): K1,
+    # K2 (fused) and K4, K5 (the dual step) all in raw-sum mode, K3 in the
+    # trunk; in ``launches`` beside the rest
+    fed = {k: fed[k] + dp[k] for k in fed}
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
     # forward launches: the serve paths' plus both training paths'; its
@@ -5421,6 +5945,20 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "tf32_ms", "route_ms")},
             launches_bf16_head=launches,
             tf32_ms=rows_[(f32_case, kind)]["tf32_ms"])
+    # the raw-sum mode (mean=False, the lace_dp boundary) at phase 21's
+    # per-rank shape beside each, and phase 21's launches (also in
+    # ``launches``): all of them raw sums
+    for kname, rows_, case, kind, key in (
+            ("lace2_fwd", lace_rows, LACE_RAW, "fwd", "lace_fwd"),
+            ("lace2_bwd", lace_rows, LACE_RAW, "bwd", "lace_bwd"),
+            ("lace_fwd", lace1_rows, LACE1_RAW["server"], "fwd",
+             "lace1_fwd"),
+            ("lace_bwd", lace1_rows, LACE1_RAW["server"], "bwd",
+             "lace1_bwd")):
+        r = rows_[(case, kind)]
+        lace_row[kname].update({f"{k}_raw": r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            launches_dp=dp["raw_" + key])
     # xlstm-1.3b's boundary (d 2048, V 50304) beside K1, K2, and phase 17's
     # launches (also in ``launches``)
     for kname, kind in (("lace2_fwd", "fwd"), ("lace2_bwd", "bwd")):

@@ -240,14 +240,30 @@ def fed_seed(spec: ExperimentSpec) -> int:
     return int(np.random.SeedSequence([spec.seed, tag]).generate_state(1)[0])
 
 
-def build(spec: ExperimentSpec, *, device="cuda",
-          params=None) -> RoundProgram:
-    """Validate ``spec`` and build its program on ``device``."""
+def build(spec: ExperimentSpec, *, device="cuda", params=None, mesh=None,
+          batch_specs=None) -> RoundProgram:
+    """Validate ``spec`` and build its program on ``device``.
+
+    ``mesh`` (a :class:`repro_torch.sharding.Grid`) and ``batch_specs``
+    (a spec per batch key, :func:`repro_torch.launch.input_specs.
+    train_batch_specs` through :func:`repro_torch.sharding.tree_specs`)
+    are required for ``backend="lace_dp"``, ``mesh`` for
+    ``arrival="topk:sharded"``. Under ``lace_dp`` the program's state is
+    this rank's (the client slots of its shard; the server half
+    replicated) and ``step`` takes the global batches every rank draws
+    alike."""
     from repro_torch import fed
     from repro_torch.core import engine
     from repro_torch.core.baselines import FL_METHODS, SFL_METHODS
 
     spec.validate()
+    ex = spec.execution
+    if ex.backend == "lace_dp" and (mesh is None or batch_specs is None):
+        raise ValueError("backend 'lace_dp' needs build(spec, mesh=, "
+                         "batch_specs=)")
+    if ex.arrival == "topk:sharded" and mesh is None:
+        raise ValueError("arrival 'topk:sharded' pops per client-mesh "
+                         "shard; it needs build(spec, mesh=)")
     device = resolve_device(device)
     if spec.method in FL_METHODS + SFL_METHODS:
         return _build_baseline(spec, device, params)
@@ -274,16 +290,23 @@ def build(spec: ExperimentSpec, *, device="cuda",
     else:
         model = _split_model(spec)
         params = _check_params(params, spec, param_slots, device)
+    dp = ex.backend == "lace_dp"
+    if dp and param_slots > 1:
+        # the rank keeps its client shard's slots
+        params = {"client": mesh.local_clients(params["client"]),
+                  "server": params["server"]}
     if ex.mode == "async":
         return _build_async(spec, sc, device, model, params, opt, sched,
-                            agg, server_opt, server_lr, faults, guards)
+                            agg, server_opt, server_lr, faults, guards,
+                            mesh, batch_specs)
     round_fn = engine.make_round_runner(
         model, sc, backend=ex.backend, boundary=ex.boundary, optimizer=opt,
         schedule=sched, aggregator=agg, participation=scheduler,
         opt_state_policy=fd.opt_state_policy,
         slot_gather=ex.mode == "sparse", server_optimizer=server_opt,
         server_lr=server_lr, precision=ex.precision, faults=faults,
-        guards=guards, donate=ex.donate)
+        guards=guards, donate=ex.donate, mesh=mesh if dp else None,
+        batch_specs=batch_specs if dp else None)
     thread_fed = (scheduler is not None or agg.stateful
                   or server_opt is not None or faults is not None
                   or (guards is not None and guards.stateful))
@@ -311,7 +334,8 @@ def build(spec: ExperimentSpec, *, device="cuda",
         predict=_scala_predict(model),
         metadata=dict(method=spec.method, mode=ex.mode, slots=slots,
                       backend=ex.backend, boundary=ex.boundary,
-                      thread_fed=thread_fed, device=str(device))))
+                      thread_fed=thread_fed, device=str(device),
+                      mesh=mesh)))
 
 
 def _scala_predict(model):
@@ -328,8 +352,8 @@ def _scala_predict(model):
 
 
 def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
-                 sched, agg, server_opt, server_lr, faults,
-                 guards) -> RoundProgram:
+                 sched, agg, server_opt, server_lr, faults, guards, mesh,
+                 batch_specs) -> RoundProgram:
     """The async branch of ``repro.api.build._build_scala``: one event per
     ``step``."""
     from repro_torch import fed
@@ -348,11 +372,16 @@ def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
         snapshots=ex.snapshots, ring_size=ex.ring_size,
         lr_scale=ex.lr_scale, num_clients=slots, arrival=ex.arrival,
         paged_opt=paged, deadline=ex.deadline, backoff=ex.backoff,
-        donate=ex.donate, faults=faults, guards=guards)
+        donate=ex.donate, faults=faults, guards=guards, mesh=mesh,
+        batch_specs=batch_specs)
     pager = (fed.HostOptPager(opt, tree_map(lambda a: a[0],
                                             params["client"]), slots)
              if paged else None)
-    pop = fed.make_arrival_pop(cohort, ex.arrival)
+    # the schedule is laid out over the client shards for the per-shard
+    # event and the sharded pop
+    sched_mesh = (mesh if ex.backend == "lace_dp"
+                  or ex.arrival == "topk:sharded" else None)
+    pop = fed.make_arrival_pop(cohort, ex.arrival, mesh=sched_mesh)
 
     def init() -> ProgramState:
         # the snapshots and the ring are copies of their own already
@@ -361,7 +390,7 @@ def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
             fed_seed(spec), p["client"], delays, aggregator=agg,
             server_optimizer=server_opt, server_params=p["server"],
             snapshots=ex.snapshots, ring_size=ex.ring_size,
-            num_clients=slots, guards=guards)
+            num_clients=slots, guards=guards, mesh=sched_mesh)
         if pager is not None:
             pager.reset()
         return ProgramState(inner=engine.init_train_state(p, opt),
@@ -387,7 +416,7 @@ def _build_async(spec: ExperimentSpec, sc, device, model, params, opt,
         metadata=dict(method=spec.method, mode="async", slots=slots,
                       backend=ex.backend, boundary=ex.boundary,
                       thread_fed=True, device=str(device), cohort=cohort,
-                      host_paged=paged, pager=pager)))
+                      host_paged=paged, pager=pager, mesh=mesh)))
 
 
 def _server_optimizer(spec: ExperimentSpec):

@@ -18,11 +18,14 @@ host-paged moments, deadlines), fault injection and guarded aggregation
 in the ``masked``, ``sparse`` and ``async`` modes, both boundaries, both
 compute policies (``precision`` f32 or bf16), any ``rounds_per_call``,
 donation, every aggregator, server-side FedOpt, and the FL / SFL
-baselines on the CNN family in ``subset`` mode -- and raises
-``NotImplementedError`` naming the missing piece for the rest
-(``lace_dp`` and ``arrival="topk:sharded"``), and ``ValueError`` for
-combinations the reference rejects too (an unknown precision,
-``rounds_per_call < 1``, host paging with ``rounds_per_call > 1``).
+baselines on the CNN family in ``subset`` mode, the multi-device
+backend ``lace_dp`` (full, masked, sparse with the in-shard gather, async)
+and ``arrival="topk:sharded"`` on a grid of ranks
+(``build(spec, mesh=, batch_specs=)``), with faults and guards wherever
+the reference takes them -- and raises ``ValueError`` for every
+combination the reference rejects (an unknown precision,
+``rounds_per_call < 1``, host paging with ``rounds_per_call > 1``, a
+non-decomposable aggregator on ``lace_dp`` sparse / async, ...).
 ``unroll`` has nothing to act on in an eager program: a fused chunk is
 its rounds one after another, whatever it says. ``donate`` gives up
 the state passed to ``step``: the synchronous round overwrites it from
@@ -54,11 +57,6 @@ METHODS = SCALA_METHODS + FL_METHODS + SFL_METHODS
 def _one_of(kind: str, value, allowed) -> None:
     if value not in allowed:
         raise ValueError(f"unknown {kind} {value!r}; expected {allowed}")
-
-
-def _not_ported(what: str, slice_: str):
-    return NotImplementedError(f"{what} is not ported yet; it comes with "
-                               f"{slice_}")
 
 
 @dataclass(frozen=True)
@@ -306,13 +304,30 @@ class ExperimentSpec:
         return self.scala.clients_per_round
 
     def validate(self) -> "ExperimentSpec":
-        """Reject what the reference rejects too (ValueError), then what
-        the port does not run (NotImplementedError, naming it). Returns
+        """Reject what the reference rejects (ValueError). Returns
         self."""
         ex, fd = self.execution, self.fed
         cfg = self.model_config()
         _one_of("method", self.method, METHODS)
         agg = fd.make_aggregator()
+        # --- backend coherence (the reference's rules) ---
+        if ex.backend == "lace_dp" and ex.mode in ("sparse", "async"):
+            # the in-shard sparse round and the per-shard event fold the
+            # aggregation per client shard (a local edge fold + a sum),
+            # which rules out stateful / prior-dependent aggregators and
+            # the cross-slot "average" policy; the grid-dependent
+            # divisibility is checked at build time
+            if agg.shard_local is None or agg.stateful or agg.needs_priors:
+                raise ValueError(
+                    f"backend 'lace_dp' with mode {ex.mode!r} needs a "
+                    "stateless, prior-free, shard-decomposable aggregator "
+                    "(fedavg / weighted / hierarchical); got "
+                    f"{agg.name!r}")
+            if fd.opt_state_policy == "average":
+                raise ValueError(
+                    "backend 'lace_dp' with mode 'sparse'/'async' does not "
+                    "support opt_state_policy 'average'; use 'carry' or "
+                    "'reset'")
         if ex.backend != "logits" and cfg.family == "cnn":
             raise ValueError(
                 f"backend {ex.backend!r} needs a trunk/head split; the CNN "
@@ -458,12 +473,6 @@ class ExperimentSpec:
                 and self.data.alpha is not None and self.data.beta is not None:
             raise ValueError("set at most one of data.alpha (quantity skew) "
                              "and data.beta (Dirichlet skew)")
-        # --- what the port does not run yet ---
-        if ex.arrival == "topk:sharded":
-            raise _not_ported("arrival 'topk:sharded' (the mesh-sharded "
-                              "pop)", "the multi-device slice")
-        if ex.backend == "lace_dp":
-            raise _not_ported("backend 'lace_dp'", "the multi-device slice")
         return self
 
     def to_dict(self) -> Dict[str, Any]:

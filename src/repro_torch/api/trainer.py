@@ -93,9 +93,11 @@ class Trainer:
     (training layout, see :func:`repro_torch.api.build.build`) replaces
     the port's own init."""
 
-    def __init__(self, spec: ExperimentSpec, *, device="cuda", params=None):
+    def __init__(self, spec: ExperimentSpec, *, device="cuda", params=None,
+                 mesh=None, batch_specs=None):
         self.spec = spec.validate()
-        self.program = build(spec, device=device, params=params)
+        self.program = build(spec, device=device, params=params, mesh=mesh,
+                             batch_specs=batch_specs)
         self.device = torch.device(self.program.metadata["device"])
         self.state = self.program.init()
         self.history: List[Dict[str, float]] = []
@@ -237,6 +239,7 @@ class Trainer:
                 "paged optimizer moments live in the host pager, outside "
                 "ProgramState; keep optimizer state on device to "
                 "checkpoint")
+        self._single_program("save")
         from repro_torch import checkpoint as C
 
         path = C.save(directory, self.round, self.state)
@@ -245,6 +248,13 @@ class Trainer:
             {"round": self.round, "history": self.history,
              "rng_state": self._rng.bit_generator.state})
         return path
+
+    def _single_program(self, what: str):
+        mesh = self.program.metadata.get("mesh")
+        if mesh is not None and mesh.world > 1:
+            raise NotImplementedError(
+                f"{what} of a state split over {mesh.world} ranks is not "
+                "ported (each rank holds its own client shard)")
 
     def _restored_state(self, arrays) -> ProgramState:
         from repro_torch import checkpoint as C
@@ -266,6 +276,7 @@ class Trainer:
         next older step tried, unless ``step`` pins one (which raises).
         After resume, :meth:`run` / :meth:`step` continue the interrupted
         batch stream and program state exactly."""
+        self._single_program("resume")
         from repro_torch import checkpoint as C
 
         candidates = ([step] if step is not None

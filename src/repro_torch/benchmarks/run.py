@@ -39,8 +39,8 @@ and re-stacked subset), ``--table async`` the async leg
 (:mod:`repro_torch.benchmarks.async_rounds`: sparse against masked, and
 events/s and staleness per delay distribution) and ``--table scale`` the
 scale leg (:mod:`repro_torch.benchmarks.scale`: delta against dense
-events/s and state bytes over K, the sort and topk pops; its
-``topk:sharded`` row waits for the multi-device slice) and ``--table
+events/s and state bytes over K, the sort, topk and topk:sharded pops,
+the last on a grid over the process group) and ``--table
 faults`` the faults leg (:mod:`repro_torch.benchmarks.faults`: guarded
 over unguarded seconds a round at zero faults, masked and async, and a
 chaos run's rejections and final loss), ``--table dispatch`` the
@@ -199,8 +199,7 @@ def leg_async(quick: bool, device, width: float) -> dict:
 def leg_scale(quick: bool, device, width: float) -> dict:
     """The scale leg, its CSV rows as ``benchmarks/run.py:bench_scale``
     prints them (``width`` is the leg's own micro AlexNet's, unchanged)."""
-    from repro_torch.benchmarks.scale import SHARDED, bench_arrival, \
-        bench_scale
+    from repro_torch.benchmarks.scale import bench_arrival, bench_scale
 
     res = bench_scale(ks=(100, 10_000) if quick else (100, 10_000,
                                                       1_000_000),
@@ -218,11 +217,10 @@ def leg_scale(quick: bool, device, width: float) -> dict:
         ks=(10_000,) if quick else (10_000, 1_000_000),
         events=8 if quick else 16, device=device)
     for K, entry in res["arrival"]["K"].items():
-        for leg in ("sort", "topk"):
+        for leg in ("sort", "topk", "topk:sharded"):
             print(f"scale,K={K},arrival={leg},"
                   f"{entry[leg]['rounds_per_sec']},,"
                   f"{entry[leg]['seconds']}", flush=True)
-        print(f"scale,K={K},arrival=topk:sharded: {SHARDED}", flush=True)
         print(f"scale,K={K},topk_speedup_vs_sort,"
               f"{entry['topk_speedup_vs_sort']},,", flush=True)
     return res

@@ -13,8 +13,12 @@ cohort's rows of it. Per K: events/s (median of ``reps``) and
 
 :func:`bench_arrival` isolates the event's pop on the delta runner:
 ``sort`` (a host lexsort, O(K log K)) against ``topk`` (an O(K) host
-selection, bit-identical). The reference's ``topk:sharded`` leg waits
-for the multi-device slice.
+selection, bit-identical) and ``topk:sharded`` (each client shard of a
+grid pops its block, one all_gather of the candidates, one merge), on a
+grid over the process group: the one the caller runs under (``torchrun``),
+or a one-rank group set up here (gloo on the CPU, NCCL on a card), where
+it measures the collective's overhead, not a gain (``shards`` in the
+config says which).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run --table scale \
         [--quick] [--device cpu] [--out scale.json]
@@ -37,7 +41,6 @@ from repro_torch.optim import optimizers
 
 KS = (100, 10_000, 1_000_000)
 DENSE_MAX_K = 100_000
-SHARDED = "waits for the multi-device slice (the mesh-sharded pop)"
 
 
 def _setup_model(width: float, device, num_classes: int = 10):
@@ -60,16 +63,16 @@ def _cohort_batches(cohort: int, T: int, Bk: int, device,
 
 
 def _mk_leg(model, wc, ws, *, K: int, cohort: int, snapshots: str,
-            ring: int, arrival: str = "sort"):
+            ring: int, arrival: str = "sort", mesh=None):
     dm = fed.make_delays("lognormal:1:1")
     event = fed.make_async_runner(
         model, ScalaConfig(lr=0.05), backend="logits", delays=dm,
         cohort=cohort, snapshots=snapshots, ring_size=ring, num_clients=K,
-        emit_client_metrics=False, arrival=arrival)
+        emit_client_metrics=False, arrival=arrival, mesh=mesh)
     slots = 1 if snapshots == "delta" else K
     params = {"client": stack_client_params(wc, slots), "server": ws}
     afed = fed.init_async_state(1, params["client"], dm, snapshots=snapshots,
-                                ring_size=ring, num_clients=K)
+                                ring_size=ring, num_clients=K, mesh=mesh)
     return event, engine.init_train_state(params, optimizers.sgd()), afed
 
 
@@ -130,24 +133,38 @@ def bench_scale(ks=KS, cohort: int = 8, T: int = 2, Bk: int = 4,
 def bench_arrival(ks=(10_000, 1_000_000), cohort: int = 8, T: int = 2,
                   Bk: int = 4, events: int = 16, width: float = 0.03125,
                   ring: int = 64, reps: int = 3, device="cuda"):
-    """Events/s of the delta runner with the ``sort`` and the ``topk``
-    pop (the training work per event is the same)."""
+    """Events/s of the delta runner with the ``sort``, ``topk`` and
+    ``topk:sharded`` pops (the training work per event is the same)."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import init_local_group, make_host_grid
+
     model, wc, ws = _setup_model(width, device)
     batches = _cohort_batches(cohort, T, Bk, device)
-    res = {"config": {"cohort": cohort, "local_iters": T,
-                      "per_client_batch": Bk, "events": events,
-                      "model": f"alexnet-w{width}", "ring_size": ring,
-                      "delays": "lognormal:1:1", "snapshots": "delta"},
-           "K": {}}
-    for K in ks:
-        entry = {}
-        for arrival in ("sort", "topk"):
-            entry[arrival], _ = _time_leg(*_mk_leg(
-                model, wc, ws, K=K, cohort=cohort, snapshots="delta",
-                ring=ring, arrival=arrival), batches, events, reps, device)
-        entry["topk:sharded"] = {"skipped": SHARDED}
-        entry["topk_speedup_vs_sort"] = round(
-            entry["topk"]["rounds_per_sec"]
-            / entry["sort"]["rounds_per_sec"], 3)
-        res["K"][str(K)] = entry
+    made = init_local_group("nccl" if torch.device(device).type == "cuda"
+                            else "gloo")
+    try:
+        grid = make_host_grid()
+        res = {"config": {"cohort": cohort, "local_iters": T,
+                          "per_client_batch": Bk, "events": events,
+                          "model": f"alexnet-w{width}", "ring_size": ring,
+                          "delays": "lognormal:1:1", "snapshots": "delta",
+                          "shards": grid.n_client_shards,
+                          "backend": grid.backend},
+               "K": {}}
+        for K in ks:
+            entry = {}
+            for arrival in ("sort", "topk", "topk:sharded"):
+                entry[arrival], _ = _time_leg(*_mk_leg(
+                    model, wc, ws, K=K, cohort=cohort, snapshots="delta",
+                    ring=ring, arrival=arrival,
+                    mesh=grid if arrival == "topk:sharded" else None),
+                    batches, events, reps, device)
+            entry["topk_speedup_vs_sort"] = round(
+                entry["topk"]["rounds_per_sec"]
+                / entry["sort"]["rounds_per_sec"], 3)
+            res["K"][str(K)] = entry
+    finally:
+        if made:
+            dist.destroy_process_group()
     return res

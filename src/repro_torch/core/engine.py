@@ -38,21 +38,42 @@ The boundary (stage 4), per backend and ``boundary``:
 * ``logits`` + ``fused``: :func:`repro_torch.core.losses.
   dual_adjusted_xent` over the materialized logits;
 * ``logits`` + ``dual`` (and ``fused`` with ``label_smoothing > 0``, as in
-  the reference): two ``softmax_xent`` gradients.
+  the reference): two ``softmax_xent`` gradients;
+* ``lace_dp`` (the reference's manual-SPMD profile, on a
+  :class:`repro_torch.sharding.Grid` passed as ``mesh=``): every rank
+  runs the step on its own client shard and token slice with the
+  minimal collective schedule -- the priors' histograms summed over
+  ``inner`` then ``client``; the global weight denominator, then the two
+  raw loss sums, as scalars over all ranks; ONE all_reduce of the server
+  gradient tree over all ranks; the client gradients over ``inner``
+  (both in ``scala.grad_reduce_dtype`` on the wire); ``aux`` averaged.
+  The boundary takes raw sums over the rank's tokens
+  (:func:`~repro_torch.kernels.lace.ops.lace2_grads` with ``mean=False``,
+  K1 + K2 on a card, fused; two ``lace_nll_sum``, K4 + K5, dual) and
+  rescales the unit-cotangent gradients by the global denominator;
+  gradients never go through a collective before the stage-4 sums.
+
+Under ``lace_dp`` a step, round or event takes this rank's state (the
+client rows of its shard, the server half replicated) and the GLOBAL
+batches, masks and data sizes, which every rank draws alike on the host:
+``batch_specs`` (:func:`repro_torch.launch.input_specs.
+train_batch_specs` through :func:`repro_torch.sharding.tree_specs`)
+cuts this rank's block out of them, as the reference's ``shard_map``
+in_specs do. Metrics come back global, the same on every rank.
 
 On the CPU the fused and dual boundaries give bit-identical float32
 gradients and losses (their plain ops share every step; the tests hold
 them to it).
 
-Ported: backends ``logits`` and ``lace``, both boundaries, both compute
-policies (``precision="f32"``: the model's own compute dtype; ``"bf16"``:
+Ported: every backend, both boundaries, both compute policies
+(``precision="f32"``: the model's own compute dtype; ``"bf16"``:
 :func:`cast_to_compute`), an optional participation ``mask``, and the
 synchronous round with the federation layer: a participation scheduler
-(masked, or gathered into a dense subset axis: sparse), any aggregator of
+(masked, or gathered into a dense subset axis: sparse; under ``lace_dp``
+each client shard gathers its own slots), any aggregator of
 :mod:`repro_torch.fed`, the ``opt_state_policy`` carry / reset / average,
 server-side FedOpt, fault injection and guarded aggregation (the survivor
-re-run), and round-level donation. ``lace_dp`` raises
-``NotImplementedError`` naming the slice that brings it.
+re-run), and round-level donation.
 
 Memory: the client half's graph from stage 2 is kept and pulled back
 once (the reference re-runs the client forward inside its vjp); the
@@ -64,6 +85,7 @@ pullback through it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -72,8 +94,10 @@ import torch
 
 from repro_torch.configs.base import ScalaConfig
 from repro_torch.core import losses
-from repro_torch.core.label_stats import client_and_concat_priors
+from repro_torch.core.label_stats import (client_and_concat_priors,
+                                          histogram, prior)
 from repro_torch.core.split import stack_client_params, weighted_mean
+from repro_torch.models.common import dtype_of
 from repro_torch.optim import optimizers, schedules
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -81,8 +105,6 @@ BACKENDS = ("logits", "lace", "lace_dp")
 BOUNDARIES = ("dual", "fused")
 PRECISIONS = ("f32", "bf16")
 OPT_STATE_POLICIES = ("carry", "reset", "average")
-
-_LATER = {"lace_dp": "the multi-device slice"}
 
 
 @dataclass(frozen=True)
@@ -159,12 +181,58 @@ def default_ce_chunk(num_classes: int) -> int:
     return max(4096, (1 << 32) // max(1, num_classes))
 
 
-def _priors(labels, weights, N, scala: ScalaConfig):
-    """Stage 1: (P_k (C, N), P_s (N,)) from this step's labels."""
-    return client_and_concat_priors(labels, N, weights, eps=scala.prior_eps)
+@dataclass(frozen=True)
+class MeshAxes:
+    """Axis roles of the ``lace_dp`` backend: the client axis splits over
+    ``client``, each client's batch over ``inner``."""
+
+    client: tuple = ()
+    inner: tuple = ()
+
+    @property
+    def all(self) -> tuple:
+        return self.client + self.inner
 
 
-def _check(backend, boundary, precision, model):
+def mesh_axes(mesh) -> MeshAxes:
+    """The roles of a :class:`repro_torch.sharding.Grid`'s axes."""
+    return MeshAxes(client=mesh.client_axes, inner=mesh.inner_axes)
+
+
+def client_shard_count(mesh) -> int:
+    """How many ways the stacked client axis splits on ``mesh``: the
+    product of its client axes' sizes."""
+    return mesh.n_client_shards
+
+
+def _priors(labels, weights, N, scala: ScalaConfig, grid=None):
+    """Stage 1: (P_k (C, N), P_s (N,)) from this step's labels; on a grid
+    each client's histogram is summed over ``inner`` (its token slices),
+    then the concatenated one over ``client``."""
+    if grid is None:
+        return client_and_concat_priors(labels, N, weights,
+                                        eps=scala.prior_eps)
+    hist_k = torch.stack([
+        histogram(labels[c], N, None if weights is None else weights[c])
+        for c in range(labels.shape[0])])
+    if grid.inner_axes:
+        hist_k = grid.all_reduce(hist_k, "inner")
+    hist_s = hist_k.sum(0)
+    if grid.client_axes:
+        hist_s = grid.all_reduce(hist_s, "client")
+    return prior(hist_k, scala.prior_eps), prior(hist_s, scala.prior_eps)
+
+
+def shard_batch(grid, batch, specs):
+    """This rank's block of every leaf of a global ``batch`` dict under
+    its spec in ``specs`` (the same keys)."""
+    missing = set(batch) - set(specs)
+    if missing:
+        raise ValueError(f"batch_specs has no spec for {sorted(missing)}")
+    return {k: grid.shard(v, specs[k]) for k, v in batch.items()}
+
+
+def _check(backend, boundary, precision, model, mesh=None):
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
     if boundary not in BOUNDARIES:
@@ -173,11 +241,9 @@ def _check(backend, boundary, precision, model):
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected "
                          f"{PRECISIONS}")
-    for value in (backend, boundary, precision):
-        if value in _LATER:
-            raise NotImplementedError(
-                f"{value!r} is not ported yet; it comes with "
-                f"{_LATER[value]}")
+    if (backend == "lace_dp") != (mesh is not None):
+        raise ValueError("backend 'lace_dp' requires a grid of ranks "
+                         "(mesh=), and only it")
     if backend != "logits" and model.server_trunk is None:
         raise ValueError(f"backend {backend!r} needs model.server_trunk/"
                          "head_weight (fused LACE path)")
@@ -261,10 +327,52 @@ def _lace_boundary(feats, w_head, labels, weights, p_k, p_s, scala,
     return loss_s.detach(), loss_k.detach(), gf_s, gf_k, gW_s
 
 
+def _lace_dp_boundary(feats, w_head, labels, weights, p_k, p_s, scala,
+                      boundary, ce_chunk, grid):
+    """Stage 4 of backend ``lace_dp`` on this rank's tokens: the global
+    weight denominator first (one scalar all_reduce), raw sums and their
+    unit-cotangent gradients (K1 + K2, or K4 + K5 twice, on a card), the
+    two loss sums in one all_reduce, then the gradients rescaled to the
+    global mean in float32. No gradient goes through a collective here
+    (the reference's ``lace_dp`` branch)."""
+    from repro_torch.kernels.lace import ops
+
+    C = labels.shape[0]
+    feats_g = feats.reshape(C, -1, feats.shape[-1])
+    labels_g = labels.reshape(C, -1)
+    weights_g = None if weights is None else weights.reshape(C, -1)
+    ps_rows = p_s[None] if scala.adjust_server else None
+    pk_rows = p_k if scala.adjust_client else None
+    pk_ids = (torch.arange(C, device=labels.device) if scala.adjust_client
+              else None)
+    args = (scala.tau, scala.prior_eps, ce_chunk)
+    wsum = (weights_g.float().sum() if weights_g is not None
+            else torch.tensor(float(labels_g.numel()), device=feats.device))
+    w_global = torch.clamp(grid.all_reduce(wsum.reshape(1), "all")[0],
+                           min=1e-8)
+    if boundary == "fused":
+        nll_s, nll_k, gf_s, gf_k, gW_s, _ = ops.lace2_grads(
+            feats_g, w_head, labels_g, ps_rows, None, pk_rows, pk_ids,
+            weights_g, *args, mean=False)
+    else:
+        fg = feats_g.detach().requires_grad_()
+        wh = w_head.detach().requires_grad_()
+        nll_s = ops.lace_nll_sum(fg, wh, labels_g, ps_rows, None, weights_g,
+                                 *args)
+        gf_s, gW_s = torch.autograd.grad(nll_s, (fg, wh))
+        nll_k = ops.lace_nll_sum(fg, w_head.detach(), labels_g, pk_rows,
+                                 pk_ids, weights_g, *args)
+        (gf_k,) = torch.autograd.grad(nll_k, fg)
+    sums = grid.all_reduce(torch.stack([nll_s.detach(), nll_k.detach()])
+                           .float(), "all")
+    return (sums[0] / w_global, sums[1] / w_global, gf_s.float() / w_global,
+            gf_k.float() / w_global, gW_s.float() / w_global)
+
+
 def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
                      backend: str = "lace", boundary: str = "fused",
                      ce_chunk: Optional[int] = None, mask=None,
-                     precision: str = "f32"):
+                     precision: str = "f32", mesh=None):
     """Stages 1-4 of the SCALA local iteration.
 
     params: ``{'client': stacked (C, ...), 'server': ...}``; batch leaves
@@ -275,8 +383,11 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
     selects the compute policy (:func:`cast_to_compute`): under
     ``"bf16"`` stages 2-4 run in bfloat16 against the float32 master
     params; the priors, the loss reductions and the grads stay float32.
+    ``mesh`` (a :class:`repro_torch.sharding.Grid`) is given iff
+    ``backend == "lace_dp"``; params, batch and mask are then this rank's
+    blocks and the grads come back reduced (module docstring).
     """
-    _check(backend, boundary, precision, model)
+    _check(backend, boundary, precision, model, mesh)
     model = cast_to_compute(model, precision)
     N = model.num_classes
     labels = batch["labels"]
@@ -290,7 +401,7 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
         weights = base * mw
 
     # --- stage 1: label statistics (clients upload Y_k with A_k) ---
-    p_k, p_s = _priors(labels, weights, N, scala)
+    p_k, p_s = _priors(labels, weights, N, scala, mesh)
 
     with torch.enable_grad():
         # --- stage 2: every client's forward, its graph kept ---
@@ -324,7 +435,9 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
                 _logits_boundary(out.detach(), labels, weights, p_k, p_s,
                                  scala, boundary)
         else:
-            loss_s, loss_k, g_s, g_k, gW_s = _lace_boundary(
+            boundary_fn = (_lace_boundary if mesh is None else
+                           functools.partial(_lace_dp_boundary, grid=mesh))
+            loss_s, loss_k, g_s, g_k, gW_s = boundary_fn(
                 out.detach(), model.head_weight(params["server"]), labels,
                 weights, p_k, p_s, scala, boundary,
                 default_ce_chunk(N) if ce_chunk is None else ce_chunk)
@@ -370,8 +483,21 @@ def split_step_grads(model: SplitModel, params, batch, scala: ScalaConfig, *,
         start += n
         del g
     d_wc = unflatten(params["client"], d_wc)
+    aux = aux.detach()
+    if mesh is not None:
+        # stage 4's reductions: ONE all_reduce of the server gradient tree
+        # (every leaf a local partial), the client grads over ``inner``
+        # (each client's tokens split there), optionally narrower on the
+        # wire; aux averaged
+        rdt = (dtype_of(scala.grad_reduce_dtype)
+               if scala.grad_reduce_dtype else None)
+        d_ws = mesh.all_reduce_tree(d_ws, "all", rdt)
+        if mesh.inner_axes:
+            d_wc = mesh.all_reduce_tree(d_wc, "inner", rdt)
+        aux = mesh.all_reduce(aux.float().reshape(1).clone(), "all")[0] \
+            / mesh.world
     metrics = {"loss_server": loss_s, "loss_client": loss_k,
-               "aux": aux.detach(), **metrics}
+               "aux": aux, **metrics}
     return {"client": d_wc, "server": d_ws}, metrics
 
 
@@ -420,39 +546,108 @@ def _apply_updates(opt: optimizers.Optimizer, state: TrainState, grads,
                       step=state.step + 1)
 
 
-def make_split_step(model: SplitModel, scala: ScalaConfig, *,
-                    backend: str = "lace", boundary: str = "fused",
-                    optimizer: Optional[optimizers.Optimizer] = None,
-                    schedule: Optional[Callable] = None,
-                    ce_chunk: Optional[int] = None, precision: str = "f32"):
-    """The stateful step: (TrainState, batch[, mask[, donate]]) ->
-    (TrainState, metrics). ``optimizer`` defaults to plain SGD (eqs. 7/9)
-    and ``schedule`` to a constant ``scala.lr``, driven by ``state.step``.
-    ``donate=True``: the caller never reads ``state`` again, so the
-    update may overwrite it (:class:`repro_torch.optim.Optimizer`)."""
-    _check(backend, boundary, precision, model)
-    opt = optimizer if optimizer is not None else optimizers.sgd()
-    sched = schedule if schedule is not None else schedules.constant(scala.lr)
+def _local_step_fn(model, scala, backend, boundary, opt, sched, ce_chunk,
+                   precision, mesh):
+    """The step on batches (and a mask) already cut to this rank."""
 
     def step(state: TrainState, batch, mask=None, donate=False):
         grads, metrics = split_step_grads(model, state.params, batch, scala,
                                           backend=backend, boundary=boundary,
                                           ce_chunk=ce_chunk, mask=mask,
-                                          precision=precision)
+                                          precision=precision, mesh=mesh)
         return _apply_updates(opt, state, grads, sched(state.step),
                               donate), metrics
 
     return step
 
 
+def _dp_args(backend, mesh, batch_specs):
+    if backend == "lace_dp" and (mesh is None or batch_specs is None):
+        raise ValueError("backend 'lace_dp' needs mesh and batch_specs")
+    return mesh if backend == "lace_dp" else None
+
+
+def make_split_step(model: SplitModel, scala: ScalaConfig, *,
+                    backend: str = "lace", boundary: str = "fused",
+                    optimizer: Optional[optimizers.Optimizer] = None,
+                    schedule: Optional[Callable] = None,
+                    ce_chunk: Optional[int] = None, precision: str = "f32",
+                    mesh=None, batch_specs=None):
+    """The stateful step: (TrainState, batch[, mask[, donate]]) ->
+    (TrainState, metrics). ``optimizer`` defaults to plain SGD (eqs. 7/9)
+    and ``schedule`` to a constant ``scala.lr``, driven by ``state.step``.
+    ``donate=True``: the caller never reads ``state`` again, so the
+    update may overwrite it (:class:`repro_torch.optim.Optimizer`).
+
+    ``backend="lace_dp"`` needs ``mesh`` (a Grid) and ``batch_specs``
+    (a spec per batch key): the state is this rank's, the batch and the
+    (C,) mask global, cut to this rank on entry."""
+    grid = _dp_args(backend, mesh, batch_specs)
+    _check(backend, boundary, precision, model, grid)
+    opt = optimizer if optimizer is not None else optimizers.sgd()
+    sched = schedule if schedule is not None else schedules.constant(scala.lr)
+    step = _local_step_fn(model, scala, backend, boundary, opt, sched,
+                          ce_chunk, precision, grid)
+    if grid is None:
+        return step
+
+    def dp_step(state: TrainState, batch, mask=None, donate=False):
+        if mask is not None:
+            mask = mask[grid.client_slice(mask.shape[0])]
+        return step(state, shard_batch(grid, batch, batch_specs), mask,
+                    donate)
+
+    return dp_step
+
+
+def sgd_apply(params, grads, lr):
+    """The paper's eq. 7 / 9 update in the params' dtype."""
+    return tree_map(lambda w, g: w - lr * g.to(w.dtype), params, grads)
+
+
+def local_step(model: SplitModel, params, batch, scala: ScalaConfig, *,
+               backend: str = "logits", boundary: str = "fused",
+               lr: Optional[float] = None, ce_chunk: Optional[int] = None,
+               mesh=None, batch_specs=None, precision: str = "f32"):
+    """One stateless SCALA local iteration with plain SGD (eqs. 7 / 9):
+    (new params, metrics). ``backend="lace_dp"`` takes ``mesh`` and
+    ``batch_specs`` as :func:`make_split_step` does (params this rank's,
+    the batch global)."""
+    lr = scala.lr if lr is None else lr
+    grid = _dp_args(backend, mesh, batch_specs)
+    if grid is not None:
+        batch = shard_batch(grid, batch, batch_specs)
+    grads, metrics = split_step_grads(model, params, batch, scala,
+                                      backend=backend, boundary=boundary,
+                                      ce_chunk=ce_chunk, precision=precision,
+                                      mesh=grid)
+    return sgd_apply(params, grads, lr), metrics
+
+
+def _shard_mean(grid, stacked, weights):
+    """The weighted mean over the global client axis of a tree whose
+    leaves hold this rank's rows, ``weights`` this rank's slice of the
+    normalized (C,) weights: the local partial in float32, one
+    all_reduce over ``client``, rounded once to each leaf's dtype."""
+    part = tree_map(lambda a: (a.float() * weights.float().reshape(
+        (-1,) + (1,) * (a.dim() - 1))).sum(0), stacked)
+    return tree_map(lambda m, a: m.to(a.dtype),
+                    grid.all_reduce_tree(part, "client"), stacked)
+
+
 def _round_boundary_opt_state(opt: optimizers.Optimizer, opt_state,
-                              new_params, weights, policy: str):
+                              new_params, weights, policy: str, grid=None):
     """Client optimizer state at the round boundary; the server half's
-    always carries."""
+    always carries. On a grid ``weights`` is this rank's slice."""
     if policy == "carry":
         return opt_state
     if policy == "reset":
         return {"client": _client_opt_init(opt, new_params["client"]),
+                "server": opt_state["server"]}
+    if grid is not None:
+        means = _shard_mean(grid, opt_state["client"], weights)
+        return {"client": tree_map(lambda m, a: m[None].expand(a.shape),
+                                   means, opt_state["client"]),
                 "server": opt_state["server"]}
 
     def avg(a):  # "average": aggregated like the params, in f32
@@ -521,7 +716,8 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                       opt_state_policy: str = "carry",
                       slot_gather: bool = False, server_optimizer=None,
                       server_lr: float = 1.0, precision: str = "f32",
-                      faults=None, guards=None, donate: bool = False):
+                      faults=None, guards=None, donate: bool = False,
+                      mesh=None, batch_specs=None):
     """One synchronous round: T local steps over ``round_batches``
     (leaves (T, C, B_k, ...)), then the FL phase -- the aggregator's
     weights average the client halves, which go back to every slot, and
@@ -574,6 +770,21 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
     round's first step stays functional. A sparse round trains gathered
     copies of its slots, so the absent slots' rows are never touched.
     ``donate=False`` leaves ``state`` bitwise as it was.
+
+    ``backend="lace_dp"`` (``mesh``: a Grid, ``batch_specs``): ``state``
+    is this rank's, the round batches, masks and data sizes global. The
+    masked round aggregates with the global weights, each rank's partial
+    summed over ``client``. The sparse round gathers in-shard: each
+    client shard packs its own participating slots into a dense local
+    axis of ``subset_size / n_shards``, and the FL phase is the
+    aggregator's ``shard_local`` weights (the edge fold) and one sum over
+    the shards (the server fold); it needs a shards-balanced scheduler
+    (``uniform:FRAC:SHARDS``, SHARDS a multiple of the client shards) and
+    a stateless, prior-free aggregator with ``shard_local``. Faults and
+    guards are refused there, as the reference refuses them; on the
+    masked ``lace_dp`` round each rank corrupts its own slots of the
+    global fault draw, and the guards' screen gathers the rows' norms
+    over the client shards (:func:`repro_torch.fed.guards.screen`).
     """
     from repro_torch import fed as _fed
 
@@ -604,9 +815,86 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
     k_active = (participation.subset_size if participation is not None
                 else None)
     do_gather = slot_gather and k_active < participation.num_clients
-    step = make_split_step(model, scala, backend=backend, boundary=boundary,
-                           optimizer=opt, schedule=schedule,
-                           ce_chunk=ce_chunk, precision=precision)
+    grid = _dp_args(backend, mesh, batch_specs)
+    dp_gather = do_gather and grid is not None
+    robust = faults is not None or guards is not None
+    if dp_gather and robust:
+        raise ValueError(
+            "faults/guards are not supported with the in-shard lace_dp "
+            "slot_gather round (its FL phase is sharded); use the masked "
+            "lace_dp round or a sparse single-program backend")
+    n_shards = grid.n_client_shards if grid is not None else 1
+    if dp_gather:
+        shards = getattr(participation, "shards", 1)
+        if shards % n_shards:
+            raise ValueError(
+                f"lace_dp slot_gather needs a shards-balanced participation "
+                f"scheduler: scheduler shards {shards} must be a multiple "
+                f"of the {n_shards} client mesh shards (use "
+                f"'uniform:FRAC:{n_shards}')")
+        if k_active % n_shards or participation.num_clients % n_shards:
+            raise ValueError(
+                f"subset size {k_active} and client count "
+                f"{participation.num_clients} must divide over the "
+                f"{n_shards} client shards")
+        if agg.shard_local is None or agg.stateful or agg.needs_priors:
+            raise ValueError(
+                f"aggregator {agg.name!r} cannot run inside the sharded "
+                "client axis; lace_dp slot_gather needs a stateless, "
+                "prior-free, shard-decomposable aggregator (fedavg / "
+                "weighted / hierarchical)")
+        if opt_state_policy == "average":
+            raise ValueError("opt_state_policy 'average' is not supported "
+                             "with lace_dp slot_gather; use 'carry' or "
+                             "'reset'")
+    _check(backend, boundary, precision, model, grid)
+    step = _local_step_fn(model, scala, backend, boundary, opt,
+                          schedule if schedule is not None
+                          else schedules.constant(scala.lr), ce_chunk,
+                          precision, grid)
+    rb_specs = None
+    if grid is not None:
+        from repro_torch.sharding import round_specs
+
+        rb_specs = round_specs(batch_specs)
+
+    def dp_round(start: TrainState, rb, mask_np, data_sizes, own):
+        """The in-shard sparse round on this rank's client shard: its own
+        participants gathered, T steps, the two-tier FL phase."""
+        K = participation.num_clients
+        cs = grid.client_slice(K)
+        device = leaves(start.params["client"])[0].device
+        mask_l = mask_np[cs]
+        idx_t = torch.from_numpy(slot_gather_indices(
+            mask_l, k_active // n_shards)).to(device)
+        sub = _gather_clients(start, idx_t)
+        metrics = None
+        for t in range(leaves(rb)[0].shape[0]):
+            sub, metrics = step(sub, {k: v[t].index_select(0, idx_t)
+                                      for k, v in rb.items()}, None,
+                                donate=own or t > 0)
+        st = _scatter_clients(start, sub, idx_t)
+        del sub
+        if not aggregate:
+            return st, metrics
+        sizes = (torch.ones(K, dtype=torch.float32) if data_sizes is None
+                 else data_sizes)
+        sizes_l = sizes[cs].to(device).float()
+        m_l = torch.from_numpy(np.asarray(mask_l, np.float32)).to(device)
+
+        def reduce(t):
+            return grid.all_reduce(t.reshape(1).clone(), "client")[0]
+
+        raw = agg.shard_local(m_l, sizes_l, reduce, n_shards) * m_l
+        w_n = raw / torch.clamp(reduce(raw.sum()), min=1e-8)
+        C_l = leaves(st.params["client"])[0].shape[0]
+        params = {"client": stack_client_params(
+            _shard_mean(grid, st.params["client"], w_n), C_l),
+            "server": st.params["server"]}
+        opt_state = _round_boundary_opt_state(opt, st.opt_state, params,
+                                              w_n, opt_state_policy, grid)
+        return TrainState(params=params, opt_state=opt_state,
+                          step=st.step), metrics
 
     def round_fn(state: TrainState, round_batches, data_sizes=None,
                  fed_state=None):
@@ -662,7 +950,10 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
             ws_start = tree_map(torch.clone, ws_start)
         start = state  # the round-start state: the re-run's and the screen's
         T = leaves(round_batches)[0].shape[0]
-        C_all = leaves(state.params["client"])[0].shape[0]
+        C_all = leaves(state.params["client"])[0].shape[0] * n_shards
+        rb = (round_batches if grid is None
+              else shard_batch(grid, round_batches, rb_specs))
+        cs = grid.client_slice(C_all) if grid is not None else slice(None)
         mask_np = None
         if participation is not None:
             mask_np, sched_state = participation.sample(sched_state)
@@ -706,36 +997,37 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
                 del sub
             else:
                 mask = (None if m_np is None else
-                        torch.tensor(m_np, dtype=torch.float32,
+                        torch.tensor(m_np[cs], dtype=torch.float32,
                                      device=device))
                 # from the second step on the state is the round's own
                 # (from the first with ``own``): its update may overwrite it
                 for t in range(T):
-                    st, metrics = step(st, {k: v[t] for k, v in
-                                            round_batches.items()}, mask,
-                                       donate=own or t > 0)
+                    st, metrics = step(st, {k: v[t] for k, v in rb.items()},
+                                       mask, donate=own or t > 0)
             if corrupt_np is not None:
                 # the update is corrupted in transit, after training (in
                 # place: these rows are the round's own)
                 _faults.corrupt_update(faults, f_seed, f_count,
-                                       st.params["client"], corrupt_np)
+                                       st.params["client"], corrupt_np, cs)
             return st, metrics, idx
 
         agg_mask_np = mask_np
         screened = None
         new_guard_state = guard_state
-        if guards is not None:
+        if dp_gather:
+            state, metrics = dp_round(start, rb, mask_np, data_sizes, own)
+        elif guards is not None:
             # a sparse round's slots outside the gather are exactly
             # unchanged: the screen reads only the gathered rows
             state, metrics, idx, screened = _guards.guarded(
                 guards, guard_state, start.params["client"], mask_np, C_all,
-                local_phase)
+                local_phase, grid)
             agg_mask_np, new_guard_state = screened.survivors, screened.state
         else:
             state, metrics, idx = local_phase(mask_np)
 
-        if aggregate:
-            C = leaves(state.params["client"])[0].shape[0]
+        if aggregate and not dp_gather:
+            C = C_all
             p_k = p_global = None
             if agg.needs_priors:
                 p_k, p_global = _fed.aggregation_priors(
@@ -751,11 +1043,17 @@ def make_round_runner(model: SplitModel, scala: ScalaConfig, *,
             w = w.to(device)
             pc = state.params["client"]
             if screened is not None:
-                screened.apply_(start.params["client"], pc)
-            params = {"client": stack_client_params(weighted_mean(pc, w), C),
-                      "server": state.params["server"]}
+                screened.apply_(start.params["client"], pc, cs)
+            if grid is None:
+                avg = weighted_mean(pc, w)
+            else:
+                w = w[cs]
+                avg = _shard_mean(grid, pc, w)
+            params = {"client": stack_client_params(
+                avg, leaves(pc)[0].shape[0]),
+                "server": state.params["server"]}
             opt_state = _round_boundary_opt_state(
-                opt, state.opt_state, params, w, opt_state_policy)
+                opt, state.opt_state, params, w, opt_state_policy, grid)
             state = TrainState(params=params, opt_state=opt_state,
                                step=state.step)
 

@@ -1,10 +1,48 @@
-"""Model adapters: a model's two halves as a :class:`SplitModel`."""
+"""Model adapters: a model's two halves as a :class:`SplitModel`; and
+the reference's legacy ``lace_dp`` step, :func:`scala_local_step_fused_dp`
+(deprecated, warning once)."""
 from __future__ import annotations
+
+import warnings
+from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ScalaConfig
+from repro_torch.core import engine
 from repro_torch.core.engine import SplitModel
+
+# legacy entry points that already warned this process (warn once each)
+_DEPRECATION_WARNED: set = set()
+
+
+def _warn_deprecated(name: str, use: str) -> None:
+    if name in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(name)
+    warnings.warn(
+        f"repro_torch.core.scala.{name} is a legacy compatibility shim; use "
+        f"{use} instead (the engine threads optimizers/schedules and runs "
+        "the whole round -- see repro_torch.core.engine and repro_torch."
+        "fed)", DeprecationWarning, stacklevel=3)
+
+
+def scala_local_step_fused_dp(model: SplitModel, params, batch,
+                              scala: ScalaConfig, mesh, batch_specs, *,
+                              lr: Optional[float] = None,
+                              ce_chunk: Optional[int] = None):
+    """One SCALA local iteration with plain SGD on backend ``lace_dp``
+    over the grid ``mesh`` (params this rank's, the batch global, cut by
+    ``batch_specs``): :func:`repro_torch.core.engine.local_step`.
+
+    .. deprecated:: use :func:`repro_torch.core.engine.make_split_step`
+       (``backend="lace_dp"``).
+    """
+    _warn_deprecated("scala_local_step_fused_dp",
+                     "engine.make_split_step(backend='lace_dp')")
+    return engine.local_step(model, params, batch, scala, backend="lace_dp",
+                             lr=lr, ce_chunk=ce_chunk, mesh=mesh,
+                             batch_specs=batch_specs)
 
 
 def transformer_split_model(cfg: ModelConfig, *, remat=None) -> SplitModel:
@@ -12,8 +50,10 @@ def transformer_split_model(cfg: ModelConfig, *, remat=None) -> SplitModel:
     blocks) and server half (the rest + final norm + head). ``remat``:
     the server's scan groups recomputed on the backward pass
     (``models.transformer.server_forward``; None: on for the recurrent
-    archs). The reference's ``dp_loss`` (the loss reduced over a device
-    mesh) has no counterpart on one card.
+    archs). The reference's ``dp_loss`` (the ``lace`` backend's loss
+    reduced over an ambient mesh) has no counterpart: the port has no
+    ambient mesh, and its ``lace_dp`` backend reduces over an explicit
+    grid.
 
     A frontend arch's batch carries its encoder output: an audio arch's
     client half uploads the projected ``memory`` beside ``x``, which the

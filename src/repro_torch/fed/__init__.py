@@ -65,6 +65,7 @@ from repro_torch.fed.runtime import (  # noqa: F401
     make_arrival_pop,
     make_async_runner,
     ring_lookup,
+    sharded_arrival_cohort,
 )
 
 

@@ -20,9 +20,13 @@ client halves with them (eq. 10):
 Every weight goes through the mask-safe
 :func:`repro_torch.core.split.normalize_client_weights`, so absent
 clients (mask 0 or size 0) drop out without NaNs; every rule is a few
-tensor operations on the weights' device, with no host copy. The
-reference's ``shard_local`` (the per-shard weights of its sharded client
-axis) comes with the multi-device slice.
+tensor operations on the weights' device, with no host copy.
+
+``shard_local`` (``fedavg``, ``weighted``, ``hierarchical``) gives the raw
+weights of one client shard's slots on a grid of ranks (the ``lace_dp``
+sparse round and async event): the caller's global renormalization of
+``raw * decay * mask`` (a sum over the client shards) reproduces the
+flat weights. A stateful or prior-aware aggregator has none.
 """
 from __future__ import annotations
 
@@ -104,6 +108,11 @@ class Aggregator:
     client_weights: Callable[[AggContext, Any], Tuple[Any, Any]]
     needs_priors: bool = False
     stateful: bool = False
+    #: ``shard_local(mask_l, sizes_l, reduce=None, n_shards=1) -> (C_l,)``
+    #: raw weights of one shard's local slot block; ``reduce`` sums a
+    #: tensor over the client shards (None: one shard). None when the
+    #: aggregator cannot run on a sharded client axis.
+    shard_local: Optional[Callable] = None
 
     def aggregate(self, stacked_params, ctx: AggContext, state=()):
         """(stacked (C, ...) client params, ctx, state) -> (averaged
@@ -122,8 +131,11 @@ def fedavg() -> Aggregator:
     def client_weights(ctx: AggContext, state):
         return normalize_client_weights(ctx.ones(), ctx.mask), state
 
+    def shard_local(mask_l, sizes_l, reduce=None, n_shards: int = 1):
+        return torch.ones_like(mask_l, dtype=torch.float32)
+
     return Aggregator(name="fedavg", init=_stateless_init,
-                      client_weights=client_weights)
+                      client_weights=client_weights, shard_local=shard_local)
 
 
 def weighted() -> Aggregator:
@@ -132,8 +144,11 @@ def weighted() -> Aggregator:
     def client_weights(ctx: AggContext, state):
         return normalize_client_weights(ctx.base_weights(), ctx.mask), state
 
+    def shard_local(mask_l, sizes_l, reduce=None, n_shards: int = 1):
+        return sizes_l.float()
+
     return Aggregator(name="weighted", init=_stateless_init,
-                      client_weights=client_weights)
+                      client_weights=client_weights, shard_local=shard_local)
 
 
 def bias_compensated(gamma: float = 2.0) -> Aggregator:
@@ -197,27 +212,44 @@ def hierarchical(edges: int, edge: str = "weighted",
     if edges < 1:
         raise ValueError(f"edges must be >= 1, got {edges}")
 
-    def client_weights(ctx: AggContext, state):
-        C = ctx.C
-        if C % edges:
+    def tiers(mask, sizes, n_edges):
+        """(within-edge weights (C,), edge masses T (n_edges,))."""
+        C = mask.shape[0]
+        if C % n_edges:
             raise ValueError(f"{C} client slots do not divide into "
-                             f"{edges} edges")
-        mask = ctx.mask.float() if ctx.mask is not None else ctx.ones()
-        sizes = ctx.base_weights()
+                             f"{n_edges} edges")
         base = sizes if edge == "weighted" else torch.ones_like(sizes)
-        raw = (base * mask).reshape(edges, C // edges)
+        raw = (base * mask).reshape(n_edges, C // n_edges)
         S = raw.sum(1)
         within = (raw / S.clamp(min=1e-8)[:, None]).reshape(C)
         T = torch.where(S > 0, S if top == "weighted" else torch.ones_like(S),
                         torch.zeros_like(S))
+        return within, T
+
+    def client_weights(ctx: AggContext, state):
+        C = ctx.C
+        mask = ctx.mask.float() if ctx.mask is not None else ctx.ones()
+        within, T = tiers(mask, ctx.base_weights(), edges)
         tot = T.sum()
         w = within * torch.repeat_interleave(T / tot.clamp(min=1e-8),
                                              C // edges)
         fallback = normalize_client_weights(ctx.ones(), ctx.mask)
         return torch.where(tot > 0, w, fallback), state
 
+    def shard_local(mask_l, sizes_l, reduce=None, n_shards: int = 1):
+        if edges % n_shards:
+            raise ValueError(f"hierarchical edges={edges} must divide over "
+                             f"the {n_shards} client shards")
+        edges_l = edges // n_shards
+        within, T = tiers(mask_l.float(), sizes_l.float(), edges_l)
+        tot = T.sum()
+        if reduce is not None:
+            tot = reduce(tot)
+        return within * torch.repeat_interleave(T / tot.clamp(min=1e-8),
+                                                mask_l.shape[0] // edges_l)
+
     return Aggregator(name="hierarchical", init=_stateless_init,
-                      client_weights=client_weights)
+                      client_weights=client_weights, shard_local=shard_local)
 
 
 def make_aggregator(spec: str) -> Aggregator:

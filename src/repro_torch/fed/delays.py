@@ -60,6 +60,24 @@ class DelayModel:
         rng = np.random.default_rng([int(seed), int(version)])
         return np.asarray(self.sample(rng, shape), np.float32)
 
+    def sample_sharded(self, seed: int, version: int, n: int,
+                       n_shards: int, shard: int) -> np.ndarray:
+        """Client shard ``shard``'s block of ``draw(seed, version, (n,))``
+        when the n slots split into ``n_shards`` contiguous blocks.
+
+        The stream is one host numpy generator, ``default_rng([seed,
+        version])``, so every rank draws the whole (n,) vector (n float32
+        from one generator, a few microseconds even at n = 1e6) and keeps
+        its block: each rank's slice is bitwise the slice of the unsharded
+        draw, and the blocks in shard order are the unsharded draw (the
+        reference samples with the output sharded, threefry being
+        value-deterministic, for the same result)."""
+        if n % n_shards or not 0 <= shard < n_shards:
+            raise ValueError(f"{n} slots do not split into block {shard} of "
+                             f"{n_shards}")
+        k = n // n_shards
+        return self.draw(seed, version, (n,))[shard * k:(shard + 1) * k]
+
 
 def constant(d: float = 1.0) -> DelayModel:
     """Every client takes exactly ``d`` time units. ``d=0`` makes the

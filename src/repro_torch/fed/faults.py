@@ -180,25 +180,33 @@ def init_state(seed: int):
 
 
 def corrupt_update(fm: FaultModel, seed: int, count: int, stacked,
-                   corrupt_mask):
+                   corrupt_mask, rows=slice(None)):
     """Corrupt rows of a stacked (C, ...) tree where ``corrupt_mask``
     ((C,) host 0/1) fires: NaN or Inf, or ``noise_scale`` times a
     Gaussian added, by ``fm.corrupt_mode``.
+
+    ``rows``: the slice of the (C,) slots that ``stacked`` holds (a
+    rank's client shard on a grid); each of its rows gets exactly what
+    the unsharded call gives that slot (the noise is drawn for every
+    firing slot, then sliced).
 
     The rows that fire are rewritten IN PLACE (``index_fill_`` /
     ``index_add_``): pass a tree the round owns, never one the
     round-start state shares."""
     fire = np.flatnonzero(np.asarray(corrupt_mask) > 0)
-    if fire.size == 0:
+    start, stop, _ = rows.indices(len(corrupt_mask))
+    here = (fire >= start) & (fire < stop)
+    if not here.any():
         return stacked
     out = []
     for i, leaf in enumerate(leaves(stacked)):
-        idx = torch.from_numpy(fire.astype(np.int64)).to(leaf.device)
+        idx = torch.from_numpy((fire[here] - start).astype(np.int64)).to(
+            leaf.device)
         if fm.corrupt_mode == "noise":
             rng = np.random.default_rng([int(seed), FAULT_TAG, int(count), i])
             noise = np.float32(fm.noise_scale) * rng.standard_normal(
                 (fire.size,) + tuple(leaf.shape[1:]), dtype=np.float32)
-            leaf.index_add_(0, idx, torch.from_numpy(noise).to(
+            leaf.index_add_(0, idx, torch.from_numpy(noise[here]).to(
                 leaf.device, leaf.dtype))
         else:
             leaf.index_fill_(0, idx, float("nan") if fm.corrupt_mode == "nan"

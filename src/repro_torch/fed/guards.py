@@ -186,10 +186,15 @@ def _median_even_mean(norms, part):
                        torch.full_like(med[0], float("nan")))
 
 
-def screen(policy: GuardPolicy, trained, start, mask, state, rows=None
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Any]:
+def screen(policy: GuardPolicy, trained, start, mask, state, rows=None,
+           grid=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               Any]:
     """Screen per-client updates ``trained - start`` (two (C, ...)-stacked
-    client halves; ``rows``: see :func:`row_stats`).
+    client halves; ``rows``: see :func:`row_stats`). On a
+    :class:`repro_torch.sharding.Grid` the trees hold this rank's client
+    shard and ``mask`` all C slots: the rows' squared norms and
+    finiteness are all_gathered over the client shards, and the rest runs
+    on the (C,) vectors alike on every rank.
 
     ``mask``: (C,) 0/1 participation (a tensor on the trees' device; only
     participants are screened); ``state``: :func:`init_state`'s dict, or
@@ -203,7 +208,11 @@ def screen(policy: GuardPolicy, trained, start, mask, state, rows=None
     it here.
     """
     m = mask.float()
-    sq, fin = row_stats(trained, start, rows, m.numel())
+    shards = 1 if grid is None else grid.n_client_shards
+    sq, fin = row_stats(trained, start, rows, m.numel() // shards)
+    if grid is not None:
+        sq = grid.all_gather(sq, "client")
+        fin = grid.all_gather(fin.float(), "client") > 0
     norms = torch.sqrt(sq)
     accept = (torch.where(m > 0, fin.float(), torch.ones_like(m))
               if policy.nonfinite else torch.ones_like(m))
@@ -252,15 +261,17 @@ class Screened:
         return {"guard_accept": self.accept, "guard_norm": self.norms,
                 "guard_rejected": self.rejected}
 
-    def apply_(self, start, trained):
+    def apply_(self, start, trained, rows=slice(None)):
         """Clip, then zero the rejected rows of, ``trained`` in place
         (the round's own stack; a full-width round has no room for a
-        second one). Returns ``trained``."""
-        apply_clip(start, trained, self.factor_np)
-        return zero_rows_(trained, self.accept_np)
+        second one); ``rows``: the slots the trees hold (a rank's client
+        shard). Returns ``trained``."""
+        apply_clip(start, trained, self.factor_np[rows])
+        return zero_rows_(trained, self.accept_np[rows])
 
 
-def guarded(policy: GuardPolicy, guard_state, start, mask_np, n, run_local):
+def guarded(policy: GuardPolicy, guard_state, start, mask_np, n, run_local,
+            grid=None):
     """The guarded local phase, one policy for the sync round
     (:func:`repro_torch.core.engine.make_round_runner`) and the async
     event (:func:`repro_torch.fed.runtime.make_async_runner`).
@@ -279,7 +290,8 @@ def guarded(policy: GuardPolicy, guard_state, start, mask_np, n, run_local):
     clients never joined; the clip factors then come from the final
     updates against the pre-round median, and the median state keeps
     the first pass's norms. With nothing rejected the survivors equal
-    the participants bit for bit.
+    the participants bit for bit. ``grid``: the trees are a rank's client
+    shard of the ``n`` slots (:func:`screen`).
 
     Returns ``(state, metrics, rows, Screened)``."""
     state, metrics, rows = run_local(mask_np, False)
@@ -288,7 +300,8 @@ def guarded(policy: GuardPolicy, guard_state, start, mask_np, n, run_local):
     device = leaves(start)[0].device
     accept, factor, norms, new_state = screen(
         policy, state.params["client"], start,
-        torch.from_numpy(base_np).to(device), guard_state, rows=rows)
+        torch.from_numpy(base_np).to(device), guard_state, rows=rows,
+        grid=grid)
     accept_np, factor_np = torch.stack([accept, factor]).cpu().numpy()
     survivors = base_np * accept_np
     rejected = float(base_np.sum() - survivors.sum())
@@ -299,7 +312,7 @@ def guarded(policy: GuardPolicy, guard_state, start, mask_np, n, run_local):
             factor_np = screen(
                 policy, state.params["client"], start,
                 torch.from_numpy(survivors).to(device), guard_state,
-                rows=rows)[1].cpu().numpy()
+                rows=rows, grid=grid)[1].cpu().numpy()
     return state, metrics, rows, Screened(
         accept=accept, norms=norms, accept_np=accept_np,
         factor_np=factor_np, survivors=survivors, rejected=rejected,

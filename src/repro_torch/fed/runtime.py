@@ -62,11 +62,24 @@ delay is multiplied by ``stall_factor`` before the deadline's backoff.
 The guards screen the cohort's updates against the gathered snapshots;
 a rejection re-runs the cohort's steps from them over the survivors.
 
-Not ported here: ``backend="lace_dp"``, ``arrival="topk:sharded"`` and
-the sharded pop (the multi-device slice).
+**On a grid of ranks** (:class:`repro_torch.sharding.Grid`, ``mesh=``):
+``init_async_state(mesh=)`` keeps each rank's block of the (K,)
+``version`` / ``finish_time`` / ``retries`` (split over the client
+shards, as the reference's ``client_scalar_spec`` lays them out), and
+``arrival="topk:sharded"`` pops with :func:`sharded_arrival_cohort`: a
+local top-``cohort`` per shard, ONE all_gather of the candidate triples,
+one lexsort merge, bitwise the single pop. ``backend="lace_dp"`` runs
+the whole event per rank (:func:`_make_async_runner_dp`): each client
+shard pops ``cohort / n_shards`` of its own finishers, trains them
+through the ``lace_dp`` step, and folds them into the global client half
+with the aggregator's ``shard_local`` weights and one sum over the
+shards; its state is the rank's (the snapshots and moments of its
+client shard; the server half and, under delta, the ring replicated),
+its round batches and data sizes global.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -87,8 +100,8 @@ from repro_torch.tree import leaves, tree_map
 SNAPSHOT_MODES = ("dense", "delta")
 
 #: arrival-pop implementations: ``"sort"`` (lexsort), ``"topk"`` (O(K)
-#: selection, bit-identical) and ``"topk:sharded"`` (the multi-device
-#: slice's).
+#: selection, bit-identical) and ``"topk:sharded"`` (per client shard,
+#: merged: :func:`sharded_arrival_cohort`).
 ARRIVALS = ("sort", "topk", "topk:sharded")
 
 #: per-arrival lr scaling policies (see :func:`make_async_runner`).
@@ -96,8 +109,6 @@ LR_SCALES = ("none", "cohort")
 
 #: ring_versions tag for a slot that has never been written.
 NO_VERSION = -(2 ** 30)
-
-_MULTI_DEVICE = "the multi-device slice"
 
 
 @dataclass(frozen=True)
@@ -146,9 +157,16 @@ def init_async_state(seed: int, client_params, delays: DelayModel, *,
                      server_params=None, snapshots: str = "dense",
                      ring_size: int = 64,
                      num_clients: Optional[int] = None,
-                     guards=None) -> AsyncFedState:
+                     guards=None, mesh=None) -> AsyncFedState:
     """Dispatch all K clients at version 0, each with its first delay
     (draw 0 of the stream ``seed``).
+
+    ``mesh`` (a Grid): the (K,) ``version``, ``finish_time`` and
+    ``retries`` hold this rank's client-shard block (the whole vector
+    when K does not divide over the shards), the delays its block of the
+    unsharded draw (:meth:`DelayModel.sample_sharded`). Dense snapshots
+    may then be this rank's rows (the ``lace_dp`` event's state) or all
+    K (a single-program event with the sharded pop).
 
     ``client_params`` is the stacked client half (every slot the same
     init); the dense snapshots are a copy of it. With ``snapshots=
@@ -166,7 +184,14 @@ def init_async_state(seed: int, client_params, delays: DelayModel, *,
                          f"{SNAPSHOT_MODES}")
     lead = leaves(client_params)[0].shape[0]
     K = lead if num_clients is None else num_clients
-    if snapshots == "dense" and num_clients is not None and lead != K:
+    n_blocks = 1
+    if mesh is not None:
+        from repro_torch.sharding import client_scalar_spec
+
+        n_blocks = mesh.n_client_shards if client_scalar_spec(mesh, K) \
+            else 1
+    if snapshots == "dense" and num_clients is not None and lead != K \
+            and not (mesh is not None and lead * mesh.n_client_shards == K):
         raise ValueError(f"dense snapshots need client_params stacked over "
                          f"all {K} clients, got {lead} slots")
     if server_optimizer is not None and server_params is None:
@@ -184,11 +209,14 @@ def init_async_state(seed: int, client_params, delays: DelayModel, *,
     else:
         snap, ring, ring_versions = _own(client_params), (), ()
     device = leaves(client_params)[0].device
+    K_l = K // n_blocks
     return AsyncFedState(
         client_params=snap,
-        version=np.zeros((K,), np.int32),
+        version=np.zeros((K_l,), np.int32),
         server_version=0,
-        finish_time=delays.draw(seed, 0, (K,)),
+        finish_time=(delays.draw(seed, 0, (K,)) if n_blocks == 1 else
+                     delays.sample_sharded(seed, 0, K, n_blocks,
+                                           mesh.client_index)),
         now=np.float32(0.0),
         seed=int(seed),
         agg_state=aggregator.init(K, device) if aggregator is not None
@@ -197,7 +225,7 @@ def init_async_state(seed: int, client_params, delays: DelayModel, *,
                     if server_optimizer is not None else ()),
         ring=ring,
         ring_versions=ring_versions,
-        retries=np.zeros((K,), np.int32),
+        retries=np.zeros((K_l,), np.int32),
         guard=(_guards.init_state(device) if gp is not None and gp.stateful
                else ()))
 
@@ -243,26 +271,77 @@ def arrival_cohort(finish_time, cohort: int, version=None,
         order = (np.argsort(finish_time, kind="stable") if version is None
                  else np.lexsort((version, finish_time)))
         idx = np.sort(order[:cohort])
-    elif method == "topk:sharded":
-        raise NotImplementedError("arrival 'topk:sharded' is not ported "
-                                  f"yet; it comes with {_MULTI_DEVICE}")
     else:
         raise ValueError(f"unknown arrival method {method!r}; expected "
-                         "'sort' or 'topk'")
+                         "'sort' or 'topk' (sharded_arrival_cohort pops "
+                         "'topk:sharded')")
     idx = idx.astype(np.int64)
     mask = np.zeros(finish_time.shape[0], np.float32)
     mask[idx] = 1.0
     return idx, mask, finish_time[idx].max()
 
 
-def make_arrival_pop(cohort: int, arrival: str = "sort"):
+def _pop_sharded(finish_time, cohort: int, version, mesh):
+    """:func:`sharded_arrival_cohort`, plus the arrivals' versions and
+    finish times (the merge has them)."""
+    n = mesh.n_client_shards
+    finish_time = np.asarray(finish_time, np.float32)
+    version = np.asarray(version, np.int32)
+    K_l = finish_time.shape[0]
+    if cohort > K_l * n:
+        raise ValueError(f"cohort {cohort} exceeds the {K_l * n} client "
+                         "slots")
+    base = mesh.client_index * K_l
+    local = _pop_topk(finish_time, version, min(cohort, K_l))
+    # the candidate triples, exact in float64 (f32 times, i32 versions,
+    # slot ids far below 2^53), gathered in shard order in ONE collective
+    cand = np.stack([finish_time[local].astype(np.float64),
+                     version[local].astype(np.float64),
+                     (local + base).astype(np.float64)], 1)
+    cand = mesh.all_gather_host(cand, "client")
+    ft_c, v_c, g_c = cand[:, 0], cand[:, 1], cand[:, 2]
+    order = np.lexsort((g_c, v_c, ft_c))[:cohort]
+    sel = order[np.argsort(g_c[order], kind="stable")]
+    idx = g_c[sel].astype(np.int64)
+    loc = idx - base
+    mask = np.zeros((K_l,), np.float32)
+    mask[loc[(loc >= 0) & (loc < K_l)]] = 1.0
+    return (idx, mask, np.float32(ft_c[order].max()),
+            v_c[sel].astype(np.int32), ft_c[sel].astype(np.float32))
+
+
+def sharded_arrival_cohort(finish_time, cohort: int, version, *, mesh):
+    """The pop with the (K,) schedule scalars split over the client
+    shards of ``mesh``: ``finish_time`` / ``version`` are this rank's
+    block (:func:`init_async_state` with ``mesh=``). Bitwise the single
+    pop, ties included.
+
+    Each shard pops its local top ``min(cohort, K / S)`` under the same
+    composite (finish_time, version, slot) order (:func:`_pop_topk`):
+    the global top-``cohort`` lies in their union, since a globally
+    selected slot has fewer than ``cohort`` predecessors globally, hence
+    fewer in its own shard. ONE all_gather of the ``S x min(cohort, K /
+    S)`` candidate triples and one small lexsort (slot id the last key:
+    a total order) merge them. Every rank of a client group gets the
+    same answer.
+
+    Returns (idx (cohort,) global slot ids ascending, the same on every
+    rank; mask (K / S,) float32, this rank's block; t_event)."""
+    return _pop_sharded(finish_time, cohort, version, mesh)[:3]
+
+
+def make_arrival_pop(cohort: int, arrival: str = "sort", *, mesh=None):
     """The configured pop as ``pop(finish_time, version) -> (idx, mask,
-    t_event)``."""
+    t_event)``; ``"topk:sharded"`` needs ``mesh`` (the client shards the
+    schedule splits over) and takes this rank's block."""
     if arrival not in ARRIVALS:
         raise ValueError(f"unknown arrival {arrival!r}; expected {ARRIVALS}")
     if arrival == "topk:sharded":
-        raise NotImplementedError("the sharded arrival pop is not ported "
-                                  f"yet; it comes with {_MULTI_DEVICE}")
+        if mesh is None:
+            raise ValueError("arrival='topk:sharded' needs mesh= (the "
+                             "client axes the schedule scalars shard over)")
+        return lambda ft, v: sharded_arrival_cohort(ft, cohort, v,
+                                                    mesh=mesh)
     return lambda ft, v: arrival_cohort(ft, cohort, v, method=arrival)
 
 
@@ -424,7 +503,8 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
                       deadline: Optional[float] = None,
                       backoff: float = 2.0,
                       donate: bool = True,
-                      faults=None, guards=None):
+                      faults=None, guards=None, mesh=None,
+                      batch_specs=None):
     """Build the event: ``async_fn(state, afed, round_batches,
     data_sizes=None, cohort_opt=None) -> (state, afed, metrics)``.
 
@@ -450,7 +530,12 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
       ``cohort / num_clients``.
     * ``emit_client_metrics``: the (K,) ``arrival_mask`` / ``staleness``
       numpy vectors in the metrics.
-    * ``arrival``: the pop, ``"sort"`` or ``"topk"``.
+    * ``arrival``: the pop, ``"sort"``, ``"topk"`` or ``"topk:sharded"``
+      (with ``mesh``: ``afed``'s schedule holds this rank's block, see
+      :func:`init_async_state`; the event runs whole on every rank, and
+      ``arrival_mask`` / ``staleness`` are the rank's blocks).
+    * ``mesh`` / ``batch_specs``: ``backend="lace_dp"`` runs the event
+      per rank (:func:`_make_async_runner_dp`).
     * ``paged_opt``: host-paged moments (:class:`HostOptPager`; delta and
       carry only): the event takes the cohort's paged-in moments as
       ``cohort_opt`` and returns the updated ones as a FOURTH output.
@@ -508,22 +593,45 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
     if robust and backend == "lace_dp":
         raise ValueError(
             "deadline/faults/guards are not supported on the lace_dp event "
-            "(its pop and FL phase run inside shard_map); use a single-host "
-            "backend")
+            "(its pop and FL phase run per client shard); use a "
+            "single-program backend")
     if robust and paged_opt:
         raise ValueError(
             "deadline/faults/guards are not supported with host-paged "
             "optimizer moments (the pager's arrival prediction does not "
             "model partial cohorts)")
-    if backend == "lace_dp" or arrival == "topk:sharded":
-        raise NotImplementedError(
-            "the lace_dp event and the sharded arrival pop are not ported "
-            f"yet; they come with {_MULTI_DEVICE}")
+    sharded = arrival == "topk:sharded"
+    if sharded and backend != "lace_dp" and mesh is None:
+        raise ValueError("arrival='topk:sharded' needs mesh= (the client "
+                         "axes the schedule scalars shard over)")
     delta = snapshots == "delta"
     opt = optimizer if optimizer is not None else optimizers.sgd()
     agg = aggregator if aggregator is not None else _agg.weighted()
     sched = _resolve_schedule(schedule, scala, lr_scale, cohort, num_clients)
-    pop = make_arrival_pop(cohort, arrival)
+    if backend == "lace_dp":
+        if mesh is None or batch_specs is None:
+            raise ValueError("backend 'lace_dp' needs mesh= and "
+                             "batch_specs=")
+        if sharded:
+            raise ValueError(
+                "arrival 'topk:sharded' is redundant under backend "
+                "'lace_dp': the event already pops per client shard; use "
+                "arrival 'topk' (applied per shard)")
+        if paged_opt:
+            raise ValueError("paged_opt is not supported on the lace_dp "
+                             "event (it pops per shard inside the event)")
+        return _make_async_runner_dp(
+            model, scala, boundary=boundary, delays=delays, cohort=cohort,
+            opt=opt, sched=sched, ce_chunk=ce_chunk,
+            staleness_decay=staleness_decay, mix_rate=mix_rate, agg=agg,
+            server_optimizer=server_optimizer, server_lr=server_lr,
+            opt_state_policy=opt_state_policy, precision=precision,
+            delta=delta, ring_size=ring_size,
+            emit_client_metrics=emit_client_metrics, arrival=arrival,
+            mesh=mesh, batch_specs=batch_specs, donate=donate)
+    n_blocks = mesh.n_client_shards if sharded else 1
+    pop = (functools.partial(_pop_sharded, cohort=cohort, mesh=mesh)
+           if sharded else make_arrival_pop(cohort, arrival))
     step = engine.make_split_step(model, scala, backend=backend,
                                   boundary=boundary, optimizer=opt,
                                   schedule=sched, ce_chunk=ce_chunk,
@@ -533,7 +641,8 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
 
     def async_fn(state: engine.TrainState, afed: AsyncFedState,
                  round_batches, data_sizes=None, cohort_opt=None):
-        K = afed.version.shape[0]
+        # K: every slot; the schedule arrays hold K / n_blocks of them
+        K = afed.version.shape[0] * n_blocks
         if cohort > K:
             raise ValueError(f"cohort {cohort} exceeds the {K} client slots")
         if paged_opt and cohort_opt is None:
@@ -554,19 +663,36 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
                 "guard norm clipping needs afed.guard (running median) -- "
                 "build the state with init_async_state(..., guards=...)")
 
-        # --- the pop, on the host: who arrives, and when ---
-        idx, arrival_mask, t_event = pop(afed.finish_time, afed.version)
+        # --- the pop, on the host: who arrives, and when; the arrivals'
+        # versions and finish times, and which of them this rank's
+        # schedule block holds (pos_l: their places in idx, loc: rows) ---
+        if sharded:
+            idx, _, t_event, v_idx, ft_idx = pop(afed.finish_time,
+                                                 version=afed.version)
+            arrival_mask = np.zeros((K,), np.float32)
+            arrival_mask[idx] = 1.0
+            loc = idx - mesh.client_index * afed.version.shape[0]
+            pos_l = np.flatnonzero((loc >= 0)
+                                   & (loc < afed.version.shape[0]))
+            loc = loc[pos_l]
+        else:
+            idx, arrival_mask, t_event = pop(afed.finish_time, afed.version)
+            v_idx, ft_idx = afed.version[idx], afed.finish_time[idx]
+            pos_l, loc = np.arange(len(idx)), idx
         present = None
         if deadline is not None:
             # the cohort barrier degrades gracefully: arrivals past
             # first finish + deadline miss the event and back off
-            ft_sub = afed.finish_time[idx]
-            t_event = np.minimum(t_event, ft_sub.min() + np.float32(deadline))
-            present = (ft_sub <= t_event).astype(np.float32)
+            t_event = np.minimum(t_event, ft_idx.min() + np.float32(deadline))
+            present = (ft_idx <= t_event).astype(np.float32)
             arrival_mask = np.zeros((K,), np.float32)
             arrival_mask[idx] = present
         staleness = (np.int32(afed.server_version)
                      - afed.version).astype(np.float32)
+        stale_k = staleness
+        if sharded:
+            stale_k = np.zeros((K,), np.float32)
+            stale_k[idx] = np.int32(afed.server_version) - v_idx
         idx_t = torch.from_numpy(idx).to(device)
 
         # --- fault injection: per-arrival drop / corrupt / stall ---
@@ -661,7 +787,7 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
                               data_sizes=data_sizes, p_k=p_k,
                               p_global=p_global)
         w_base, agg_state = agg.client_weights(ctx, afed.agg_state)
-        decay = torch.from_numpy(np.power(decay_base, staleness)).to(device)
+        decay = torch.from_numpy(np.power(decay_base, stale_k)).to(device)
         r_hat = normalize_client_weights(w_base * decay, mask_eff)
         pc_sub = sub.params["client"]
         if screened is not None:
@@ -730,15 +856,20 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
                 faults.stall_factor), eff_delays).astype(np.float32)
         version = afed.version.copy()
         retries = afed.retries.copy()
+        wrote = np.ones(len(idx), bool) if present is None else present > 0
         if present is not None:
-            retries_sub = afed.retries[idx]
+            retries_sub = np.zeros(len(idx), np.int32)
+            retries_sub[pos_l] = afed.retries[loc]
+            if sharded:       # every arrival's count, from its shard
+                retries_sub = mesh.all_reduce_host(
+                    retries_sub, "client").astype(np.int32)
             boff = np.power(np.float32(backoff),
                             retries_sub.astype(np.float32))
             eff_delays = np.where(present > 0, eff_delays, new_delays * boff)
-            retries[idx] = np.where(present > 0, 0, retries_sub + 1)
-        version[rows] = new_version
+            retries[loc] = np.where(present > 0, 0, retries_sub + 1)[pos_l]
+        version[loc[wrote[pos_l]]] = new_version
         finish_time = afed.finish_time.copy()
-        finish_time[idx] = t_event + eff_delays
+        finish_time[loc] = (t_event + eff_delays)[pos_l]
         if delta:
             slot = new_version % ring_size
             snap = afed.client_params
@@ -764,13 +895,14 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
             step=sub.step)
         metrics = dict(metrics)
         if emit_client_metrics:
+            blk = mesh.client_slice(K) if sharded else slice(None)
             metrics.update(
-                arrival_mask=arrival_mask, staleness=staleness,
+                arrival_mask=arrival_mask[blk], staleness=staleness,
                 staleness_mean=np.float32(
-                    (staleness * arrival_mask).sum()
+                    (stale_k * arrival_mask).sum()
                     / max(arrival_mask.sum(), np.float32(1.0))))
         else:
-            metrics.update(staleness_mean=np.float32(staleness[idx].mean()))
+            metrics.update(staleness_mean=np.float32(stale_k[idx].mean()))
         metrics.update(t_event=np.float32(t_event),
                        server_version=new_version)
         if screened is not None:
@@ -780,6 +912,190 @@ def make_async_runner(model: engine.SplitModel, scala: ScalaConfig, *,
                            - present.sum())
         if paged_opt:
             return new_state, new_afed, metrics, sub.opt_state["client"]
+        return new_state, new_afed, metrics
+
+    return async_fn
+
+
+# ---------------------------------------------------------------------------
+# the lace_dp event: the whole event per rank
+# ---------------------------------------------------------------------------
+
+
+def _make_async_runner_dp(model, scala, *, boundary, delays, cohort, opt,
+                          sched, ce_chunk, staleness_decay, mix_rate, agg,
+                          server_optimizer, server_lr, opt_state_policy,
+                          precision, delta, ring_size, emit_client_metrics,
+                          arrival, mesh, batch_specs, donate):
+    """The event of :func:`make_async_runner` on backend ``lace_dp``: the
+    same ``async_fn(state, afed, round_batches, data_sizes=None)``, run by
+    every rank of ``mesh`` on its client shard (the reference's
+    ``shard_map``-ed event).
+
+    ``state`` holds the rank's client rows (one slot under delta) and the
+    replicated server half; ``afed`` the rank's snapshots and schedule
+    block (:func:`init_async_state` with ``mesh=``), the ring replicated;
+    ``round_batches`` (T, K, ...) and ``data_sizes`` (K,) are global.
+    Each client shard pops ``cohort / n_shards`` of its own finishers
+    (the balanced two-tier schedule; the clock is the latest of the
+    shards' cohorts, one max over ``client``), trains them through the
+    ``lace_dp`` step, weighs them with the aggregator's ``shard_local``
+    and ``staleness_decay ** age`` (normalized by one sum over the
+    shards) and folds the cohort average in with one more sum over the
+    shards. The re-dispatch delays are the rank's block of the
+    single-program event's ``(cohort,)`` draw
+    (:meth:`DelayModel.sample_sharded`)."""
+    from repro_torch.sharding import round_specs
+
+    grid = mesh
+    n_shards = grid.n_client_shards
+    if cohort % n_shards:
+        raise ValueError(f"cohort {cohort} must divide over the {n_shards} "
+                         "client shards (per-shard balanced pop)")
+    if agg.shard_local is None:
+        raise ValueError(
+            f"aggregator {agg.name!r} is not shard-decomposable "
+            "(Aggregator.shard_local is None); the lace_dp event needs "
+            "fedavg / weighted / hierarchical")
+    if agg.stateful:
+        raise ValueError(f"aggregator {agg.name!r} is stateful; the lace_dp "
+                         "async event supports stateless aggregators only")
+    if opt_state_policy == "average":
+        raise ValueError("opt_state_policy 'average' is not supported on "
+                         "the lace_dp async event; use 'carry' or 'reset'")
+    cohort_l = cohort // n_shards
+    rb_specs = round_specs(batch_specs)
+    engine._check("lace_dp", boundary, precision, model, grid)
+    step = engine._local_step_fn(model, scala, "lace_dp", boundary, opt,
+                                 sched, ce_chunk, precision, grid)
+    decay_base = np.float32(staleness_decay)
+    mu = float(mix_rate)
+
+    def reduce(t):
+        return grid.all_reduce(t.reshape(-1).clone(), "client")
+
+    def async_fn(state: engine.TrainState, afed: AsyncFedState,
+                 round_batches, data_sizes=None):
+        K_l = afed.version.shape[0]
+        K = K_l * n_shards
+        if delta and opt_state_policy == "carry" \
+                and leaves(state.opt_state["client"]):
+            raise ValueError(
+                "snapshots='delta' cannot carry per-client optimizer "
+                "moments; use a stateless optimizer or "
+                "opt_state_policy='reset'")
+        if leaves(round_batches)[0].shape[1] != K:
+            raise ValueError("the lace_dp async event needs full (T, K, ...)"
+                             " round_batches (cut over the client shards)")
+        device = leaves(state.params["server"])[0].device
+        cs = grid.client_slice(K)
+        sizes = (torch.ones(K, dtype=torch.float32) if data_sizes is None
+                 else data_sizes)
+        sizes_l = sizes[cs].to(device).float()
+        rb = engine.shard_batch(grid, round_batches, rb_specs)
+
+        # --- the shard's pop of its local cohort; the clock is the
+        # latest of the shards' cohorts ---
+        idx, a_mask_l, t_l = arrival_cohort(afed.finish_time, cohort_l,
+                                            afed.version, method=arrival)
+        t_event = np.float32(grid.all_reduce_host(
+            np.array([t_l], np.float32), "client", "max")[0])
+        stal_l = (np.int32(afed.server_version)
+                  - afed.version).astype(np.float32)
+        idx_t = torch.from_numpy(idx).to(device)
+
+        # --- the local arrivals' snapshots ---
+        if delta:
+            snap_c, _ = ring_lookup(afed.ring, afed.version[idx],
+                                    afed.server_version, ring_size)
+            opt_sub = engine._client_opt_init(opt, snap_c)
+        else:
+            snap_c = engine.gather_rows(afed.client_params, idx_t)
+            opt_sub = engine.gather_rows(state.opt_state["client"], idx_t)
+        sub = engine.TrainState(
+            params={"client": snap_c, "server": state.params["server"]},
+            opt_state={"client": opt_sub,
+                       "server": state.opt_state["server"]},
+            step=state.step)
+        metrics = {}
+        for t in range(leaves(rb)[0].shape[0]):
+            sub, metrics = step(sub, {k: v[t].index_select(0, idx_t)
+                                      for k, v in rb.items()}, None,
+                                donate=t > 0)
+
+        # --- two-tier delayed aggregation: each shard (edge) folds its
+        # cohort, one sum over the shards folds the edges ---
+        m_l = torch.from_numpy(a_mask_l).to(device)
+        w_base_l = agg.shard_local(m_l, sizes_l, lambda t: reduce(t)[0],
+                                   n_shards)
+        decay_l = torch.from_numpy(np.power(decay_base, stal_l)).to(device)
+        raw_l = w_base_l * decay_l * m_l
+        r_l = raw_l / torch.clamp(reduce(raw_l.sum())[0], min=1e-8)
+        cohort_avg = engine._shard_mean(grid, sub.params["client"],
+                                        r_l.index_select(0, idx_t))
+        new_global = tree_map(
+            lambda g, c: ((1.0 - mu) * engine.at_least_f32(g[0])
+                          + mu * engine.at_least_f32(c)).to(g.dtype),
+            state.params["client"], cohort_avg)
+
+        # --- the server half (replicated: the same on every rank) ---
+        new_ws = sub.params["server"]
+        so_state = afed.server_opt
+        if server_optimizer is not None:
+            ws_delta = tree_map(
+                lambda a, b: engine.at_least_f32(a) - engine.at_least_f32(b),
+                state.params["server"], new_ws)
+            new_ws, so_state = server_optimizer.update(
+                ws_delta, so_state, state.params["server"], server_lr)
+
+        # --- the local slots' moments and re-dispatch ---
+        new_version = afed.server_version + 1
+        new_delays = delays.sample_sharded(afed.seed, new_version, cohort,
+                                           n_shards, grid.client_index)
+        if delta:
+            new_client = stack_client_params(new_global, 1)
+            opt_c = engine._client_opt_init(opt, new_client)
+            slot = new_version % ring_size
+            snap = afed.client_params
+            ring = _write_rows(afed.ring, tree_map(lambda g: g[None],
+                                                   new_global),
+                               torch.tensor([slot], device=device), donate)
+            ring_versions = afed.ring_versions.copy()
+            ring_versions[slot] = new_version
+        else:
+            sub_opt_c = sub.opt_state["client"]
+            if opt_state_policy == "reset":
+                sub_opt_c = engine._client_opt_init(opt,
+                                                    sub.params["client"])
+            opt_c = _write_rows(state.opt_state["client"], sub_opt_c, idx_t,
+                                donate)
+            new_client = stack_client_params(new_global, K_l)
+            snap = _write_rows(afed.client_params, tree_map(
+                lambda g: g[None].expand((cohort_l,) + g.shape),
+                new_global), idx_t, donate)
+            ring, ring_versions = afed.ring, afed.ring_versions
+        version = afed.version.copy()
+        version[idx] = new_version
+        finish_time = afed.finish_time.copy()
+        finish_time[idx] = t_event + new_delays
+        new_afed = AsyncFedState(
+            client_params=snap, version=version, server_version=new_version,
+            finish_time=finish_time, now=t_event, seed=afed.seed,
+            agg_state=afed.agg_state, server_opt=so_state, ring=ring,
+            ring_versions=ring_versions, retries=afed.retries,
+            guard=afed.guard)
+        new_state = engine.TrainState(
+            params={"client": new_client, "server": new_ws},
+            opt_state={"client": opt_c, "server": sub.opt_state["server"]},
+            step=sub.step)
+        s_sum, s_cnt = grid.all_reduce_host(np.array(
+            [(stal_l * a_mask_l).sum(), a_mask_l.sum()], np.float32),
+            "client")
+        metrics = dict(metrics)
+        if emit_client_metrics:
+            metrics.update(arrival_mask=a_mask_l, staleness=stal_l)
+        metrics.update(staleness_mean=np.float32(s_sum / max(s_cnt, 1.0)),
+                       t_event=t_event, server_version=new_version)
         return new_state, new_afed, metrics
 
     return async_fn

@@ -10,6 +10,15 @@ materializing the (tokens, V) logits.
   ``torch.autograd.Function``; the engine's ``boundary="dual"`` takes two,
   one per prior. On CUDA: K4 forward (saving the log-sum-exp), K5
   backward, whose dW pass is skipped when ``w_head`` needs no gradient.
+* :func:`lace2_loss` / :func:`lace2_nll_sum` -- both adjusted losses
+  (means or raw sums) as one ``torch.autograd.Function``, whose backward
+  folds both cotangents into one df and one dW. On CUDA: K1 forward, one
+  K2 backward over the tokens stacked twice (once per side's prior and
+  cotangent scale), so K2's server-side dW is the folded one.
+* :func:`lace_loss_dp` / :func:`lace2_grads_dp` -- the same over a
+  :class:`repro_torch.sharding.Grid`: each rank takes raw sums over its
+  own tokens, one scalar all_reduce gives the losses and the weight
+  denominator, and the head gradient is all_reduced once.
 
 A CPU tensor gets the plain chunked version -- the reference's
 ``repro/kernels/lace/ops.py`` on torch ops: the token axis scanned in
@@ -45,6 +54,8 @@ LAUNCHES_FWD = 0     # K1
 LAUNCHES_BWD = 0     # K2
 LAUNCHES_FWD1 = 0    # K4
 LAUNCHES_BWD1 = 0    # K5
+#: launches with ``mean=False`` (raw sums), a subset of the counts above
+LAUNCHES_RAW = {"K1": 0, "K2": 0, "K4": 0, "K5": 0}
 
 
 def _pick_chunk(n: int, target: int) -> int:
@@ -230,6 +241,9 @@ def _lace2_grads_cuda(feats, w_head, labels, prior_rows_s, prior_ids_s,
                                            adj_k, ids_k, lse_s, lse_k, ts,
                                            ts)
     LAUNCHES_BWD += 1
+    if not mean:
+        LAUNCHES_RAW["K1"] += 1
+        LAUNCHES_RAW["K2"] += 1
     out_s, out_k = (nll_s * w).sum(), (nll_k * w).sum()
     if mean:
         den = torch.clamp(w_sum, min=1e-8)
@@ -348,6 +362,7 @@ class _LaceLoss(torch.autograd.Function):
                                                 prior_ids, weights, tau, eps)
             nll, lse = kernel.lace_fwd_cuda(f2, w_head, lab, adj, ids)
             LAUNCHES_FWD1 += 1
+            LAUNCHES_RAW["K4"] += not mean
             nll_sum, w_sum = (nll * w).sum(), w.sum()
             ctx.save_for_backward(feats, w_head, lab, adj, ids, w, w_sum,
                                   lse)
@@ -373,6 +388,7 @@ class _LaceLoss(torch.autograd.Function):
                                           lab, adj, ids, lse,
                                           (w * scale).contiguous(), want_dw)
             LAUNCHES_BWD1 += 1
+            LAUNCHES_RAW["K5"] += not mean
             df = df.view(G, N, d).to(feats.dtype)
             dw = None if dw is None else dw.to(w_head.dtype)
         return df, dw, None, None, None, None, None, None, None, None
@@ -413,3 +429,264 @@ def lace_loss_flat(feats, w_head, labels, *, prior_rows=None,
                      None if prior_ids is None else prior_ids[None],
                      None if weights is None else weights[None], tau, eps,
                      chunk)
+
+
+# ---------------------------------------------------------------------------
+# both adjusted losses from one pass, differentiable: the pair ops
+# ---------------------------------------------------------------------------
+
+
+def _fwd2_plain(feats, w_head, labels, prior_rows_s, prior_ids_s,
+                prior_rows_k, prior_ids_k, weights, tau, eps, chunk):
+    """Both sides' weighted NLL sums and the weight sum, one product per
+    chunk (the reference's ``_fwd2_impl`` on torch ops)."""
+    c = _pick_chunk(feats.shape[1], chunk)
+    feats_p, labels_p, weights_p, _ = _pad_tokens(c, feats, labels, weights)
+    w, lp_s = _prep(feats_p, prior_rows_s, prior_ids_s, weights_p, eps)
+    _, lp_k = _prep(feats_p, prior_rows_k, prior_ids_k, weights_p, eps)
+    w32 = w_head.float()
+    sums = [torch.zeros((), dtype=torch.float32, device=feats.device)
+            for _ in range(2)]
+    for i in range(0, feats_p.shape[1], c):
+        z = feats_p[:, i:i + c].float() @ w32
+        for j, lp in enumerate((lp_s, lp_k)):
+            nll, _, _, _ = _nll_stats(z if lp is None else z + tau * lp,
+                                      labels_p[:, i:i + c])
+            sums[j] = sums[j] + (nll * w[:, i:i + c]).sum()
+    return sums[0], sums[1], _w_sum(w, c)
+
+
+def _bwd2_plain(feats, w_head, labels, prior_rows_s, prior_ids_s,
+                prior_rows_k, prior_ids_k, weights, tau, eps, chunk, scale_s,
+                scale_k, want_dw):
+    """The folded backward (the reference's ``_bwd2_impl``): every token's
+    cotangent row ``(p_s - onehot) w scale_s + (p_k - onehot) w scale_k``
+    through one df and one dW product per chunk."""
+    G, N0, d = feats.shape
+    c = _pick_chunk(N0, chunk)
+    feats_p, labels_p, weights_p, _ = _pad_tokens(c, feats, labels, weights)
+    w, lp_s = _prep(feats_p, prior_rows_s, prior_ids_s, weights_p, eps)
+    _, lp_k = _prep(feats_p, prior_rows_k, prior_ids_k, weights_p, eps)
+    w32 = w_head.float()
+    dw = (torch.zeros(w32.shape, dtype=torch.float32, device=feats.device)
+          if want_dw else None)
+    df = []
+    for i in range(0, feats_p.shape[1], c):
+        f_c = feats_p[:, i:i + c].float()
+        l_c, w_c = labels_p[:, i:i + c], w[:, i:i + c]
+        z = f_c @ w32
+        _, g_s = _side_stats(z if lp_s is None else z + tau * lp_s, l_c)
+        _, g_k = _side_stats(z if lp_k is None else z + tau * lp_k, l_c)
+        gi = (g_s * (w_c * scale_s)[..., None]
+              + g_k * (w_c * scale_k)[..., None])
+        df.append(gi @ w32.T)
+        if want_dw:
+            dw = dw + torch.einsum("gcd,gcv->dv", f_c, gi)
+    dfeats = torch.cat(df, 1)[:, :N0].to(feats.dtype)
+    return dfeats, None if dw is None else dw.to(w_head.dtype)
+
+
+def _stacked_sides(adj_s, ids_s, adj_k, ids_k, M, V, device):
+    """One prior table for the tokens stacked twice: the first M rows
+    read side s's table, the next M side k's (a side with no prior reads
+    a zero row, and z + 0 is z)."""
+    tables, ids, base = [], [], 0
+    for adj, row_ids in ((adj_s, ids_s), (adj_k, ids_k)):
+        if adj is None:
+            adj = torch.zeros((1, V), dtype=torch.float32, device=device)
+        tables.append(adj)
+        ids.append(base + (torch.zeros(M, dtype=torch.int32, device=device)
+                           if row_ids is None else row_ids))
+        base += adj.shape[0]
+    return torch.cat(tables).contiguous(), torch.cat(ids).contiguous()
+
+
+class _Lace2Loss(torch.autograd.Function):
+    """Both sides' weighted means (``mean``) or sums of adjusted NLLs;
+    gradients for feats and w_head with the two cotangents folded."""
+
+    @staticmethod
+    def forward(ctx, feats, w_head, labels, prior_rows_s, prior_ids_s,
+                prior_rows_k, prior_ids_k, weights, tau, eps, chunk, mean):
+        global LAUNCHES_FWD
+        ctx.conf = (tau, eps, chunk, mean)
+        if feats.device.type == "cpu":
+            out_s, out_k, w_sum = _fwd2_plain(
+                feats, w_head, labels, prior_rows_s, prior_ids_s,
+                prior_rows_k, prior_ids_k, weights, tau, eps, chunk)
+            ctx.save_for_backward(feats, w_head, labels, prior_rows_s,
+                                  prior_ids_s, prior_rows_k, prior_ids_k,
+                                  weights, w_sum)
+        else:
+            G, N, d = feats.shape
+            f2, lab, w, adj_s, ids_s = _kernel_args(
+                feats, labels, prior_rows_s, prior_ids_s, weights, tau, eps)
+            adj_k, ids_k = _side_table(prior_rows_k, prior_ids_k, tau, eps,
+                                       G, N)
+            nll_s, nll_k, lse_s, lse_k = kernel.lace2_fwd_cuda(
+                f2, w_head, lab, adj_s, ids_s, adj_k, ids_k)
+            LAUNCHES_FWD += 1
+            LAUNCHES_RAW["K1"] += not mean
+            out_s, out_k, w_sum = (nll_s * w).sum(), (nll_k * w).sum(), \
+                w.sum()
+            ctx.sides = (adj_s, ids_s, adj_k, ids_k)
+            ctx.save_for_backward(feats, w_head, lab, w, lse_s, lse_k, w_sum)
+        if mean:
+            den = torch.clamp(w_sum, min=1e-8)
+            return out_s / den, out_k / den
+        return out_s, out_k
+
+    @staticmethod
+    def backward(ctx, g_s, g_k):
+        global LAUNCHES_BWD
+        tau, eps, chunk, mean = ctx.conf
+        saved = ctx.saved_tensors
+        w_sum = saved[-1]
+        den = torch.clamp(w_sum, min=1e-8)
+        scale_s, scale_k = (g_s / den, g_k / den) if mean else (g_s, g_k)
+        want_dw = ctx.needs_input_grad[1]
+        feats, w_head = saved[0], saved[1]
+        if feats.device.type == "cpu":
+            df, dw = _bwd2_plain(*saved[:8], tau, eps, chunk, scale_s,
+                                 scale_k, want_dw)
+        else:
+            _, _, lab, w, lse_s, lse_k, _ = saved
+            G, N, d = feats.shape
+            M, V = G * N, w_head.shape[1]
+            f2 = feats.reshape(M, d)
+            adj, ids = _stacked_sides(*ctx.sides, M, V, feats.device)
+            ts = torch.cat([w * scale_s, w * scale_k]).contiguous()
+            lse = torch.cat([lse_s, lse_k]).contiguous()
+            # the k side of this call is the s side again at scale 0: its
+            # df is zero and unused
+            df2, _, dw = kernel.lace2_bwd_cuda(
+                torch.cat([f2, f2]), w_head, torch.cat([lab, lab]), adj, ids,
+                adj, ids, lse, lse, ts, torch.zeros_like(ts))
+            LAUNCHES_BWD += 1
+            LAUNCHES_RAW["K2"] += not mean
+            df = (df2[:M] + df2[M:]).view(G, N, d).to(feats.dtype)
+            dw = dw.to(w_head.dtype) if want_dw else None
+        return (df, dw) + (None,) * 10
+
+
+def _lace2(feats, w_head, labels, prior_rows_s, prior_ids_s, prior_rows_k,
+           prior_ids_k, weights, tau, eps, chunk, mean):
+    _check_args2(feats, w_head, labels, prior_rows_s, prior_ids_s,
+                 prior_rows_k, prior_ids_k, weights)
+    kinds = {t.device.type for t in (feats, w_head, labels)}
+    if kinds not in ({"cpu"}, {"cuda"}):
+        raise ValueError(f"lace2_loss takes CPU or CUDA tensors on one "
+                         f"device, got {sorted(kinds)}")
+    return _Lace2Loss.apply(feats, w_head, labels, prior_rows_s, prior_ids_s,
+                            prior_rows_k, prior_ids_k, weights, tau, eps,
+                            chunk, mean)
+
+
+def lace2_loss(feats, w_head, labels, prior_rows_s, prior_ids_s,
+               prior_rows_k, prior_ids_k, weights, tau: float = 1.0,
+               eps: float = 1e-8, chunk: int = 4096):
+    """``(loss_s, loss_k)``: the eq. 14 (prior ``_s``) and eq. 15 (prior
+    ``_k``) weighted-mean adjusted NLLs of the same tokens from one
+    product per chunk, differentiable in ``feats`` and ``w_head``; the
+    backward folds both cotangents into one df and one dW. Either prior
+    may be None (plain CE on that side)."""
+    return _lace2(feats, w_head, labels, prior_rows_s, prior_ids_s,
+                  prior_rows_k, prior_ids_k, weights, tau, eps, chunk, True)
+
+
+def lace2_nll_sum(feats, w_head, labels, prior_rows_s, prior_ids_s,
+                  prior_rows_k, prior_ids_k, weights, tau: float = 1.0,
+                  eps: float = 1e-8, chunk: int = 4096):
+    """:func:`lace2_loss` as raw weighted sums (no normalization): the
+    local pair a sharded caller combines."""
+    return _lace2(feats, w_head, labels, prior_rows_s, prior_ids_s,
+                  prior_rows_k, prior_ids_k, weights, tau, eps, chunk, False)
+
+
+# ---------------------------------------------------------------------------
+# over a grid of ranks: local raw sums, scalar all_reduces, one dW
+# all_reduce (the reference's shard_map-wrapped ``*_dp`` ops)
+# ---------------------------------------------------------------------------
+
+
+class _GridSum(torch.autograd.Function):
+    """A tensor summed over a grid group. Its backward passes the
+    cotangent through unchanged: every rank's local term sees the global
+    loss's cotangent (the transpose of a psum under a replicated
+    cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, grid, group):
+        return grid.all_reduce(x.detach().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ReplicatedGrad(torch.autograd.Function):
+    """The identity on a replicated weight whose gradient is the sum of
+    every rank's partial: one all_reduce (in float32) in the backward."""
+
+    @staticmethod
+    def forward(ctx, w, grid, group):
+        ctx.grid, ctx.group = grid, group
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        g32 = g.float().contiguous()
+        ctx.grid.all_reduce(g32, ctx.group)
+        return g32.to(g.dtype), None, None
+
+
+def lace_loss_dp(feats, w_head, labels, prior_rows, prior_ids, weights,
+                 tau: float = 1.0, eps: float = 1e-8, chunk: int = 4096,
+                 grid=None, group: str = "all"):
+    """:func:`lace_loss` over a :class:`repro_torch.sharding.Grid`: every
+    input is this rank's block (feats (G_l, N_l, d) with its labels,
+    weights and ``prior_ids`` into ``prior_rows``), ``w_head`` is
+    replicated. The rank's :func:`lace_nll_sum` (K4 / K5 on a card) and
+    weight sum are summed over ``group`` by one all_reduce each; the
+    backward scales the local cotangents by the global ``1 / W`` and
+    all_reduces the head gradient once. ``grid=None`` is the
+    single-program :func:`lace_loss`."""
+    if grid is None:
+        return lace_loss(feats, w_head, labels, prior_rows, prior_ids,
+                         weights, tau, eps, chunk)
+    nll = lace_nll_sum(feats, _ReplicatedGrad.apply(w_head, grid, group),
+                       labels, prior_rows, prior_ids, weights, tau, eps,
+                       chunk)
+    wsum = (weights.float().sum() if weights is not None else torch.tensor(
+        float(labels.numel()), dtype=torch.float32, device=feats.device))
+    den = torch.clamp(grid.all_reduce(wsum.reshape(1), group)[0], min=1e-8)
+    return _GridSum.apply(nll, grid, group) / den
+
+
+@torch.no_grad()
+def lace2_grads_dp(feats, w_head, labels, prior_rows_s, prior_ids_s,
+                   prior_rows_k, prior_ids_k, weights, tau: float = 1.0,
+                   eps: float = 1e-8, chunk: int = 4096, grid=None,
+                   group: str = "all"):
+    """:func:`lace2_grads` over a grid: this rank's blocks in, the raw
+    sums of :func:`lace2_grads` (``mean=False``: K1 / K2 on a card) out,
+    the weight denominator and then both losses all_reduced as scalars,
+    the unit-cotangent gradients rescaled to the global mean, dW_s
+    all_reduced once (in float32). Returns ``(loss_s, loss_k, df_s,
+    df_k, dw_s)``; df stays local. ``grid=None`` is the single-program
+    op's first five outputs."""
+    if grid is None:
+        return lace2_grads(feats, w_head, labels, prior_rows_s, prior_ids_s,
+                           prior_rows_k, prior_ids_k, weights, tau, eps,
+                           chunk)[:5]
+    nll_s, nll_k, df_s, df_k, dw_s, ws_l = lace2_grads(
+        feats, w_head, labels, prior_rows_s, prior_ids_s, prior_rows_k,
+        prior_ids_k, weights, tau, eps, chunk, mean=False)
+    den = torch.clamp(grid.all_reduce(ws_l.float().reshape(1), group)[0],
+                      min=1e-8)
+    inv = torch.ones((), dtype=torch.float32, device=den.device) / den
+    losses = grid.all_reduce(torch.stack([nll_s, nll_k]).float(), group)
+    rescale = lambda a: (a.float() * inv).to(a.dtype)        # noqa: E731
+    dw = grid.all_reduce(rescale(dw_s).float().contiguous(), group)
+    return (losses[0] * inv, losses[1] * inv, rescale(df_s), rescale(df_k),
+            dw.to(dw_s.dtype))

@@ -60,8 +60,11 @@ round overwrites it from its first local step on):
         --clients 16 --participation 0.25 --precision bf16 \
         --rounds-per-call 2 --rounds 4
 
-The flag of an unported feature (``--arrival topk:sharded``) fails with
-the spec's NotImplementedError. The port always runs a round as a
+``--arrival topk:sharded`` exits with build's refusal: the sharded pop
+needs a grid of ranks, and this driver builds none, as the reference's
+builds no mesh (the multi-device path runs through ``build(spec,
+mesh=, batch_specs=)``: ``examples/lace_dp.py``). The port always runs a
+round as a
 Python loop of steps, so ``--no-scan`` changes nothing and ``--unroll``
 has nothing to act on.
 
@@ -259,6 +262,12 @@ def main(argv=None):
     if args.resume and not args.state_dir:
         raise SystemExit("--resume needs --state-dir (the directory "
                          "Trainer.save wrote full-state checkpoints to)")
+    if spec.execution.arrival == "topk:sharded":
+        # build's own refusal: the sharded pop needs a grid of ranks
+        raise SystemExit("arrival 'topk:sharded' pops per client-mesh "
+                         "shard; it needs build(spec, mesh=), which this "
+                         "driver does not build (examples/lace_dp.py runs "
+                         "the multi-device path)")
 
     cfg = spec.model_config()
     print(f"arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} "

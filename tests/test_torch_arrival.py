@@ -11,8 +11,8 @@ moments, the spec plumbing (the assertions of ``tests/test_arrival.py``).
   :class:`repro_torch.fed.HostOptPager` follows dense + carry bit for
   bit, with one device slot of moments and all K rows in host numpy.
 * ``ExecutionSpec`` / ``validate``: the reference's errors on the same
-  specs; the sharded pop raises ``NotImplementedError`` naming the
-  multi-device slice.
+  specs; the sharded pop needs a grid (``build(spec, mesh=)``; its
+  parity is ``tests/test_torch_dp_pop.py``'s).
 
 Left out: the reference's mesh-sharded pop and the sharded schedule
 scalars (a forced 4-device mesh), its 10k-client paged run (``slow``),
@@ -117,9 +117,10 @@ def test_topk_pop_bit_identical_to_sort_at_scale():
 def test_arrival_cohort_rejects_unknown_method():
     with pytest.raises(ValueError, match="arrival"):
         fed.arrival_cohort(np.zeros(4, np.float32), 2, method="bogus")
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    # the sharded pop is its own function, and it needs the grid
+    with pytest.raises(ValueError, match="sharded_arrival_cohort"):
         fed.arrival_cohort(np.zeros(4, np.float32), 2, method="topk:sharded")
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    with pytest.raises(ValueError, match="mesh"):
         fed.make_arrival_pop(2, "topk:sharded")
 
 
@@ -298,8 +299,7 @@ def test_spec_structural_checks_and_the_sharded_pop():
     with pytest.raises(ValueError, match="unknown opt_paging"):
         api.ExecutionSpec(opt_paging="device")
     port, ref = _specs(dict(mode="async", arrival="topk:sharded"))
-    ref.validate()            # the reference builds it with a mesh
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        port.validate()
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    ref.validate()            # both build it with a mesh, and only so
+    assert port.validate() is port
+    with pytest.raises(ValueError, match="needs build\\(spec, mesh=\\)"):
         api.build(port, device="cpu")

@@ -27,7 +27,7 @@
   (resume bitwise, dense and delta) and CLI layers.
 
 Left out: the ``lace_dp`` event, the sharded pop and the sharded delay
-sampling (the multi-device slice), the legacy deprecation shims (the
+sampling (``tests/test_torch_dp.py``, ``tests/test_torch_dp_pop.py``), the legacy deprecation shims (the
 port has none) and the server-FedOpt / slot-gather assertions the sync
 round's tests already hold (``tests/test_torch_fed.py``).
 """
@@ -487,7 +487,7 @@ def test_runner_and_state_validation():
                              server_optimizer=optimizers.sgd())
     with pytest.raises(ValueError, match="cohort"):
         fed.make_async_runner(model, sc, delays=dm, cohort=0)
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    with pytest.raises(ValueError, match="mesh= and batch_specs="):
         fed.make_async_runner(model, sc, delays=dm, cohort=2,
                               backend="lace_dp")
     # faults and guards are ported; their specs are parsed as the
@@ -880,13 +880,16 @@ def test_validate_async_rules_match_reference(case):
 
 
 def test_async_still_refuses_what_later_slices_bring():
-    for ex, fd, match in (
-            (dict(mode="async", backend="lace_dp"), None, "multi-device"),
-            (dict(mode="async", arrival="topk:sharded"), None,
-             "multi-device")):
-        d = _lm_spec(ex, fd)
-        with pytest.raises(NotImplementedError, match=match):
-            api.ExperimentSpec.from_dict(d).validate()
+    # the multi-device event and pop are ported: they validate, and build
+    # refuses them without a grid, as the reference's build does
+    for ex, match in ((dict(mode="async", backend="lace_dp"),
+                       "mesh=, batch_specs="),
+                      (dict(mode="async", arrival="topk:sharded"),
+                       "mesh=")):
+        spec = api.ExperimentSpec.from_dict(_lm_spec(ex, None))
+        assert spec.validate() is spec
+        with pytest.raises(ValueError, match=match):
+            api.build(spec, device="cpu")
     # the dispatch knobs are ported: with faults or guards they validate
     for ex, fd in ((dict(mode="async", precision="bf16"),
                     dict(faults="drop:0.1")),

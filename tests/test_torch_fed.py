@@ -777,7 +777,7 @@ def test_slot_gather_validation():
     with pytest.raises(ValueError, match="static subset_size"):
         engine.make_round_runner(model, sc, slot_gather=True,
                                  participation=no_size)
-    with pytest.raises(NotImplementedError, match="lace_dp"):
+    with pytest.raises(ValueError, match="lace_dp"):
         engine.make_round_runner(model, sc, backend="lace_dp",
                                  slot_gather=True,
                                  participation=fed.uniform(4, 0.5))

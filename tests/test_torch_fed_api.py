@@ -237,12 +237,13 @@ def test_validate_applies_the_reference_rules(kw, match):
 
 
 def test_validate_names_the_slices_still_to_come():
-    for kw, match in (
-            (dict(execution=api.ExecutionSpec(mode="async",
-                                              arrival="topk:sharded")),
-             "multi-device slice"),):
-        with pytest.raises(NotImplementedError, match=match):
-            _image_spec(**kw).validate()
+    # the multi-device path is ported: the sharded pop validates with a
+    # deadline, and build refuses it without a grid, as the reference's
+    spec = _image_spec(execution=api.ExecutionSpec(
+        mode="async", arrival="topk:sharded", deadline=2.0))
+    assert spec.validate() is spec
+    with pytest.raises(ValueError, match="mesh="):
+        api.build(spec, device="cpu")
     # the dispatch knobs are ported: they validate, with faults too
     for kw in (dict(fed=api.FedSpec(participation="uniform:0.5",
                                     faults="drop:0.1"),
@@ -253,9 +254,12 @@ def test_validate_names_the_slices_still_to_come():
                                                 rounds_per_call=2))):
         spec = _image_spec(**kw)
         assert spec.validate() is spec
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        _lm_spec(execution=api.ExecutionSpec(mode="masked",
-                                             backend="lace_dp")).validate()
+    for fd in (api.FedSpec(participation="uniform:0.5"),
+               api.FedSpec(participation="uniform:0.5", faults="drop:0.1",
+                           guards="nonfinite")):
+        spec = _lm_spec(fed=fd, execution=api.ExecutionSpec(
+            mode="masked", backend="lace_dp"))
+        assert spec.validate() is spec      # built with a grid
 
 
 def test_bad_spec_strings_raise_at_construction():

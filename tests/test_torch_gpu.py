@@ -427,6 +427,81 @@ def test_lace_absent_side_and_raw_sums():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mean", [True, False])
+def test_lace_pair_ops_on_card_match_cpu(mean):
+    """``lace2_loss`` / ``lace2_nll_sum`` (the pair ops: K1 forward, one K2
+    over the tokens stacked twice in the backward) through autograd on a
+    card against the same calls on the CPU (the plain versions): values
+    at 1e-5 relative, the folded df and dW at 1e-5 of their largest
+    entry; one K1 and one K2 launch, counted raw with ``mean=False``."""
+    _needs_card()
+    feats, w_head, labels, weights, p_s, p_k = _lace_inputs(
+        13, 3, 120, 64, 900, torch.float32)
+    ids = torch.arange(3, device="cuda")
+    op = lace_ops.lace2_loss if mean else lace_ops.lace2_nll_sum
+    res = {}
+    for dev in ("cuda", "cpu"):
+        f = feats.to(dev).requires_grad_()
+        wh = w_head.to(dev).requires_grad_()
+        before = (lace_ops.LAUNCHES_FWD, lace_ops.LAUNCHES_BWD,
+                  lace_ops.LAUNCHES_RAW["K1"], lace_ops.LAUNCHES_RAW["K2"])
+        out_s, out_k = op(f, wh, labels.to(dev), p_s.to(dev), None,
+                          p_k.to(dev), ids.to(dev), weights.to(dev), 1.0,
+                          1e-8, 64)
+        df, dw = torch.autograd.grad(0.7 * out_s - 1.3 * out_k, (f, wh))
+        after = (lace_ops.LAUNCHES_FWD, lace_ops.LAUNCHES_BWD,
+                 lace_ops.LAUNCHES_RAW["K1"], lace_ops.LAUNCHES_RAW["K2"])
+        launched = tuple(a - b for a, b in zip(after, before))
+        want = ((1, 1) + ((0, 0) if mean else (1, 1)) if dev == "cuda"
+                else (0, 0, 0, 0))
+        assert launched == want, launched
+        res[dev] = (out_s.item(), out_k.item(), df.cpu(), dw.cpu())
+    for a, b in zip(res["cuda"][:2], res["cpu"][:2]):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for a, b in zip(res["cuda"][2:], res["cpu"][2:]):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_lace_dp_ops_on_a_one_rank_nccl_grid_match_single_program(tmp_path):
+    """``lace2_grads_dp`` and ``lace_loss_dp`` on a card over a one-rank
+    NCCL grid (raw sums through K1 / K2 and K4 / K5, one scalar and one
+    dW all_reduce each) against the single-program ops on the card: 1e-5
+    of each output's largest entry."""
+    _needs_card()
+    import torch.distributed as dist
+
+    from repro_torch.sharding import init_local_group, make_host_grid
+
+    made = init_local_group("nccl")
+    try:
+        grid = make_host_grid()
+        feats, w_head, labels, weights, p_s, p_k = _lace_inputs(
+            17, 2, 96, 64, 700, torch.float32)
+        ids = torch.arange(2, device="cuda")
+        args = (feats, w_head, labels, p_s, None, p_k, ids, weights, 1.0,
+                1e-8, 64)
+        got = lace_ops.lace2_grads_dp(*args, grid=grid)
+        want = lace_ops.lace2_grads(*args)[:5]
+        for a, b in zip(got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= 1e-5 * max(1e-6, b.float().abs().max().item())
+        res = []
+        for g in (grid, None):
+            f = feats.clone().requires_grad_()
+            wh = w_head.clone().requires_grad_()
+            loss = lace_ops.lace_loss_dp(f, wh, labels, p_k, ids, weights,
+                                         1.0, 1e-8, 64, grid=g)
+            res.append((loss.detach(),) + torch.autograd.grad(loss, (f, wh)))
+        for a, b in zip(*res):
+            err = (a - b).abs().max().item()
+            assert err <= 1e-5 * max(1e-6, b.abs().max().item())
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+@pytest.mark.gpu
 def test_split_step_on_card_matches_cpu():
     """One SCALA split step of reduced qwen1.5-0.5b in float32 through the
     kernels (K1, K2, K3 forward and backward) against the same step on the
