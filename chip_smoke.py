@@ -257,6 +257,20 @@ Phases, one or more lines each:
 20b. check-vlm: internvl2-26b's projector alone at full width in float32,
    (2, 256, 3200) -> (2, 256, 6144), card against CPU: its output and
    the grads of its four leaves.
+22. tooling: (a) the boundary leg (``repro_torch.benchmarks.boundary``:
+   the reference's grid on both backends, the bf16 leg, qwen1.5-0.5b's
+   head at d 1024, V 151936, 4 x 2048 tokens, then the fused-against-dual
+   guard; K1, K2, K4, K5 launched), (b) the serving leg
+   (``repro_torch.benchmarks.serve`` at full-width qwen1.5-0.5b: 12
+   requests, slots 2 and 4, 2 reps; paged tokens == continuous; K3 once
+   a layer on every admit; then the continuous-against-static guard on
+   MICRO), (c) the dry run of qwen1.5-0.5b x {train_4k, prefill_32k,
+   decode_32k} on grids "1" and "16x16", its two report tables, the
+   roofline leg and the top 5 of profile_collectives, (d) phase 6's
+   local step (4 slots x 4 x 512) dry-run on ``meta`` and then run on
+   the card: argument bytes equal exactly, the dry run's peak beside
+   ``max_memory_allocated``, counted FLOPs and 6 N D over the step's
+   seconds at the bf16 peak (the MFU); the phase's seconds (bar 90 s).
 
 Then one JSON line of kernel numbers, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -281,6 +295,7 @@ and K1 / K2 at qwen3-moe-30b-a3b's training shapes from phase 3, then 18
 and 18b.
 ``python3 chip_smoke.py frontends`` runs phases 1 and 2, the frontend
 cases of phase 3 (K3 and K1 / K2), then 5h, 5i, 19, 19b, 20 and 20b.
+``python3 chip_smoke.py tooling`` runs phases 1, 2 and 22.
 ``python3 chip_smoke.py xlstm-rounding`` runs phases 1 and 2, then only
 the probe behind check-xlstm's depth: full-depth float32 xlstm-1.3b
 through the prefill (K6, the plain version) and the decode loop (two
@@ -298,6 +313,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -305,11 +321,15 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.perf.roofline import (HBM_BW, PEAK_BY_KIND,  # noqa: E402
+                                       work_bound)
+
 ARCH = "qwen1.5-0.5b"
-PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
-              torch.float32: 67e12,     # float32 outside the tensor cores
-              "tf32": 495e12}           # dense tensor-core TF32
-PEAK_BYTES = 3.35e12                    # HBM3, H100 SXM
+# the H100 SXM's published peaks (repro_torch/perf/roofline.py)
+PEAK_FLOPS = {torch.bfloat16: PEAK_BY_KIND["bf16"],   # tensor-core bf16
+              torch.float32: PEAK_BY_KIND["f32"],     # outside the cores
+              "tf32": PEAK_BY_KIND["tf32"]}           # tensor-core TF32
+PEAK_BYTES = HBM_BW                                   # HBM3
 TOL = {torch.bfloat16: 3e-2,  # output rounded to bf16 (2^-8 relative)
        torch.float32: 1e-4}   # float32 sums over <= 2048 keys in another order
 LOGIT_ATOL = 1e-3   # f32 logits of O(1) after 24 layers, sums in another order
@@ -593,28 +613,16 @@ def device_ms(fn, iters: int = 20) -> float:
                        f"than a {sleep_s / 4:.4f} s sleep")
 
 
-def causal_pairs(P, window, Skv=None, causal=True):
-    """The (query, key) pairs attention over P queries scores: causal (and
-    windowed) over P tokens, or, with ``causal=False``, every one of the
-    ``Skv`` keys (cross-attention; ``Skv`` defaults to P)."""
-    if not causal:
-        return P * (P if Skv is None else Skv)
-    span = np.arange(P) + 1
-    return int(np.minimum(span, window).sum() if window else span.sum())
-
-
 def attention_bound(B, P, H, KV, hd, window, dtype, Skv=None, causal=True):
     """(ms, 'operations' | 'bytes'): the least time for attention over B
     rows of P queries, from the (q, k) pairs it must score
-    (:func:`causal_pairs`), or from its bytes: q and the output at P
-    rows, k and v at ``Skv`` (default P)."""
-    Skv = P if Skv is None else Skv
-    flops = 4 * hd * causal_pairs(P, window, Skv, causal) * H * B  # QK^T, PV
-    nbytes = B * (2 * P * H * hd + 2 * Skv * KV * hd) * torch.empty(
-        (), dtype=dtype).element_size()
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    (``kernels/flash_attn/ops.py:scored_pairs``), or from its bytes: q
+    and the output at P rows, k and v at ``Skv`` (default P)."""
+    from repro_torch.kernels.flash_attn import ops
+
+    t, bound_by = work_bound(ops.work(B, P, H, KV, hd, dtype, window=window,
+                                      Skv=Skv, causal=causal))
+    return t * 1e3, bound_by
 
 
 def phase_device():
@@ -1506,21 +1514,13 @@ def mlstm_bound(B, S, H, dk, dv, dtype, chunk=MLSTM_CHUNK):
     takes an f32 operand: the state is f32), or one read of q, k, v (in
     ``dtype``) and the gates and one write of h and the final state, the
     larger. The third, for the text only, is the operations at the f32
-    CUDA cores' rate."""
-    flops = 0
-    for t0 in range(0, S, chunk):
-        L = min(chunk, S - t0)
-        flops += ((2 if t0 == 0 else 4) * L * (dk * dv + dk)
-                  + L * (L + 1) * (dk + dv))
-    flops *= B * H
-    el = torch.empty((), dtype=dtype).element_size()
-    nbytes = (el * B * S * H * (2 * dk + dv)
-              + 4 * (B * S * H * (dv + 2) + B * H * (dk * dv + dk + 1)))
-    t_ops = flops / PEAK_FLOPS["tf32"]
-    t_bytes = nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes",
-            flops / PEAK_FLOPS[torch.float32] * 1e3)
+    CUDA cores' rate. The work is K6's own (``kernels/mlstm/ops.py:
+    work``)."""
+    from repro_torch.kernels.mlstm import ops
+
+    w = ops.work(B, S, H, dk, dv, dtype, chunk=chunk)
+    t, bound_by = work_bound(w)
+    return t * 1e3, bound_by, w.total_flops / PEAK_FLOPS[torch.float32] * 1e3
 
 
 def mlstm_route(B, S, H, dk, dv, dtype, chunk=MLSTM_CHUNK):
@@ -1665,33 +1665,16 @@ def mlstm_bwd_bound(B, S, H, dk, dv, dtype, state=False,
     the faster route's time, or one read of q, k, v (in ``dtype``), the
     gates and dh (and the state) and one write of dq, dk, dv and the
     gates' gradients, the larger. The third, for the text only: the
-    faster route's operations at the f32 CUDA cores' rate."""
-    nc = -(-S // chunk)
-    chunked = chunked_qk = 0
-    for c in range(nc):
-        L = min(chunk, S - c * chunk)
-        st = 2 * L * dk * dv
-        chunked_qk += L * (L + 1) // 2 * 2 * dk
-        chunked += ((c + 1 < nc) * (3 * st + 2 * L * dk)
-                    + (c > 0) * (2 * st + 2 * L * dk)
-                    + (c == 0 and state) * (st + 2 * L * dk)
-                    + L * (L + 1) // 2 * 2 * (3 * dk + 2 * dv) + 6 * L * dk)
-    pairs_qk = S * (S + 1) // 2 * 2 * dk
-    pairs = (S * (S + 1) // 2 * 2 * (3 * dk + 2 * dv)
-             + state * (2 * S * dk * dv + 6 * S * dk))
-    qk_rate = tc_rate(dtype, dtype)
-    t_ops, flops = min(
-        (B * H * (qk / qk_rate + (total - qk) / PEAK_FLOPS["tf32"]),
-         B * H * total)
-        for total, qk in ((chunked, chunked_qk), (pairs, pairs_qk)))
-    el = torch.empty((), dtype=dtype).element_size()
-    nbytes = (2 * el * B * S * H * (2 * dk + dv)
-              + 4 * B * S * H * (dv + 4)
-              + state * 4 * B * H * (dk * dv + dk + 1))
-    t_bytes = nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes",
-            flops / PEAK_FLOPS[torch.float32] * 1e3, flops)
+    faster route's operations at the f32 CUDA cores' rate. The work is
+    K6's backward's own (``kernels/mlstm/ops.py:work``)."""
+    from repro_torch.kernels.mlstm import ops
+
+    w = ops.work(B, S, H, dk, dv, dtype, chunk=chunk, state=state,
+                 backward=True)
+    t, bound_by = work_bound(w)
+    flops = w.total_flops
+    return (t * 1e3, bound_by, flops / PEAK_FLOPS[torch.float32] * 1e3,
+            flops)
 
 
 def mlstm_bwd_route(B, S, H, dk, dv, dtype, state=False):
@@ -1862,7 +1845,7 @@ def phase_flash_bwd(cases=FLASH_BWD_CASES):
     version; ``library_ms`` is SDPA's backward alone, timed through
     autograd with the graph kept (the forward outside the timed
     region)."""
-    from repro_torch.kernels.flash_attn import kernel, ref
+    from repro_torch.kernels.flash_attn import kernel, ops, ref
     import torch.nn.functional as F
 
     gen = torch.Generator("cuda")
@@ -1918,18 +1901,13 @@ def phase_flash_bwd(cases=FLASH_BWD_CASES):
         ms, plain_ms, lib_ms = (time_ms(f, iters=5, warmup=1) for f in
                                 (run_kernel, run_plain, run_library))
         dev_ms, lib_dev_ms = device_ms(run_kernel), device_ms(run_library)
-        pairs = causal_pairs(P, window) * B * H
-        flops = 10 * hd * pairs        # S, dP, dV, dK, dQ: 5 products
-        el = torch.empty((), dtype=dtype).element_size()
-        # read q, o, dO, k, v and lse; write dq, dk, dv
-        nbytes = (el * (4 * B * P * H * hd + 4 * B * P * KV * hd)
-                  + 4 * B * H * P)
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+        # S, dP, dV, dK, dQ: 5 products; read q, o, dO, k, v and lse,
+        # write dq, dk, dv (K3's backward's work)
+        t, bound_by = work_bound(ops.work(B, P, H, KV, hd, dtype,
+                                          window=window, backward=True))
         rows[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=max(t_ops, t_bytes) * 1e3,
-                          bound_by="operations" if t_ops >= t_bytes
-                          else "bytes", device_ms=dev_ms,
-                          library_device_ms=lib_dev_ms)
+                          bound_ms=t * 1e3, bound_by=bound_by,
+                          device_ms=dev_ms, library_device_ms=lib_dev_ms)
         say("kernels", f"flash_attn_bwd B={B} P={P} H={H} KV={KV} hd={hd} "
             f"window={window} {str(dtype)[6:]}: rel err dq/dk/dv "
             f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol {tol}; two "
@@ -2008,31 +1986,22 @@ def split_products(a, b):
     return 1 + (a == torch.float32) + (b == torch.float32)
 
 
-def tc_rate(a, b):
-    """The fastest tensor-core rate that takes both operands of a pass:
-    bf16 x bf16 on the bf16 tensor cores, anything with an f32 operand on
-    the TF32 ones."""
-    both_bf16 = a == b == torch.bfloat16
-    return PEAK_FLOPS[torch.bfloat16 if both_bf16 else "tf32"]
-
-
-def lace_bounds(N, d, V, passes, nbytes):
+def lace_bounds(N, d, V, passes, work):
     """The bound of a LACE kernel whose function is ``passes``, one
     (a dtype, b dtype) pair per 2 N d V product (z = feats W, df = g W^T
-    per side, dW = feats^T g; g is f32): ``bound_ms``, each pass once at
-    the fastest tensor-core rate for its operands (a bf16 x bf16 pass at
-    the bf16 rate), or the bytes at HBM's rate, the larger. For the text
-    only (not bounds of the function): ``tf32_ms``, every pass once at
-    TF32's rate (the bound of a kernel that keeps all its products on the
-    TF32 tensor cores); ``route_ms``, the split-TF32 products the kernels
-    run at TF32's rate; and ``f32_ms``, the passes at the CUDA cores' f32
+    per side, dW = feats^T g; g is f32), and whose ``work`` is
+    ``kernels/lace/ops.py:work``'s: ``bound_ms``, each pass once at the
+    fastest tensor-core rate for its operands (a bf16 x bf16 pass at the
+    bf16 rate), or the bytes at HBM's rate, the larger. For the text only
+    (not bounds of the function): ``tf32_ms``, every pass once at TF32's
+    rate (the bound of a kernel that keeps all its products on the TF32
+    tensor cores); ``route_ms``, the split-TF32 products the kernels run
+    at TF32's rate; and ``f32_ms``, the passes at the CUDA cores' f32
     rate."""
     flops = 2 * N * d * V
-    t_ops = sum(flops / tc_rate(a, b) for a, b in passes)
-    t_bytes = nbytes / PEAK_BYTES
+    t, bound_by = work_bound(work)
     products = sum(split_products(a, b) for a, b in passes)
-    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+    return dict(bound_ms=t * 1e3, bound_by=bound_by,
                 tf32_ms=len(passes) * flops / PEAK_FLOPS["tf32"] * 1e3,
                 route_products=products,
                 route_ms=products * flops / PEAK_FLOPS["tf32"] * 1e3,
@@ -2054,6 +2023,7 @@ def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE, LACE_WHISPER,
     boundary). A case is (N, feats dtype, tau, G, absent, head dtype[, d,
     V]), d 1024 and V 151936 (qwen1.5-0.5b) unless it says."""
     from repro_torch.kernels.lace import kernel, ref
+    from repro_torch.kernels.lace import ops as lops
 
     rows, errs = {}, {"fwd": 0.0, "bwd": 0.0}
     for case in cases:
@@ -2099,18 +2069,16 @@ def phase_lace(cases=LACE_CASES + [LACE_XLSTM, LACE_MOE, LACE_WHISPER,
             ("bwd_plain", lambda: ref.lace2_bwd_plain(*bargs)),
             ("library", lambda: f32 @ w32))}
         G = args[5].shape[0]
-        el = feats.element_size()
-        in_bytes = (el * N * d + w.element_size() * d * V + 4 * N * 2
-                    + 4 * (1 + G) * V)
         z, df, dw = lace_passes(feats.dtype, w.dtype)
-        for kind, passes, nbytes in (
-                ("fwd", [z], in_bytes + 4 * 4 * N),
-                ("bwd", [z, df, df, dw],
-                 in_bytes + 4 * 4 * N + 4 * (2 * N * d + d * V))):
+        for kind, name, passes in (("fwd", "K1", [z]),
+                                   ("bwd", "K2", [z, df, df, dw])):
+            # one server prior row and G client rows, the client ids
+            work = lops.work(name, N, d, V, feats.dtype, w.dtype,
+                             table_rows=1 + G, id_arrays=1)
             rows[(case, kind)] = dict(
                 ms=times[kind], plain_ms=times[kind + "_plain"],
                 library_ms=times["library"],
-                **lace_bounds(N, d, V, passes, nbytes))
+                **lace_bounds(N, d, V, passes, work))
         say("kernels", f"lace2 N={N} d={d} V={V} feats {str(dtype)[6:]} "
             f"head {str(w_dtype)[6:]} tau={tau}"
             f"{' raw sums (mean=False)' if case == LACE_RAW else ''}, "
@@ -2169,6 +2137,7 @@ def phase_lace1():
     of the dual boundary does: with dW on the server side, without on
     the client side."""
     from repro_torch.kernels.lace import kernel, ref
+    from repro_torch.kernels.lace import ops as lops
 
     rows, errs = {}, {"fwd": 0.0, "bwd": 0.0}
     for case in LACE1_CASES:
@@ -2208,19 +2177,16 @@ def phase_lace1():
             ("bwd", lambda: kernel.lace_bwd_cuda(*bargs)),
             ("bwd_plain", lambda: ref.lace_bwd_plain(*bargs)),
             ("library", lambda: f32 @ w32))}
-        el = feats.element_size()
-        in_bytes = (el * N * d + w.element_size() * d * V + 4 * N
-                    + 4 * adj.numel() + (0 if ids is None else 4 * N))
         z, df, dw = lace_passes(feats.dtype, w.dtype)
-        for kind, passes, nbytes in (
-                ("fwd", [z], in_bytes + 2 * 4 * N),
-                ("bwd", [z, df] + [dw] * want_dw,
-                 in_bytes + 2 * 4 * N + 4 * N * d
-                 + (4 * d * V if want_dw else 0))):
+        for kind, name, passes in (("fwd", "K4", [z]),
+                                   ("bwd", "K5", [z, df] + [dw] * want_dw)):
+            work = lops.work(name, N, d, V, feats.dtype, w.dtype,
+                             table_rows=adj.shape[0],
+                             id_arrays=int(ids is not None), want_dw=want_dw)
             rows[(case, kind)] = dict(
                 ms=times[kind], plain_ms=times[kind + "_plain"],
                 library_ms=times["library"],
-                **lace_bounds(N, d, V, passes, nbytes))
+                **lace_bounds(N, d, V, passes, work))
         say("kernels", f"lace {side} side N={N} d={d} V={V} rows="
             f"{adj.shape[0]}{' raw sums (mean=False)' if raw else ''} "
             f"feats {str(dtype)[6:]} head "
@@ -4859,6 +4825,7 @@ def phase_frontend_attention(cases=FRONTEND_ATTN_CASES):
     (no mask where non-causal). Returns ({(case, 'fwd' | 'bwd'): row},
     {'fwd': err, 'bwd': err})."""
     from repro_torch.kernels.flash_attn import kernel, ref
+    from repro_torch.kernels.flash_attn import ops as fops
     import torch.nn.functional as F
 
     gen = torch.Generator("cuda")
@@ -4952,17 +4919,13 @@ def phase_frontend_attention(cases=FRONTEND_ATTN_CASES):
                                  run_library_bwd))
         dev_ms = device_ms(run_kernel_bwd)
         lib_dev_ms = device_ms(run_library_bwd)
-        pairs = causal_pairs(S, None, Skv, causal) * B * H
-        flops = 10 * hd * pairs        # S, dP, dV, dK, dQ: 5 products
-        el = torch.empty((), dtype=dtype).element_size()
-        # read q, o, dO, k, v and lse; write dq, dk, dv
-        nbytes = (el * (4 * B * S * H * hd + 4 * B * Skv * KV * hd)
-                  + 4 * B * H * S)
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+        # S, dP, dV, dK, dQ: 5 products; read q, o, dO, k, v and lse,
+        # write dq, dk, dv (K3's backward's work)
+        t, bound_by = work_bound(fops.work(B, S, H, KV, hd, dtype, Skv=Skv,
+                                           causal=causal, backward=True))
         rows[(case, "bwd")] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_ms=t * 1e3, bound_by=bound_by,
             device_ms=dev_ms, library_device_ms=lib_dev_ms)
         r = rows[(case, "bwd")]
         say("kernels", f"flash_attn_bwd {attn_case_text(case)}: rel err "
@@ -5725,6 +5688,254 @@ def phase_dp(device="cuda", reduced=False):
     return total
 
 
+
+# ---------------------------------------------------------------------------
+# phase 22: the tooling (boundary and serve legs, the dry run, and the dry
+# run held against the card)
+# ---------------------------------------------------------------------------
+
+TOOLING_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+TOOLING_GRIDS = ("1", "16x16")
+# phase 6's local step: slots x rows a slot x tokens (the LM driver's
+# defaults: lace backend, fused boundary, plain SGD)
+TOOLING_STEP = (4, 4, 512)
+TOOLING_STEP_REPS = 3
+TOOLING_BAR_S = 90          # the phase's share of the run's time limit
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_REPS = 12, (2, 4), 2   # run.py's call
+
+
+def launches_text(c):
+    return (f"K1 {c['lace_fwd']}, K2 {c['lace_bwd']}, K4 {c['lace1_fwd']}, "
+            f"K5 {c['lace1_bwd']}, K3 fwd {c['flash_fwd']} bwd "
+            f"{c['flash_bwd']}")
+
+
+def tooling_boundary(device="cuda", grid=None, qwen_cell=True):
+    """(a) The boundary leg: the reference's grid on both backends (and
+    the bf16 leg on a card), qwen1.5-0.5b's head (d 1024, V 151936, 4 x
+    2048 tokens), then the fused-against-dual guard. Returns the launch
+    counts (K1, K2, K4 and K5 must launch on a card)."""
+    from repro_torch.benchmarks import boundary as bb
+
+    cuda = torch.device(device).type == "cuda"
+    grid = bb.GRID if grid is None else grid
+    zero_counts()
+    res = bb.bench_boundary(grid=grid, reps=3, device=device)
+    legs = {f"{b} f32": e for b, e in res["backends"].items()}
+    if cuda:
+        legs["lace bf16"] = bb.bench_boundary_bf16(grid=grid, reps=3,
+                                                   device=device)
+    if qwen_cell:
+        legs["lace qwen head"] = bb.bench_boundary(
+            grid=bb.QWEN_CELL, backends=("lace",), reps=3,
+            classes=bb.QWEN_CLASSES, device=device)["backends"]["lace"]
+    for leg, entry in legs.items():
+        for cell, r in entry.items():
+            if isinstance(r, dict):
+                say("tooling", f"boundary {leg} {cell}: fused "
+                    f"{r['fused_ms']:.3f} ms, dual {r['dual_ms']:.3f} ms, "
+                    f"fused_speedup {r['fused_speedup']}")
+    guard = bb.smoke_guard(device)
+    counts = read_counts()
+    say("tooling", f"boundary guard: fused_speedup "
+        f"{guard['backends']['lace']['max_speedup']} (>= 1); launches "
+        f"{launches_text(counts)}")
+    if cuda:
+        check(all(counts[k] > 0 for k in ("lace_fwd", "lace_bwd",
+                                          "lace1_fwd", "lace1_bwd")),
+              f"the boundary leg launched K1, K2, K4 and K5: {counts}")
+    return counts
+
+
+def serve_admits(n_requests, lens, reps, slots_list):
+    """The admits of :func:`repro_torch.benchmarks.serve.bench_serve`: per
+    slot count and leg one warm-up request per prompt length, then the
+    requests once a rep (batch static, continuous, paged: ``reps``; the
+    open loop's two legs: once)."""
+    per_leg = [reps, reps, 1, 1, reps]
+    return len(slots_list) * sum(len(set(lens)) + r * n_requests
+                                 for r in per_leg)
+
+
+def tooling_serve(device="cuda", reduced=False):
+    """(b) The serving leg at full-width qwen1.5-0.5b (12 requests, slots
+    2 and 4, 2 reps), then the continuous-against-static guard on MICRO.
+    The paged leg's greedy tokens must equal the continuous batch leg's;
+    static against continuous is compared and the differing requests
+    counted. K3 launches once a layer on every admit. Returns the launch
+    counts."""
+    from repro_torch.benchmarks import serve as bs
+
+    cuda = torch.device(device).type == "cuda"
+    zero_counts()
+    res = bs.bench_serve(ARCH, reduced=reduced, n_requests=SERVE_REQUESTS,
+                         slots_list=SERVE_SLOTS, reps=SERVE_REPS,
+                         device=device)
+    k3 = read_counts()["flash_fwd"]
+    cfg = bs.config(ARCH, reduced)
+    for slots, entry in res["slots"].items():
+        cont = entry["batch"]["continuous"]["tokens"]
+        static = entry["batch"]["static"]["tokens"]
+        check(entry["paged"]["tokens"] == cont,
+              f"slots {slots}: paged greedy tokens == continuous")
+        differ = sum(static[r] != cont[r] for r in cont)
+        for leg in ("batch", "open_loop"):
+            e = entry[leg]
+            say("tooling", f"serve slots={slots} {leg}: static "
+                f"{e['static']['tok_per_sec']} tok/s, continuous "
+                f"{e['continuous']['tok_per_sec']} tok/s, continuous_speedup "
+                f"{e['continuous_speedup']}" + (
+                    f"; latency p50/p99 continuous "
+                    f"{e['continuous']['latency_p50_s']}/"
+                    f"{e['continuous']['latency_p99_s']} s"
+                    if leg == "open_loop" else ""))
+        say("tooling", f"serve slots={slots} paged: "
+            f"{entry['paged']['tok_per_sec']} tok/s, cache "
+            f"{entry['paged']['cache_ratio_vs_dense']} of dense; greedy "
+            f"tokens paged == continuous; static differs from continuous in "
+            f"{differ} of {len(cont)} requests")
+    admits = serve_admits(SERVE_REQUESTS, bs.PROMPT_LENS, SERVE_REPS,
+                          SERVE_SLOTS)
+    say("tooling", f"serve: K3 launches {k3} over {admits} admits of "
+        f"{cfg.num_layers} layers")
+    if cuda:
+        check(k3 == admits * cfg.num_layers,
+              f"K3 once a layer on every admit: {k3} != {admits} x "
+              f"{cfg.num_layers}")
+    guard = bs.smoke_guard(device)
+    say("tooling", f"serve guard: continuous_speedup "
+        f"{guard['slots']['2']['batch']['continuous_speedup']} (>= 1)")
+    return read_counts()
+
+
+def tooling_dryrun():
+    """(c) The dry run of qwen1.5-0.5b x TOOLING_SHAPES on TOOLING_GRIDS
+    (all ok), the report's two tables, the roofline leg over those
+    records and the top 5 of profile_collectives for train_4k on 16x16.
+    Returns the records."""
+    import tempfile
+
+    from repro_torch.benchmarks.run import leg_roofline
+    from repro_torch.launch import profile_collectives as pc
+    from repro_torch.launch.dryrun import dryrun_one, summary
+    from repro_torch.perf import report
+
+    recs = []
+    for shape in TOOLING_SHAPES:
+        for g in TOOLING_GRIDS:
+            rec = dryrun_one(ARCH, shape, grid_name=g)
+            say("tooling", "dryrun " + summary(rec))
+            check(rec["status"] == "ok", f"dry run {ARCH} {shape} {g}: "
+                  f"{rec.get('error', rec.get('reason'))}")
+            recs.append(rec)
+    for g in TOOLING_GRIDS:
+        print(report.dryrun_table(recs, g), flush=True)
+        print(report.roofline_table(recs, g), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for rec in recs:
+            with open(os.path.join(tmp, f"{rec['arch']}__{rec['shape']}__"
+                                   f"{rec['mesh']}.json"), "w") as f:
+                json.dump(rec, f)
+        leg_roofline(tmp)
+    rows, total, _ = pc.profile(ARCH, "train_4k", top=5)
+    pc.print_rows(ARCH, "train_4k", rows, total)
+    return recs
+
+
+def tooling_card_step(device="cuda", smi="", reduced=False):
+    """(d) Phase 6's local step (qwen1.5-0.5b, lace fused, 4 slots x 4 x
+    512) dry-run on ``meta``, then run on ``device``: the argument bytes
+    (equal exactly to the card's tensors' summed nbytes), the dry run's
+    peak beside ``max_memory_allocated``, counted FLOPs and the model's
+    6 N D over the step's seconds at the bf16 peak (the MFU), with the
+    card's name and power limit. Returns the launch counts of the timed
+    steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import input_specs as ispec
+    from repro_torch.launch.dryrun import build_step, count_step, realize
+    from repro_torch.models import transformer as T
+    from repro_torch.perf import roofline
+    from repro_torch.tree import leaves, tree_map
+
+    cuda = torch.device(device).type == "cuda"
+    C, Bk, S = TOOLING_STEP
+    shape = InputShape("phase6_step", S, C * Bk, "train")
+    cfg = get_config(ARCH)
+    cfg = cfg.reduced() if reduced else cfg
+    step, args, _, cfg = build_step(ARCH, shape.name, cfg=cfg, shape=shape,
+                                    num_clients=C)
+    _, dry = count_step(step, args)
+    # what earlier phases still hold on the card is not this step's
+    base = torch.cuda.memory_allocated() if cuda else 0
+    gen = torch.Generator(device).manual_seed(0)
+    params = T.init_params(gen, cfg)
+    params["client"] = tree_map(
+        lambda t: t.expand((C,) + tuple(t.shape)).clone(), params["client"])
+    batch = realize(args[1], cfg.vocab_size, device)
+    arg_bytes = sum(t.nbytes for t in leaves((params, batch)))
+    mem = dry["memory"]
+    say("tooling", f"step {C} slots x {Bk} x {S}: argument bytes dry run "
+        f"{mem['argument_bytes']}, {device} {arg_bytes}")
+    check(arg_bytes == mem["argument_bytes"],
+          f"dry-run argument bytes {mem['argument_bytes']} == the "
+          f"tensors' nbytes {arg_bytes}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        out = step(params, batch)                       # warm-up
+        sync(device)
+        check(all(np.isfinite(float(out[1][k]))
+                  for k in ("loss_server", "loss_client")),
+              f"finite losses: {out[1]}")
+        del out
+        zero_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(TOOLING_STEP_REPS):
+            t0 = time.perf_counter()
+            out = step(params, batch)
+            sync(device)
+            secs.append(time.perf_counter() - t0)
+            del out
+    counts = read_counts()
+    step_s = float(np.median(secs))
+    peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+    active = roofline.count_params(*ispec.param_specs(cfg, C))["active"]
+    mf = roofline.model_flops(active, C * Bk * S, "train")
+    per_s = step_s * roofline.PEAK_FLOPS
+    say("tooling", f"step on {smi}: {[round(s, 4) for s in secs]} s, "
+        f"median {step_s:.4f} s; launches {launches_text(counts)}")
+    say("tooling", f"peak bytes: dry run {mem['peak_bytes']} (argument "
+        f"{mem['argument_bytes']} + temp {mem['temp_bytes']}), "
+        f"max_memory_allocated {peak} above the {base} allocated before "
+        f"the step's tensors, ratio {peak / mem['peak_bytes']:.4f}")
+    say("tooling", f"counted FLOPs {dry['flops']:.4e} -> "
+        f"{dry['flops'] / per_s:.4f} of the bf16 peak; model FLOPs 6 N D "
+        f"= 6 x {active:.6e} x {C * Bk * S} = {mf:.4e} -> MFU "
+        f"{mf / per_s:.4f} ({smi}; the published 989 TFLOP/s bf16 peak)")
+    return counts
+
+
+def phase_tooling(device="cuda", smi="", reduced=False, boundary_grid=None,
+                  qwen_cell=True):
+    """Phase 22 (a)-(d); returns the launch counts of (a), (b) and (d)
+    summed. On the CPU (a rehearsal) ``reduced`` cuts the serve leg and
+    the step to reduced qwen, ``boundary_grid`` the boundary grid, and
+    ``qwen_cell=False`` drops the qwen-head cell."""
+    t0 = time.perf_counter()
+    parts = [run_phase("tooling (a) boundary", tooling_boundary, device,
+                       boundary_grid, qwen_cell),
+             run_phase("tooling (b) serve", tooling_serve, device, reduced)]
+    run_phase("tooling (c) dry run", tooling_dryrun)
+    parts.append(run_phase("tooling (d) step", tooling_card_step, device,
+                           smi, reduced))
+    seconds = time.perf_counter() - t0
+    say("tooling", f"phase 22 took {seconds:.1f} s (bar {TOOLING_BAR_S} s"
+        f"{'' if seconds <= TOOLING_BAR_S else '; OVER the bar'})")
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
 def run_phase(label, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, then its wall seconds on a line of its own
     (what each phase adds to the run's time limit)."""
@@ -5804,6 +6015,9 @@ def main() -> int:
         run_phase("kernels K1 K2 (raw sums)", phase_lace, [LACE_RAW])
         run_phase("dp", phase_dp)
         return 0
+    if sys.argv[1:] == ["tooling"]:
+        run_phase("tooling", phase_tooling, smi=smi)
+        return 0
     if sys.argv[1:] != ["lace"]:
         rows, max_err = run_phase("kernels K3", phase_kernels)
     if sys.argv[1:] == ["moe"]:
@@ -5865,6 +6079,7 @@ def main() -> int:
     serve_w, wtrain, vtrain = (front[k] for k in (
         "serve-whisper", "train-whisper", "train-vlm"))
     dp = run_phase("dp", phase_dp)
+    tool = run_phase("tooling", phase_tooling, smi=smi)
     # the federation layer's launches: phase 13's rounds, phase 14's
     # events and phase 15's faulted rounds and events; and phase 16(a)'s
     # bf16 rounds (K1, K2 on their bf16-head build)
@@ -5873,6 +6088,10 @@ def main() -> int:
     # K2 (fused) and K4, K5 (the dual step) all in raw-sum mode, K3 in the
     # trunk; in ``launches`` beside the rest
     fed = {k: fed[k] + dp[k] for k in fed}
+    # phase 22's boundary leg (K1, K2, K4, K5), serving leg (K3 forward)
+    # and card step (K1, K2, K3): in ``launches``, and beside as
+    # ``launches_tooling``
+    fed = {k: fed[k] + tool[k] for k in fed}
     csrc = "src/repro_torch/kernels/csrc/"
     lace_src = "src/repro/kernels/lace/kernel.py:"
     # forward launches: the serve paths' plus both training paths'; its
@@ -5894,6 +6113,7 @@ def main() -> int:
                         ("ms", "plain_ms", "bound_ms", "library_ms",
                          "device_ms", "library_device_ms")})
     fwd_row["launches_moe"] = serve_m["flash_fwd"]
+    fwd_row["launches_tooling"] = tool["flash_fwd"]
     fwd_row["launches_jamba"] = serve_j["flash_fwd"]
     # the frontend archs' shapes (non-causal: whisper's cross-attention at
     # a training step's 16 x 448 on 1500 frames and a decode step's 8 x 1;
@@ -6003,7 +6223,11 @@ def main() -> int:
                                     "library_ms", "device_ms",
                                     "library_device_ms")})
     bwd_row.update(launches_whisper_train=wtrain["flash_bwd"],
-                   launches_vlm_train=vtrain["flash_bwd"])
+                   launches_vlm_train=vtrain["flash_bwd"],
+                   launches_tooling=tool["flash_bwd"])
+    for kname, key in (("lace2_fwd", "lace_fwd"), ("lace2_bwd", "lace_bwd"),
+                       ("lace_fwd", "lace1_fwd"), ("lace_bwd", "lace1_bwd")):
+        lace_row[kname]["launches_tooling"] = tool[key]
     print(json.dumps({"kernels": [
         fwd_row, bwd_row,
         lace_row["lace2_fwd"], lace_row["lace2_bwd"],

@@ -26,14 +26,19 @@ over r, K, T and the split point), recorded here, not enforced.
         [--quick] [--out dispatch.json]
     PYTHONPATH=src python -m repro_torch.benchmarks.run --table \
         round_loop [--quick] [--out round_loop.json]
+    PYTHONPATH=src python -m repro_torch.benchmarks.run --table boundary \
+        [--quick] [--out boundary.json]     # or --table serve
+    PYTHONPATH=src python -m repro_torch.benchmarks.run --table roofline \
+        [--dryrun-dir results/dryrun_torch]
 
 ``--smoke`` runs the reference's SMOKE rows of the synchronous modes:
 SCALA through ``exec=subset``, ``masked`` and ``sparse``, FedAvgM
 (fedavg with a momentum server optimizer at 0.9), K = 4, r = 0.5, 2
 rounds, and ``fused+bf16`` (masked SCALA, 3 rounds at
-``rounds_per_call=2`` in bf16); the reference's guard rows (fused over
-unfused rounds/s and the others) are not ported: each leg prints its
-numbers unchecked. ``--table participation`` is the participation leg
+``rounds_per_call=2`` in bf16), then the reference's ``boundary_guard``
+and ``serve_guard`` rows (each asserts, with one re-measure) and the
+roofline reprint; its dispatch, scale, arrival and faults guard rows are
+not ported. ``--table participation`` is the participation leg
 (:mod:`repro_torch.benchmarks.participation`: rounds/s masked, sparse
 and re-stacked subset), ``--table async`` the async leg
 (:mod:`repro_torch.benchmarks.async_rounds`: sparse against masked, and
@@ -48,29 +53,28 @@ dispatch leg (:mod:`repro_torch.benchmarks.dispatch`: rounds/s over
 rounds per call x donation x precision per mode, and the baselines'
 transpose once a chunk against once a round) and ``--table round_loop``
 the round-loop leg (:mod:`repro_torch.benchmarks.round_loop`: T split
-steps and a FedAvg from Python against one round runner call), each
-printing CSV rows as the reference's runner does and its JSON stamped
-with the device. The reference's other harness legs (boundary,
-roofline, serve) measure parts the port has not ported yet: they are
-listed, and asking for one exits naming its slice.
+steps and a FedAvg from Python against one round runner call),
+``--table boundary`` the boundary leg (:mod:`repro_torch.benchmarks.
+boundary`: the fused loss stage against the dual one), ``--table serve``
+the serving leg (:mod:`repro_torch.benchmarks.serve`: continuous against
+static admission; MICRO with ``--quick``, full-width qwen1.5-0.5b
+without) and ``--table roofline`` the dry run's roofline terms
+reprinted from its records (``--dryrun-dir``; counts at the card's
+published peaks, no time measured), each printing CSV rows as the
+reference's runner does and its JSON stamped with the device.
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import json
+import os
 import sys
 
 from repro_torch.benchmarks.common import device_info, run_experiment
 
 HEADER = "table,setting,method,acc,balanced_acc,seconds"
-
-# the reference's harness legs and the slice each waits for
-NOT_PORTED = {
-    "boundary": "the tooling slice (its LACE timing harness)",
-    "roofline": "the tooling slice (H100 roofline constants)",
-    "serve": "the tooling slice (device-stamped serving benchmarks)",
-}
+DRYRUN_DIR = "results/dryrun_torch"
 
 
 def _emit(rows, table: str, setting: str, method: str, res: dict) -> None:
@@ -164,9 +168,14 @@ TABLES = {
 }
 
 
-def smoke(run, rows) -> None:
+def smoke(run, rows, device="cuda", dryrun_dir=DRYRUN_DIR) -> None:
     """The reference's SMOKE rows of the synchronous execution modes and
-    FedAvgM."""
+    FedAvgM, its boundary and serving guard rows, and the roofline
+    reprint."""
+    from repro_torch.benchmarks.boundary import \
+        smoke_guard as boundary_smoke_guard
+    from repro_torch.benchmarks.serve import smoke_guard as serve_smoke_guard
+
     kw = dict(alpha=2, K=4, r=0.5, T=2, rounds=2, n_train=300)
     for execution in ("subset", "masked", "sparse"):
         _emit(rows, "SMOKE", f"exec={execution}", "scala",
@@ -176,6 +185,18 @@ def smoke(run, rows) -> None:
     _emit(rows, "SMOKE", "fused+bf16", "scala",
           run("scala", execution="masked", rounds_per_call=2,
               precision="bf16", **dict(kw, rounds=3)))
+    # the one-pass (fused) boundary loss stage must be at least as fast as
+    # the two passes (shared with `boundary --smoke`)
+    bguard = boundary_smoke_guard(device)
+    print("SMOKE,boundary_guard,fused_speedup,"
+          f"{bguard['backends']['lace']['max_speedup']},,", flush=True)
+    # continuous batching must sustain at least the static token rate
+    # (shared with `serve --smoke`)
+    vguard = serve_smoke_guard(device)
+    print("SMOKE,serve_guard,continuous_speedup,"
+          f"{vguard['slots']['2']['batch']['continuous_speedup']},,",
+          flush=True)
+    leg_roofline(dryrun_dir)
 
 
 def leg_async(quick: bool, device, width: float) -> dict:
@@ -263,15 +284,85 @@ def leg_round_loop(quick: bool, device, width: float) -> dict:
     return res
 
 
+def leg_boundary(quick: bool, device, width: float) -> dict:
+    """The boundary leg, its CSV rows as ``benchmarks/run.py:
+    bench_boundary`` prints them."""
+    from repro_torch.benchmarks.boundary import GRID, bench_boundary
+
+    res = bench_boundary(grid=GRID[:2] if quick else GRID,
+                         reps=3 if quick else 5, device=device)
+    for backend, entry in res["backends"].items():
+        for key, row in entry.items():
+            cell = key.replace(",", ";")      # grid keys hold commas (CSV)
+            if key in ("max_speedup", "min_speedup"):
+                print(f"boundary,{backend},{cell},{row},,", flush=True)
+            else:
+                print(f"boundary,{backend},{cell},{row['fused_speedup']},,"
+                      f"{row['fused_ms']}", flush=True)
+    return res
+
+
+def leg_serve(quick: bool, device, width: float) -> dict:
+    """The serving leg, its CSV rows as ``benchmarks/run.py:bench_serve``
+    prints them: MICRO with ``quick``, else full-width qwen1.5-0.5b."""
+    from repro_torch.benchmarks.serve import bench_serve
+
+    res = bench_serve(arch=None if quick else "qwen1.5-0.5b",
+                      reduced=False, n_requests=8 if quick else 12,
+                      slots_list=(2,) if quick else (2, 4), reps=2,
+                      device=device)
+    for slots, entry in res["slots"].items():
+        for leg in ("batch", "open_loop"):
+            for admission in ("static", "continuous"):
+                row = entry[leg][admission]
+                print(f"serve,slots={slots}:{leg},{admission},"
+                      f"{row['tok_per_sec']},,{row['seconds']}", flush=True)
+            print(f"serve,slots={slots}:{leg},continuous_speedup,"
+                  f"{entry[leg]['continuous_speedup']},,", flush=True)
+        row = entry["paged"]
+        print(f"serve,slots={slots}:paged,continuous,"
+              f"{row['tok_per_sec']},,{row['seconds']}", flush=True)
+    return res
+
+
+def leg_roofline(dirname: str = DRYRUN_DIR) -> dict:
+    """The roofline reprint, its CSV rows as ``benchmarks/run.py:
+    bench_roofline`` prints them, from the dry run's records in
+    ``dirname`` (counts at one H100's published peaks; no time is
+    measured)."""
+    from repro_torch.perf.report import load
+
+    recs = load(dirname) if os.path.isdir(dirname) else []
+    if not recs:
+        print("roofline,NO_DRYRUN_RESULTS,,,,", flush=True)
+        return {"records": 0}
+    print("roofline_table,arch,shape,mesh,status,bottleneck,"
+          "t_compute_s,t_memory_s,t_collective_s,useful_flops_ratio",
+          flush=True)
+    for r in recs:
+        if r.get("status") != "ok":
+            print(f"roofline,{r['arch']},{r['shape']},{r['mesh']},"
+                  f"{r.get('status')},,,,,", flush=True)
+            continue
+        t = r["roofline"]
+        ufr = r.get("useful_flops_ratio")
+        print(f"roofline,{r['arch']},{r['shape']},{r['mesh']},ok,"
+              f"{t['bottleneck']},{t['t_compute_s']:.3e},"
+              f"{t['t_memory_s']:.3e},{t['t_collective_s']:.3e},"
+              f"{'' if ufr is None else f'{ufr:.3f}'}", flush=True)
+    return {"records": len(recs), "dir": dirname}
+
+
 LEGS = {"async": leg_async, "scale": leg_scale, "faults": leg_faults,
-        "dispatch": leg_dispatch, "round_loop": leg_round_loop}
+        "dispatch": leg_dispatch, "round_loop": leg_round_loop,
+        "boundary": leg_boundary, "serve": leg_serve}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--table", default=None,
-                    choices=sorted(TABLES) + ["participation"]
-                    + sorted(LEGS) + sorted(NOT_PORTED))
+                    choices=sorted(TABLES) + ["participation", "roofline"]
+                    + sorted(LEGS))
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="paper-protocol settings (slow)")
@@ -283,11 +374,12 @@ def main(argv=None):
                     help="AlexNet width (1.0: the paper's network)")
     ap.add_argument("--out", default="",
                     help="also write the rows and the device as JSON")
+    ap.add_argument("--dryrun-dir", default=DRYRUN_DIR,
+                    help="the dry run's records (the roofline leg)")
     args = ap.parse_args(argv)
-    if args.table in NOT_PORTED:
-        raise SystemExit(f"benchmark {args.table!r} is not ported yet; it "
-                         f"comes with {NOT_PORTED[args.table]}")
     quick = args.quick and not args.full
+    if args.table == "roofline":
+        return leg_roofline(args.dryrun_dir)
     if args.table == "participation":
         from repro_torch.benchmarks.participation import bench_participation
 
@@ -308,16 +400,15 @@ def main(argv=None):
         return res
     names = [args.table] if args.table else list(TABLES)
     if not args.table and not args.smoke:
-        print(f"skipped: participation, {', '.join(sorted(LEGS))} (run "
-              f"each with --table NAME); not ported yet: "
-              f"{', '.join(NOT_PORTED)}",
+        print(f"skipped: participation, roofline, "
+              f"{', '.join(sorted(LEGS))} (run each with --table NAME)",
               file=sys.stderr)
     print(HEADER, flush=True)
     rows = []
     run = functools.partial(run_experiment, device=args.device,
                             width=args.width)
     if args.smoke:
-        smoke(run, rows)
+        smoke(run, rows, args.device, args.dryrun_dir)
     else:
         for name in names:
             TABLES[name](quick, run, rows)

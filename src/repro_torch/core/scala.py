@@ -1,6 +1,17 @@
 """Model adapters: a model's two halves as a :class:`SplitModel`; and
-the reference's legacy ``lace_dp`` step, :func:`scala_local_step_fused_dp`
-(deprecated, warning once)."""
+the reference's three legacy steps, each a name for an engine backend
+with plain SGD (deprecated, each warning once a process):
+
+  ===========================  ==============
+  legacy entry point           engine backend
+  ===========================  ==============
+  scala_local_step             ``"logits"``
+  scala_local_step_fused       ``"lace"``
+  scala_local_step_fused_dp    ``"lace_dp"``
+  ===========================  ==============
+
+The dry run (:mod:`repro_torch.launch.dryrun`) steps through them, as the
+reference's does."""
 from __future__ import annotations
 
 import warnings
@@ -25,6 +36,37 @@ def _warn_deprecated(name: str, use: str) -> None:
         f"{use} instead (the engine threads optimizers/schedules and runs "
         "the whole round -- see repro_torch.core.engine and repro_torch."
         "fed)", DeprecationWarning, stacklevel=3)
+
+
+def scala_local_step(model: SplitModel, params, batch, scala: ScalaConfig,
+                     *, lr: Optional[float] = None):
+    """One SCALA local iteration with plain SGD on the materialized-logits
+    backend: params ``{'client': stacked (C, ...), 'server': ...}``, batch
+    leaves (C, B_k, ...); returns (params, metrics).
+
+    .. deprecated:: use :func:`repro_torch.core.engine.make_split_step`
+       (``backend="logits"``).
+    """
+    _warn_deprecated("scala_local_step",
+                     "engine.make_split_step(backend='logits')")
+    return engine.local_step(model, params, batch, scala, backend="logits",
+                             lr=lr)
+
+
+def scala_local_step_fused(model: SplitModel, params, batch,
+                           scala: ScalaConfig, *, lr: Optional[float] = None,
+                           ce_chunk: Optional[int] = None):
+    """:func:`scala_local_step` with the fused LACE loss: the head product
+    and the adjusted cross-entropy in one pass that never materializes
+    the (tokens, V) logits (K1 + K2 on a card).
+
+    .. deprecated:: use :func:`repro_torch.core.engine.make_split_step`
+       (``backend="lace"``).
+    """
+    _warn_deprecated("scala_local_step_fused",
+                     "engine.make_split_step(backend='lace')")
+    return engine.local_step(model, params, batch, scala, backend="lace",
+                             lr=lr, ce_chunk=ce_chunk)
 
 
 def scala_local_step_fused_dp(model: SplitModel, params, batch,

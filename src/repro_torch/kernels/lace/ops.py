@@ -40,6 +40,12 @@ copy, as the reference's ops upcast per chunk; the kernels take a bf16
 operand as one exact TF32 term. Values are float32, feature cotangents
 come in feats' dtype and dW in w_head's: a bf16 head's gradient is the
 float32 sum rounded to bf16 once.
+
+A ``meta`` tensor gets the kernels' shape functions (outputs and, through
+the autograd functions, gradients on ``meta``; no launch counted), as
+:mod:`repro_torch.kernels.route` sets out, and every call charges its
+kernels' :func:`work` to an active :class:`repro_torch.perf.count.
+StepCount`.
 """
 from __future__ import annotations
 
@@ -49,6 +55,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.lace import kernel
+from repro_torch.kernels.route import device_kind
+from repro_torch.perf.count import kernel_site
+from repro_torch.perf.roofline import Work
 
 LAUNCHES_FWD = 0     # K1
 LAUNCHES_BWD = 0     # K2
@@ -56,6 +65,54 @@ LAUNCHES_FWD1 = 0    # K4
 LAUNCHES_BWD1 = 0    # K5
 #: launches with ``mean=False`` (raw sums), a subset of the counts above
 LAUNCHES_RAW = {"K1": 0, "K2": 0, "K4": 0, "K5": 0}
+
+
+def work(name: str, M: int, d: int, V: int, feats_dtype, w_dtype, *,
+         table_rows: int, id_arrays: int, want_dw: bool = True) -> Work:
+    """The work of one LACE kernel call over M tokens of width d against
+    a (d, V) head: its passes, each a 2 M d V product at the fastest
+    tensor-core rate for its operands (bf16 x bf16 at the bf16 rate,
+    anything with an f32 operand at TF32's) -- z = feats W; df = g W^T
+    per side; dW = feats^T g (g is f32) -- and its bytes: feats, W, the
+    int32 labels, ``id_arrays`` int32 per-token prior-row ids and
+    ``table_rows`` float32 prior rows read, then
+
+    * K1 (``lace2_fwd``): z; both sides' NLL and lse written;
+    * K2 (``lace2_bwd``): z, df twice, dW; both lse and both token
+      scales read, both df and dW written in float32;
+    * K4 (``lace_fwd``): z; the NLL and lse written;
+    * K5 (``lace_bwd``): z, df (and dW with ``want_dw``); the lse and the
+      token scales read, df (and dW) written in float32."""
+    f32 = torch.float32
+    z, df, dw = (feats_dtype, w_dtype), (f32, w_dtype), (feats_dtype, f32)
+    passes = {"K1": [z], "K2": [z, df, df, dw], "K4": [z],
+              "K5": [z, df] + [dw] * want_dw}[name]
+    el = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
+    nbytes = (el(feats_dtype) * M * d + el(w_dtype) * d * V
+              + 4 * M * (1 + id_arrays) + 4 * table_rows * V)
+    nbytes += {"K1": 16 * M, "K2": 16 * M + 4 * (2 * M * d + d * V),
+               "K4": 8 * M,
+               "K5": 8 * M + 4 * M * d + 4 * d * V * want_dw}[name]
+    flops: dict = {}
+    for a, b in passes:
+        kind = "bf16" if a == b == torch.bfloat16 else "tf32"
+        flops[kind] = flops.get(kind, 0) + 2 * M * d * V
+    return Work(flops, nbytes)
+
+
+def _shape_args(feats, w_head, sides):
+    """:func:`work`'s arguments for a call on feats (G, N, d) and the
+    ``sides`` ((prior_rows, prior_ids), ...) its prior tables come from."""
+    G, N, d = feats.shape
+    rows = sum(r.shape[0] for r, _ in sides if r is not None)
+    ids = sum(r is not None and i is not None for r, i in sides)
+    return (G * N, d, w_head.shape[1], feats.dtype, w_head.dtype, rows, ids)
+
+
+def _work(name, args, want_dw=True):
+    M, d, V, fd, wd, rows, ids = args
+    return lambda: work(name, M, d, V, fd, wd, table_rows=rows,
+                        id_arrays=ids, want_dw=want_dw)
 
 
 def _pick_chunk(n: int, target: int) -> int:
@@ -270,17 +327,23 @@ def lace2_grads(feats, w_head, labels, prior_rows_s, prior_ids_s,
     """
     _check_args2(feats, w_head, labels, prior_rows_s, prior_ids_s,
                  prior_rows_k, prior_ids_k, weights)
-    kinds = {t.device.type for t in (feats, w_head, labels)}
-    if kinds == {"cpu"}:
-        return lace2_grads_plain(feats, w_head, labels, prior_rows_s,
-                                  prior_ids_s, prior_rows_k, prior_ids_k,
-                                  weights, tau, eps, chunk, mean, scale)
-    if kinds == {"cuda"}:
+    kind = device_kind("lace2_grads", (feats, w_head, labels))
+    args = _shape_args(feats, w_head, ((prior_rows_s, prior_ids_s),
+                                       (prior_rows_k, prior_ids_k)))
+    k1, k2 = _work("K1", args), _work("K2", args)
+    with kernel_site("K1+K2", lambda: k1() + k2()):
+        if kind == "cpu":
+            return lace2_grads_plain(feats, w_head, labels, prior_rows_s,
+                                      prior_ids_s, prior_rows_k, prior_ids_k,
+                                      weights, tau, eps, chunk, mean, scale)
+        if kind == "meta":
+            scalar = lambda: feats.new_empty((), dtype=torch.float32)  # noqa
+            return (scalar(), scalar(), feats.new_empty(feats.shape),
+                    feats.new_empty(feats.shape),
+                    w_head.new_empty(w_head.shape), scalar())
         return _lace2_grads_cuda(feats, w_head, labels, prior_rows_s,
                                  prior_ids_s, prior_rows_k, prior_ids_k,
                                  weights, tau, eps, mean, scale)
-    raise ValueError(f"lace2_grads takes CPU or CUDA tensors on one device, "
-                     f"got {sorted(kinds)}")
 
 
 # ---------------------------------------------------------------------------
@@ -352,20 +415,28 @@ class _LaceLoss(torch.autograd.Function):
                 tau, eps, chunk, mean):
         global LAUNCHES_FWD1
         ctx.conf = (tau, eps, chunk, mean)
-        if feats.device.type == "cpu":
-            nll_sum, w_sum = _fwd_plain(feats, w_head, labels, prior_rows,
-                                        prior_ids, weights, tau, eps, chunk)
+        ctx.shape = _shape_args(feats, w_head, ((prior_rows, prior_ids),))
+        kind = feats.device.type
+        with kernel_site("K4", _work("K4", ctx.shape)):
+            if kind == "cpu":
+                nll_sum, w_sum = _fwd_plain(feats, w_head, labels,
+                                            prior_rows, prior_ids, weights,
+                                            tau, eps, chunk)
+            elif kind == "meta":
+                nll_sum, w_sum = (feats.new_empty((), dtype=torch.float32)
+                                  for _ in range(2))
+            else:
+                f2, lab, w, adj, ids = _kernel_args(
+                    feats, labels, prior_rows, prior_ids, weights, tau, eps)
+                nll, lse = kernel.lace_fwd_cuda(f2, w_head, lab, adj, ids)
+                LAUNCHES_FWD1 += 1
+                LAUNCHES_RAW["K4"] += not mean
+                nll_sum, w_sum = (nll * w).sum(), w.sum()
+                ctx.save_for_backward(feats, w_head, lab, adj, ids, w,
+                                      w_sum, lse)
+        if kind != "cuda":
             ctx.save_for_backward(feats, w_head, labels, prior_rows,
                                   prior_ids, weights, w_sum)
-        else:
-            f2, lab, w, adj, ids = _kernel_args(feats, labels, prior_rows,
-                                                prior_ids, weights, tau, eps)
-            nll, lse = kernel.lace_fwd_cuda(f2, w_head, lab, adj, ids)
-            LAUNCHES_FWD1 += 1
-            LAUNCHES_RAW["K4"] += not mean
-            nll_sum, w_sum = (nll * w).sum(), w.sum()
-            ctx.save_for_backward(feats, w_head, lab, adj, ids, w, w_sum,
-                                  lse)
         return nll_sum / torch.clamp(w_sum, min=1e-8) if mean else nll_sum
 
     @staticmethod
@@ -377,30 +448,33 @@ class _LaceLoss(torch.autograd.Function):
         scale = g / torch.clamp(w_sum, min=1e-8) if mean else g
         want_dw = ctx.needs_input_grad[1]
         feats, w_head = saved[0], saved[1]
-        if feats.device.type == "cpu":
-            _, _, labels, prior_rows, prior_ids, weights, _ = saved
-            df, dw = _bwd_plain(feats, w_head, labels, prior_rows, prior_ids,
-                                weights, tau, eps, chunk, scale, want_dw)
-        else:
-            _, _, lab, adj, ids, w, _, lse = saved
-            G, N, d = feats.shape
-            df, dw = kernel.lace_bwd_cuda(feats.reshape(G * N, d), w_head,
-                                          lab, adj, ids, lse,
-                                          (w * scale).contiguous(), want_dw)
-            LAUNCHES_BWD1 += 1
-            LAUNCHES_RAW["K5"] += not mean
-            df = df.view(G, N, d).to(feats.dtype)
-            dw = None if dw is None else dw.to(w_head.dtype)
+        kind = feats.device.type
+        with kernel_site("K5", _work("K5", ctx.shape, want_dw)):
+            if kind == "cpu":
+                _, _, labels, prior_rows, prior_ids, weights, _ = saved
+                df, dw = _bwd_plain(feats, w_head, labels, prior_rows,
+                                    prior_ids, weights, tau, eps, chunk,
+                                    scale, want_dw)
+            elif kind == "meta":
+                df = feats.new_empty(feats.shape)
+                dw = w_head.new_empty(w_head.shape) if want_dw else None
+            else:
+                _, _, lab, adj, ids, w, _, lse = saved
+                G, N, d = feats.shape
+                df, dw = kernel.lace_bwd_cuda(
+                    feats.reshape(G * N, d), w_head, lab, adj, ids, lse,
+                    (w * scale).contiguous(), want_dw)
+                LAUNCHES_BWD1 += 1
+                LAUNCHES_RAW["K5"] += not mean
+                df = df.view(G, N, d).to(feats.dtype)
+                dw = None if dw is None else dw.to(w_head.dtype)
         return df, dw, None, None, None, None, None, None, None, None
 
 
 def _lace(feats, w_head, labels, prior_rows, prior_ids, weights, tau, eps,
           chunk, mean):
     _check_args(feats, w_head, labels, prior_rows, prior_ids, weights)
-    kinds = {t.device.type for t in (feats, w_head, labels)}
-    if kinds not in ({"cpu"}, {"cuda"}):
-        raise ValueError(f"lace_loss takes CPU or CUDA tensors on one "
-                         f"device, got {sorted(kinds)}")
+    device_kind("lace_loss", (feats, w_head, labels))
     return _LaceLoss.apply(feats, w_head, labels, prior_rows, prior_ids,
                            weights, tau, eps, chunk, mean)
 
@@ -510,27 +584,40 @@ class _Lace2Loss(torch.autograd.Function):
                 prior_rows_k, prior_ids_k, weights, tau, eps, chunk, mean):
         global LAUNCHES_FWD
         ctx.conf = (tau, eps, chunk, mean)
-        if feats.device.type == "cpu":
-            out_s, out_k, w_sum = _fwd2_plain(
-                feats, w_head, labels, prior_rows_s, prior_ids_s,
-                prior_rows_k, prior_ids_k, weights, tau, eps, chunk)
+        sides = ((prior_rows_s, prior_ids_s), (prior_rows_k, prior_ids_k))
+        ctx.shape = _shape_args(feats, w_head, sides)
+        ctx.rows2 = sum(1 if r is None else r.shape[0]
+                        for r, _ in sides)
+        kind = feats.device.type
+        with kernel_site("K1", _work("K1", ctx.shape)):
+            if kind == "cpu":
+                out_s, out_k, w_sum = _fwd2_plain(
+                    feats, w_head, labels, prior_rows_s, prior_ids_s,
+                    prior_rows_k, prior_ids_k, weights, tau, eps, chunk)
+            elif kind == "meta":
+                out_s, out_k, w_sum = (
+                    feats.new_empty((), dtype=torch.float32)
+                    for _ in range(3))
+            else:
+                G, N, d = feats.shape
+                f2, lab, w, adj_s, ids_s = _kernel_args(
+                    feats, labels, prior_rows_s, prior_ids_s, weights, tau,
+                    eps)
+                adj_k, ids_k = _side_table(prior_rows_k, prior_ids_k, tau,
+                                           eps, G, N)
+                nll_s, nll_k, lse_s, lse_k = kernel.lace2_fwd_cuda(
+                    f2, w_head, lab, adj_s, ids_s, adj_k, ids_k)
+                LAUNCHES_FWD += 1
+                LAUNCHES_RAW["K1"] += not mean
+                out_s, out_k, w_sum = (nll_s * w).sum(), (nll_k * w).sum(), \
+                    w.sum()
+                ctx.sides = (adj_s, ids_s, adj_k, ids_k)
+                ctx.save_for_backward(feats, w_head, lab, w, lse_s, lse_k,
+                                      w_sum)
+        if kind != "cuda":
             ctx.save_for_backward(feats, w_head, labels, prior_rows_s,
                                   prior_ids_s, prior_rows_k, prior_ids_k,
                                   weights, w_sum)
-        else:
-            G, N, d = feats.shape
-            f2, lab, w, adj_s, ids_s = _kernel_args(
-                feats, labels, prior_rows_s, prior_ids_s, weights, tau, eps)
-            adj_k, ids_k = _side_table(prior_rows_k, prior_ids_k, tau, eps,
-                                       G, N)
-            nll_s, nll_k, lse_s, lse_k = kernel.lace2_fwd_cuda(
-                f2, w_head, lab, adj_s, ids_s, adj_k, ids_k)
-            LAUNCHES_FWD += 1
-            LAUNCHES_RAW["K1"] += not mean
-            out_s, out_k, w_sum = (nll_s * w).sum(), (nll_k * w).sum(), \
-                w.sum()
-            ctx.sides = (adj_s, ids_s, adj_k, ids_k)
-            ctx.save_for_backward(feats, w_head, lab, w, lse_s, lse_k, w_sum)
         if mean:
             den = torch.clamp(w_sum, min=1e-8)
             return out_s / den, out_k / den
@@ -546,26 +633,37 @@ class _Lace2Loss(torch.autograd.Function):
         scale_s, scale_k = (g_s / den, g_k / den) if mean else (g_s, g_k)
         want_dw = ctx.needs_input_grad[1]
         feats, w_head = saved[0], saved[1]
-        if feats.device.type == "cpu":
-            df, dw = _bwd2_plain(*saved[:8], tau, eps, chunk, scale_s,
-                                 scale_k, want_dw)
-        else:
-            _, _, lab, w, lse_s, lse_k, _ = saved
-            G, N, d = feats.shape
-            M, V = G * N, w_head.shape[1]
-            f2 = feats.reshape(M, d)
-            adj, ids = _stacked_sides(*ctx.sides, M, V, feats.device)
-            ts = torch.cat([w * scale_s, w * scale_k]).contiguous()
-            lse = torch.cat([lse_s, lse_k]).contiguous()
-            # the k side of this call is the s side again at scale 0: its
-            # df is zero and unused
-            df2, _, dw = kernel.lace2_bwd_cuda(
-                torch.cat([f2, f2]), w_head, torch.cat([lab, lab]), adj, ids,
-                adj, ids, lse, lse, ts, torch.zeros_like(ts))
-            LAUNCHES_BWD += 1
-            LAUNCHES_RAW["K2"] += not mean
-            df = (df2[:M] + df2[M:]).view(G, N, d).to(feats.dtype)
-            dw = dw.to(w_head.dtype) if want_dw else None
+        kind = feats.device.type
+        # K2 runs on the tokens stacked twice against one table of both
+        # sides' rows (a side without a prior reads one zero row), the
+        # table and the ids passed for both of its sides
+        M, d, V, fd, wd, _, _ = ctx.shape
+        with kernel_site("K2", lambda: work(
+                "K2", 2 * M, d, V, fd, wd, table_rows=2 * ctx.rows2,
+                id_arrays=2)):
+            if kind == "cpu":
+                df, dw = _bwd2_plain(*saved[:8], tau, eps, chunk, scale_s,
+                                     scale_k, want_dw)
+            elif kind == "meta":
+                df = feats.new_empty(feats.shape)
+                dw = w_head.new_empty(w_head.shape) if want_dw else None
+            else:
+                _, _, lab, w, lse_s, lse_k, _ = saved
+                G, N, d = feats.shape
+                M, V = G * N, w_head.shape[1]
+                f2 = feats.reshape(M, d)
+                adj, ids = _stacked_sides(*ctx.sides, M, V, feats.device)
+                ts = torch.cat([w * scale_s, w * scale_k]).contiguous()
+                lse = torch.cat([lse_s, lse_k]).contiguous()
+                # the k side of this call is the s side again at scale 0:
+                # its df is zero and unused
+                df2, _, dw = kernel.lace2_bwd_cuda(
+                    torch.cat([f2, f2]), w_head, torch.cat([lab, lab]), adj,
+                    ids, adj, ids, lse, lse, ts, torch.zeros_like(ts))
+                LAUNCHES_BWD += 1
+                LAUNCHES_RAW["K2"] += not mean
+                df = (df2[:M] + df2[M:]).view(G, N, d).to(feats.dtype)
+                dw = dw.to(w_head.dtype) if want_dw else None
         return (df, dw) + (None,) * 10
 
 
@@ -573,10 +671,7 @@ def _lace2(feats, w_head, labels, prior_rows_s, prior_ids_s, prior_rows_k,
            prior_ids_k, weights, tau, eps, chunk, mean):
     _check_args2(feats, w_head, labels, prior_rows_s, prior_ids_s,
                  prior_rows_k, prior_ids_k, weights)
-    kinds = {t.device.type for t in (feats, w_head, labels)}
-    if kinds not in ({"cpu"}, {"cuda"}):
-        raise ValueError(f"lace2_loss takes CPU or CUDA tensors on one "
-                         f"device, got {sorted(kinds)}")
+    device_kind("lace2_loss", (feats, w_head, labels))
     return _Lace2Loss.apply(feats, w_head, labels, prior_rows_s, prior_ids_s,
                             prior_rows_k, prior_ids_k, weights, tau, eps,
                             chunk, mean)

@@ -1,4 +1,5 @@
-"""Residual block assembly: one BlockSpec -> params / apply / cache.
+"""Residual block assembly: one BlockSpec -> params / axes / apply /
+cache.
 
 A block is pre-norm -> mixer (+residual) [-> pre-norm -> cross-attention
 over the encoder memory (+residual)] [-> pre-norm -> FFN (+residual)].
@@ -55,6 +56,33 @@ def block_init(gen: torch.Generator, spec: BlockSpec, cfg: ModelConfig):
         p["norm2"] = norms.rms_norm_init(cfg, gen.device)
         p["ffn"] = moe.moe_init(gen, cfg)
     return p
+
+
+_MIXER_AXES = {
+    "attn": attention.attn_axes,
+    "mamba": mamba.mamba_axes,
+    "mlstm": xlstm.mlstm_axes,
+    "slstm": xlstm.slstm_axes,
+}
+
+
+def block_axes(spec: BlockSpec, cfg: ModelConfig):
+    """The logical axes of :func:`block_init`'s params, leaf for leaf."""
+    check_spec(spec)
+    a = {
+        "norm1": norms.rms_norm_axes(cfg),
+        "mixer": _MIXER_AXES[spec.mixer](cfg),
+    }
+    if spec.cross_attn:
+        a["norm_cross"] = norms.rms_norm_axes(cfg)
+        a["cross"] = attention.attn_axes(cfg, cross=True)
+    if spec.ffn == "dense":
+        a["norm2"] = norms.rms_norm_axes(cfg)
+        a["ffn"] = mlp.mlp_axes(cfg)
+    elif spec.ffn == "moe":
+        a["norm2"] = norms.rms_norm_axes(cfg)
+        a["ffn"] = moe.moe_axes(cfg)
+    return a
 
 
 def _dropless(cfg: ModelConfig) -> ModelConfig:
@@ -144,6 +172,18 @@ def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int,
         return xlstm.slstm_init_cache(cfg, batch, dtype, device)
     return attention.init_cache(cfg, batch, cache_length(spec, max_len),
                                 dtype, device)
+
+
+def block_cache_axes(spec: BlockSpec):
+    """The logical axes of :func:`block_cache_init`'s cache."""
+    check_spec(spec)
+    if spec.mixer == "mamba":
+        return mamba.cache_axes()
+    if spec.mixer == "mlstm":
+        return xlstm.mlstm_cache_axes()
+    if spec.mixer == "slstm":
+        return xlstm.slstm_cache_axes()
+    return attention.cache_axes()
 
 
 def block_decode(params, x, cache, index, spec: BlockSpec, cfg: ModelConfig,

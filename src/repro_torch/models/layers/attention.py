@@ -57,6 +57,24 @@ def attn_init(gen: torch.Generator, cfg, *, cross: bool = False):
     return p
 
 
+def attn_axes(cfg, *, cross: bool = False):
+    """The logical axes of :func:`attn_init`'s params, leaf for leaf."""
+    a = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qkv_bias:
+        a["bq"] = ("heads", "head_dim")
+        a["bk"] = ("kv_heads", "head_dim")
+        a["bv"] = ("kv_heads", "head_dim")
+    if cfg.qk_norm and not cross:
+        a["q_norm"] = norms.head_norm_axes()
+        a["k_norm"] = norms.head_norm_axes()
+    return a
+
+
 # ---------------------------------------------------------------------------
 # core attend (q/k/v already projected and roped)
 # ---------------------------------------------------------------------------
@@ -190,6 +208,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device=None):
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_axes():
+    return {
+        "k": ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
+        "v": ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
+    }
 
 
 def decode_qkv(params, x, index, cfg):

@@ -16,6 +16,13 @@ def embedding_init(gen: torch.Generator, cfg):
     return p
 
 
+def embedding_axes(cfg):
+    a = {"tok": ("vocab", "embed")}
+    if cfg.pos_embed == "learned":
+        a["pos"] = ("position", "embed")
+    return a
+
+
 def embedding_apply(params, tokens: torch.Tensor, cfg, positions=None):
     """The tokens' rows in the compute dtype; with learned positions, plus
     the ``pos`` rows at ``positions`` (broadcast against ``tokens``)."""
@@ -36,6 +43,10 @@ def head_init(gen: torch.Generator, cfg):
     # the server, and a tie would cross the split's privacy boundary.
     return {"out": dense_init(gen, (cfg.d_model, cfg.vocab_size),
                               cfg.d_model, dtype_of(cfg.param_dtype))}
+
+
+def head_axes(cfg):
+    return {"out": ("embed", "vocab")}
 
 
 def head_apply(params, x: torch.Tensor, cfg):

@@ -23,6 +23,14 @@ def projector_init(gen: torch.Generator, cfg):
     }
 
 
+def projector_axes(cfg):
+    return {
+        "norm": norms.layer_norm_axes(),
+        "fc1": ("frontend", "embed"),
+        "fc2": ("embed", "embed_alt"),
+    }
+
+
 def projector_apply(params, emb, cfg):
     """emb: (B, P, frontend_dim) -> (B, P, d_model): the layer norm in
     float32, then fc1, tanh-gelu and fc2 in the compute dtype."""

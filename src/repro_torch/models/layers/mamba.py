@@ -65,6 +65,20 @@ def mamba_init(gen: torch.Generator, cfg):
     }
 
 
+def mamba_axes(cfg):
+    return {
+        "in_proj": ("embed", "inner"),
+        "conv_w": ("conv_k", "inner"),
+        "conv_b": ("inner",),
+        "x_proj": ("inner", "lowrank"),
+        "dt_proj": ("lowrank", "inner"),
+        "dt_bias": ("inner",),
+        "A_log": ("inner", "state"),
+        "D": ("inner",),
+        "out_proj": ("inner", "embed"),
+    }
+
+
 def _causal_conv(x, w, b, prev=None):
     """Depthwise causal conv. x: (B, S, di); w: (dc, di); b: (di,);
     prev: (B, dc-1, di), the inputs before x (zeros when None). Returns
@@ -163,6 +177,13 @@ def init_cache(cfg, batch: int, dtype, device=None):
     return {
         "conv": torch.zeros((batch, dc - 1, di), dtype=dtype, device=device),
         "h": torch.zeros((batch, di, N), dtype=F32, device=device),
+    }
+
+
+def cache_axes():
+    return {
+        "conv": ("cache_batch", "conv_k", "inner"),
+        "h": ("cache_batch", "inner", "state"),
     }
 
 

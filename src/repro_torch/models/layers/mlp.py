@@ -21,6 +21,13 @@ def mlp_init(gen: torch.Generator, cfg):
     return p
 
 
+def mlp_axes(cfg):
+    a = {"up": ("embed", "ffn"), "down": ("ffn", "embed")}
+    if _gated(cfg):
+        a["gate"] = ("embed", "ffn")
+    return a
+
+
 def mlp_apply(params, x: torch.Tensor, cfg):
     act = ACTIVATIONS[cfg.act]
     up = x @ params["up"].to(x.dtype)

@@ -40,6 +40,15 @@ def moe_init(gen: torch.Generator, cfg):
     }
 
 
+def moe_axes(cfg):
+    return {
+        "router": ("embed", "experts_router"),
+        "gate": ("experts", "embed", "expert_ffn"),
+        "up": ("experts", "embed", "expert_ffn"),
+        "down": ("experts", "expert_ffn", "embed"),
+    }
+
+
 def capacity(tokens_per_group: int, m) -> int:
     cap = int(tokens_per_group * m.top_k * m.capacity_factor / m.num_experts)
     return max(1, cap)
@@ -91,7 +100,9 @@ def moe_apply(params, x, cfg):
     kept = counts.clamp(max=cap)
     offset = kept.cumsum(0) - kept                               # (G, E)
     bound = G * min(cap, n)
-    rows = (bound if bound <= STATIC_ROWS
+    # on meta (a dry run) nothing can be read back: the static bound, as
+    # the reference's compiled program sizes its slab
+    rows = (bound if bound <= STATIC_ROWS or dev.type == "meta"
             else max(1, int(kept.sum(0).max())))
     slot = flat_e * rows + offset.gather(1, flat_e) + pos
     slot = torch.where(keep, slot, E * rows).reshape(-1)          # dump row

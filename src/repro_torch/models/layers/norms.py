@@ -10,6 +10,10 @@ def rms_norm_init(cfg, device=None):
                                 device=device)}
 
 
+def rms_norm_axes(cfg):
+    return {"scale": ("embed",)}
+
+
 def rms_norm_apply(params, x, eps: float = 1e-6):
     dtype = x.dtype
     x32 = x.float()
@@ -20,6 +24,15 @@ def rms_norm_apply(params, x, eps: float = 1e-6):
 def layer_norm_init(dim: int, device=None):
     return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
             "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layer_norm_axes():
+    return {"scale": ("embed",), "bias": ("embed",)}
+
+
+def head_norm_axes():
+    """The q / k head norm's (qwen3, gemma3): one scale per head dim."""
+    return {"scale": ("head_dim",)}
 
 
 def layer_norm_apply(params, x, eps: float = 1e-6):

@@ -80,6 +80,21 @@ def mlstm_init(gen: torch.Generator, cfg):
     }
 
 
+def mlstm_axes(cfg):
+    return {
+        "up": ("embed", "inner"),
+        "conv_w": ("conv_k", "inner"),
+        "conv_b": ("inner",),
+        "wq": ("heads", "head_dim", "head_dim_alt"),
+        "wk": ("heads", "head_dim", "head_dim_alt"),
+        "wv": ("heads", "head_dim", "head_dim_alt"),
+        "w_gates": ("inner", "gates"),
+        "b_gates": ("gates",),
+        "out_norm": {"scale": ("inner",)},
+        "down": ("inner", "embed"),
+    }
+
+
 def _mlstm_qkvg(params, x, cfg, conv_prev=None):
     """x: (B, S, d) -> q, k, v (B, S, H, hd), i, f (B, S, H) float32,
     z (B, S, di), conv_state."""
@@ -166,6 +181,15 @@ def mlstm_init_cache(cfg, batch: int, dtype, device=None):
     }
 
 
+def mlstm_cache_axes():
+    return {
+        "conv": ("cache_batch", "conv_k", "inner"),
+        "C": ("cache_batch", "heads", "head_dim", "head_dim_alt"),
+        "n": ("cache_batch", "heads", "head_dim"),
+        "m": ("cache_batch", "heads"),
+    }
+
+
 def mlstm_decode(params, x, cache, cfg):
     """One token per row. Returns (y, the new cache)."""
     q, k, v, i_raw, f_log, z, conv_state = _mlstm_qkvg(
@@ -202,6 +226,18 @@ def slstm_init(gen: torch.Generator, cfg):
         "ffn_up": dense_init(gen, (d, df), d, pd),
         "ffn_gate": dense_init(gen, (d, df), d, pd),
         "ffn_down": dense_init(gen, (df, d), df, pd),
+    }
+
+
+def slstm_axes(cfg):
+    return {
+        "w_gates": ("embed", "gates"),
+        "r_gates": ("gate_kind", "heads", "head_dim", "head_dim_alt"),
+        "b_gates": ("gates",),
+        "out_norm": {"scale": ("embed",)},
+        "ffn_up": ("embed", "ffn"),
+        "ffn_gate": ("embed", "ffn"),
+        "ffn_down": ("ffn", "embed"),
     }
 
 
@@ -397,6 +433,10 @@ def slstm_init_cache(cfg, batch: int, dtype, device=None):
     d = cfg.d_model
     return {key: torch.zeros((batch, d), dtype=F32, device=device)
             for key in ("c", "n", "m", "h")}
+
+
+def slstm_cache_axes():
+    return {k: ("cache_batch", "embed") for k in ("c", "n", "m", "h")}
 
 
 def slstm_decode(params, x, cache, cfg):

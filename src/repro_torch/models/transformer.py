@@ -54,6 +54,13 @@ def _layout(cfg: ModelConfig):
             n_scan)
 
 
+def group_specs(cfg: ModelConfig):
+    """The block specs of one of the reference's scan groups (one period
+    of the layer pattern, from the first scanned layer on)."""
+    _, _, first_scan, _ = _layout(cfg)
+    return [cfg.block_spec(first_scan + j) for j in range(cfg.group_size)]
+
+
 def check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend not in (None, "vision", "audio"):
         raise NotImplementedError(f"frontend {cfg.frontend!r}")
@@ -92,6 +99,30 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
                        for l in range(split, cfg.num_layers)},
             "final_norm": norms.rms_norm_init(cfg, gen.device),
             "head": embeddings.head_init(gen, cfg),
+        },
+    }
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of :func:`init_params`'s tree, leaf for leaf: the
+    reference's ``param_axes`` over this package's per-layer layout (the
+    reference's stacked server groups carry a leading ``"layers"`` axis;
+    here each layer is its own ``blk{l}``)."""
+    check_supported(cfg)
+    split = cfg.split_layer
+    blocks = {f"blk{l}": B.block_axes(cfg.block_spec(l), cfg)
+              for l in range(cfg.num_layers)}
+    client = {"embed": embeddings.embedding_axes(cfg)}
+    if cfg.frontend:
+        client["projector"] = frontends.projector_axes(cfg)
+    client["blocks"] = {f"blk{l}": blocks[f"blk{l}"] for l in range(split)}
+    return {
+        "client": client,
+        "server": {
+            "blocks": {f"blk{l}": blocks[f"blk{l}"]
+                       for l in range(split, cfg.num_layers)},
+            "final_norm": norms.rms_norm_axes(cfg),
+            "head": embeddings.head_axes(cfg),
         },
     }
 
@@ -212,6 +243,12 @@ def forward(params, batch, cfg: ModelConfig, *, head_mode: str = "full"):
     return _head(params, x, cfg, head_mode)
 
 
+def forward_prefill(params, batch, cfg: ModelConfig):
+    """Serving prefill: the whole trunk, the next-token logits only (B, 1,
+    V)."""
+    return forward(params, batch, cfg, head_mode="last")
+
+
 def forward_prefill_cached(params, batch, cfg: ModelConfig, max_len: int,
                            cache_dtype=None):
     """Fused serving prefill: one trunk pass over the whole prompt that
@@ -249,6 +286,13 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     dtype = dtype or dtype_of(cfg.dtype)
     return {f"blk{l}": B.block_cache_init(cfg.block_spec(l), cfg, batch,
                                           max_len, dtype, device)
+            for l in range(cfg.num_layers)}
+
+
+def cache_axes(cfg: ModelConfig):
+    """The logical axes of :func:`init_decode_cache`'s tree."""
+    check_supported(cfg)
+    return {f"blk{l}": B.block_cache_axes(cfg.block_spec(l))
             for l in range(cfg.num_layers)}
 
 

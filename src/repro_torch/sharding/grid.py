@@ -88,26 +88,13 @@ class Grid:
         if not dist.is_initialized():
             raise RuntimeError("a Grid needs an initialized default process "
                                "group (torch.distributed.init_process_group)")
-        self.world = dist.get_world_size()
-        if int(np.prod(shape)) != self.world:
+        world = dist.get_world_size()
+        if int(np.prod(shape)) != world:
             raise ValueError(f"grid {dict(zip(axis_names, shape))} has "
                              f"{int(np.prod(shape))} ranks; the process "
-                             f"group has {self.world}")
-        self.axis_names = axis_names
-        self.shape = dict(zip(axis_names, shape))
-        self.rank = dist.get_rank()
+                             f"group has {world}")
+        self._place(axis_names, shape, dist.get_rank())
         self.backend = dist.get_backend()
-        self.coords = dict(zip(axis_names,
-                               (int(c) for c in np.unravel_index(self.rank,
-                                                                 shape))))
-        self.client_axes = tuple(a for a in CLIENT_AXES if a in axis_names)
-        self.inner_axes = tuple(a for a in INNER_AXES if a in axis_names)
-        self.n_client_shards = int(np.prod(
-            [self.shape[a] for a in self.client_axes]))
-        self.client_index = self.index_on(self.client_axes)
-        self.inner_size = int(np.prod([self.shape[a]
-                                       for a in self.inner_axes]))
-        self.inner_index = self.index_on(self.inner_axes)
         # every rank creates every group, in one order
         ranks = np.arange(self.world).reshape(shape)
         n_inner = self.inner_size
@@ -121,6 +108,26 @@ class Grid:
             g = dist.new_group([int(r) for r in by_client[c]])
             if c == self.client_index:
                 self.groups["inner"] = g
+
+    def _place(self, axis_names, shape, rank: int) -> None:
+        """This rank's coordinates, its client shard and its inner index
+        on ``shape`` over ``axis_names`` (row-major, the last axis
+        fastest), and zeroed stats."""
+        self.world = int(np.prod(shape))
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.rank = rank
+        self.coords = dict(zip(axis_names,
+                               (int(c) for c in np.unravel_index(rank,
+                                                                 shape))))
+        self.client_axes = tuple(a for a in CLIENT_AXES if a in axis_names)
+        self.inner_axes = tuple(a for a in INNER_AXES if a in axis_names)
+        self.n_client_shards = int(np.prod(
+            [self.shape[a] for a in self.client_axes]))
+        self.client_index = self.index_on(self.client_axes)
+        self.inner_size = int(np.prod([self.shape[a]
+                                       for a in self.inner_axes]))
+        self.inner_index = self.index_on(self.inner_axes)
         self.sizes = {"client": self.n_client_shards,
                       "inner": self.inner_size, "all": self.world}
         self.stats = {g: {"calls": 0, "bytes": 0} for g in GROUPS}
@@ -265,6 +272,67 @@ class Grid:
         """A numpy array summed (or maxed) over ``group``."""
         t = torch.from_numpy(np.array(a)).to(self.host_device)
         return self.all_reduce(t, group, op).cpu().numpy()
+
+
+class RecordingGrid(Grid):
+    """A :class:`Grid`'s interface for a dry run on ``meta`` tensors: the
+    rank is set explicitly and there is no process group. Each collective
+    takes ``meta`` tensors, returns them unchanged (an all_gather returns
+    a ``meta`` tensor of the gathered shape), counts them in ``stats`` as
+    a real grid does, and appends ``{op, group, shape, dtype, bytes,
+    site}`` to :attr:`calls` (``bytes``: the tensor's size, the result's
+    for an all_gather; ``site``: the calling file, line and function). A
+    tensor that is not on ``meta`` raises: this is never a stand-in for
+    a real grid."""
+
+    def __init__(self, axis_names: Sequence[str], shape: Sequence[int],
+                 rank: int = 0):
+        axis_names, shape = tuple(axis_names), tuple(int(s) for s in shape)
+        if axis_names not in LAYOUTS:
+            raise ValueError(f"grid axes {axis_names} are not one of the "
+                             f"reference's layouts {LAYOUTS}")
+        if not 0 <= rank < int(np.prod(shape)):
+            raise ValueError(f"rank {rank} is not on the grid {shape}")
+        self._place(axis_names, shape, rank)
+        self.backend = "recording"
+        self.groups = {g: g for g in GROUPS}
+        self.calls = []
+
+    def __repr__(self):
+        return f"RecordingGrid({self.shape}, rank={self.rank})"
+
+    def _record(self, op: str, group: str, t: torch.Tensor) -> None:
+        import traceback
+
+        if t.device.type != "meta":
+            raise ValueError(f"a RecordingGrid takes meta tensors, got one "
+                             f"on {t.device}")
+        self._count(group, t)
+        site = next((f for f in reversed(traceback.extract_stack())
+                     if not f.filename.endswith(("sharding/grid.py",))),
+                    None)
+        self.calls.append(dict(
+            op=op, group=group, shape=tuple(t.shape), dtype=str(t.dtype),
+            bytes=t.numel() * t.element_size(),
+            site="?" if site is None else
+            f"{site.filename.rsplit('/', 1)[-1]}:{site.lineno} {site.name}"))
+
+    def all_reduce(self, t, group="all", op="sum"):
+        self._record("all-reduce", group, t)
+        return t
+
+    def all_gather(self, t, group="client"):
+        out = torch.empty((self.sizes[group] * t.shape[0],)
+                          + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        self._record("all-gather", group, out)
+        return out
+
+    def all_gather_host(self, a, group="client"):
+        raise ValueError("a RecordingGrid takes meta tensors, not host "
+                         "arrays")
+
+    all_reduce_host = all_gather_host
 
 
 def free_port() -> int:

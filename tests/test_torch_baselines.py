@@ -311,5 +311,7 @@ def test_table_runner_prints_reference_block(capsys, tmp_path):
         assert row["nonfinite_leaves"] == 0
     saved = json.loads(out_json.read_text())
     assert saved["device"]["platform"] == "cpu" and saved["rows"] == rows
-    with pytest.raises(SystemExit, match="not ported yet"):
-        table_run.main(["--table", "boundary"])
+    # every reference leg is ported now; an unknown one is refused
+    assert {"boundary", "serve"} <= set(table_run.LEGS)
+    with pytest.raises(SystemExit):
+        table_run.main(["--table", "no_such_leg"])

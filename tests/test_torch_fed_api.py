@@ -501,10 +501,11 @@ def test_resume_from_reference_fedopt_checkpoint(case, tmp_path):
 # --------------------------------------------------------------------------
 
 
-def test_table_runner_smoke_rows(capsys):
+def test_table_runner_smoke_rows(capsys, tmp_path):
     from repro_torch.benchmarks import run as table_run
 
-    rows = table_run.main(["--smoke", "--device", "cpu"])
+    rows = table_run.main(["--smoke", "--device", "cpu", "--dryrun-dir",
+                           str(tmp_path)])
     assert [(r["setting"], r["method"]) for r in rows] == [
         ("exec=subset", "scala"), ("exec=masked", "scala"),
         ("exec=sparse", "scala"), ("fedavgm", "fedavg"),
@@ -512,7 +513,13 @@ def test_table_runner_smoke_rows(capsys):
     assert all(0.0 <= r["acc"] <= 1.0 and r["nonfinite_leaves"] == 0
                for r in rows)
     out = capsys.readouterr().out.splitlines()
-    assert out[0] == table_run.HEADER and len(out) == 6
+    assert out[0] == table_run.HEADER
+    # the five rows, then the boundary and serving guards' rows (each
+    # asserted >= 1 inside) and the roofline reprint (no records here)
+    smoke = [line.split(",")[1] for line in out if line.startswith("SMOKE")]
+    assert smoke == ["exec=subset", "exec=masked", "exec=sparse", "fedavgm",
+                     "fused+bf16", "boundary_guard", "serve_guard"]
+    assert out[-1] == "roofline,NO_DRYRUN_RESULTS,,,,"
 
 
 def test_participation_leg(tmp_path):
@@ -525,5 +532,7 @@ def test_participation_leg(tmp_path):
         assert set(entry) == {"masked", "sparse"}
         assert all(e["rounds_per_sec"] > 0 for e in entry.values())
     assert res["subset_restacked_frac=0.5"]["seconds"] > 0
-    with pytest.raises(SystemExit, match="not ported yet"):
-        table_run.main(["--table", "boundary"])
+    # every reference leg is ported now; an unknown one is refused
+    assert {"boundary", "serve"} <= set(table_run.LEGS)
+    with pytest.raises(SystemExit):
+        table_run.main(["--table", "no_such_leg"])

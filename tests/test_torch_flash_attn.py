@@ -92,8 +92,11 @@ def test_gqa_wrapper_matches_reference(window):
 
 def test_other_devices_raise():
     q, k, v = (torch.from_numpy(x) for x in _qkv(0, 1, 8, 2, 2, 8))
+    # meta tensors get the shape function; a mix of devices raises
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        ops.flash_attention(q.to("meta"), k, v.to("meta"))
+    out = ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.flash_attention_cuda(q, k, v)
 

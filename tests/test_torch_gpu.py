@@ -1426,3 +1426,64 @@ def test_moe_bf16_train_step_repeats_bitwise():
     equal."""
     _needs_card()
     _chip_smoke().moe_step_repeat("cuda")
+
+
+@pytest.mark.gpu
+def test_boundary_leg_qwen_cell_fused_matches_dual():
+    """The boundary leg's qwen1.5-0.5b cell (d 1024, V 151936, 4 x 2048
+    tokens): fused (K1 + K2) against dual (K4 + K5 twice). Each kernel is
+    within its stated tolerance of the plain version (K1 / K4 1e-4, K2 /
+    K5 1e-5 of the largest entry), so the two routes agree within twice
+    that."""
+    _needs_card()
+    from repro_torch.benchmarks import boundary as bb
+
+    dual, fused = bb.lace_pair(1024, 2048, 2048, classes=bb.QWEN_CLASSES,
+                               device="cuda")
+    before = (lace_ops.LAUNCHES_FWD, lace_ops.LAUNCHES_FWD1)
+    got, want = fused(), dual()
+    torch.cuda.synchronize()
+    assert lace_ops.LAUNCHES_FWD == before[0] + 1
+    assert lace_ops.LAUNCHES_FWD1 == before[1] + 2
+    for a, b in zip(got[:2], want[:2]):
+        assert abs(float(a) - float(b)) <= 2e-4 * abs(float(b))
+    for a, b in zip(got[2:], want[2:]):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2e-5 * b.float().abs().max().item(), err
+
+
+@pytest.mark.gpu
+def test_dryrun_argument_bytes_match_card_step():
+    """The dry run of a reduced qwen1.5-0.5b local step on ``meta``
+    against the same step's tensors on the card: the argument bytes
+    equal exactly, the step runs (finite losses) through K1, K2 and K3,
+    and the dry run's peak is printed beside ``max_memory_allocated``."""
+    _needs_card()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.dryrun import build_step, count_step, realize
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    C = 2
+    step, args, _, cfg = build_step(
+        "qwen1.5-0.5b", "s", cfg=cfg, shape=InputShape("s", 64, 4, "train"),
+        num_clients=C)
+    _, dry = count_step(step, args)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = T.init_params(gen, cfg)
+    params["client"] = tree_map(
+        lambda t: t.expand((C,) + tuple(t.shape)).clone(), params["client"])
+    batch = realize(args[1], cfg.vocab_size, "cuda")
+    assert sum(t.nbytes for t in leaves((params, batch))) == \
+        dry["memory"]["argument_bytes"]
+    torch.cuda.reset_peak_memory_stats()
+    before = (lace_ops.LAUNCHES_FWD, ops.LAUNCHES, ops.LAUNCHES_BWD)
+    _, metrics = step(params, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss_server"]))
+    assert lace_ops.LAUNCHES_FWD == before[0] + 1
+    assert ops.LAUNCHES > before[1] and ops.LAUNCHES_BWD > before[2]
+    print(f"dry-run peak {dry['memory']['peak_bytes']}, card "
+          f"{torch.cuda.max_memory_allocated()}")

@@ -126,6 +126,10 @@ def test_group_axis_mismatch_raises():
     with pytest.raises(ValueError, match="prior_ids must be"):
         ops.lace2_grads(t(feats), t(w), t(labels), None, None, t(p_k),
                         torch.arange(3), t(weights))
+    # meta tensors get the shape function; a mix of devices raises
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        ops.lace2_grads(t(feats).to("meta"), t(w).to("meta"),
-                        t(labels).to("meta"), None, None, None, None, None)
+        ops.lace2_grads(t(feats).to("meta"), t(w), t(labels).to("meta"),
+                        None, None, None, None, None)
+    out = ops.lace2_grads(t(feats).to("meta"), t(w).to("meta"),
+                          t(labels).to("meta"), None, None, None, None, None)
+    assert out[2].device.type == "meta" and out[2].shape == feats.shape

@@ -144,9 +144,13 @@ def test_lace_loss_group_axis_mismatch_raises():
     with pytest.raises(ValueError, match="prior_ids must be"):
         ops.lace_loss(t(feats), t(w), t(labels), t(rows), torch.arange(3),
                       t(weights))
+    # meta tensors get the shape function; a mix of devices raises
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        ops.lace_loss(t(feats).to("meta"), t(w).to("meta"),
-                      t(labels).to("meta"), None, None, None)
+        ops.lace_loss(t(feats).to("meta"), t(w), t(labels).to("meta"),
+                      None, None, None)
+    loss = ops.lace_loss(t(feats).to("meta"), t(w).to("meta"),
+                         t(labels).to("meta"), None, None, None)
+    assert loss.device.type == "meta" and loss.shape == ()
 
 
 @pytest.mark.parametrize("N,d,V,tb,vb,tau", [
